@@ -1,0 +1,166 @@
+"""Rules of the PyTorch/CUDA port, checked on the CPU.
+
+* No module of ``tony_tpu_torch`` — nor ``chip_smoke.py`` — imports JAX or
+  anything of the JAX package ``tony_tpu``: the port keeps its own copies.
+* The port runs on the card unless the caller asks for the CPU: on a machine
+  without CUDA every entry point raises instead of falling back, and
+  ``chip_smoke.py`` exits non-zero without printing a result.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "tony_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"
+]
+
+TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+            head_dim=16, d_ff=64, max_seq=96, dtype="float32", remat=False)
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "tony_tpu", "flax", "optax")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_nothing_of_jax_or_tony_tpu(path):
+    bad = [n for n in _imported_modules(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_scanner_sees_forbidden_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import jax.numpy as jnp\n"
+                     "from tony_tpu.ops import rms_norm\n"
+                     "import importlib\nimportlib.import_module('tony_tpu')\n"
+                     "import tony_tpu_torch\n")
+    assert [n for n in _imported_modules(probe) if _forbidden(n)] == [
+        "jax.numpy", "tony_tpu.ops", "tony_tpu"]
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    from tony_tpu_torch.models import (DecodeSession, TransformerConfig,
+                                       generate, init_params)
+    from tony_tpu_torch.serving import ServingEngine
+
+    cfg = TransformerConfig(**TINY)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DecodeSession(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate(params, prompt, cfg, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(params, cfg)
+    # Asked for explicitly, the CPU works.
+    assert generate(params, prompt, cfg, 2, device="cpu").shape == (1, 2)
+
+
+def test_serve_cli_defaults_to_cuda():
+    _no_cuda()
+    from tony_tpu_torch import serve
+
+    assert serve.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--max-requests", "1"])
+
+
+def test_serve_cli_on_cpu_answers_and_exits(tmp_path):
+    """The CLI on the CPU when asked: serves one /generate and exits."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from tony_tpu_torch import serve
+
+    addr = tmp_path / "serve.addr"
+    rc = {}
+    thread = threading.Thread(target=lambda: rc.setdefault("rc", serve.main([
+        "--device", "cpu", "--d-model", "32", "--n-layers", "1",
+        "--n-heads", "2", "--n-kv-heads", "1", "--vocab", "64",
+        "--max-seq", "64", "--slots", "2", "--port", "0",
+        "--addr-file", str(addr), "--max-requests", "1",
+    ])), daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 60
+    while not addr.exists():
+        assert time.monotonic() < deadline and thread.is_alive()
+        time.sleep(0.05)
+    port = addr.read_text().strip().rpartition(":")[2]
+    body = json.dumps({"prompt": [1, 2, 3], "max_new_tokens": 4}).encode()
+    with urllib.request.urlopen(urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=body,
+    ), timeout=60) as resp:
+        assert json.loads(resp.read())["length"] == 4
+    thread.join(timeout=60)
+    assert not thread.is_alive() and rc["rc"] == 0
+
+
+def test_kernel_build_has_no_fallback_without_nvcc(monkeypatch, tmp_path):
+    from tony_tpu_torch import kernels
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("this machine has a CUDA toolkit")
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build(["rms_norm"])
+
+
+def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_cuda():
+    _no_cuda()
+    res = _run_smoke(REPO)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
