@@ -19,7 +19,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
              concurrent POST /generate requests, /healthz, /shutdown.
 4. generate — DecodeSession.generate at batch 8, prompt 128, 128 new tokens.
 5. profile — device time by kernel over a few 16-slot decode steps.
-6. parity  — fp32 (TF32 off): one request through the engine equals
+6. parity  — fp32 (TF32 off): staggered requests of mixed lengths through
+             the engine (more live slots than a prefill batch, a reused
+             slot, decode windows 1 and 3) each equal
              DecodeSession.generate token for token.
 
 The launch counters are set to 0 just before phase 3 and read just after
@@ -48,6 +50,16 @@ FLAGSHIP = dict(
     vocab_size=32_000, d_model=1024, n_layers=8, n_heads=16, head_dim=64,
     d_ff=4096, max_seq=2048, n_kv_heads=4, remat=False,
 )
+N_REQUESTS = 12  # concurrent POST /generate requests in the serve phase
+
+# Parity phase requests: (prompt length, new tokens, engine step at which it
+# is submitted). Six slots, prefill chunks of 32 and prefill batches of 4:
+# prompts shorter than a chunk and spanning three, two prefill calls in the
+# first round (the second padded by duplicating its row 0), six live rows,
+# and two late arrivals that wait for a slot the 7-token prompt frees.
+PARITY_SLOTS = 6
+PARITY_REQUESTS = [(7, 6, 0), (45, 16, 0), (90, 12, 0), (20, 16, 0),
+                   (33, 10, 0), (64, 16, 0), (12, 16, 2), (70, 12, 5)]
 
 # Stated tolerances (max abs error against the plain version on the card).
 # fp32: both sides accumulate in fp32 in another order (~1e-6 here).
@@ -85,21 +97,24 @@ def call_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
 
 def device_events(torch, fn):
-    """Run fn() under the profiler; returns [(name, device_us)] for every
-    device-side event (kernels, memcpy, memset) it caused."""
+    """Run fn() once under the profiler; returns ([(name, device_us)] for
+    every device-side event (kernels, memcpy, memset) it caused, the wall
+    ms of that same call, synchronize included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
               if e.device_type == DeviceType.CUDA]
     if not events:
         raise AssertionError("the profiler saw no device time")
-    return events
+    return events, wall_ms
 
 
 def device_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -112,7 +127,8 @@ def device_ms(torch, fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
 
-    return sum(us for _, us in device_events(torch, many)) / iters / 1e3
+    events, _ = device_events(torch, many)
+    return sum(us for _, us in events) / iters / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -396,7 +412,10 @@ def generate_phase(torch, cfg, session, seed: int) -> dict:
 
 def profile_phase(torch, cfg, session) -> dict:
     """Device time by kernel over 8 decode steps of a full 16-slot batch at
-    position ~100 (cache contents are irrelevant to the timing)."""
+    position ~100 (cache contents are irrelevant to the timing). The busy
+    share divides the profiled call's device time by that same call's wall
+    time, which the profiler's host-side recording lengthens; the wall of
+    an unprofiled call is reported beside it."""
     from tony_tpu_torch.serving import engine as eng
 
     k_all, v_all = eng.init_slot_cache(cfg, 16, cfg.max_seq, device="cuda")
@@ -413,8 +432,8 @@ def profile_phase(torch, cfg, session) -> dict:
     t0 = time.perf_counter()
     window()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    events = device_events(torch, window)
+    unprofiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    events, wall_ms = device_events(torch, window)
     by_name: dict[str, list[float]] = {}
     for name, us in events:
         by_name.setdefault(name, []).append(us)
@@ -424,6 +443,7 @@ def profile_phase(torch, cfg, session) -> dict:
     res = {
         "steps": 8, "wall_ms": wall_ms, "device_ms": total_ms,
         "device_busy_share": total_ms / wall_ms,
+        "unprofiled_wall_ms": unprofiled_wall_ms,
         "top": [{"kernel": k[:90], "device_ms": us / 1e3, "count": c}
                 for us, k, c in rows[:12]],
     }
@@ -432,8 +452,10 @@ def profile_phase(torch, cfg, session) -> dict:
 
 
 def parity_phase(torch, params, seed: int) -> dict:
-    """fp32, TF32 off: engine (chunked prefill + slot decode) equals
-    DecodeSession.generate (flash prefill + cache decode) token for token."""
+    """fp32, TF32 off: staggered requests of mixed lengths through the
+    engine (chunked prefill + slot decode, several slots live at once)
+    each equal DecodeSession.generate (flash prefill + cache decode) token
+    for token, at decode windows 1 and 3."""
     from tony_tpu_torch.models import DecodeSession, TransformerConfig
     from tony_tpu_torch.serving import ServingEngine
 
@@ -442,22 +464,42 @@ def parity_phase(torch, params, seed: int) -> dict:
     cfg = TransformerConfig(dtype="float32", **FLAGSHIP)
     session = DecodeSession(params, cfg, device="cuda")
     rng = np.random.default_rng(seed + 2)
-    prompt = rng.integers(0, cfg.vocab_size, 45).astype(np.int32)
-    want = session.generate(prompt[None], 16)[0].cpu().numpy()
-    engine = ServingEngine(session.params, cfg, device="cuda", slots=4,
-                           prefill_chunk=32, max_len=256, seed=seed)
-    req = engine.submit(prompt, 16)
-    for _ in range(200):
-        if req.done():
-            break
-        engine.step()
-    got = np.asarray(req.result(timeout=1)["tokens"])
-    engine.close()
-    if not np.array_equal(got, want):
-        raise AssertionError(f"engine/generate parity broken:\n  engine   "
-                             f"{got.tolist()}\n  generate {want.tolist()}")
-    log(f"parity fp32: 16 tokens equal ({got.tolist()})")
-    return {"tokens": int(got.size)}
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n, _, _ in PARITY_REQUESTS]
+    wants = [session.generate(p[None], n)[0].cpu().numpy()
+             for p, (_, n, _) in zip(prompts, PARITY_REQUESTS)]
+    n_tokens = 0
+    for window in (1, 3):
+        engine = ServingEngine(session.params, cfg, device="cuda",
+                               slots=PARITY_SLOTS, prefill_chunk=32,
+                               prefill_batch=4, decode_window=window,
+                               max_len=256, seed=seed)
+        reqs: list = [None] * len(prompts)
+        max_live = 0
+        for step in range(400):
+            for i, (p, (_, n, at)) in enumerate(zip(prompts,
+                                                    PARITY_REQUESTS)):
+                if at == step:
+                    reqs[i] = engine.submit(p, n)
+            engine.step()
+            max_live = max(max_live, engine.stats()["active_slots"])
+            if all(r is not None and r.done() for r in reqs):
+                break
+        engine.close()
+        for i, (req, want) in enumerate(zip(reqs, wants)):
+            got = np.asarray(req.result(timeout=1)["tokens"])
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"engine/generate parity broken (window {window}, "
+                    f"request {i}, prompt {prompts[i].size}):\n  engine   "
+                    f"{got.tolist()}\n  generate {want.tolist()}")
+            n_tokens += int(got.size)
+        if max_live <= engine.prefill_batch:
+            raise AssertionError(f"only {max_live} slots were live at once")
+        log(f"parity fp32, decode window {window}: {len(reqs)} requests "
+            f"equal, up to {max_live} slots live at once, "
+            f"{engine.stats()['retired']} retired")
+    return {"requests": len(prompts), "tokens": n_tokens}
 
 
 def card_line() -> str:
@@ -472,7 +514,6 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--requests", type=int, default=12)
     args = ap.parse_args(argv)
 
     import torch
@@ -511,7 +552,7 @@ def main(argv=None) -> int:
         params[k].numel() for k in ("embed", "final_norm", "unembed"))
     log(f"model: {n_params / 1e6:.1f} M params, bf16")
 
-    bodies = make_requests(cfg, session, args.seed, args.requests)
+    bodies = make_requests(cfg, session, args.seed, N_REQUESTS)
     norms.launches = 0
     attention.launches = 0
     serve_phase(cfg, session, args.seed, bodies)

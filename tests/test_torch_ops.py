@@ -22,6 +22,7 @@ from tony_tpu.ops.rope import apply_rope as jax_apply_rope
 from tony_tpu.ops.rope import rope_frequencies as jax_rope_frequencies
 from tony_tpu_torch.ops import (
     apply_rope,
+    cached_rope_frequencies,
     flash_attention,
     flash_attention_lse,
     rms_norm,
@@ -85,6 +86,15 @@ class TestRope:
     def test_frequencies_match(self):
         cos, sin = rope_frequencies(16, 64, theta=10000.0)
         jcos, jsin = jax_rope_frequencies(16, 64, theta=10000.0)
+        np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-6)
+        np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-6)
+
+    def test_cached_frequencies_are_built_once(self):
+        cos, sin = cached_rope_frequencies(16, 64, theta=500.0, device="cpu")
+        again = cached_rope_frequencies(16, 64, theta=500.0,
+                                        device=torch.device("cpu"))
+        assert again[0] is cos and again[1] is sin
+        jcos, jsin = jax_rope_frequencies(16, 64, theta=500.0)
         np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-6)
         np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-6)
 

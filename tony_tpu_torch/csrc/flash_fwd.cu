@@ -257,14 +257,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 template <typename T, int D>
 cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
   constexpr size_t kSmem = smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // The attribute belongs to the current device, so it is set on every
+  // launch (a cheap host call) rather than once per process.
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (err != cudaSuccess) return err;
   flash_fwd_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }

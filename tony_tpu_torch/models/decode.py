@@ -36,9 +36,9 @@ from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.transformer import TransformerConfig
 from tony_tpu_torch.ops import (
     apply_rope,
+    cached_rope_frequencies,
     flash_attention,
     rms_norm,
-    rope_frequencies,
 )
 
 NEG_INF = -1e30
@@ -218,8 +218,8 @@ def advance(params: dict, cache: dict, tokens: torch.Tensor,
     if "qkv" not in params["layers"]:
         params = decode_weights(params, cfg)
     dt = cfg.compute_dtype
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq,
-                                theta=cfg.rope_theta, device=device)
+    cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                       theta=cfg.rope_theta, device=device)
     x = params["embed"][tokens.to(device).long()].to(dt)
     for layer in range(cfg.n_layers):
         x = _layer_decode(x, layer_params(params, layer), cache["k"],

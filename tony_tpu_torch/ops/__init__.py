@@ -3,10 +3,15 @@ kernels on the card, plain PyTorch on the CPU) and RoPE (plain PyTorch)."""
 
 from tony_tpu_torch.ops.attention import flash_attention, flash_attention_lse
 from tony_tpu_torch.ops.norms import rms_norm
-from tony_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from tony_tpu_torch.ops.rope import (
+    apply_rope,
+    cached_rope_frequencies,
+    rope_frequencies,
+)
 
 __all__ = [
     "apply_rope",
+    "cached_rope_frequencies",
     "flash_attention",
     "flash_attention_lse",
     "rms_norm",

@@ -5,6 +5,8 @@ next to the projections needs no kernel of its own."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -18,6 +20,22 @@ def rope_frequencies(
     t = torch.arange(max_seq, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv)
     return torch.cos(freqs), torch.sin(freqs)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_tables(head_dim: int, max_seq: int, theta: float,
+                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return rope_frequencies(head_dim, max_seq, theta=theta, device=device)
+
+
+def cached_rope_frequencies(
+    head_dim: int, max_seq: int, *, theta: float = 10000.0, device="cpu",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rope_frequencies``, built once per (head_dim, max_seq, theta,
+    device) and shared by every later call, so a decode step does not
+    rebuild them. Callers must not write into the returned tables."""
+    return _rope_tables(int(head_dim), int(max_seq), float(theta),
+                        torch.device(device))
 
 
 def apply_rope(

@@ -38,7 +38,7 @@ from tony_tpu_torch.models.decode import (
     layer_params,
 )
 from tony_tpu_torch.models.transformer import TransformerConfig
-from tony_tpu_torch.ops import apply_rope, rms_norm, rope_frequencies
+from tony_tpu_torch.ops import apply_rope, cached_rope_frequencies, rms_norm
 
 
 def init_slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
@@ -120,8 +120,8 @@ def decode_window(params, k_all, v_all, pos, wpos, tokens, temp, base_seed,
     device = k_all.device
     t_max = k_all.shape[2]
     n_slots = k_all.shape[1]
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq,
-                                theta=cfg.rope_theta, device=device)
+    cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                       theta=cfg.rope_theta, device=device)
     lanes = torch.arange(n_slots, device=device)
     pos_t = torch.as_tensor(np.asarray(pos), device=device).long()
     wpos_t = torch.as_tensor(np.asarray(wpos), device=device).long()
@@ -181,8 +181,8 @@ def prefill_chunks(params, k_all, v_all, tokens, slots, starts, n_valids,
     if int(starts.max()) + c > t_max:
         raise ValueError(f"chunk at {int(starts.max())} + {c} overruns the "
                          f"{t_max}-position cache")
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq,
-                                theta=cfg.rope_theta, device=device)
+    cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                       theta=cfg.rope_theta, device=device)
     positions = (torch.as_tensor(starts, device=device).long()[:, None]
                  + torch.arange(c, device=device)[None, :])    # [P, C]
     rope_pos = positions.clamp(max=cfg.max_seq - 1)
