@@ -8,11 +8,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. build   — compile every CUDA kernel under tony_tpu_torch/csrc with nvcc
              (one process per source, started together).
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the serving path's shapes and at edge shapes, in fp32 and
-             bf16, and time kernel, plain version and library call at the
-             main-path shape: device time from the profiler's kernel
-             events (the "ms" numbers), and time per call between CUDA
-             events, which for these short kernels is the launch rate.
+             at the main paths' shapes and at edge shapes, in fp32 and bf16:
+             B4 (RMSNorm), B1 (flash forward), B2 and B3 (flash backward,
+             dq and dk/dv: causal and not, t_q =, < and > t_k, ragged T,
+             GQA groups 1/2/4, head_dim 64/128, an lse cotangent, a
+             non-contiguous dO). Then time kernel, plain version and library
+             call (device time from the profiler's kernel events) at the
+             training shape, and B1/B4 at the serving shapes too.
 3. serve   — the flagship GQA LM at full width (vocab 32000, d 1024,
              8 layers, 16/4 heads, head_dim 64, d_ff 4096, bf16, random
              weights from --seed) behind ServingEngine + ServingServer:
@@ -23,10 +25,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the engine (more live slots than a prefill batch, a reused
              slot, decode windows 1 and 3) each equal
              DecodeSession.generate token for token.
+7. train   — make_train_step on bench.py's bench_transformer configuration
+             (vocab 32000, d 1024, 8 layers, 16 heads of 64, d_ff 4096,
+             bf16, 199.8 M parameters) over a fixed batch of 8 x 2048
+             tokens: step time, tokens/s, MFU, peak memory, launches per
+             step, one profiled step; the loss must be finite and fall.
+8. train parity — fp32 (TF32 off), 2 layers, d 256, GQA 16/4: losses of 3
+             steps and first-step gradients on the card equal the CPU's
+             plain path, with remat off, "full" and "dots".
 
-The launch counters are set to 0 just before phase 3 and read just after
-phase 4; every kernel must have launched there. The last three lines are the
-kernels JSON line, the card's name and power limit (nvidia-smi), and
+The launch counters are set to 0 just before each path (phases 3-4, the
+serving path; phase 7, the training path) and read just after; every kernel
+of a path must have launched there. The last three lines are the kernels
+JSON line, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}.
 """
 
@@ -52,6 +63,37 @@ FLAGSHIP = dict(
 )
 N_REQUESTS = 12  # concurrent POST /generate requests in the serve phase
 
+# The training configuration of bench.py's bench_transformer: vocab 32000,
+# d 1024, 8 layers, 16 heads of 64 (MHA), d_ff 4096, bf16, no remat at
+# 8 x 2048 tokens (199.8 M parameters).
+BENCH_TRANSFORMER = dict(
+    vocab_size=32_000, d_model=1024, n_layers=8, n_heads=16, head_dim=64,
+    d_ff=4096, max_seq=2048, n_kv_heads=0, remat=False,
+)
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ  # RMSNorm rows per call in training
+# The training shape of the attention kernels (causal, bf16).
+TRAIN_ATTN = dict(b=TRAIN_BATCH, t=TRAIN_SEQ, h=16, h_kv=16, d=64)
+
+# Train parity: reduced depth and width, GQA 16/4, fp32 with TF32 off; the
+# card (B1-B4) against the CPU's plain path for 3 steps, at each remat
+# setting.
+PARITY_TRAIN = dict(
+    vocab_size=1024, d_model=256, n_layers=2, n_heads=16, n_kv_heads=4,
+    head_dim=64, d_ff=1024, max_seq=256,
+)
+PARITY_TRAIN_BATCH, PARITY_TRAIN_STEPS = 2, 3
+PARITY_REMAT = [(False, "full"), (True, "full"), (True, "dots")]
+# Card against CPU, fp32: the same arithmetic summed in another order
+# (kernels vs the plain path, cuBLAS vs the CPU's GEMMs). The H100 read
+# 6.5e-8 (loss, relative) and 1.5e-6 (worst leaf, relative to its largest
+# |gradient|); the limits leave about 15x and 7x over those readings. The
+# gradient limit is what catches a precision slip: fp32 kernels that round
+# p and ds to bf16 read 1.8e-3 there, but only 9e-7 on the losses.
+TRAIN_LOSS_RTOL = 1e-6
+TRAIN_GRAD_TOL = 1e-5
+
 # Parity phase requests: (prompt length, new tokens, engine step at which it
 # is submitted). Six slots, prefill chunks of 32 and prefill batches of 4:
 # prompts shorter than a chunk and spanning three, two prefill calls in the
@@ -67,33 +109,27 @@ PARITY_REQUESTS = [(7, 6, 0), (45, 16, 0), (90, 12, 0), (20, 16, 0),
 # kernel rounds P to bf16 before P.V, as the TPU kernel does.
 TOL = {
     ("rms_norm", "torch.float32"): 1e-5,
-    ("rms_norm", "torch.bfloat16"): 2e-2,
+    # B4 with bf16 x: in bf16 ulps of the plain output, element by element.
+    # Both sides compute y in fp32 and differ only in the order of the sum
+    # of squares, so a rounding to bf16 can differ by one ulp, which is
+    # 0.031 at |y| >= 4 (the training shape's 16.7 M outputs reach that).
+    ("rms_norm", "torch.bfloat16"): 1.0,
     ("flash_fwd", "torch.float32"): 5e-5,
     ("flash_fwd", "torch.bfloat16"): 2e-2,
     ("flash_lse", "torch.float32"): 5e-5,
     ("flash_lse", "torch.bfloat16"): 1e-3,
+    # B2/B3 against _flash_bwd_plain, as max abs error over the largest
+    # |gradient| of the plain version (floored at 1). fp32: both sum T
+    # terms in fp32 in another order (~1e-6 relative). bf16: dq/dk/dv
+    # round to bf16 (2**-8 relative at the largest entries), and an fp32
+    # difference of one ulp can flip the bf16 rounding of a p or ds term.
+    ("flash_bwd", "torch.float32"): 5e-5,
+    ("flash_bwd", "torch.bfloat16"): 2e-2,
 }
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def call_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Mean time per call of fn() between two CUDA events: for a call
-    whose kernels are shorter than its host-side launch cost this is the
-    launch rate, not device time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def device_events(torch, fn):
@@ -110,8 +146,11 @@ def device_events(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # User annotations (an optimizer's step range) span kernels that are
+    # listed on their own; counting them would count that time twice.
     events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not events:
         raise AssertionError("the profiler saw no device time")
     return events, wall_ms
@@ -144,7 +183,8 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 def check_rms_norm(torch, norms, gen) -> dict:
     worst = 0.0
     dev = "cuda"
-    cases = [(rows, 1024) for rows in (1, 4, 8, 16, 128, 1024)]
+    # The serving shapes, the training shape, and ragged ones.
+    cases = [(rows, 1024) for rows in (1, 4, 8, 16, 128, 1024, TRAIN_ROWS)]
     cases += [(3, 64), (257, 4096)]
     for x_dt in (torch.float32, torch.bfloat16):
         for w_dt in (torch.float32, torch.bfloat16):
@@ -153,42 +193,58 @@ def check_rms_norm(torch, norms, gen) -> dict:
                 w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
                      ).to(w_dt)
                 got = norms._rms_norm_cuda(x, w, 1e-6)
-                want = norms._rms_norm_plain(x, w, 1e-6)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
+                want = norms._rms_norm_plain(x, w, 1e-6).float()
+                diff = (got.float() - want).abs()
+                err = diff.max().item()
+                measure = err
+                if x_dt == torch.bfloat16:
+                    # |want| in [2**(e-1), 2**e) has a bf16 ulp of 2**(e-8).
+                    _, e = torch.frexp(want)
+                    measure = (diff / torch.exp2((e - 8).float())).max().item()
                 tol = TOL[("rms_norm", str(x_dt))]
-                if not err <= tol:
+                if not measure <= tol:
                     raise AssertionError(
                         f"rms_norm x={x_dt} w={w_dt} [{rows},{d}]: max abs "
-                        f"err {err} > {tol}")
-                if x_dt == torch.bfloat16 and w_dt == torch.bfloat16:
+                        f"err {err}, {measure} > {tol}")
+                if x_dt == torch.bfloat16:
                     worst = max(worst, err)
             log(f"rms_norm x={x_dt} w={w_dt}: ok "
                 f"(tol {TOL[('rms_norm', str(x_dt))]})")
-    # Main-path shape: a decode step over 16 slots, d 1024, bf16 x and w.
-    rows, d = 16, 1024
-    x = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
-    w = torch.ones(d, device=dev, dtype=torch.bfloat16)
-    fns = {
-        "kernel": lambda: norms._rms_norm_cuda(x, w, 1e-6),
-        "plain": lambda: norms._rms_norm_plain(x, w, 1e-6),
-        "library": lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6),
-    }
-    times = {k: device_ms(torch, f, 200) for k, f in fns.items()}
-    per_call = {k: call_ms(torch, f, 200) for k, f in fns.items()}
-    ms, plain_ms, lib_ms = times["kernel"], times["plain"], times["library"]
-    nbytes = 2 * rows * d * x.element_size() + d * w.element_size()
-    b_ms, b_by = bound(nbytes, 4 * rows * d, torch.float32)
-    log(f"rms_norm [16,1024] bf16 device ms: {times}; per call (events): "
-        f"{per_call}; bound {b_ms:.6f} ms ({b_by})")
+    serve = time_rms_norm(torch, norms, gen, 16, torch.bfloat16)
+    train = time_rms_norm(torch, norms, gen, TRAIN_ROWS, torch.float32)
+    log(f"rms_norm device ms, decode step x [16, 1024] bf16, w bf16: "
+        f"{json.dumps(serve)}; training x [{TRAIN_ROWS}, 1024] bf16, w fp32: "
+        f"{json.dumps(train)}")
     return {
         "name": "rms_norm", "route": "cuda",
         "source": "tony_tpu_torch/csrc/rms_norm.cu",
         "replaces": "tony_tpu/ops/norms.py:17",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "shape": "x [16, 1024] bf16, w [1024] bf16",
+        "max_abs_err": worst, "ms": train["ms"],
+        "plain_ms": train["plain_ms"], "bound_ms": train["bound"][0],
+        "bound_by": train["bound"][1], "library_ms": train["library_ms"],
+        "shape": f"x [{TRAIN_ROWS}, 1024] bf16, w [1024] fp32",
+        "serve_shape": serve,
     }
+
+
+def time_rms_norm(torch, norms, gen, rows: int, w_dtype) -> dict:
+    """B4, its plain version and F.rms_norm on x [rows, 1024] bf16 (device
+    time), with the bound. F.rms_norm takes a weight of another dtype than
+    x through its unfused path."""
+    d = 1024
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(
+        w_dtype)
+    fns = {
+        "ms": lambda: norms._rms_norm_cuda(x, w, 1e-6),
+        "plain_ms": lambda: norms._rms_norm_plain(x, w, 1e-6),
+        "library_ms": lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6),
+    }
+    iters = 200 if rows <= 1024 else 50
+    res = {k: device_ms(torch, f, iters) for k, f in fns.items()}
+    nbytes = 2 * rows * d * x.element_size() + d * w.element_size()
+    res["bound"] = bound(nbytes, 4 * rows * d, torch.float32)
+    return res
 
 
 def _flash_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d, causal,
@@ -207,7 +263,7 @@ def _flash_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d, causal,
     out, lse = attention._flash_attention_cuda(q, k, v, causal=causal,
                                                scale=scale)
     want, want_lse = attention._flash_plain_bthd(
-        q, k, v, causal=causal, scale=scale, return_lse=True)
+        q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     lse_err = (lse - want_lse).abs().max().item()
@@ -250,7 +306,7 @@ def check_flash(torch, attention, gen) -> dict:
             err = _flash_case(torch, attention, gen, dtype=dtype, **case)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
-    # Main-path shape, bf16, as the generate prefill calls it.
+    # The generate prefill's shape, bf16, as slice 1 timed it.
     b, t, h, h_kv, d = 8, 128, 16, 4, 64
     dt = torch.bfloat16
     q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
@@ -258,36 +314,217 @@ def check_flash(torch, attention, gen) -> dict:
     v = torch.randn(b, t, h_kv, d, generator=gen, device="cuda").to(dt)
     scale = d ** -0.5
     fns = {
-        "kernel": lambda: attention._flash_attention_cuda(
+        "ms": lambda: attention._flash_attention_cuda(
             q, k, v, causal=True, scale=scale),
-        "plain": lambda: attention._flash_plain_bthd(
-            q, k, v, causal=True, scale=scale, return_lse=True),
+        "plain_ms": lambda: attention._flash_plain_bthd(
+            q, k, v, causal=True, scale=scale),
     }
     # Library yardstick on the same inputs in its [B, H, T, D] layout,
     # KV heads repeated beforehand (outside the timed region).
     qs = q.transpose(1, 2).contiguous()
     ks = k.repeat_interleave(h // h_kv, dim=2).transpose(1, 2).contiguous()
     vs = v.repeat_interleave(h // h_kv, dim=2).transpose(1, 2).contiguous()
-    fns["library"] = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True)
-    times = {k: device_ms(torch, f, 50) for k, f in fns.items()}
-    per_call = {k: call_ms(torch, f, 50) for k, f in fns.items()}
-    ms, plain_ms, lib_ms = times["kernel"], times["plain"], times["library"]
+    fns["library_ms"] = lambda: (
+        torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                         is_causal=True))
+    prefill = {k: device_ms(torch, f, 50) for k, f in fns.items()}
     el = q.element_size()
     nbytes = (2 * b * t * h * d + 2 * b * t * h_kv * d) * el + b * h * t * 4
     pairs = t * (t + 1) // 2  # visible (query, key) pairs per head, causal
-    flops = 4 * b * h * d * pairs
-    b_ms, b_by = bound(nbytes, flops, dt)
-    log(f"flash [8x16, 128, 64] bf16 causal device ms: {times}; per call "
-        f"(events): {per_call}; bound {b_ms:.6f} ms ({b_by})")
+    prefill["bound"] = bound(nbytes, 4 * b * h * d * pairs, dt)
+    log(f"flash [8x16, 128, 64] bf16 causal (generate prefill) device ms: "
+        f"{json.dumps(prefill)}")
     return {
         "name": "flash_fwd", "route": "cuda",
         "source": "tony_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "tony_tpu/ops/attention.py:52",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "shape": "q [8, 128, 16, 64], k/v [8, 128, 4, 64] bf16, causal",
+        "max_abs_err": worst, "prefill_shape": prefill,
     }
+
+
+def _flash_bwd_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d,
+                    causal, dtype, g_lse=False, strided_do=False):
+    """B2 + B3 (``_flash_bwd_cuda``) against ``_flash_bwd_plain`` on the
+    same inputs, out and lse from B1. Returns the max abs error of dq
+    and of dk/dv."""
+    dev = "cuda"
+    q = torch.randn(b, t_q, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, t_k, h_kv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, t_k, h_kv, d, generator=gen, device=dev).to(dtype)
+    scale = d ** -0.5
+    out, lse = attention._flash_attention_cuda(q, k, v, causal=causal,
+                                               scale=scale)
+    if strided_do:
+        # dO as autograd may hand it over: a transposed, non-contiguous view.
+        do = torch.randn(b, h, t_q, d, generator=gen,
+                         device=dev).to(dtype).transpose(1, 2)
+    else:
+        do = torch.randn(b, t_q, h, d, generator=gen, device=dev).to(dtype)
+    gl = (torch.randn(b, h, t_q, generator=gen, device=dev) if g_lse
+          else None)
+    got = attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=causal,
+                                    scale=scale, g_lse=gl)
+    want = attention._flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                      scale=scale, g_lse=gl)
+    tag = (f"b={b} tq={t_q} tk={t_k} h={h}/{h_kv} d={d} causal={causal} "
+           f"{dtype}{' g_lse' if g_lse else ''}"
+           f"{' strided dO' if strided_do else ''}")
+    errs = _check_bwd(torch, tag, got, want, dtype)
+    if causal and t_q > t_k:
+        # Rows before the first key see nothing: their dq is exactly 0.
+        if got[0][:, :t_q - t_k].abs().max().item() != 0.0:
+            raise AssertionError(f"flash bwd {tag}: masked rows' dq not 0")
+    return errs
+
+
+def _check_bwd(torch, tag, got, want, dtype) -> tuple[float, float]:
+    """Holds (dq, dk, dv) from B2 + B3 against the plain version's within
+    TOL; returns the max abs error of B2 (dq) and of B3 (dk and dv)."""
+    torch.cuda.synchronize()
+    tol = TOL[("flash_bwd", str(dtype))]
+    errs = []
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"flash bwd {tag}: {name} {tuple(x.shape)} "
+                                 f"{x.dtype} vs {tuple(y.shape)} {y.dtype}")
+        err = (x.float() - y.float()).abs().max().item()
+        ref = max(1.0, y.float().abs().max().item())
+        if not err <= tol * ref:
+            raise AssertionError(f"flash bwd {tag}: {name} max abs err {err} "
+                                 f"> {tol} * {ref}")
+        errs.append(err)
+    log(f"flash bwd {tag}: dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
+        f"{errs[2]:.3g}: ok")
+    return errs[0], max(errs[1:])
+
+
+FLASH_BWD_CASES = [
+    # the training shape's head layout at a shorter T, MHA
+    dict(b=2, t_q=256, t_k=256, h=16, h_kv=16, d=64, causal=True),
+    dict(b=2, t_q=256, t_k=256, h=16, h_kv=16, d=64, causal=False),
+    # T not a multiple of 64, GQA groups 2 and 4
+    dict(b=2, t_q=200, t_k=200, h=8, h_kv=4, d=64, causal=True),
+    dict(b=1, t_q=131, t_k=131, h=8, h_kv=2, d=64, causal=False),
+    # t_q < t_k (queries at the end of the keys)
+    dict(b=1, t_q=37, t_k=300, h=8, h_kv=2, d=64, causal=True),
+    dict(b=2, t_q=100, t_k=257, h=4, h_kv=1, d=128, causal=False),
+    # t_q > t_k: the first t_q - t_k rows are fully masked
+    dict(b=1, t_q=150, t_k=70, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=80, t_k=50, h=4, h_kv=4, d=128, causal=True),
+    # head_dim 128, a non-zero lse cotangent, a non-contiguous dO
+    dict(b=2, t_q=257, t_k=257, h=8, h_kv=2, d=128, causal=True),
+    dict(b=2, t_q=190, t_k=190, h=8, h_kv=4, d=64, causal=True, g_lse=True),
+    dict(b=1, t_q=100, t_k=164, h=4, h_kv=4, d=128, causal=False,
+         g_lse=True),
+    dict(b=2, t_q=129, t_k=129, h=8, h_kv=2, d=64, causal=True,
+         strided_do=True),
+]
+
+def check_flash_bwd(torch, attention, gen) -> tuple[float, float]:
+    """B2 and B3 in every listed case, fp32 and bf16; returns the worst
+    bf16 max abs error of B2 (dq) and of B3 (dk, dv)."""
+    worst_dq = worst_dkv = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_BWD_CASES:
+            dq_err, dkv_err = _flash_bwd_case(torch, attention, gen,
+                                              dtype=dtype, **case)
+            if dtype == torch.bfloat16:
+                worst_dq = max(worst_dq, dq_err)
+                worst_dkv = max(worst_dkv, dkv_err)
+    return worst_dq, worst_dkv
+
+
+def time_attention(torch, attention, gen) -> dict:
+    """B1, B2 and B3 at the training shape: first their outputs against the
+    plain versions' on the same inputs (within TOL; the max abs errors are
+    returned under "max_abs_err"), then the device time of each kernel (B2
+    and B3 split by kernel name from one profiled backward), their plain
+    versions, SDPA forward and SDPA backward as library yardsticks, and
+    the bounds."""
+    b, t, h, h_kv, d = (TRAIN_ATTN[k] for k in ("b", "t", "h", "h_kv", "d"))
+    dt = torch.bfloat16
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, t, h_kv, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, t, h_kv, d, generator=gen, device="cuda").to(dt)
+    do = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
+    scale = d ** -0.5
+    out, lse = attention._flash_attention_cuda(q, k, v, causal=True,
+                                               scale=scale)
+    want, want_lse = attention._flash_plain_bthd(q, k, v, causal=True,
+                                                 scale=scale)
+    torch.cuda.synchronize()
+    fwd_err = (out.float() - want.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    tol, lse_tol = TOL[("flash_fwd", str(dt))], TOL[("flash_lse", str(dt))]
+    if not (fwd_err <= tol and lse_err <= lse_tol):
+        raise AssertionError(f"flash at the training shape: out err {fwd_err}"
+                             f" (tol {tol}), lse err {lse_err} (tol "
+                             f"{lse_tol})")
+    log(f"flash at the training shape: out err {fwd_err:.3g}, lse err "
+        f"{lse_err:.3g}: ok")
+    del want, want_lse
+    dq_err, dkv_err = _check_bwd(
+        torch, "at the training shape",
+        attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
+                                  scale=scale),
+        attention._flash_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                   scale=scale), dt)
+    fwd_ms = device_ms(torch, lambda: attention._flash_attention_cuda(
+        q, k, v, causal=True, scale=scale), 5, warmup=1)
+    fwd_plain_ms = device_ms(torch, lambda: attention._flash_plain_bthd(
+        q, k, v, causal=True, scale=scale), 3, warmup=1)
+
+    def bwd():
+        attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
+                                  scale=scale)
+
+    bwd()
+    iters = 5
+    events, _ = device_events(torch, lambda: [bwd() for _ in range(iters)])
+    dq_ms = sum(us for n, us in events if "flash_bwd_dq_kernel" in n)
+    dkv_ms = sum(us for n, us in events if "flash_bwd_dkv_kernel" in n)
+    dq_ms, dkv_ms = dq_ms / iters / 1e3, dkv_ms / iters / 1e3
+    if not (dq_ms > 0 and dkv_ms > 0):
+        raise AssertionError("the profiler saw no B2/B3 kernel events")
+    bwd_plain_ms = device_ms(torch, lambda: attention._flash_bwd_plain(
+        q, k, v, out, lse, do, causal=True, scale=scale), 3, warmup=1)
+
+    # Library yardsticks in SDPA's [B, H, T, D] layout.
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd_ms = device_ms(torch, lambda: sdpa(qs.detach(), ks.detach(),
+                                               vs.detach(), is_causal=True),
+                           5, warmup=1)
+    lib_out = sdpa(qs, ks, vs, is_causal=True)
+    lib_bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), dos, retain_graph=True), 5, warmup=1)
+
+    el = q.element_size()
+    tok = b * t * d * el
+    pairs = b * h * t * (t + 1) // 2  # causal (query, key) pairs
+    rows = b * h * t * 4  # one fp32 per query row (lse, delta)
+    res = {
+        "flash_fwd": dict(max_abs_err=fwd_err, ms=fwd_ms,
+                          plain_ms=fwd_plain_ms,
+                          library_ms=lib_fwd_ms, bound=bound(
+                              tok * (2 * h + 2 * h_kv) + rows,
+                              2 * 2 * d * pairs, dt)),
+        "flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms,
+                             plain_ms=bwd_plain_ms,
+                             library_ms=lib_bwd_ms, bound=bound(
+                                 tok * (3 * h + 2 * h_kv) + 2 * rows,
+                                 3 * 2 * d * pairs, dt)),
+        "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms,
+                              plain_ms=bwd_plain_ms,
+                              library_ms=lib_bwd_ms, bound=bound(
+                                  tok * (2 * h + 4 * h_kv) + 2 * rows,
+                                  4 * 2 * d * pairs, dt)),
+    }
+    log("attention at the training shape q/k/v [8, 2048, 16, 64] bf16 "
+        "causal, device ms: " + json.dumps(res))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -502,6 +739,153 @@ def parity_phase(torch, params, seed: int) -> dict:
     return {"requests": len(prompts), "tokens": n_tokens}
 
 
+def _loss_list(torch, losses) -> list[float]:
+    return [float(x) for x in torch.stack(losses).cpu()]
+
+
+def train_phase(torch, attention, norms, seed: int) -> dict:
+    """make_train_step on the bench_transformer configuration, one fixed
+    batch of synthetic tokens [8, 2049] from ``seed`` (2048 positions per
+    row). Step time is the median over TRAIN_STEPS steps after
+    TRAIN_WARMUP warm-ups, between CUDA events recorded at the step
+    boundaries (no host sync inside the loop); then one profiled step.
+    The launch counters are set to 0 just before and read just after."""
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.models.train import leaves
+
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    state = init_fn(seed)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    rng = np.random.default_rng(seed + 3)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    norms.launches = 0
+    attention.launches = attention.launches_dq = attention.launches_dkv = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step_fn(state, tokens)
+        losses.append(metrics["loss"])
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        state, metrics = step_fn(state, tokens)
+        losses.append(metrics["loss"])
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        nonlocal state
+        state, metrics = step_fn(state, tokens)
+        losses.append(metrics["loss"])
+
+    events, wall_ms = device_events(torch, one_step)
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS + 1
+    launches = {"rms_norm": norms.launches, "flash_fwd": attention.launches,
+                "flash_bwd_dq": attention.launches_dq,
+                "flash_bwd_dkv": attention.launches_dkv}
+    loss_values = _loss_list(torch, losses)
+    if not all(np.isfinite(loss_values)):
+        raise AssertionError(f"train: non-finite loss {loss_values}")
+    if not loss_values[-1] < loss_values[0]:
+        raise AssertionError(f"train: loss did not descend {loss_values}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched in the "
+                                 f"train phase")
+    median_ms = float(np.median(step_ms))
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    # bench.py's model FLOPs: 6 N T plus the causal attention term.
+    flops = (6.0 * n_params * tokens_per_step
+             + 6.0 * cfg.n_layers * TRAIN_BATCH * TRAIN_SEQ * TRAIN_SEQ
+             * cfg.n_heads * cfg.head_dim)
+    by_name: dict[str, list[float]] = {}
+    for name, us in events:
+        by_name.setdefault(name, []).append(us)
+    rows = sorted(((sum(v), k, len(v)) for k, v in by_name.items()),
+                  reverse=True)
+    device_total = sum(us for _, us in events) / 1e3
+    res = {
+        "params_m": n_params / 1e6, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "step_ms_median": median_ms, "step_ms": step_ms,
+        "tokens_per_s": tokens_per_step / (median_ms / 1e3),
+        "model_flops_per_step": flops,
+        "mfu": flops / (median_ms / 1e3) / PEAK_FLOPS["torch.bfloat16"],
+        "peak_memory_gb": peak / 1e9,
+        "losses": loss_values,
+        "launches": launches,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "profiled_step": {
+            "wall_ms": wall_ms, "device_ms": device_total,
+            "device_busy_share": device_total / wall_ms,
+            "top": [{"kernel": k[:90], "device_ms": us / 1e3, "count": c}
+                    for us, k, c in rows[:12]],
+        },
+    }
+    log("train: " + json.dumps(res))
+    return res
+
+
+def train_parity_phase(torch, seed: int) -> dict:
+    """fp32, TF32 off: the same weights and batches through make_train_step
+    on the card and on the CPU (the plain path, which the CPU tests pin to
+    the JAX package), with remat off, "full" and "dots": the losses of
+    PARITY_TRAIN_STEPS steps and every gradient leaf of the first step
+    agree within the stated tolerances."""
+    from tony_tpu_torch.models import (TransformerConfig, init_params,
+                                       lm_loss, make_train_step)
+    from tony_tpu_torch.models.train import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 4)
+    out = {}
+    for remat, policy in PARITY_REMAT:
+        cfg = TransformerConfig(dtype="float32", remat=remat,
+                                remat_policy=policy, **PARITY_TRAIN)
+        params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+        batches = [torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (PARITY_TRAIN_BATCH, cfg.max_seq + 1)))
+            for _ in range(PARITY_TRAIN_STEPS)]
+        grads, losses = {}, {}
+        for dev in ("cuda", "cpu"):
+            init_fn, step_fn = make_train_step(cfg, device=dev)
+            state = init_fn(params=params)
+            g = torch.autograd.grad(lm_loss(state.params, batches[0], cfg),
+                                    leaves(state.params))
+            grads[dev] = [x.cpu() for x in g]
+            run = []
+            for toks in batches:
+                state, metrics = step_fn(state, toks)
+                run.append(metrics["loss"])
+            losses[dev] = _loss_list(torch, run)
+        tag = f"remat={remat}/{policy}"
+        if not np.allclose(losses["cuda"], losses["cpu"], rtol=TRAIN_LOSS_RTOL,
+                           atol=0):
+            raise AssertionError(f"train parity {tag}: losses card "
+                                 f"{losses['cuda']} vs cpu {losses['cpu']}")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            if not err <= TRAIN_GRAD_TOL * scale:
+                raise AssertionError(f"train parity {tag}: gradient leaf {i} "
+                                     f"err {err} > {TRAIN_GRAD_TOL} * {scale}")
+            worst = max(worst, err / scale if scale else err)
+        out[tag] = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+                    "worst_grad_rel_err": worst}
+        log(f"train parity fp32 {tag}: losses card {losses['cuda']} / cpu "
+            f"{losses['cpu']}, worst gradient err {worst:.3g} of the leaf "
+            f"max: ok")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -543,6 +927,23 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     rms_row = check_rms_norm(torch, norms, gen)
     flash_row = check_flash(torch, attention, gen)
+    dq_worst, dkv_worst = check_flash_bwd(torch, attention, gen)
+    timed = time_attention(torch, attention, gen)
+    dq_row = {"name": "flash_bwd_dq", "route": "cuda",
+              "source": "tony_tpu_torch/csrc/flash_bwd.cu",
+              "replaces": "tony_tpu/ops/attention.py:291",
+              "max_abs_err": dq_worst}
+    dkv_row = {"name": "flash_bwd_dkv", "route": "cuda",
+               "source": "tony_tpu_torch/csrc/flash_bwd.cu",
+               "replaces": "tony_tpu/ops/attention.py:348",
+               "max_abs_err": dkv_worst}
+    for row in (flash_row, dq_row, dkv_row):
+        t = timed[row["name"]]
+        row.update(max_abs_err=max(row["max_abs_err"], t["max_abs_err"]),
+                   ms=t["ms"], plain_ms=t["plain_ms"],
+                   library_ms=t["library_ms"], bound_ms=t["bound"][0],
+                   bound_by=t["bound"][1],
+                   shape="q/k/v [8, 2048, 16, 64] bf16, causal")
 
     cfg = TransformerConfig(dtype="bfloat16", **FLAGSHIP)
     gen.manual_seed(args.seed)
@@ -552,6 +953,7 @@ def main(argv=None) -> int:
         params[k].numel() for k in ("embed", "final_norm", "unembed"))
     log(f"model: {n_params / 1e6:.1f} M params, bf16")
 
+    # Slice 1's path: serve + generate, counters from 0 around it.
     bodies = make_requests(cfg, session, args.seed, N_REQUESTS)
     norms.launches = 0
     attention.launches = 0
@@ -559,24 +961,35 @@ def main(argv=None) -> int:
     serve_launches = {"rms_norm": norms.launches,
                       "flash_fwd": attention.launches}
     generate_phase(torch, cfg, session, args.seed)
-    launches = {"rms_norm": norms.launches, "flash_fwd": attention.launches}
-    log(f"launches on the main path: {launches} (serve phase alone: "
+    serve_path = {"rms_norm": norms.launches, "flash_fwd": attention.launches}
+    log(f"launches on the serving path: {serve_path} (serve phase alone: "
         f"{serve_launches})")
-    for name, n in launches.items():
+    for name, n in serve_path.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
-    rms_row["launches"] = launches["rms_norm"]
-    flash_row["launches"] = launches["flash_fwd"]
-
+                                 f"serving path")
     profile_phase(torch, cfg, session)
     parity_phase(torch, params, args.seed)
+    del session, params
+    torch.cuda.empty_cache()
+
+    # Slice 2's path: the train step at full width (it resets the counters
+    # itself and reads them just after).
+    train = train_phase(torch, attention, norms, args.seed)
+    train_parity_phase(torch, args.seed)
+    rows = (rms_row, flash_row, dq_row, dkv_row)
+    for row in rows:
+        row["launches"] = train["launches"][row["name"]]
+        row["launches_by_path"] = {
+            "train": train["launches"][row["name"]],
+            "serve_generate": serve_path.get(row["name"], 0)}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in (rms_row, flash_row)]}))
+                                  for row in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

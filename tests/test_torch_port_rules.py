@@ -92,6 +92,40 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     assert generate(params, prompt, cfg, 2, device="cpu").shape == (1, 2)
 
 
+def test_training_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    from tony_tpu_torch import runtime
+    from tony_tpu_torch.models import (TransformerConfig, forward,
+                                       init_params, make_train_step)
+    from tony_tpu_torch.ops import rope_frequencies
+
+    cfg = TransformerConfig(**TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runtime.initialize()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rope_frequencies(16, 8)
+    # forward runs where its params live and never picks a device itself:
+    # the default params come from the card, so without one there are
+    # none; params placed on the CPU by the caller run there.
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    logits = forward(params, torch.zeros(1, 4, dtype=torch.long), cfg)
+    assert logits.device.type == "cpu"
+    init_fn, step_fn = make_train_step(cfg, device="cpu")
+    _, metrics = step_fn(init_fn(0), np.zeros((1, 5), np.int64))
+    assert metrics["loss"].device.type == "cpu"
+
+
+def test_train_cli_defaults_to_cuda():
+    _no_cuda()
+    from tony_tpu_torch import train
+
+    assert train.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--steps", "1"])
+
+
 def test_serve_cli_defaults_to_cuda():
     _no_cuda()
     from tony_tpu_torch import serve
@@ -143,6 +177,33 @@ def test_kernel_build_has_no_fallback_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build(["rms_norm"])
+
+
+def test_entry_points_of_one_source_build_one_library(monkeypatch, tmp_path):
+    """B2 and B3 live in one source: asking for both starts one compiler
+    process, whose output is the library both entry points load."""
+    from tony_tpu_torch import kernels
+
+    fake = tmp_path / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    log = tmp_path / "calls"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {log}\n"
+                    "while [ \"$1\" != -o ]; do shift; done\n"
+                    "touch \"$2\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    built = kernels.build(["flash_bwd_dq", "flash_bwd_dkv"])
+    assert list(built) == ["flash_bwd"]
+    calls = log.read_text().splitlines()
+    assert len(calls) == 1 and calls[0].endswith("csrc/flash_bwd.cu")
+    assert "arch=compute_90a,code=sm_90a" in calls[0]
+    assert kernels.library_path("flash_bwd.cu").is_file()
+    # Built once, present afterwards: nothing to do.
+    assert kernels.build(["flash_bwd_dkv"]) == {}
+    assert {src for src, _, _ in kernels.KERNELS.values()} == {
+        p.name for p in kernels.CSRC.glob("*.cu")}
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:

@@ -1,4 +1,4 @@
-"""Weights from the JAX package into the port.
+"""Weights between the JAX package and the port.
 
 ``params_from_numpy`` takes a JAX parameter tree as numpy arrays (what
 ``jax.device_get`` returns) in either layout the JAX package uses: the raw
@@ -8,6 +8,8 @@ shape against the config and returns the same tree as torch tensors on
 ``device``, so both packages compute the same function in the tests.
 ``params_from_npz`` reads such a tree from an ``.npz`` file whose keys are
 the tree paths joined by ``/`` (``embed``, ``layers/wq``, ...).
+``params_to_numpy`` goes the other way, so trained weights can be compared
+with the JAX package's.
 """
 
 from __future__ import annotations
@@ -90,3 +92,18 @@ def params_from_npz(path, cfg: TransformerConfig, device="cuda") -> dict:
             else:
                 tree[key] = data[key]
     return params_from_numpy(tree, cfg, device)
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's params tree -> the same tree of numpy arrays on the host
+    (the reverse of ``params_from_numpy``). bf16 tensors come back as
+    float32, which holds them exactly."""
+    def convert(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return {key: (params_to_numpy(val) if isinstance(val, dict)
+                  else convert(val))
+            for key, val in params.items()}

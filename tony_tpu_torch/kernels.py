@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, loaded with ``ctypes``. The build runs at first use,
-from the package's own sources, into ``tony_tpu_torch/_build/`` (listed in
-``.gitignore``); a library's file name carries a digest of its source and
+a plain C interface, loaded with ``ctypes``; a library may export several
+entry points (``flash_bwd.cu`` holds B2 and B3). The build runs at first
+use, from the package's own sources, into ``tony_tpu_torch/_build/`` (listed
+in ``.gitignore``); a library's file name carries a digest of its source and
 flags, so an edited source is rebuilt rather than loaded stale. ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for all of
 them. There is no fallback: without ``nvcc``, or when a build fails, the
@@ -34,8 +35,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_int64)
 
-# library name -> (source file, exported C function, argtypes)
+# entry point -> (source file, exported C function, argtypes)
 KERNELS: dict[str, tuple[str, str, list]] = {
     "rms_norm": (
         "rms_norm.cu", "tony_rms_norm",
@@ -45,12 +47,21 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         "flash_fwd.cu", "tony_flash_fwd",
         [_P, _P, _P, _P, _P] + [_L] * 12 + [_I] * 6 + [_F, _I, _I, _P],
     ),
+    "flash_bwd_dq": (
+        "flash_bwd.cu", "tony_flash_bwd_dq",
+        [_P] * 7 + [_LP] + [_I] * 6 + [_F, _I, _I, _P],
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd.cu", "tony_flash_bwd_dkv",
+        [_P] * 8 + [_LP] + [_I] * 6 + [_F, _I, _I, _P],
+    ),
 }
 
 # dtype codes shared by every C entry point
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 _lock = threading.Lock()
+_libraries: dict = {}
 _functions: dict = {}
 
 
@@ -67,20 +78,22 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    source = (CSRC / KERNELS[name][0]).read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>`` lives."""
+    digest = hashlib.sha256((CSRC / source).read_bytes()
+                            + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=None, *, verbose: bool = False) -> dict[str, float]:
-    """Compile every named kernel library that is not built yet, one
-    ``nvcc`` process per source, all started together. Returns seconds
-    per library built (empty when all were present). ``verbose`` adds
-    ``-Xptxas -v`` and prints the compiler's report (registers, shared
-    memory, spills)."""
+    """Compile the library of every named entry point (default: all) that
+    is not built yet, one ``nvcc`` process per source, all started
+    together. Returns seconds per library built, keyed by source stem
+    (empty when all were present). ``verbose`` adds ``-Xptxas -v`` and
+    prints the compiler's report (registers, shared memory, spills)."""
     names = list(KERNELS if names is None else names)
-    todo = [n for n in names if not library_path(n).is_file()]
+    sources = dict.fromkeys(KERNELS[n][0] for n in names)
+    todo = [src for src in sources if not library_path(src).is_file()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -88,12 +101,11 @@ def build(names=None, *, verbose: bool = False) -> dict[str, float]:
     extra = ("-Xptxas", "-v") if verbose else ()
     procs = {}
     t0 = time.perf_counter()
-    for name in todo:
-        out = library_path(name)
+    for source in todo:
+        out = library_path(source)
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp),
-               str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / source)]
+        procs[Path(source).stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
     seconds: dict[str, float] = {}
@@ -114,13 +126,17 @@ def build(names=None, *, verbose: bool = False) -> dict[str, float]:
 
 
 def function(name: str):
-    """The C entry point of kernel library ``name``, building and loading
-    it on first use."""
+    """The C entry point ``name`` (a key of ``KERNELS``), building and
+    loading its library on first use."""
     with _lock:
         fn = _functions.get(name)
         if fn is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            source = KERNELS[name][0]
+            lib = _libraries.get(source)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(source)))
+                _libraries[source] = lib
             fn = getattr(lib, KERNELS[name][1])
             fn.argtypes = KERNELS[name][2]
             fn.restype = ctypes.c_int

@@ -1,7 +1,8 @@
 """RMSNorm: the hand-written CUDA kernel (``csrc/rms_norm.cu``) for tensors
 on the card, its plain PyTorch twin for tensors on the CPU. fp32 math, output
-in x's dtype, w cast to fp32 inside. Forward only in this slice: on the card
-an input that requires grad raises."""
+in x's dtype, w cast to fp32 inside. Differentiable: the backward is autograd
+through the plain twin on the saved x and w, as the JAX package's custom VJP
+differentiates its plain version (it has no backward kernel either)."""
 
 from __future__ import annotations
 
@@ -27,9 +28,6 @@ def _rms_norm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"rms_norm kernel needs x and w on one CUDA device, "
                          f"got {x.device} and {w.device}")
-    if x.requires_grad or w.requires_grad:
-        raise NotImplementedError("rms_norm on CUDA is forward-only in this "
-                                  "slice of the port")
     if x.dim() != 2 or w.shape != (x.shape[1],):
         raise ValueError(f"rms_norm kernel takes x [rows, d] and w [d], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -53,14 +51,36 @@ def _rms_norm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor
     return y
 
 
+class _RmsNormFunction(torch.autograd.Function):
+    """y = rms_norm(x [rows, d], w [d]): B4 on the card, the plain twin on
+    the CPU; the gradients of x and w come out in their own dtypes (an fp32
+    master w under a bf16 x gets an fp32 gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        if x.device.type == "cuda":
+            y = _rms_norm_cuda(x.contiguous(), w.contiguous(), eps)
+        else:
+            y = _rms_norm_plain(x, w, eps)
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            x = x.detach().requires_grad_()
+            w = w.detach().requires_grad_()
+            y = _rms_norm_plain(x, w, ctx.eps)
+            gx, gw = torch.autograd.grad(y, (x, w), g)
+        return gx, gw, None
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis. x: [..., d], w: [d]."""
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
-    if x.device.type == "cuda":
-        out = _rms_norm_cuda(x2.contiguous(), w.contiguous(), eps)
-    elif x.device.type == "cpu":
-        out = _rms_norm_plain(x2, w, eps)
-    else:
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"rms_norm runs on cuda or cpu, got {x.device}")
+    shape = x.shape
+    out = _RmsNormFunction.apply(x.reshape(-1, shape[-1]), w, eps)
     return out.reshape(shape)

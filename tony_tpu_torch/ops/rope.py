@@ -9,11 +9,14 @@ import functools
 
 import torch
 
+from tony_tpu_torch.device import resolve_device
+
 
 def rope_frequencies(
-    head_dim: int, max_seq: int, *, theta: float = 10000.0, device="cpu",
+    head_dim: int, max_seq: int, *, theta: float = 10000.0, device="cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) tables [max_seq, head_dim // 2], fp32, on ``device``."""
+    device = resolve_device(device)
     exponent = (torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim)
     inv = 1.0 / (theta ** exponent)
@@ -29,13 +32,13 @@ def _rope_tables(head_dim: int, max_seq: int, theta: float,
 
 
 def cached_rope_frequencies(
-    head_dim: int, max_seq: int, *, theta: float = 10000.0, device="cpu",
+    head_dim: int, max_seq: int, *, theta: float = 10000.0, device="cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``rope_frequencies``, built once per (head_dim, max_seq, theta,
     device) and shared by every later call, so a decode step does not
     rebuild them. Callers must not write into the returned tables."""
     return _rope_tables(int(head_dim), int(max_seq), float(theta),
-                        torch.device(device))
+                        resolve_device(device))
 
 
 def apply_rope(
