@@ -6,15 +6,21 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. build   — compile every CUDA kernel under tony_tpu_torch/csrc with nvcc
-             (one process per source, started together).
+             (one process per source, started together), print ptxas's
+             report (no function may spill), and count the tensor-core instructions (HMMA/HGMMA)
+             of each flash-backward kernel in cuobjdump's SASS: every bf16
+             instance must have some, the fp32 (FMA) instances none.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes and at edge shapes, in fp32 and bf16:
              B4 (RMSNorm), B1 (flash forward), B2 and B3 (flash backward,
              dq and dk/dv: causal and not, t_q =, < and > t_k, ragged T,
-             GQA groups 1/2/4, head_dim 64/128, an lse cotangent, a
+             T at the edges of the bf16 tiles and their double buffers,
+             GQA groups 1/2/4/8, head_dim 64/128, an lse cotangent, a
              non-contiguous dO). Then time kernel, plain version and library
              call (device time from the profiler's kernel events) at the
-             training shape, and B1/B4 at the serving shapes too.
+             training shape, B1/B4 at the serving shapes too, and B2/B3
+             against SDPA's backward at the hd128 shape [8, 2048, 8, 128];
+             at those two shapes B2/B3 are also held row by row (ROW_TOL).
 3. serve   — the flagship GQA LM at full width (vocab 32000, d 1024,
              8 layers, 16/4 heads, head_dim 64, d_ff 4096, bf16, random
              weights from --seed) behind ServingEngine + ServingServer:
@@ -46,10 +52,12 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 
@@ -126,6 +134,19 @@ TOL = {
     ("flash_bwd", "torch.float32"): 5e-5,
     ("flash_bwd", "torch.bfloat16"): 2e-2,
 }
+# At the training and hd128 shapes (T = 2048) the gradients fall off with
+# position (dq at row i, dk/dv at key j about 1/sqrt(position + 1)), so the
+# TOL limit, scaled by the largest |gradient|, is as large as a typical
+# entry. There the bf16 B2/B3 are also held row by row: the worst, over the
+# rows of head_dim values of dq, dk and dv, of ||got_r - want_r|| /
+# max(||want_r||, ROW_FLOOR * the RMS row norm). The floor keeps rows whose
+# gradient is zero by construction (dq of a query that sees one key) from
+# dividing noise by nothing. On an H100 the sound kernels read 0.004-0.006
+# at both shapes, and copies that drop one streamed tile read about 1
+# (flash_bwd_study.py controls, which also holds faults confined to late
+# rows against this limit; its readings are in PERF.md).
+ROW_TOL = 0.02
+ROW_FLOOR = 0.1
 
 
 def log(msg: str) -> None:
@@ -174,6 +195,86 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# A flash-backward kernel's mangled name: its function and head_dim.
+_BWD_KERNEL = re.compile(r"(flash_bwd_(?:dq|dkv)_kernel_(?:bf16|fp32))"
+                         r"ILi(\d+)E")
+BWD_INSTANCES = {f"flash_bwd_{k}_kernel_{dt}{d}" for k in ("dq", "dkv")
+                 for dt in ("bf16", "fp32") for d in (64, 128)}
+
+
+def bwd_name(mangled: str) -> str:
+    """"flash_bwd_<dq|dkv>_kernel_<dtype><head_dim>" for a flash-backward
+    kernel's mangled name, else the name as it is."""
+    m = _BWD_KERNEL.search(mangled)
+    return f"{m.group(1)}{m.group(2)}" if m else mangled
+
+
+def ptxas_kernels(report: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes (stores + loads) of each function in a
+    ``ptxas -v`` report, keyed by bwd_name of its mangled name."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in report.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = bwd_name(m.group(1))
+            out[name] = {"registers": 0, "spill_bytes": 0}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def check_no_spills(reports: dict[str, str]) -> None:
+    """Raises unless every library's ptxas report lists its functions and
+    none of them spills."""
+    for lib, report in reports.items():
+        funcs = ptxas_kernels(report)
+        if not funcs:
+            raise AssertionError(f"ptxas reported no function for {lib}")
+        spilled = {n: f["spill_bytes"] for n, f in funcs.items()
+                   if f["spill_bytes"]}
+        if spilled:
+            raise AssertionError(f"ptxas: {lib} spills (bytes): {spilled}")
+
+
+def flash_bwd_sass(kernels) -> str:
+    """cuobjdump's SASS listing of the built flash_bwd library."""
+    tool = str(Path(kernels.nvcc_path()).with_name("cuobjdump"))
+    lib = str(kernels.library_path("flash_bwd.cu"))
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+
+
+def sass_mma_counts(listing: str) -> dict[str, int]:
+    """Tensor-core instructions (HMMA, HGMMA) in each flash-backward kernel
+    function of a SASS listing, keyed
+    "flash_bwd_<dq|dkv>_kernel_<dtype><head_dim>". Raises unless the
+    listing holds exactly the 8 instances (dq, dkv x bf16, fp32 x 64, 128),
+    every bf16 instance has some and every fp32 instance none."""
+    counts: dict[str, int] = {}
+    name = None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            name = bwd_name(line)
+            name = name if name in BWD_INSTANCES else None
+            if name:
+                counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    if not counts:
+        raise AssertionError("cuobjdump listed no flash_bwd kernel")
+    if set(counts) != BWD_INSTANCES:
+        raise AssertionError(f"cuobjdump listed {sorted(counts)}, not the "
+                             f"instances {sorted(BWD_INSTANCES)}")
+    for name, n in counts.items():
+        if ("_bf16" in name) != (n > 0):
+            raise AssertionError(f"{name}: {n} tensor-core instructions "
+                                 f"(bf16 instances need some, fp32 none)")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -377,25 +478,49 @@ def _flash_bwd_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d,
     return errs
 
 
-def _check_bwd(torch, tag, got, want, dtype) -> tuple[float, float]:
-    """Holds (dq, dk, dv) from B2 + B3 against the plain version's within
-    TOL; returns the max abs error of B2 (dq) and of B3 (dk and dv)."""
-    torch.cuda.synchronize()
-    tol = TOL[("flash_bwd", str(dtype))]
-    errs = []
+def bwd_errors(torch, got, want) -> dict[str, dict[str, float]]:
+    """For each of dq, dk, dv: the max abs error, the largest |gradient| of
+    the plain version (max_want) and the row error (see ROW_TOL)."""
+    out = {}
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         if x.shape != y.shape or x.dtype != y.dtype:
-            raise AssertionError(f"flash bwd {tag}: {name} {tuple(x.shape)} "
+            raise AssertionError(f"flash bwd: {name} {tuple(x.shape)} "
                                  f"{x.dtype} vs {tuple(y.shape)} {y.dtype}")
-        err = (x.float() - y.float()).abs().max().item()
-        ref = max(1.0, y.float().abs().max().item())
-        if not err <= tol * ref:
-            raise AssertionError(f"flash bwd {tag}: {name} max abs err {err} "
-                                 f"> {tol} * {ref}")
-        errs.append(err)
-    log(f"flash bwd {tag}: dq/dk/dv err {errs[0]:.3g}/{errs[1]:.3g}/"
-        f"{errs[2]:.3g}: ok")
-    return errs[0], max(errs[1:])
+        diff = (x.float() - y.float()).flatten(0, -2)
+        w = y.float().flatten(0, -2)
+        w_norm = w.norm(dim=1)
+        floor = ROW_FLOOR * w_norm.square().mean().sqrt()
+        out[name] = {
+            "max_abs_err": diff.abs().max().item(),
+            "max_want": w.abs().max().item(),
+            "row_err": (diff.norm(dim=1) / w_norm.clamp(min=floor))
+            .max().item(),
+        }
+    return out
+
+
+def _check_bwd(torch, tag, got, want, dtype,
+               rows: bool = False) -> tuple[float, float]:
+    """Holds (dq, dk, dv) from B2 + B3 against the plain version's within
+    TOL, and with ``rows`` row by row within ROW_TOL; returns the max abs
+    error of B2 (dq) and of B3 (dk and dv)."""
+    tol = TOL[("flash_bwd", str(dtype))]
+    errs = bwd_errors(torch, got, want)
+    for name, e in errs.items():
+        ref = max(1.0, e["max_want"])
+        if not e["max_abs_err"] <= tol * ref:
+            raise AssertionError(f"flash bwd {tag}: {name} max abs err "
+                                 f"{e['max_abs_err']} > {tol} * {ref}")
+        if rows and not e["row_err"] <= ROW_TOL:
+            raise AssertionError(f"flash bwd {tag}: {name} row err "
+                                 f"{e['row_err']} > {ROW_TOL}")
+    if rows:
+        log(f"flash bwd {tag}: " + json.dumps(errs) + ": ok")
+    else:
+        log(f"flash bwd {tag}: dq/dk/dv err " + "/".join(
+            f"{e['max_abs_err']:.3g}" for e in errs.values()) + ": ok")
+    return errs["dq"]["max_abs_err"], max(errs["dk"]["max_abs_err"],
+                                          errs["dv"]["max_abs_err"])
 
 
 FLASH_BWD_CASES = [
@@ -418,6 +543,35 @@ FLASH_BWD_CASES = [
          g_lse=True),
     dict(b=2, t_q=129, t_k=129, h=8, h_kv=2, d=64, causal=True,
          strided_do=True),
+    # Edges of the bf16 tiles (B2: 64 query rows by key tiles of 16; B3: 64
+    # keys by query tiles of 32) and of their double buffers: one below, at
+    # and one above one and two tiles of each.
+    dict(b=1, t_q=15, t_k=15, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=17, t_k=17, h=4, h_kv=2, d=64, causal=False),
+    dict(b=1, t_q=31, t_k=31, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=33, t_k=33, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=63, t_k=63, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=64, t_k=64, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=65, t_k=65, h=4, h_kv=2, d=64, causal=False),
+    dict(b=1, t_q=127, t_k=127, h=4, h_kv=4, d=64, causal=True),
+    dict(b=1, t_q=128, t_k=128, h=4, h_kv=4, d=64, causal=False),
+    dict(b=1, t_q=129, t_k=129, h=4, h_kv=4, d=64, causal=True),
+    dict(b=1, t_q=31, t_k=31, h=4, h_kv=2, d=128, causal=True),
+    dict(b=1, t_q=32, t_k=32, h=4, h_kv=2, d=128, causal=False),
+    dict(b=1, t_q=33, t_k=33, h=4, h_kv=2, d=128, causal=True),
+    dict(b=1, t_q=63, t_k=63, h=4, h_kv=4, d=128, causal=False),
+    dict(b=1, t_q=64, t_k=64, h=4, h_kv=4, d=128, causal=True),
+    dict(b=1, t_q=65, t_k=65, h=4, h_kv=4, d=128, causal=True),
+    # t_q under one tile, t_k over three
+    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=128, causal=True),
+    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=64, causal=False),
+    # a single-tile sequence
+    dict(b=2, t_q=16, t_k=16, h=4, h_kv=4, d=64, causal=True),
+    dict(b=2, t_q=16, t_k=16, h=4, h_kv=1, d=128, causal=True),
+    # GQA group 8 at head_dim 128
+    dict(b=1, t_q=160, t_k=160, h=8, h_kv=1, d=128, causal=True),
+    dict(b=1, t_q=100, t_k=100, h=8, h_kv=1, d=128, causal=False),
 ]
 
 def check_flash_bwd(torch, attention, gen) -> tuple[float, float]:
@@ -432,6 +586,83 @@ def check_flash_bwd(torch, attention, gen) -> tuple[float, float]:
                 worst_dq = max(worst_dq, dq_err)
                 worst_dkv = max(worst_dkv, dkv_err)
     return worst_dq, worst_dkv
+
+
+def time_bwd_kernels(torch, attention, q, k, v, out, lse, do):
+    """Device ms of B2 and of B3 (causal), split by kernel name from one
+    profiled run of five backward calls."""
+    scale = q.shape[-1] ** -0.5
+
+    def bwd():
+        attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
+                                  scale=scale)
+
+    bwd()
+    iters = 5
+    events, _ = device_events(torch, lambda: [bwd() for _ in range(iters)])
+    dq_ms = sum(us for n, us in events if "flash_bwd_dq_kernel" in n)
+    dkv_ms = sum(us for n, us in events if "flash_bwd_dkv_kernel" in n)
+    if not (dq_ms > 0 and dkv_ms > 0):
+        raise AssertionError("the profiler saw no B2/B3 kernel events")
+    return dq_ms / iters / 1e3, dkv_ms / iters / 1e3
+
+
+def time_sdpa_bwd(torch, q, k, v, do) -> float:
+    """Device ms of SDPA's causal backward (dq, dk, dv) on the same MHA
+    inputs in its [B, H, T, D] layout: the library yardstick of B2 + B3."""
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True)
+    return device_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qs, ks, vs), dos, retain_graph=True), 5, warmup=1)
+
+
+def bwd_bounds(q, k):
+    """(B2 bound, B3 bound), each (ms, "bytes" | "operations"), of the
+    causal backward at q's and k's shapes: each input read once and each
+    output written once; 3 (B2) and 4 (B3) products over the visible
+    pairs."""
+    b, t, h, d = q.shape
+    h_kv = k.shape[2]
+    tok = b * t * d * q.element_size()
+    pairs = b * h * t * (t + 1) // 2  # causal (query, key) pairs
+    rows = b * h * t * 4  # one fp32 per query row (lse, delta)
+    return (bound(tok * (3 * h + 2 * h_kv) + 2 * rows, 3 * 2 * d * pairs,
+                  q.dtype),
+            bound(tok * (2 * h + 4 * h_kv) + 2 * rows, 4 * 2 * d * pairs,
+                  q.dtype))
+
+
+def time_attention_hd128(torch, attention, gen) -> dict:
+    """B2 and B3 at bench.py's transformer_hd128 attention shape, q/k/v
+    [8, 2048, 8, 128] bf16 causal, where their accumulators and fragment
+    loops are twice as large: held against the plain version within TOL,
+    then timed beside SDPA's backward, with the bounds."""
+    b, t, h, d = 8, 2048, 8, 128
+    dt = torch.bfloat16
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                   .to(dt) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = attention._flash_attention_cuda(q, k, v, causal=True,
+                                               scale=scale)
+    dq_err, dkv_err = _check_bwd(
+        torch, "at the hd128 shape",
+        attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
+                                  scale=scale),
+        attention._flash_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                   scale=scale), dt, rows=True)
+    dq_ms, dkv_ms = time_bwd_kernels(torch, attention, q, k, v, out, lse, do)
+    dq_bound, dkv_bound = bwd_bounds(q, k)
+    res = {"flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms,
+                                bound=dq_bound),
+           "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms,
+                                 bound=dkv_bound),
+           "sdpa_bwd_ms": time_sdpa_bwd(torch, q, k, v, do)}
+    log("attention backward at the hd128 shape q/k/v [8, 2048, 8, 128] "
+        "bf16 causal, device ms: " + json.dumps(res))
+    return res
 
 
 def time_attention(torch, attention, gen) -> dict:
@@ -468,59 +699,36 @@ def time_attention(torch, attention, gen) -> dict:
         attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
                                   scale=scale),
         attention._flash_bwd_plain(q, k, v, out, lse, do, causal=True,
-                                   scale=scale), dt)
+                                   scale=scale), dt, rows=True)
     fwd_ms = device_ms(torch, lambda: attention._flash_attention_cuda(
         q, k, v, causal=True, scale=scale), 5, warmup=1)
     fwd_plain_ms = device_ms(torch, lambda: attention._flash_plain_bthd(
         q, k, v, causal=True, scale=scale), 3, warmup=1)
 
-    def bwd():
-        attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
-                                  scale=scale)
-
-    bwd()
-    iters = 5
-    events, _ = device_events(torch, lambda: [bwd() for _ in range(iters)])
-    dq_ms = sum(us for n, us in events if "flash_bwd_dq_kernel" in n)
-    dkv_ms = sum(us for n, us in events if "flash_bwd_dkv_kernel" in n)
-    dq_ms, dkv_ms = dq_ms / iters / 1e3, dkv_ms / iters / 1e3
-    if not (dq_ms > 0 and dkv_ms > 0):
-        raise AssertionError("the profiler saw no B2/B3 kernel events")
+    dq_ms, dkv_ms = time_bwd_kernels(torch, attention, q, k, v, out, lse, do)
     bwd_plain_ms = device_ms(torch, lambda: attention._flash_bwd_plain(
         q, k, v, out, lse, do, causal=True, scale=scale), 3, warmup=1)
 
     # Library yardsticks in SDPA's [B, H, T, D] layout.
-    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    dos = do.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd_ms = device_ms(torch, lambda: sdpa(qs.detach(), ks.detach(),
-                                               vs.detach(), is_causal=True),
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_fwd_ms = device_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
                            5, warmup=1)
-    lib_out = sdpa(qs, ks, vs, is_causal=True)
-    lib_bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
-        lib_out, (qs, ks, vs), dos, retain_graph=True), 5, warmup=1)
-
-    el = q.element_size()
-    tok = b * t * d * el
-    pairs = b * h * t * (t + 1) // 2  # causal (query, key) pairs
-    rows = b * h * t * 4  # one fp32 per query row (lse, delta)
+    lib_bwd_ms = time_sdpa_bwd(torch, q, k, v, do)
+    fwd_bound = bound(b * t * d * q.element_size() * (2 * h + 2 * h_kv)
+                      + b * h * t * 4, 2 * 2 * d * b * h * t * (t + 1) // 2,
+                      dt)
+    dq_bound, dkv_bound = bwd_bounds(q, k)
     res = {
         "flash_fwd": dict(max_abs_err=fwd_err, ms=fwd_ms,
-                          plain_ms=fwd_plain_ms,
-                          library_ms=lib_fwd_ms, bound=bound(
-                              tok * (2 * h + 2 * h_kv) + rows,
-                              2 * 2 * d * pairs, dt)),
+                          plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
+                          bound=fwd_bound),
         "flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms,
-                             plain_ms=bwd_plain_ms,
-                             library_ms=lib_bwd_ms, bound=bound(
-                                 tok * (3 * h + 2 * h_kv) + 2 * rows,
-                                 3 * 2 * d * pairs, dt)),
+                             plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+                             bound=dq_bound),
         "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms,
-                              plain_ms=bwd_plain_ms,
-                              library_ms=lib_bwd_ms, bound=bound(
-                                  tok * (2 * h + 4 * h_kv) + 2 * rows,
-                                  4 * 2 * d * pairs, dt)),
+                              plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+                              bound=dkv_bound),
     }
     log("attention at the training shape q/k/v [8, 2048, 16, 64] bf16 "
         "causal, device ms: " + json.dumps(res))
@@ -918,10 +1126,17 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = kernels.build(verbose=True)
+    reports: dict[str, str] = {}
+    built = kernels.build(ptxas_report=reports)
     for name in kernels.KERNELS:
         kernels.function(name)
     log(f"build: {time.perf_counter() - t0:.2f} s ({built})")
+    for lib, report in reports.items():
+        log(f"[ptxas {lib}]\n{report}")
+    check_no_spills(reports)
+    mma = sass_mma_counts(flash_bwd_sass(kernels))
+    log(f"tensor-core instructions (HMMA/HGMMA) in the SASS of "
+        f"flash_bwd.cu: {json.dumps(mma)}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
@@ -929,6 +1144,7 @@ def main(argv=None) -> int:
     flash_row = check_flash(torch, attention, gen)
     dq_worst, dkv_worst = check_flash_bwd(torch, attention, gen)
     timed = time_attention(torch, attention, gen)
+    time_attention_hd128(torch, attention, gen)
     dq_row = {"name": "flash_bwd_dq", "route": "cuda",
               "source": "tony_tpu_torch/csrc/flash_bwd.cu",
               "replaces": "tony_tpu/ops/attention.py:291",

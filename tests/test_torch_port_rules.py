@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -22,7 +23,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tony_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
+    REPO / "chip_smoke.py", REPO / "flash_bwd_study.py"
 ]
 
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -206,6 +207,49 @@ def test_entry_points_of_one_source_build_one_library(monkeypatch, tmp_path):
         p.name for p in kernels.CSRC.glob("*.cu")}
 
 
+def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
+    """A source may include any ``csrc/*.cuh``: editing, adding or removing
+    a header gives its library a new path, so a stale one is never
+    loaded; editing an unrelated ``.cu`` does not."""
+    from tony_tpu_torch import kernels
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "helpers.cuh"\n')
+    (csrc / "b.cu").write_text("// another source\n")
+    header = csrc / "helpers.cuh"
+    header.write_text("#pragma once\n")
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    first = kernels.library_path("a.cu")
+    assert kernels.library_path("a.cu") == first
+    (csrc / "b.cu").write_text("// edited\n")
+    assert kernels.library_path("a.cu") == first
+    header.write_text("#pragma once\n// edited\n")
+    edited = kernels.library_path("a.cu")
+    assert edited != first and edited.name.startswith("liba-")
+    (csrc / "more.cuh").write_text("#pragma once\n")
+    added = kernels.library_path("a.cu")
+    assert added not in (first, edited)
+    (csrc / "more.cuh").unlink()
+    assert kernels.library_path("a.cu") == edited
+
+
+def test_every_local_include_is_a_digested_header():
+    """A source's quoted includes are ``csrc/*.cuh`` files, the headers
+    ``library_path`` hashes; flash_bwd.cu takes its tensor-core helpers
+    from one."""
+
+    from tony_tpu_torch import kernels
+
+    headers = {p.name for p in kernels.CSRC.glob("*.cuh")}
+    included = set()
+    for path in [*kernels.CSRC.glob("*.cu"), *kernels.CSRC.glob("*.cuh")]:
+        local = re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)
+        assert set(local) <= headers, f"{path.name} includes {local}"
+        included |= set(local)
+    assert "mma_sync.cuh" in included
+
+
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
@@ -225,3 +269,114 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def _repo_module(name: str):
+    sys.path.insert(0, str(REPO))
+    try:
+        return __import__(name)
+    finally:
+        sys.path.remove(str(REPO))
+
+
+def _sass(mma: dict[str, int]) -> str:
+    """A cuobjdump listing with one function per (kernel, head_dim) key,
+    each holding that many HMMA lines among FMAs."""
+    out = ["\tcode for sm_90a"]
+    for key, n in mma.items():
+        kernel, d = re.fullmatch(r"(\w+_(?:bf16|fp32))(\d+)", key).groups()
+        out.append(f"\t\tFunction : _ZN45_GLOBAL__N__0_12_flash_bwd_cu_0"
+                   f"{len(kernel)}{kernel}ILi{d}EEEvNS_6ParamsE")
+        out += ["        /*0a70*/   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;"
+                ] * n
+        out.append("        /*0100*/   FFMA R3, R4, R5, R3 ;")
+    return "\n".join(out) + "\n"
+
+
+def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
+    """chip_smoke.py reads the SASS of the flash backward: it must list
+    the 8 instances, bf16 ones with tensor-core instructions and fp32
+    (FMA) ones with none."""
+    chip_smoke = _repo_module("chip_smoke")
+    want = {f"flash_bwd_{k}_kernel_{dt}{d}": (2 if dt == "bf16" else 0)
+            for k in ("dq", "dkv") for dt in ("bf16", "fp32")
+            for d in (64, 128)}
+    assert set(want) == chip_smoke.BWD_INSTANCES
+    assert chip_smoke.sass_mma_counts(_sass(want)) == want
+    no_mma = _sass(want).replace("HMMA.16816.F32.BF16", "FFMA")
+    with pytest.raises(AssertionError, match="bf16 instances need some"):
+        chip_smoke.sass_mma_counts(no_mma)
+    missing = dict(want)
+    del missing["flash_bwd_dkv_kernel_bf16128"]
+    with pytest.raises(AssertionError, match="not the instances"):
+        chip_smoke.sass_mma_counts(_sass(missing))
+    with pytest.raises(AssertionError, match="listed no flash_bwd kernel"):
+        chip_smoke.sass_mma_counts("")
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0_12_flash_bwd_cu_025flash_bwd_dkv_kernel_bf16ILi128EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__0_12_flash_bwd_cu_025flash_bwd_dkv_kernel_bf16ILi128EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 240 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z14tony_rms_normPv' for 'sm_90a'
+ptxas info    : Function properties for _Z14tony_rms_normPv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 384 bytes cmem[0]
+"""
+
+
+def test_chip_smoke_fails_a_build_that_spills():
+    """chip_smoke.py reads registers and spills from ptxas's report and
+    fails the build phase when a function spills or none is listed."""
+    chip_smoke = _repo_module("chip_smoke")
+    assert chip_smoke.ptxas_kernels(_PTXAS) == {
+        "flash_bwd_dkv_kernel_bf16128": {"registers": 240, "spill_bytes": 0},
+        "_Z14tony_rms_normPv": {"registers": 32, "spill_bytes": 0}}
+    chip_smoke.check_no_spills({"flash_bwd": _PTXAS})
+    spilled = _PTXAS.replace("0 bytes spill stores, 0 bytes spill loads",
+                             "8 bytes spill stores, 12 bytes spill loads", 1)
+    with pytest.raises(AssertionError, match="spills.*bf16128': 20"):
+        chip_smoke.check_no_spills({"flash_bwd": spilled})
+    with pytest.raises(AssertionError, match="no function for rms_norm"):
+        chip_smoke.check_no_spills({"rms_norm": ""})
+
+
+def test_bwd_row_error_sees_a_fault_in_small_rows():
+    """The row error of chip_smoke.py: a 10 % fault in the rows of small
+    gradients reads 0.1 while the max abs error stays under TOL's limit;
+    rows that are zero in the plain version read against the floor."""
+    chip_smoke = _repo_module("chip_smoke")
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((64, 16)).astype(np.float32)
+    rows *= (1.0 / np.arange(1, 65))[:, None].astype(np.float32)
+    rows[0] = 0.0
+    want = torch.from_numpy(rows).reshape(1, 64, 1, 16)
+    got = want.clone()
+    got[:, 32:] *= 1.1
+    got[:, 0] = 1e-6
+    errs = chip_smoke.bwd_errors(torch, (got,) * 3, (want,) * 3)
+    e = errs["dq"]
+    assert e["max_want"] == pytest.approx(float(np.abs(rows).max()))
+    assert e["max_abs_err"] < 2e-2 * max(1.0, e["max_want"])
+    assert e["row_err"] == pytest.approx(0.1, rel=1e-4)
+    assert chip_smoke.bwd_errors(torch, (want,) * 3, (want,) * 3)[
+        "dk"]["row_err"] == 0.0
+
+
+def test_flash_bwd_study_variants_apply_to_the_source():
+    """Every substitution of flash_bwd_study.py (tile sweep and fault
+    controls) matches flash_bwd.cu exactly once, so the study builds what
+    it says it builds."""
+    study = _repo_module("flash_bwd_study")
+    from tony_tpu_torch import kernels
+
+    text = (kernels.CSRC / "flash_bwd.cu").read_text()
+    variants = {**study.sweep_variants(), **study.CONTROLS}
+    for name, subs in variants.items():
+        changed = study.substitute(text, name, subs)
+        assert (changed == text) == (name == "shipped"), name
+    assert "static constexpr int kN = 64;" in study.substitute(
+        text, "tiles64", study.sweep_variants()["tiles64"])
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        study.substitute(text, "bad", [("no such line", "")])

@@ -4,8 +4,9 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes``; a library may export several
 entry points (``flash_bwd.cu`` holds B2 and B3). The build runs at first
 use, from the package's own sources, into ``tony_tpu_torch/_build/`` (listed
-in ``.gitignore``); a library's file name carries a digest of its source and
-flags, so an edited source is rebuilt rather than loaded stale. ``build()``
+in ``.gitignore``); a library's file name carries a digest of its source,
+of every shared header ``csrc/*.cuh`` and of the flags, so an edited source
+or header is rebuilt rather than loaded stale. ``build()``
 starts one ``nvcc`` per missing library, all at once, and waits for all of
 them. There is no fallback: without ``nvcc``, or when a build fails, the
 caller gets the error.
@@ -79,26 +80,33 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<source>`` lives. The digest
+    covers the source, every ``csrc/*.cuh`` (a source may include any of
+    them) and the flags."""
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names=None, *, verbose: bool = False) -> dict[str, float]:
+def build(names=None, *, ptxas_report: dict | None = None
+          ) -> dict[str, float]:
     """Compile the library of every named entry point (default: all) that
     is not built yet, one ``nvcc`` process per source, all started
     together. Returns seconds per library built, keyed by source stem
-    (empty when all were present). ``verbose`` adds ``-Xptxas -v`` and
-    prints the compiler's report (registers, shared memory, spills)."""
+    (empty when all were present). Given a dict, ``ptxas_report`` builds
+    every named library anew with ``-Xptxas -v`` and receives each one's
+    compiler report (registers, shared memory, spills), keyed the same."""
     names = list(KERNELS if names is None else names)
     sources = dict.fromkeys(KERNELS[n][0] for n in names)
-    todo = [src for src in sources if not library_path(src).is_file()]
+    todo = [src for src in sources
+            if ptxas_report is not None or not library_path(src).is_file()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    extra = ("-Xptxas", "-v") if verbose else ()
+    extra = ("-Xptxas", "-v") if ptxas_report is not None else ()
     procs = {}
     t0 = time.perf_counter()
     for source in todo:
@@ -113,8 +121,8 @@ def build(names=None, *, verbose: bool = False) -> dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        if verbose and log:
-            print(f"[nvcc {name}]\n{log}", flush=True)
+        if ptxas_report is not None:
+            ptxas_report[name] = log
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             tmp.unlink(missing_ok=True)
