@@ -7,20 +7,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. build   — compile every CUDA kernel under tony_tpu_torch/csrc with nvcc
              (one process per source, started together), print ptxas's
-             report (no function may spill), and count the tensor-core instructions (HMMA/HGMMA)
-             of each flash-backward kernel in cuobjdump's SASS: every bf16
-             instance must have some, the fp32 (FMA) instances none.
+             report (no function may spill), and count the tensor-core
+             instructions (HMMA/HGMMA) of each flash kernel in cuobjdump's
+             SASS (forward and backward): every bf16 instance must have
+             some, the fp32 (FMA) instances none.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes and at edge shapes, in fp32 and bf16:
              B4 (RMSNorm), B1 (flash forward), B2 and B3 (flash backward,
              dq and dk/dv: causal and not, t_q =, < and > t_k, ragged T,
              T at the edges of the bf16 tiles and their double buffers,
-             GQA groups 1/2/4/8, head_dim 64/128, an lse cotangent, a
+             rows before the first key, GQA groups 1/2/4/8, head_dim
+             64/128, fused strided q/k/v views, an lse cotangent, a
              non-contiguous dO). Then time kernel, plain version and library
              call (device time from the profiler's kernel events) at the
-             training shape, B1/B4 at the serving shapes too, and B2/B3
-             against SDPA's backward at the hd128 shape [8, 2048, 8, 128];
-             at those two shapes B2/B3 are also held row by row (ROW_TOL).
+             training shape, B1/B4 at the serving shapes too, and B1-B3
+             against SDPA's forward and backward at the hd128 shape
+             [8, 2048, 8, 128]; at those two shapes B1-B3 are also held row
+             by row (ROW_TOL).
 3. serve   — the flagship GQA LM at full width (vocab 32000, d 1024,
              8 layers, 16/4 heads, head_dim 64, d_ff 4096, bf16, random
              weights from --seed) behind ServingEngine + ServingServer:
@@ -137,14 +140,17 @@ TOL = {
 # At the training and hd128 shapes (T = 2048) the gradients fall off with
 # position (dq at row i, dk/dv at key j about 1/sqrt(position + 1)), so the
 # TOL limit, scaled by the largest |gradient|, is as large as a typical
-# entry. There the bf16 B2/B3 are also held row by row: the worst, over the
-# rows of head_dim values of dq, dk and dv, of ||got_r - want_r|| /
-# max(||want_r||, ROW_FLOOR * the RMS row norm). The floor keeps rows whose
-# gradient is zero by construction (dq of a query that sees one key) from
-# dividing noise by nothing. On an H100 the sound kernels read 0.004-0.006
-# at both shapes, and copies that drop one streamed tile read about 1
-# (flash_bwd_study.py controls, which also holds faults confined to late
-# rows against this limit; its readings are in PERF.md).
+# entry; so do the causal outputs (row i of O averages i + 1 values, its
+# norm about 1/sqrt(i + 1) of row 0's), where TOL's absolute 2e-2 cannot
+# see one key tile missing from a late row. There the bf16 B1-B3 are also
+# held row by row: the worst, over the rows of head_dim values of O (B1) or
+# of dq, dk and dv (B2/B3), of ||got_r - want_r|| / max(||want_r||,
+# ROW_FLOOR * the RMS row norm). The floor keeps rows whose gradient is zero
+# by construction (dq of a query that sees one key) from dividing noise by
+# nothing. On an H100 the sound kernels read 0.004-0.006 at both shapes,
+# and copies that drop one streamed tile read 0.8-1.7 (flash_bwd_study.py
+# controls and fwd-controls, which also hold faults confined to late rows
+# against this limit; their readings are in PERF.md).
 ROW_TOL = 0.02
 ROW_FLOOR = 0.1
 
@@ -197,28 +203,30 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# A flash-backward kernel's mangled name: its function and head_dim.
-_BWD_KERNEL = re.compile(r"(flash_bwd_(?:dq|dkv)_kernel_(?:bf16|fp32))"
-                         r"ILi(\d+)E")
+# A flash kernel's mangled name: its function and head_dim.
+_FLASH_KERNEL = re.compile(
+    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel_(?:bf16|fp32))ILi(\d+)E")
 BWD_INSTANCES = {f"flash_bwd_{k}_kernel_{dt}{d}" for k in ("dq", "dkv")
                  for dt in ("bf16", "fp32") for d in (64, 128)}
+FWD_INSTANCES = {f"flash_fwd_kernel_{dt}{d}" for dt in ("bf16", "fp32")
+                 for d in (64, 128)}
 
 
-def bwd_name(mangled: str) -> str:
-    """"flash_bwd_<dq|dkv>_kernel_<dtype><head_dim>" for a flash-backward
+def kernel_name(mangled: str) -> str:
+    """"flash_<fwd|bwd_dq|bwd_dkv>_kernel_<dtype><head_dim>" for a flash
     kernel's mangled name, else the name as it is."""
-    m = _BWD_KERNEL.search(mangled)
+    m = _FLASH_KERNEL.search(mangled)
     return f"{m.group(1)}{m.group(2)}" if m else mangled
 
 
 def ptxas_kernels(report: str) -> dict[str, dict[str, int]]:
     """Registers and spill bytes (stores + loads) of each function in a
-    ``ptxas -v`` report, keyed by bwd_name of its mangled name."""
+    ``ptxas -v`` report, keyed by kernel_name of its mangled name."""
     out: dict[str, dict[str, int]] = {}
     name = None
     for line in report.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
-            name = bwd_name(m.group(1))
+            name = kernel_name(m.group(1))
             out[name] = {"registers": 0, "spill_bytes": 0}
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
                                       r"bytes spill loads", line)):
@@ -241,35 +249,37 @@ def check_no_spills(reports: dict[str, str]) -> None:
             raise AssertionError(f"ptxas: {lib} spills (bytes): {spilled}")
 
 
-def flash_bwd_sass(kernels) -> str:
-    """cuobjdump's SASS listing of the built flash_bwd library."""
+def sass_listing(kernels, source: str) -> str:
+    """cuobjdump's SASS listing of the library built from csrc/<source>."""
     tool = str(Path(kernels.nvcc_path()).with_name("cuobjdump"))
-    lib = str(kernels.library_path("flash_bwd.cu"))
+    lib = str(kernels.library_path(source))
     return subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
 
 
-def sass_mma_counts(listing: str) -> dict[str, int]:
-    """Tensor-core instructions (HMMA, HGMMA) in each flash-backward kernel
-    function of a SASS listing, keyed
-    "flash_bwd_<dq|dkv>_kernel_<dtype><head_dim>". Raises unless the
-    listing holds exactly the 8 instances (dq, dkv x bf16, fp32 x 64, 128),
-    every bf16 instance has some and every fp32 instance none."""
+def sass_mma_counts(listing: str,
+                    instances: set[str] = BWD_INSTANCES) -> dict[str, int]:
+    """Tensor-core instructions (HMMA, HGMMA) in each flash kernel function
+    of a SASS listing that is one of ``instances`` (keyed
+    "flash_<fwd|bwd_dq|bwd_dkv>_kernel_<dtype><head_dim>"; by default the
+    8 backward ones). Raises unless the listing holds exactly those
+    instances, every bf16 instance has some and every fp32 instance none."""
+    kind = "flash_fwd" if instances <= FWD_INSTANCES else "flash_bwd"
     counts: dict[str, int] = {}
     name = None
     for line in listing.splitlines():
         if "Function :" in line:
-            name = bwd_name(line)
-            name = name if name in BWD_INSTANCES else None
+            name = kernel_name(line)
+            name = name if name in instances else None
             if name:
                 counts[name] = 0
         elif name and re.search(r"\bH(G)?MMA\b", line):
             counts[name] += 1
     if not counts:
-        raise AssertionError("cuobjdump listed no flash_bwd kernel")
-    if set(counts) != BWD_INSTANCES:
+        raise AssertionError(f"cuobjdump listed no {kind} kernel")
+    if set(counts) != instances:
         raise AssertionError(f"cuobjdump listed {sorted(counts)}, not the "
-                             f"instances {sorted(BWD_INSTANCES)}")
+                             f"instances {sorted(instances)}")
     for name, n in counts.items():
         if ("_bf16" in name) != (n > 0):
             raise AssertionError(f"{name}: {n} tensor-core instructions "
@@ -348,6 +358,57 @@ def time_rms_norm(torch, norms, gen, rows: int, w_dtype) -> dict:
     return res
 
 
+def row_error(diff, want) -> float:
+    """The row error (see ROW_TOL) of ``diff`` = got - want, both
+    [rows, head_dim] fp32: the worst ||diff_r|| / max(||want_r||,
+    ROW_FLOOR * the RMS row norm of ``want``)."""
+    w_norm = want.norm(dim=1)
+    floor = ROW_FLOOR * w_norm.square().mean().sqrt()
+    return (diff.norm(dim=1) / w_norm.clamp(min=floor)).max().item()
+
+
+def fwd_errors(got, want) -> dict[str, float]:
+    """B1's (out, lse) against the plain version's: the max abs error of
+    out and of lse, and the row error of out (see ROW_TOL)."""
+    (out, lse), (want_out, want_lse) = got, want
+    if out.shape != want_out.shape or out.dtype != want_out.dtype:
+        raise AssertionError(f"flash: out {tuple(out.shape)} {out.dtype} vs "
+                             f"{tuple(want_out.shape)} {want_out.dtype}")
+    diff = (out.float() - want_out.float()).flatten(0, -2)
+    return {"max_abs_err": diff.abs().max().item(),
+            "lse_err": (lse - want_lse).abs().max().item(),
+            "row_err": row_error(diff, want_out.float().flatten(0, -2))}
+
+
+def fwd_checks(errs: dict, dtype, rows: bool = False) -> dict[str, bool]:
+    """Whether B1's readings (fwd_errors) pass each of its checks: out and
+    lse within TOL and, with ``rows``, out row by row within ROW_TOL."""
+    checks = {"max_abs": errs["max_abs_err"] <= TOL[("flash_fwd",
+                                                     str(dtype))],
+              "lse": errs["lse_err"] <= TOL[("flash_lse", str(dtype))]}
+    if rows:
+        checks["row"] = errs["row_err"] <= ROW_TOL
+    return checks
+
+
+def _check_fwd(tag, got, want, dtype, rows: bool = False) -> float:
+    """Holds B1's (out, lse) against the plain version's (fwd_checks);
+    returns the max abs error of out."""
+    errs = fwd_errors(got, want)
+    if not all(fwd_checks(errs, dtype, rows).values()):
+        raise AssertionError(
+            f"flash {tag}: {json.dumps(errs)} (tol "
+            f"{TOL[('flash_fwd', str(dtype))]}, lse tol "
+            f"{TOL[('flash_lse', str(dtype))]}"
+            f"{f', row tol {ROW_TOL}' if rows else ''})")
+    if rows:
+        log(f"flash {tag}: {json.dumps(errs)}: ok")
+    else:
+        log(f"flash {tag}: out err {errs['max_abs_err']:.3g}, lse err "
+            f"{errs['lse_err']:.3g}: ok")
+    return errs["max_abs_err"]
+
+
 def _flash_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d, causal,
                 dtype, fused=False):
     dev = "cuda"
@@ -363,18 +424,11 @@ def _flash_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d, causal,
     scale = d ** -0.5
     out, lse = attention._flash_attention_cuda(q, k, v, causal=causal,
                                                scale=scale)
-    want, want_lse = attention._flash_plain_bthd(
-        q, k, v, causal=causal, scale=scale)
+    want = attention._flash_plain_bthd(q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    lse_err = (lse - want_lse).abs().max().item()
     tag = (f"b={b} tq={t_q} tk={t_k} h={h}/{h_kv} d={d} causal={causal} "
            f"{dtype}{' fused' if fused else ''}")
-    tol = TOL[("flash_fwd", str(dtype))]
-    lse_tol = TOL[("flash_lse", str(dtype))]
-    if not (err <= tol and lse_err <= lse_tol):
-        raise AssertionError(f"flash {tag}: out err {err} (tol {tol}), lse "
-                             f"err {lse_err} (tol {lse_tol})")
+    err = _check_fwd(tag, (out, lse), want, dtype)
     if causal and t_q > t_k:
         # Rows before the first key are fully masked: O = 0, lse = log(1e-30).
         n_masked = t_q - t_k
@@ -383,56 +437,105 @@ def _flash_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d, causal,
         lse_m = lse[:, :, :n_masked]
         if (lse_m - np.log(1e-30)).abs().max().item() > 1e-3:
             raise AssertionError(f"flash {tag}: masked-row lse wrong")
-    log(f"flash {tag}: out err {err:.3g}, lse err {lse_err:.3g}: ok")
     return err
+
+
+FLASH_FWD_CASES = [
+    # main path: DecodeSession.generate prefill, B*H = 8*16, T 128
+    dict(b=8, t_q=128, t_k=128, h=16, h_kv=4, d=64, causal=True, fused=True),
+    dict(b=8, t_q=128, t_k=128, h=16, h_kv=4, d=64, causal=True),
+    dict(b=2, t_q=100, t_k=100, h=16, h_kv=4, d=64, causal=True),
+    dict(b=2, t_q=257, t_k=257, h=4, h_kv=4, d=64, causal=True),
+    dict(b=1, t_q=37, t_k=300, h=8, h_kv=2, d=64, causal=True),
+    dict(b=2, t_q=257, t_k=257, h=8, h_kv=2, d=128, causal=True),
+    dict(b=2, t_q=100, t_k=257, h=8, h_kv=4, d=128, causal=False),
+    dict(b=2, t_q=65, t_k=130, h=4, h_kv=1, d=64, causal=False),
+    dict(b=1, t_q=80, t_k=50, h=4, h_kv=2, d=64, causal=True),
+    # Edges of the bf16 tiles (query tiles of 64 or 128 rows, streamed key
+    # tiles of 32 to 128 keys) and of the key double buffer: one below, at
+    # and one above one and two tiles.
+    dict(b=1, t_q=15, t_k=15, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=17, t_k=17, h=4, h_kv=2, d=64, causal=False),
+    dict(b=1, t_q=31, t_k=31, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=33, t_k=33, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=63, t_k=63, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=64, t_k=64, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=65, t_k=65, h=4, h_kv=2, d=64, causal=False),
+    dict(b=1, t_q=127, t_k=127, h=4, h_kv=4, d=64, causal=True),
+    dict(b=1, t_q=128, t_k=128, h=4, h_kv=4, d=64, causal=False),
+    dict(b=1, t_q=129, t_k=129, h=4, h_kv=4, d=64, causal=True),
+    dict(b=1, t_q=31, t_k=31, h=4, h_kv=2, d=128, causal=True),
+    dict(b=1, t_q=33, t_k=33, h=4, h_kv=2, d=128, causal=False),
+    dict(b=1, t_q=63, t_k=63, h=4, h_kv=4, d=128, causal=False),
+    dict(b=1, t_q=65, t_k=65, h=4, h_kv=4, d=128, causal=True),
+    # t_q under one tile, t_k over two
+    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=128, causal=True),
+    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=64, causal=False),
+    # a single-tile sequence
+    dict(b=2, t_q=16, t_k=16, h=4, h_kv=4, d=64, causal=True),
+    dict(b=2, t_q=16, t_k=16, h=4, h_kv=1, d=128, causal=True),
+    # GQA group 8 at head_dim 128
+    dict(b=1, t_q=160, t_k=160, h=8, h_kv=1, d=128, causal=True),
+    dict(b=1, t_q=100, t_k=100, h=8, h_kv=1, d=128, causal=False),
+    # causal t_q > t_k: whole query tiles (of 64 and of 128 rows) see no
+    # key at all, so their blocks run no key tile
+    dict(b=1, t_q=300, t_k=50, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=150, t_k=20, h=4, h_kv=4, d=128, causal=True),
+    # a fused projection's strided views at ragged T and head_dim 128
+    dict(b=2, t_q=100, t_k=100, h=8, h_kv=2, d=128, causal=True, fused=True),
+    dict(b=1, t_q=65, t_k=65, h=4, h_kv=4, d=64, causal=False, fused=True),
+]
+
+
+def fwd_bound(q, k) -> tuple[float, str]:
+    """B1's bound (ms, "bytes" | "operations"), causal, at q's and k's
+    shapes: q/k/v read once, out and lse written once; two products over
+    the visible pairs."""
+    b, t, h, d = q.shape
+    h_kv = k.shape[2]
+    nbytes = b * t * d * q.element_size() * (2 * h + 2 * h_kv) + b * h * t * 4
+    pairs = b * h * t * (t + 1) // 2  # causal (query, key) pairs
+    return bound(nbytes, 2 * 2 * d * pairs, q.dtype)
+
+
+def time_fwd(torch, attention, q, k, v, iters: int,
+             plain_iters: int) -> dict:
+    """Device ms of B1 (causal), its plain version and SDPA's forward on
+    the same inputs (SDPA in its [B, H, T, D] layout with the KV heads
+    repeated, both outside the timed region), and B1's bound."""
+    h, h_kv, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.transpose(1, 2).contiguous()
+    ks, vs = (x.repeat_interleave(h // h_kv, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    res = {
+        "ms": device_ms(torch, lambda: attention._flash_attention_cuda(
+            q, k, v, causal=True, scale=scale), iters),
+        "plain_ms": device_ms(torch, lambda: attention._flash_plain_bthd(
+            q, k, v, causal=True, scale=scale), plain_iters),
+        "library_ms": device_ms(torch, lambda: sdpa(qs, ks, vs,
+                                                    is_causal=True), iters),
+    }
+    res["bound"] = fwd_bound(q, k)
+    return res
 
 
 def check_flash(torch, attention, gen) -> dict:
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        cases = [
-            # main path: DecodeSession.generate prefill, B*H = 8*16, T 128
-            dict(b=8, t_q=128, t_k=128, h=16, h_kv=4, d=64, causal=True,
-                 fused=True),
-            dict(b=8, t_q=128, t_k=128, h=16, h_kv=4, d=64, causal=True),
-            dict(b=2, t_q=100, t_k=100, h=16, h_kv=4, d=64, causal=True),
-            dict(b=2, t_q=257, t_k=257, h=4, h_kv=4, d=64, causal=True),
-            dict(b=1, t_q=37, t_k=300, h=8, h_kv=2, d=64, causal=True),
-            dict(b=2, t_q=257, t_k=257, h=8, h_kv=2, d=128, causal=True),
-            dict(b=2, t_q=100, t_k=257, h=8, h_kv=4, d=128, causal=False),
-            dict(b=2, t_q=65, t_k=130, h=4, h_kv=1, d=64, causal=False),
-            dict(b=1, t_q=80, t_k=50, h=4, h_kv=2, d=64, causal=True),
-        ]
-        for case in cases:
+        for case in FLASH_FWD_CASES:
             err = _flash_case(torch, attention, gen, dtype=dtype, **case)
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
     # The generate prefill's shape, bf16, as slice 1 timed it.
     b, t, h, h_kv, d = 8, 128, 16, 4, 64
-    dt = torch.bfloat16
-    q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
-    k = torch.randn(b, t, h_kv, d, generator=gen, device="cuda").to(dt)
-    v = torch.randn(b, t, h_kv, d, generator=gen, device="cuda").to(dt)
-    scale = d ** -0.5
-    fns = {
-        "ms": lambda: attention._flash_attention_cuda(
-            q, k, v, causal=True, scale=scale),
-        "plain_ms": lambda: attention._flash_plain_bthd(
-            q, k, v, causal=True, scale=scale),
-    }
-    # Library yardstick on the same inputs in its [B, H, T, D] layout,
-    # KV heads repeated beforehand (outside the timed region).
-    qs = q.transpose(1, 2).contiguous()
-    ks = k.repeat_interleave(h // h_kv, dim=2).transpose(1, 2).contiguous()
-    vs = v.repeat_interleave(h // h_kv, dim=2).transpose(1, 2).contiguous()
-    fns["library_ms"] = lambda: (
-        torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
-                                                         is_causal=True))
-    prefill = {k: device_ms(torch, f, 50) for k, f in fns.items()}
-    el = q.element_size()
-    nbytes = (2 * b * t * h * d + 2 * b * t * h_kv * d) * el + b * h * t * 4
-    pairs = t * (t + 1) // 2  # visible (query, key) pairs per head, causal
-    prefill["bound"] = bound(nbytes, 4 * b * h * d * pairs, dt)
+    q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(b, t, h_kv, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    prefill = time_fwd(torch, attention, q, k, v, 50, 50)
     log(f"flash [8x16, 128, 64] bf16 causal (generate prefill) device ms: "
         f"{json.dumps(prefill)}")
     return {
@@ -488,13 +591,10 @@ def bwd_errors(torch, got, want) -> dict[str, dict[str, float]]:
                                  f"{x.dtype} vs {tuple(y.shape)} {y.dtype}")
         diff = (x.float() - y.float()).flatten(0, -2)
         w = y.float().flatten(0, -2)
-        w_norm = w.norm(dim=1)
-        floor = ROW_FLOOR * w_norm.square().mean().sqrt()
         out[name] = {
             "max_abs_err": diff.abs().max().item(),
             "max_want": w.abs().max().item(),
-            "row_err": (diff.norm(dim=1) / w_norm.clamp(min=floor))
-            .max().item(),
+            "row_err": row_error(diff, w),
         }
     return out
 
@@ -636,10 +736,11 @@ def bwd_bounds(q, k):
 
 
 def time_attention_hd128(torch, attention, gen) -> dict:
-    """B2 and B3 at bench.py's transformer_hd128 attention shape, q/k/v
+    """B1, B2 and B3 at bench.py's transformer_hd128 attention shape, q/k/v
     [8, 2048, 8, 128] bf16 causal, where their accumulators and fragment
-    loops are twice as large: held against the plain version within TOL,
-    then timed beside SDPA's backward, with the bounds."""
+    loops are twice as large: held against the plain versions within TOL
+    and row by row within ROW_TOL, then timed beside SDPA's forward and
+    backward, with the bounds."""
     b, t, h, d = 8, 2048, 8, 128
     dt = torch.bfloat16
     q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
@@ -647,6 +748,10 @@ def time_attention_hd128(torch, attention, gen) -> dict:
     scale = d ** -0.5
     out, lse = attention._flash_attention_cuda(q, k, v, causal=True,
                                                scale=scale)
+    fwd_err = _check_fwd("at the hd128 shape", (out, lse),
+                         attention._flash_plain_bthd(q, k, v, causal=True,
+                                                     scale=scale),
+                         dt, rows=True)
     dq_err, dkv_err = _check_bwd(
         torch, "at the hd128 shape",
         attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
@@ -655,23 +760,26 @@ def time_attention_hd128(torch, attention, gen) -> dict:
                                    scale=scale), dt, rows=True)
     dq_ms, dkv_ms = time_bwd_kernels(torch, attention, q, k, v, out, lse, do)
     dq_bound, dkv_bound = bwd_bounds(q, k)
-    res = {"flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms,
+    res = {"flash_fwd": dict(max_abs_err=fwd_err,
+                             **time_fwd(torch, attention, q, k, v, 10, 3)),
+           "flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms,
                                 bound=dq_bound),
            "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms,
                                  bound=dkv_bound),
            "sdpa_bwd_ms": time_sdpa_bwd(torch, q, k, v, do)}
-    log("attention backward at the hd128 shape q/k/v [8, 2048, 8, 128] "
-        "bf16 causal, device ms: " + json.dumps(res))
+    log("attention at the hd128 shape q/k/v [8, 2048, 8, 128] bf16 causal, "
+        "device ms (flash_fwd's library_ms: SDPA's forward): "
+        + json.dumps(res))
     return res
 
 
 def time_attention(torch, attention, gen) -> dict:
     """B1, B2 and B3 at the training shape: first their outputs against the
-    plain versions' on the same inputs (within TOL; the max abs errors are
-    returned under "max_abs_err"), then the device time of each kernel (B2
-    and B3 split by kernel name from one profiled backward), their plain
-    versions, SDPA forward and SDPA backward as library yardsticks, and
-    the bounds."""
+    plain versions' on the same inputs (within TOL and row by row within
+    ROW_TOL; the max abs errors are returned under "max_abs_err"), then
+    the device time of each kernel (B2 and B3 split by kernel name from
+    one profiled backward), their plain versions, SDPA forward and SDPA
+    backward as library yardsticks, and the bounds."""
     b, t, h, h_kv, d = (TRAIN_ATTN[k] for k in ("b", "t", "h", "h_kv", "d"))
     dt = torch.bfloat16
     q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
@@ -681,48 +789,25 @@ def time_attention(torch, attention, gen) -> dict:
     scale = d ** -0.5
     out, lse = attention._flash_attention_cuda(q, k, v, causal=True,
                                                scale=scale)
-    want, want_lse = attention._flash_plain_bthd(q, k, v, causal=True,
-                                                 scale=scale)
-    torch.cuda.synchronize()
-    fwd_err = (out.float() - want.float()).abs().max().item()
-    lse_err = (lse - want_lse).abs().max().item()
-    tol, lse_tol = TOL[("flash_fwd", str(dt))], TOL[("flash_lse", str(dt))]
-    if not (fwd_err <= tol and lse_err <= lse_tol):
-        raise AssertionError(f"flash at the training shape: out err {fwd_err}"
-                             f" (tol {tol}), lse err {lse_err} (tol "
-                             f"{lse_tol})")
-    log(f"flash at the training shape: out err {fwd_err:.3g}, lse err "
-        f"{lse_err:.3g}: ok")
-    del want, want_lse
+    fwd_err = _check_fwd("at the training shape", (out, lse),
+                         attention._flash_plain_bthd(q, k, v, causal=True,
+                                                     scale=scale),
+                         dt, rows=True)
     dq_err, dkv_err = _check_bwd(
         torch, "at the training shape",
         attention._flash_bwd_cuda(q, k, v, out, lse, do, causal=True,
                                   scale=scale),
         attention._flash_bwd_plain(q, k, v, out, lse, do, causal=True,
                                    scale=scale), dt, rows=True)
-    fwd_ms = device_ms(torch, lambda: attention._flash_attention_cuda(
-        q, k, v, causal=True, scale=scale), 5, warmup=1)
-    fwd_plain_ms = device_ms(torch, lambda: attention._flash_plain_bthd(
-        q, k, v, causal=True, scale=scale), 3, warmup=1)
+    fwd = time_fwd(torch, attention, q, k, v, 10, 3)
 
     dq_ms, dkv_ms = time_bwd_kernels(torch, attention, q, k, v, out, lse, do)
     bwd_plain_ms = device_ms(torch, lambda: attention._flash_bwd_plain(
         q, k, v, out, lse, do, causal=True, scale=scale), 3, warmup=1)
-
-    # Library yardsticks in SDPA's [B, H, T, D] layout.
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_fwd_ms = device_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True),
-                           5, warmup=1)
     lib_bwd_ms = time_sdpa_bwd(torch, q, k, v, do)
-    fwd_bound = bound(b * t * d * q.element_size() * (2 * h + 2 * h_kv)
-                      + b * h * t * 4, 2 * 2 * d * b * h * t * (t + 1) // 2,
-                      dt)
     dq_bound, dkv_bound = bwd_bounds(q, k)
     res = {
-        "flash_fwd": dict(max_abs_err=fwd_err, ms=fwd_ms,
-                          plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
-                          bound=fwd_bound),
+        "flash_fwd": dict(max_abs_err=fwd_err, **fwd),
         "flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms,
                              plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
                              bound=dq_bound),
@@ -1134,9 +1219,11 @@ def main(argv=None) -> int:
     for lib, report in reports.items():
         log(f"[ptxas {lib}]\n{report}")
     check_no_spills(reports)
-    mma = sass_mma_counts(flash_bwd_sass(kernels))
-    log(f"tensor-core instructions (HMMA/HGMMA) in the SASS of "
-        f"flash_bwd.cu: {json.dumps(mma)}")
+    for source, instances in (("flash_fwd.cu", FWD_INSTANCES),
+                              ("flash_bwd.cu", BWD_INSTANCES)):
+        mma = sass_mma_counts(sass_listing(kernels, source), instances)
+        log(f"tensor-core instructions (HMMA/HGMMA) in the SASS of "
+            f"{source}: {json.dumps(mma)}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)

@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""Tile sweep and fault controls of the bf16 flash backward (B2 dq, B3
-dk/dv) of tony_tpu_torch on one NVIDIA card.
+"""Tile sweeps and fault controls of the bf16 flash kernels of
+tony_tpu_torch on one NVIDIA card: the backward (B2 dq, B3 dk/dv) and the
+forward (B1).
 
-    python3 flash_bwd_study.py sweep      # streamed-tile sizes
-    python3 flash_bwd_study.py controls   # broken copies vs chip_smoke's checks
+    python3 flash_bwd_study.py sweep         # B2/B3 streamed-tile sizes
+    python3 flash_bwd_study.py controls      # broken B2/B3 vs chip_smoke
+    python3 flash_bwd_study.py fwd-sweep     # B1 query and key tile sizes
+    python3 flash_bwd_study.py fwd-controls  # broken B1 vs chip_smoke
 
-Both compile variants of tony_tpu_torch/csrc/flash_bwd.cu, each made by
-text substitution in a copy under tony_tpu_torch/_build/study/ (the source
-itself is never edited), load each in place of the built library and drive
-it through the port's wrapper ``_flash_bwd_cuda`` at chip_smoke.py's two
-timing shapes, q/k/v [8, 2048, 16, 64] and [8, 2048, 8, 128], bf16, causal.
+Each compiles variants of tony_tpu_torch/csrc/flash_bwd.cu (or, for the
+fwd- studies, flash_fwd.cu), each made by text substitution in a copy under
+tony_tpu_torch/_build/study/ (the source itself is never edited), loads
+each in place of the built library and drives it through the port's
+wrapper (``_flash_bwd_cuda`` or ``_flash_attention_cuda``) at
+chip_smoke.py's two timing shapes, q/k/v [8, 2048, 16, 64] and
+[8, 2048, 8, 128], bf16, causal.
 
 sweep: B2's streamed key tile (DqBf16::kN) and B3's streamed query tile
-(DkvBf16::kM) at 16, 32 and 64 rows. For each variant: ptxas's registers
-and spill bytes of the bf16 kernels, chip_smoke's checks against the plain
-version, and the device ms of B2 and B3 at both shapes. The shipped sizes
-run first and last, so the spread between them shows the drift.
+(DkvBf16::kM) at 16, 32 and 64 rows. fwd-sweep: B1's query rows per block
+(FwdBf16::kM: 64 or 128, 16 or 32 rows per warp) and keys per streamed tile
+(FwdBf16::kN: 32, 64 or 128). For each variant: ptxas's registers and spill
+bytes of the bf16 kernels (fwd-sweep lists the instances that spill, which
+rejects the variant at that head_dim), chip_smoke's checks against the
+plain version, and the device ms of the kernels at both shapes. The
+shipped sizes run first and last, so the spread between them shows the
+drift.
 
-controls: copies that each drop the contribution of one streamed tile, a
-fault of the kind a broken double buffer or loop bound makes. For each, the
-readings of chip_smoke's two checks at both shapes (max abs error against
-TOL times the largest |gradient|; row error against ROW_TOL) and which one
-caught it. Exits non-zero if either check passes a control, or if the
-shipped copy fails one.
+controls / fwd-controls: copies that each drop the contribution of one
+streamed tile, a fault of the kind a broken double buffer or loop bound
+makes. For each, the readings of chip_smoke's checks at both shapes (B2/B3:
+max abs error against TOL times the largest |gradient|, row error against
+ROW_TOL; B1: max abs error of out and of lse against TOL, row error of out
+against ROW_TOL) and which one caught it. Exits non-zero if chip_smoke's
+checks pass a control, or if the shipped copy fails one.
 """
 
 from __future__ import annotations
@@ -37,7 +47,11 @@ import sys
 import chip_smoke
 
 SHIPPED_TILES = {"kN": 16, "kM": 32}  # B2 keys, B3 query rows per tile
+# B1's shipped tiles: the right-hand sides in FwdBf16 (query rows per
+# block, keys per streamed tile).
+SHIPPED_FWD_TILES = {"kM": "D == 64 ? 128 : 64", "kN": "64"}
 SHAPES = {"train": (8, 2048, 16, 64), "hd128": (8, 2048, 8, 128)}
+BWD_ENTRY_POINTS = ("flash_bwd_dq", "flash_bwd_dkv")
 
 # Each control: (old, new) substitutions in flash_bwd.cu. "tile" counts the
 # key tiles of one B2 block, "it" the (query head, query tile) steps of one
@@ -67,6 +81,23 @@ CONTROLS = {
 }
 
 
+# Each forward control: (old, new) substitutions in flash_fwd.cu, dropping
+# p (so from both l and O) for the keys of one streamed tile; "tile" counts
+# the key tiles of one B1 block, whose query rows start at q0.
+_FWD_P = ("          const float pv = exp2f(fmaf(s[mt][n][e], scale_log2, "
+          "neg[e >> 1]));")
+FWD_CONTROLS = {
+    "fwd_drops_key_tile_2": [(_FWD_P, _FWD_P.replace(
+        "= exp2f", "= tile == 2 ? 0.f : exp2f"))],
+    # the keys nearest each query tile's diagonal missing
+    "fwd_drops_last_key_tile": [(_FWD_P, _FWD_P.replace(
+        "= exp2f", "= tile == n_tiles - 1 ? 0.f : exp2f"))],
+    # a fault confined to late rows, whose outputs are small
+    "fwd_drops_key_tile_2_past_row_1023": [(_FWD_P, _FWD_P.replace(
+        "= exp2f", "= tile == 2 && q0 >= 1024 ? 0.f : exp2f"))],
+}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -82,22 +113,37 @@ def sweep_variants() -> dict[str, list[tuple[str, str]]]:
     return variants
 
 
-def substitute(text: str, name: str, subs) -> str:
-    """``text`` with each (old, new) of ``subs`` applied; each old text
-    must occur exactly once."""
+def fwd_sweep_variants() -> dict[str, list[tuple[str, str]]]:
+    """The shipped tiles, then B1's query rows per block (64, 128) by keys
+    per streamed tile (32, 64, 128), both head_dims alike."""
+    variants = {"shipped": []}
+    for m in (64, 128):
+        for n in (32, 64, 128):
+            variants[f"m{m}_n{n}"] = [
+                (f"static constexpr int {k} = {SHIPPED_FWD_TILES[k]};",
+                 f"static constexpr int {k} = {v};")
+                for k, v in (("kM", m), ("kN", n))]
+    return variants
+
+
+def substitute(text: str, name: str, subs,
+               source: str = "flash_bwd.cu") -> str:
+    """``text`` (of ``source``) with each (old, new) of ``subs`` applied;
+    each old text must occur exactly once."""
     for old, new in subs:
         if text.count(old) != 1:
             raise ValueError(f"{name}: {old!r} occurs {text.count(old)} "
-                             f"times in flash_bwd.cu")
+                             f"times in {source}")
         text = text.replace(old, new)
     return text
 
 
-def build_variants(kernels, variants: dict) -> dict[str, tuple[str, str]]:
-    """Compile one copy of flash_bwd.cu per variant (see substitute), all
+def build_variants(kernels, variants: dict, source: str = "flash_bwd.cu"
+                   ) -> dict[str, tuple[str, str]]:
+    """Compile one copy of ``source`` per variant (see substitute), all
     nvcc processes at once. Returns name -> (library path, ptxas
     report)."""
-    text = (kernels.CSRC / "flash_bwd.cu").read_text()
+    text = (kernels.CSRC / source).read_text()
     out_dir = kernels.BUILD_DIR / "study"
     out_dir.mkdir(parents=True, exist_ok=True)
     for header in kernels.CSRC.glob("*.cuh"):
@@ -105,7 +151,7 @@ def build_variants(kernels, variants: dict) -> dict[str, tuple[str, str]]:
     procs = {}
     for name, subs in variants.items():
         cu = out_dir / f"{name}.cu"
-        cu.write_text(substitute(text, name, subs))
+        cu.write_text(substitute(text, name, subs, source))
         lib = out_dir / f"lib{name}.so"
         procs[name] = (subprocess.Popen(
             [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
@@ -121,10 +167,11 @@ def build_variants(kernels, variants: dict) -> dict[str, tuple[str, str]]:
     return built
 
 
-def use_library(kernels, lib: str) -> None:
-    """Route the wrapper's B2 and B3 launches to the library at ``lib``."""
+def use_library(kernels, lib: str, names=BWD_ENTRY_POINTS) -> None:
+    """Route the wrapper's launches of the entry points ``names`` (default
+    B2 and B3) to the library at ``lib``."""
     dll = ctypes.CDLL(lib)
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in names:
         _, symbol, argtypes = kernels.KERNELS[name]
         fn = getattr(dll, symbol)
         fn.argtypes = argtypes
@@ -132,9 +179,10 @@ def use_library(kernels, lib: str) -> None:
         kernels._functions[name] = fn
 
 
-def bf16_registers(report: str) -> dict[str, dict[str, int]]:
+def bf16_registers(report: str, instances=chip_smoke.BWD_INSTANCES
+                   ) -> dict[str, dict[str, int]]:
     return {n: f for n, f in chip_smoke.ptxas_kernels(report).items()
-            if n in chip_smoke.BWD_INSTANCES and "_bf16" in n}
+            if n in instances and "_bf16" in n}
 
 
 class Shape:
@@ -158,6 +206,34 @@ class Shape:
         got = attention._flash_bwd_cuda(*self.args(), causal=True,
                                         scale=self.scale)
         return chip_smoke.bwd_errors(torch, got, self.want)
+
+
+class FwdShape:
+    """One timing shape's q/k/v from ``gen`` and the plain version's
+    (out, lse), computed once."""
+
+    def __init__(self, torch, attention, gen, b, t, h, d):
+        self.q, self.k, self.v = (
+            torch.randn(b, t, h, d, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(3))
+        self.scale = d ** -0.5
+        self.want = attention._flash_plain_bthd(self.q, self.k, self.v,
+                                                causal=True,
+                                                scale=self.scale)
+
+    def run(self, attention):
+        return attention._flash_attention_cuda(self.q, self.k, self.v,
+                                               causal=True, scale=self.scale)
+
+    def errors(self, attention) -> dict:
+        return chip_smoke.fwd_errors(self.run(attention), self.want)
+
+    def checks(self, errs: dict) -> dict[str, bool]:
+        """Whether each of chip_smoke's B1 checks at this shape passes."""
+        return chip_smoke.fwd_checks(errs, self.q.dtype, rows=True)
+
+    def ms(self, torch, attention) -> float:
+        return chip_smoke.device_ms(torch, lambda: self.run(attention), 10)
 
 
 def verdict(errs: dict) -> dict[str, bool]:
@@ -211,9 +287,52 @@ def controls(torch, kernels, attention, shapes) -> bool:
     return ok
 
 
+def fwd_sweep(torch, kernels, attention, shapes) -> bool:
+    variants = fwd_sweep_variants()
+    built = build_variants(kernels, variants, "flash_fwd.cu")
+    ok = True
+    for name in [*variants, "shipped"]:
+        lib, report = built[name]
+        use_library(kernels, lib, ("flash_fwd",))
+        ptxas = bf16_registers(report, chip_smoke.FWD_INSTANCES)
+        # A variant is rejected at a head_dim where its instance spills.
+        row = {"variant": name, "ptxas": ptxas,
+               "rejected": sorted(n for n, f in ptxas.items()
+                                  if f["spill_bytes"])}
+        for tag, s in shapes.items():
+            checks = s.checks(s.errors(attention))
+            ok &= all(checks.values())
+            row[tag] = {"ms": s.ms(torch, attention), "checks": checks}
+        log("fwd-sweep: " + json.dumps(row))
+    return ok
+
+
+def fwd_controls(torch, kernels, attention, shapes) -> bool:
+    built = build_variants(kernels, {"shipped": [], **FWD_CONTROLS},
+                           "flash_fwd.cu")
+    ok = True
+    for name, (lib, _) in built.items():
+        use_library(kernels, lib, ("flash_fwd",))
+        row = {"variant": name}
+        for tag, s in shapes.items():
+            errs = s.errors(attention)
+            passed = s.checks(errs)
+            row[tag] = {"errors": errs, "passes": passed}
+            if name == "shipped":
+                ok &= all(passed.values())
+            else:
+                ok &= not all(passed.values())
+        log("fwd-controls: " + json.dumps(row))
+    return ok
+
+
+STUDIES = {"sweep": sweep, "controls": controls, "fwd-sweep": fwd_sweep,
+           "fwd-controls": fwd_controls}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("study", choices=("sweep", "controls"))
+    ap.add_argument("study", choices=tuple(STUDIES))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -229,10 +348,10 @@ def main(argv=None) -> int:
         f"{chip_smoke.card_line()}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    shapes = {tag: Shape(torch, attention, gen, *dims)
+    shape = FwdShape if args.study.startswith("fwd-") else Shape
+    shapes = {tag: shape(torch, attention, gen, *dims)
               for tag, dims in SHAPES.items()}
-    study = sweep if args.study == "sweep" else controls
-    ok = study(torch, kernels, attention, shapes)
+    ok = STUDIES[args.study](torch, kernels, attention, shapes)
     log(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

@@ -314,6 +314,36 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
         chip_smoke.sass_mma_counts("")
 
 
+def test_chip_smoke_counts_tensor_core_instructions_in_the_forward():
+    """The same SASS check on the flash forward's library: exactly the 4
+    instances, the bf16 ones with tensor-core instructions and the fp32
+    (FMA) ones with none; the backward's instances do not count there."""
+    chip_smoke = _repo_module("chip_smoke")
+    want = {f"flash_fwd_kernel_{dt}{d}": (3 if dt == "bf16" else 0)
+            for dt in ("bf16", "fp32") for d in (64, 128)}
+    assert set(want) == chip_smoke.FWD_INSTANCES
+    fwd = chip_smoke.FWD_INSTANCES
+    both = _sass({**want, "flash_bwd_dq_kernel_bf1664": 2})
+    assert chip_smoke.sass_mma_counts(both, fwd) == want
+    missing = dict(want)
+    del missing["flash_fwd_kernel_bf16128"]
+    with pytest.raises(AssertionError, match="not the instances"):
+        chip_smoke.sass_mma_counts(_sass(missing), fwd)
+    no_mma = dict(want, flash_fwd_kernel_bf1664=0)
+    with pytest.raises(AssertionError, match="bf16 instances need some"):
+        chip_smoke.sass_mma_counts(_sass(no_mma), fwd)
+    fp32_mma = dict(want, flash_fwd_kernel_fp32128=1)
+    with pytest.raises(AssertionError,
+                       match="fp32128: 1 tensor-core instructions"):
+        chip_smoke.sass_mma_counts(_sass(fp32_mma), fwd)
+    with pytest.raises(AssertionError, match="listed no flash_fwd kernel"):
+        chip_smoke.sass_mma_counts(_sass({"flash_bwd_dq_kernel_bf1664": 2}),
+                                   fwd)
+    assert chip_smoke.kernel_name(
+        "_ZN45_GLOBAL__N__0_12_flash_fwd_cu_021flash_fwd_kernel_bf16ILi128E"
+        "EEvNS_6ParamsE") == "flash_fwd_kernel_bf16128"
+
+
 _PTXAS = """\
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0_12_flash_bwd_cu_025flash_bwd_dkv_kernel_bf16ILi128EEEvNS_6ParamsE' for 'sm_90a'
 ptxas info    : Function properties for _ZN45_GLOBAL__N__0_12_flash_bwd_cu_025flash_bwd_dkv_kernel_bf16ILi128EEEvNS_6ParamsE
@@ -362,6 +392,59 @@ def test_bwd_row_error_sees_a_fault_in_small_rows():
     assert e["row_err"] == pytest.approx(0.1, rel=1e-4)
     assert chip_smoke.bwd_errors(torch, (want,) * 3, (want,) * 3)[
         "dk"]["row_err"] == 0.0
+
+
+def test_fwd_row_error_sees_a_fault_in_small_late_rows():
+    """B1's row error in chip_smoke.py: a 10 % fault in the late rows of a
+    causal output, which are small, reads 0.1 while the max abs error of
+    out stays under TOL (and lse is untouched), so only the row check
+    fails it."""
+    chip_smoke = _repo_module("chip_smoke")
+    rng = np.random.default_rng(1)
+    t, d = 2048, 64
+    # Row i of a causal output averages i + 1 unit-variance values.
+    rows = rng.standard_normal((t, d)) / np.sqrt(np.arange(1, t + 1))[:, None]
+    want = torch.from_numpy(rows.astype(np.float32)).reshape(1, t, 1, d)
+    lse = torch.from_numpy(rng.standard_normal((1, 1, t)).astype(np.float32))
+    got = want.clone()
+    got[:, 1024:] *= 1.1
+    errs = chip_smoke.fwd_errors((got, lse), (want, lse))
+    assert errs["max_abs_err"] < chip_smoke.TOL[("flash_fwd",
+                                                 "torch.bfloat16")]
+    assert errs["lse_err"] == 0.0
+    assert errs["row_err"] == pytest.approx(0.1, rel=1e-4)
+    dt = torch.bfloat16
+    assert chip_smoke.fwd_checks(errs, dt) == {"max_abs": True, "lse": True}
+    assert chip_smoke.fwd_checks(errs, dt, rows=True)["row"] is False
+    with pytest.raises(AssertionError, match="row tol"):
+        chip_smoke._check_fwd("late rows", (got, lse), (want, lse), dt,
+                              rows=True)
+    sound = chip_smoke.fwd_errors((want, lse), (want, lse))
+    assert sound["row_err"] == 0.0
+    assert all(chip_smoke.fwd_checks(sound, dt, rows=True).values())
+    with pytest.raises(AssertionError, match="flash: out"):
+        chip_smoke.fwd_errors((got.to(dt), lse), (want, lse))
+
+
+def test_flash_fwd_study_variants_apply_to_the_source():
+    """Every substitution of the study's forward sweep and controls
+    matches flash_fwd.cu exactly once, and each control changes it."""
+    study = _repo_module("flash_bwd_study")
+    from tony_tpu_torch import kernels
+
+    text = (kernels.CSRC / "flash_fwd.cu").read_text()
+    for name, subs in {**study.fwd_sweep_variants(),
+                       **study.FWD_CONTROLS}.items():
+        changed = study.substitute(text, name, subs, "flash_fwd.cu")
+        if name in study.FWD_CONTROLS:
+            assert changed != text, name
+    m128 = study.substitute(text, "m128_n32",
+                            study.fwd_sweep_variants()["m128_n32"],
+                            "flash_fwd.cu")
+    assert "static constexpr int kM = 128;" in m128
+    assert "static constexpr int kN = 32;" in m128
+    with pytest.raises(ValueError, match="occurs 0 times in flash_fwd.cu"):
+        study.substitute(text, "bad", [("no such line", "")], "flash_fwd.cu")
 
 
 def test_flash_bwd_study_variants_apply_to_the_source():

@@ -146,25 +146,7 @@ __device__ __forceinline__ int first_query_tile(const Params& p, int k0) {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-// Start copying rows [row0, row0 + ROWS) of one head into a shared bf16
-// tile with row stride D + 8; rows at or past n_rows are zero-filled.
-template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                int64_t row_stride, int row0,
-                                                int n_rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  static_assert(ROWS * kChunks % THREADS == 0, "tile not a whole pass");
-#pragma unroll
-  for (int pass = 0; pass < ROWS * kChunks / THREADS; ++pass) {
-    const int i = threadIdx.x + pass * THREADS;
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool valid = row0 + r < n_rows;
-    const bf16* from =
-        src + (valid ? (int64_t)(row0 + r) * row_stride + c : 0);
-    tc::cp_async_16(dst + r * (D + 8) + c, from, valid);
-  }
-}
+using tc::load_tile_async;
 
 template <int D>
 struct DqBf16 {

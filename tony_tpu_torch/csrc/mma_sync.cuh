@@ -52,6 +52,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Start copying rows [row0, row0 + ROWS) of one head into a shared bf16
+// tile with row stride D + 8 (the 16-byte pad keeps ldmatrix free of bank
+// conflicts), 16 bytes a thread; rows at or past n_rows are zero-filled.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int64_t row_stride, int row0,
+                                                int n_rows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  static_assert(ROWS * kChunks % THREADS == 0, "tile not a whole pass");
+#pragma unroll
+  for (int pass = 0; pass < ROWS * kChunks / THREADS; ++pass) {
+    const int i = threadIdx.x + pass * THREADS;
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const bool valid = row0 + r < n_rows;
+    const __nv_bfloat16* from =
+        src + (valid ? (int64_t)(row0 + r) * row_stride + c : 0);
+    cp_async_16(dst + r * (D + 8) + c, from, valid);
+  }
+}
+
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
 // and register i of every lane receives its part of matrix i.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
