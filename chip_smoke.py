@@ -42,10 +42,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. train parity — fp32 (TF32 off), 2 layers, d 256, GQA 16/4: losses of 3
              steps and first-step gradients on the card equal the CPU's
              plain path, with remat off, "full" and "dots".
+9. job     — the train CLI as a job runs it, at bench_transformer's full
+             width: a uint16 .tokens corpus of 32 records x 2049 tokens
+             from --seed (4 batches, one epoch = 4 steps) read through
+             runtime.sharded_reader and io.device_prefetch; job A trains 8
+             steps checkpointing every 2, job B trains 4, exits, and resumes
+             from its step-4 checkpoint to 8. Step 8 of A and of B must be
+             equal bit for bit in every leaf (params, AdamW moments, count,
+             step). Then the serve CLI serves B's checkpoint (fp32, so the
+             greedy tokens can be held exactly): 4 POSTs equal
+             DecodeSession.generate on the restored params. Then, on the
+             train phase's in-memory state: the save() wall and the stall
+             it adds to the next step, persist (save to commit), restore,
+             the bytes, a plain pinned copy of the same bytes and the
+             PCIe bound, and the step time with batches from the file
+             through the prefetcher. Everything is written under a
+             temporary directory, removed at the end (20 GB free needed).
 
 The launch counters are set to 0 just before each path (phases 3-4, the
-serving path; phase 7, the training path) and read just after; every kernel
-of a path must have launched there. The last three lines are the kernels
+serving path; phase 7, the training path; phase 9's jobs and serving, the
+job path) and read just after; every kernel of a path must have launched
+there. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}.
 """
@@ -54,10 +71,15 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import urllib.request
 from pathlib import Path
@@ -104,6 +126,19 @@ PARITY_REMAT = [(False, "full"), (True, "full"), (True, "dots")]
 # p and ds to bf16 read 1.8e-3 there, but only 9e-7 on the losses.
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_GRAD_TOL = 1e-5
+
+# Job phase: bench_transformer's widths through the train CLI, a corpus of
+# 4 batches (one epoch = 4 steps), job A straight to 8 steps with a
+# checkpoint every 2, job B to 4 and then resumed to 8.
+JOB_RECORDS = TRAIN_BATCH * 4
+JOB_STEPS, JOB_HALF, JOB_EVERY = 8, 4, 2
+# 1e-3: the CLI's default 1e-2 is tuned for the small CPU configs; at full
+# width the loss of a resumed half must still fall over its 4 steps.
+JOB_LR = 1e-3
+JOB_MIN_FREE_BYTES = 20e9
+JOB_SERVE_REQUESTS = 4
+# One PCIe Gen5 x16 direction, the D2H bound of a snapshot.
+PCIE_BYTES_PER_S = 64e9
 
 # Parity phase requests: (prompt length, new tokens, engine step at which it
 # is submitted). Six slots, prefill chunks of 32 and prefill batches of 4:
@@ -153,6 +188,7 @@ TOL = {
 # against this limit; their readings are in PERF.md).
 ROW_TOL = 0.02
 ROW_FLOOR = 0.1
+PROFILE_TRIES = 3
 
 
 def log(msg: str) -> None:
@@ -160,27 +196,34 @@ def log(msg: str) -> None:
 
 
 def device_events(torch, fn):
-    """Run fn() once under the profiler; returns ([(name, device_us)] for
-    every device-side event (kernels, memcpy, memset) it caused, the wall
-    ms of that same call, synchronize included)."""
+    """Run fn() under the profiler; returns ([(name, device_us)] for every
+    device-side event (kernels, memcpy, memset) it caused, the wall ms of
+    that same call, synchronize included). The profiler now and then hands
+    back a trace with no device events at all (seen once in ~20 runs on an
+    H100, torch 2.11, mid-script after many good traces): such a call is
+    made again, up to PROFILE_TRIES times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # User annotations (an optimizer's step range) span kernels that are
-    # listed on their own; counting them would count that time twice.
-    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    if not events:
-        raise AssertionError("the profiler saw no device time")
-    return events, wall_ms
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # User annotations (an optimizer's step range) span kernels that
+        # are listed on their own; counting them would count that time
+        # twice.
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            return events, wall_ms
+        log("the profiler saw no device time; profiling the call again")
+    raise AssertionError(f"the profiler saw no device time in "
+                         f"{PROFILE_TRIES} tries")
 
 
 def device_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -1079,7 +1122,7 @@ def train_phase(torch, attention, norms, seed: int) -> dict:
         losses.append(metrics["loss"])
 
     events, wall_ms = device_events(torch, one_step)
-    n_steps = TRAIN_WARMUP + TRAIN_STEPS + 1
+    n_steps = len(losses)  # one loss a step, a profiling retry's included
     launches = {"rms_norm": norms.launches, "flash_fwd": attention.launches,
                 "flash_bwd_dq": attention.launches_dq,
                 "flash_bwd_dkv": attention.launches_dkv}
@@ -1122,7 +1165,7 @@ def train_phase(torch, attention, norms, seed: int) -> dict:
         },
     }
     log("train: " + json.dumps(res))
-    return res
+    return res, (cfg, init_fn, step_fn, state, tokens)
 
 
 def train_parity_phase(torch, seed: int) -> dict:
@@ -1177,6 +1220,289 @@ def train_parity_phase(torch, seed: int) -> dict:
             f"{losses['cpu']}, worst gradient err {worst:.3g} of the leaf "
             f"max: ok")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: a job that reads its data shard, checkpoints, resumes and serves
+# ---------------------------------------------------------------------------
+
+def write_corpus(path: Path, seed: int, n_records: int, seq: int,
+                 vocab: int) -> None:
+    """n_records uint16 records of seq + 1 tokens from ``seed``: each
+    record repeats one of 8 shared 8-token motifs with 15 % noise tokens,
+    so every batch teaches the same structure and the loss falls step
+    after step."""
+    rng = np.random.default_rng(seed)
+    motifs = rng.integers(1, vocab, (8, 8))
+    reps = -(-(seq + 1) // 8)
+    rows = np.tile(motifs[rng.integers(0, 8, n_records)], reps)[:, :seq + 1]
+    noise = rng.integers(1, vocab, rows.shape)
+    rows = np.where(rng.random(rows.shape) < 0.15, noise, rows)
+    rows.astype(np.uint16).tofile(path)
+
+
+def model_args(cfg: dict, dtype: str) -> list[str]:
+    """train.py / serve.py model flags for a config dict (head_dim must be
+    d_model // n_heads and d_ff 4 * d_model, as the CLIs derive them)."""
+    kv = cfg["n_kv_heads"] or cfg["n_heads"]
+    assert cfg["head_dim"] == cfg["d_model"] // cfg["n_heads"]
+    assert cfg["d_ff"] == 4 * cfg["d_model"]
+    return ["--d-model", str(cfg["d_model"]), "--n-layers",
+            str(cfg["n_layers"]), "--n-heads", str(cfg["n_heads"]),
+            "--n-kv-heads", str(kv), "--vocab", str(cfg["vocab_size"]),
+            "--dtype", dtype]
+
+
+def run_cli(main, argv: list[str]) -> str:
+    """main(argv) with its standard output captured (and logged); raises
+    unless it returns 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    log(out.rstrip())
+    if rc != 0:
+        raise AssertionError(f"{main.__module__}.main exited {rc}")
+    return out
+
+
+def state_bits(torch, state) -> dict:
+    """{path: tensor} of every leaf of a TrainState, floats viewed as the
+    integers of their width, so torch.equal compares bits."""
+    from tony_tpu_torch.interop import train_state_leaves
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for path, v in train_state_leaves(state):
+        t = torch.as_tensor(v).detach()
+        if t.is_floating_point():
+            t = t.view(ints[t.element_size()])
+        out[path] = t
+    return out
+
+
+def serve_checkpoint(torch, ckpt: Path, root: Path, cfg_kw: dict,
+                     params: dict, seed: int) -> dict:
+    """serve.py --ckpt in a thread (fp32, TF32 off); JOB_SERVE_REQUESTS
+    greedy POSTs must equal DecodeSession.generate on ``params`` (the
+    restored masters) token for token."""
+    from tony_tpu_torch import serve as serve_cli
+    from tony_tpu_torch.models import DecodeSession, TransformerConfig
+
+    cfg = TransformerConfig(dtype="float32", **{**cfg_kw, "max_seq": 256})
+    addr = root / "serve.addr"
+    argv = (["--device", "cuda", "--ckpt", str(ckpt), "--max-seq", "256",
+             "--slots", "4", "--port", "0", "--addr-file", str(addr),
+             "--max-requests", str(JOB_SERVE_REQUESTS)]
+            + model_args(cfg_kw, "float32"))
+    result: dict = {}
+
+    def serve():
+        try:
+            result["out"] = run_cli(serve_cli.main, argv)
+        except BaseException as exc:  # re-raised below, on the main thread
+            result["exc"] = exc
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 600
+    while not addr.exists():
+        if not thread.is_alive() or time.monotonic() > deadline:
+            thread.join(timeout=1)
+            raise AssertionError(f"serve.py did not start: "
+                                 f"{result.get('exc')!r}")
+        time.sleep(0.1)
+    port = int(addr.read_text().strip().rpartition(":")[2])
+    rng = np.random.default_rng(seed + 5)
+    bodies = [{"prompt": rng.integers(0, cfg.vocab_size, int(n)).tolist(),
+               "max_new_tokens": 16}
+              for n in rng.integers(16, 65, JOB_SERVE_REQUESTS)]
+    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+        replies = list(pool.map(lambda b: _post(port, "/generate", b),
+                                bodies))
+    thread.join(timeout=120)
+    if thread.is_alive() or "exc" in result:
+        raise AssertionError(f"serve.py did not exit cleanly: "
+                             f"{result.get('exc')!r}")
+    if f"restored step {JOB_STEPS}" not in result["out"]:
+        raise AssertionError("serve.py did not restore the last step")
+    session = DecodeSession(params, cfg, device="cuda")
+    for body, reply in zip(bodies, replies):
+        want = session.generate(np.asarray(body["prompt"], np.int32)[None],
+                                body["max_new_tokens"])[0].cpu().tolist()
+        if reply["tokens"] != want:
+            raise AssertionError(f"served tokens {reply['tokens']} != "
+                                 f"generate {want}")
+    log(f"serve --ckpt: {len(replies)} greedy replies equal "
+        f"DecodeSession.generate on the restored params")
+    return {"requests": len(replies),
+            "tokens": sum(r["length"] for r in replies)}
+
+
+def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
+    """Jobs A and B and serving from B's checkpoint at full width, with
+    the launch counters set to 0 just before and read just after."""
+    from tony_tpu_torch import train as train_cli
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import train_state_leaves
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+
+    corpus = root / "corpus.tokens"
+    write_corpus(corpus, seed, JOB_RECORDS, TRAIN_SEQ,
+                 BENCH_TRANSFORMER["vocab_size"])
+    base = (["--device", "cuda", "--data", str(corpus), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(JOB_LR),
+             "--seed", str(seed)]
+            + model_args(BENCH_TRANSFORMER, "bfloat16"))
+    dir_a, dir_b = root / "job_a", root / "job_b"
+    norms.launches = 0
+    attention.launches = attention.launches_dq = attention.launches_dkv = 0
+    t0 = time.perf_counter()
+    run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
+                                    "--checkpoint-every", str(JOB_EVERY),
+                                    "--ckpt-dir", str(dir_a)])
+    t_a = time.perf_counter() - t0
+    run_cli(train_cli.main, base + ["--steps", str(JOB_HALF),
+                                    "--ckpt-dir", str(dir_b)])
+    out = run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
+                                          "--ckpt-dir", str(dir_b)])
+    if f"resumed from step {JOB_HALF}" not in out:
+        raise AssertionError(f"job B did not resume from step {JOB_HALF}")
+    t_b = time.perf_counter() - t0 - t_a
+
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    init_fn, _ = make_train_step(cfg, device="cuda")
+    states = {}
+    for name, d in (("a", dir_a), ("b", dir_b)):
+        states[name] = CheckpointManager(d).restore(init_fn(seed + 7),
+                                                    step=JOB_STEPS)
+        if states[name] is None:
+            raise AssertionError(f"job {name}: no step {JOB_STEPS}")
+    bits_a, bits_b = (state_bits(torch, states[k]) for k in ("a", "b"))
+    if set(bits_a) != set(bits_b):
+        raise AssertionError("jobs A and B saved other leaves")
+    unequal = [p for p in bits_a if not torch.equal(bits_a[p], bits_b[p])]
+    if unequal:
+        a, b = (dict(train_state_leaves(states[k])) for k in ("a", "b"))
+        worst = max((torch.as_tensor(a[p]).float()
+                     - torch.as_tensor(b[p]).float()).abs().max().item()
+                    for p in unequal)
+        raise AssertionError(
+            f"resumed job B differs from job A in {len(unequal)} of "
+            f"{len(bits_a)} leaves (worst abs diff {worst}): {unequal[:6]}")
+    n_leaves = len(bits_a)
+    log(f"job: A ({JOB_STEPS} steps) and B ({JOB_HALF} + resume to "
+        f"{JOB_STEPS}) equal bit for bit in all {n_leaves} leaves")
+    del states["a"], bits_a, bits_b
+
+    params = states.pop("b").params
+    served = serve_checkpoint(torch, dir_b, root, BENCH_TRANSFORMER,
+                              params, seed)
+    launches = {"rms_norm": norms.launches, "flash_fwd": attention.launches,
+                "flash_bwd_dq": attention.launches_dq,
+                "flash_bwd_dkv": attention.launches_dkv}
+    log(f"launches on the job path: {launches}; job A {t_a:.2f} s, job B "
+        f"(both runs) {t_b:.2f} s, serving {served}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the job "
+                                 f"path")
+    return {"launches": launches, "job_a_s": t_a, "job_b_s": t_b,
+            "leaves_equal": n_leaves, "served": served,
+            "train_args": base}
+
+
+def job_timing(torch, train_cli_args: list[str], train: tuple, root: Path,
+               train_median_ms: float) -> dict:
+    """Checkpoint and input costs on the train phase's in-memory state
+    (bench_transformer, fixed batch): three saves, each with the save()
+    wall, the next step's time against the median of the 5 steps just
+    before it, and persist (save() to commit); restore into a fresh
+    template; the bytes of one step; a plain pinned copy_ of the same
+    leaves; and the step time with batches from the corpus through the
+    sharded reader and device_prefetch."""
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch import train as train_cli
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import train_state_leaves
+    from tony_tpu_torch.io import device_prefetch
+
+    cfg, init_fn, step_fn, state, tokens = train
+    leaves = [torch.as_tensor(v) for _, v in train_state_leaves(state)]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    def timed_steps(n, batches=None):
+        nonlocal state
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        marks[0].record()
+        for i in range(n):
+            state, _ = step_fn(state, tokens if batches is None
+                               else next(batches))
+            marks[i + 1].record()
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+    mgr = CheckpointManager(root / "timing", max_to_keep=1)
+    saves = []
+    for _ in range(3):
+        base_ms = float(np.median(timed_steps(5)))
+        step = int(state.step)
+        t0 = time.perf_counter()
+        mgr.save(step, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        next_ms = timed_steps(1)[0]
+        mgr.wait()
+        persist_ms = (time.perf_counter() - t0) * 1e3
+        saves.append({"step": step, "save_ms": save_ms,
+                      "next_step_ms": next_ms, "median_ms": base_ms,
+                      "stall_ms": next_ms - base_ms,
+                      "persist_ms": persist_ms})
+    step_dir = root / "timing" / f"step_{saves[-1]['step']}"
+    written = sum(f.stat().st_size for f in step_dir.iterdir())
+
+    template = init_fn(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr.restore(template)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if restored is None or int(restored.step) != saves[-1]["step"]:
+        raise AssertionError("timing restore did not return the last save")
+    del template, restored
+
+    block = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    views, off = [], 0
+    for t in leaves:
+        n = t.numel() * t.element_size()
+        views.append(block[off:off + n].view(t.dtype).view(t.shape))
+        off += n
+    copy_ms = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        for v, t in zip(views, leaves):
+            v.copy_(t, non_blocking=True)
+        b.record()
+        torch.cuda.synchronize()
+        copy_ms.append(a.elapsed_time(b))
+    del block, views
+
+    args = train_cli.parse_args(train_cli_args)
+    with device_prefetch(train_cli.corpus_batches(args, rt.task_context()),
+                         "cuda") as batches:
+        timed_steps(2, batches)
+        file_ms = timed_steps(10, batches)
+    res = {
+        "state_bytes": nbytes, "bytes_written": written,
+        "d2h_bound_ms": nbytes / PCIE_BYTES_PER_S * 1e3,
+        "pinned_copy_ms": copy_ms, "saves": saves,
+        "restore_ms": restore_ms,
+        "file_step_ms_median": float(np.median(file_ms)),
+        "file_step_ms": file_ms, "fixed_step_ms_median": train_median_ms,
+    }
+    log("job timing: " + json.dumps(res))
+    return res
 
 
 def card_line() -> str:
@@ -1278,14 +1604,30 @@ def main(argv=None) -> int:
 
     # Slice 2's path: the train step at full width (it resets the counters
     # itself and reads them just after).
-    train = train_phase(torch, attention, norms, args.seed)
+    train, train_run = train_phase(torch, attention, norms, args.seed)
     train_parity_phase(torch, args.seed)
+
+    # Slice 5's path: jobs that read a file, checkpoint, resume and serve
+    # (the counters are reset and read inside), then checkpoint and input
+    # timings on the train phase's state.
+    with tempfile.TemporaryDirectory(prefix="tony-job-") as tmp:
+        root = Path(tmp)
+        free = shutil.disk_usage(root).free
+        if free < JOB_MIN_FREE_BYTES:
+            raise AssertionError(
+                f"the job phase writes ~15 GB of checkpoints under {root}, "
+                f"which has {free / 1e9:.1f} GB free (20 GB needed)")
+        job = job_phase(torch, attention, norms, args.seed, root)
+        job["timing"] = job_timing(torch, job.pop("train_args"), train_run,
+                                   root, train["step_ms_median"])
+    del train_run
     rows = (rms_row, flash_row, dq_row, dkv_row)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
         row["launches_by_path"] = {
             "train": train["launches"][row["name"]],
-            "serve_generate": serve_path.get(row["name"], 0)}
+            "serve_generate": serve_path.get(row["name"], 0),
+            "job": job["launches"][row["name"]]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

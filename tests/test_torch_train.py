@@ -3,8 +3,10 @@ training forward's logits, ``lm_loss`` and its gradients on the same
 converted weights, remat policies, a 5-step trajectory of ``make_train_step``
 (clip + AdamW) with the final params, and the clip against optax. Then the
 runtime (``task_context``, ``local_rank``, ``initialize`` in two gloo
-processes), the train CLI, and one run submitted through the orchestrator
-with ``--framework pytorch``. Inputs come from seeded numpy generators; all
+processes), the train CLI (synthetic and file corpora, checkpoints, a
+resumed run equal to a straight one), serving from its checkpoint, and a job
+submitted twice through the orchestrator with ``--framework pytorch``, the
+second resuming the first. Inputs come from seeded numpy generators; all
 comparisons are fp32 unless a test says otherwise."""
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import jax
@@ -34,8 +37,15 @@ from tony_tpu.models.train import lm_loss as jax_lm_loss
 from tony_tpu.models.train import make_train_step as jax_make_train_step
 from tony_tpu.parallel.mesh import MeshSpec, build_mesh
 from tony_tpu_torch import runtime as rt
+from tony_tpu_torch import serve as serve_cli
 from tony_tpu_torch import train as train_cli
-from tony_tpu_torch.interop import params_from_numpy, params_to_numpy
+from tony_tpu_torch.checkpoint import CheckpointManager
+from tony_tpu_torch.interop import (
+    params_from_numpy,
+    params_to_numpy,
+    train_state_to_numpy,
+)
+from tony_tpu_torch.io import write_jsonl_blocks
 from tony_tpu_torch.models import (
     TrainState,
     TransformerConfig,
@@ -364,19 +374,130 @@ class TestRuntime:
 TINY_CLI = ["--steps", "6", "--batch", "4", "--seq", "32", "--d-model",
             "32", "--n-layers", "2", "--n-heads", "2", "--n-kv-heads", "1",
             "--vocab", "64"]
+# The model and batch flags of TINY_CLI, without --steps.
+TINY_MODEL = TINY_CLI[2:]
+
+
+def _motif_corpus(path, n_batches: int, fmt: str = "tokens") -> str:
+    """n_batches batches of 4 records of 33 tokens: each record repeats
+    one of 4 shared motifs with noise, so every batch teaches the same
+    structure and the loss falls step after step."""
+    rng = np.random.default_rng(0)
+    motifs = rng.integers(1, 64, (4, 8))
+    rows = np.tile(motifs[rng.integers(0, 4, 4 * n_batches)], 5)[:, :33]
+    rows = np.where(rng.random(rows.shape) < 0.15,
+                    rng.integers(1, 64, rows.shape), rows)
+    if fmt == "tokens":
+        rows.astype(np.uint16).tofile(path)
+    else:
+        write_jsonl_blocks(str(path), ({"tokens": r.tolist()} for r in rows))
+    return str(path)
+
+
+def _restored(ckpt_dir, step: int) -> dict:
+    """{path: array} of the train state checkpointed at ``step``."""
+    cfg = train_cli.model_config_from_args(
+        train_cli.parse_args(TINY_MODEL), max_seq=33)
+    init_fn, _ = make_train_step(cfg, device="cpu")
+    state = CheckpointManager(ckpt_dir).restore(init_fn(9), step=step)
+    assert state is not None, f"no step {step} under {ckpt_dir}"
+    return train_state_to_numpy(state)
 
 
 class TestTrainCli:
-    def test_cpu_run_descends_and_exits_zero(self, capsys):
-        assert train_cli.main(["--device", "cpu", *TINY_CLI]) == 0
+    def test_cpu_run_descends_and_exits_zero(self, capsys, tmp_path):
+        assert train_cli.main(["--device", "cpu", "--ckpt-dir",
+                               str(tmp_path), *TINY_CLI]) == 0
         out = capsys.readouterr().out
         assert "step 5: loss" in out and "done: loss" in out
+        assert CheckpointManager(tmp_path).latest_step() == 6
 
-    def test_data_and_ckpt_wait_for_later_slices(self):
-        with pytest.raises(NotImplementedError, match="input slice"):
-            train_cli.main(["--device", "cpu", "--data", "x.bin"])
-        with pytest.raises(NotImplementedError, match="checkpoint slice"):
-            train_cli.main(["--device", "cpu", "--ckpt-dir", "ck"])
+    @pytest.mark.parametrize("fmt", ["tokens", "jblk"])
+    def test_data_file_corpus(self, fmt, tmp_path, capsys):
+        data = _motif_corpus(tmp_path / f"c.{fmt}", 3, fmt)
+        ck = tmp_path / "ck"
+        assert train_cli.main(["--device", "cpu", "--data", data,
+                               "--lr", "3e-3", "--steps", "5",
+                               "--checkpoint-every", "2", "--ckpt-dir",
+                               str(ck), *TINY_MODEL]) == 0
+        assert "done: loss" in capsys.readouterr().out
+        assert CheckpointManager(ck)._complete_steps() == [2, 4, 5]
+
+    def test_bad_data_is_refused(self, tmp_path):
+        mixed = f"{tmp_path / 'a.jblk'},{tmp_path / 'b.tokens'}"
+        with pytest.raises(ValueError, match="mixes"):
+            train_cli.main(["--device", "cpu", "--data", mixed,
+                            "--ckpt-dir", str(tmp_path), *TINY_CLI])
+        short = _motif_corpus(tmp_path / "s.jblk", 1, "jblk")
+        with pytest.raises(ValueError, match=r"seq\+1"):
+            train_cli.main(["--device", "cpu", "--data", short,
+                            "--ckpt-dir", str(tmp_path / "k"), *TINY_MODEL,
+                            "--seq", "16"])
+
+    def test_resumed_run_equals_a_straight_run(self, tmp_path, capsys):
+        """4 + 4 steps, resumed at the end of the first epoch of a
+        4-batch corpus, land bit for bit where 8 straight steps do."""
+        data = _motif_corpus(tmp_path / "c.tokens", 4)
+        base = ["--device", "cpu", "--data", data, "--lr", "3e-3",
+                *TINY_MODEL]
+        assert train_cli.main(base + ["--steps", "8", "--ckpt-dir",
+                                      str(tmp_path / "a")]) == 0
+        assert train_cli.main(base + ["--steps", "4", "--ckpt-dir",
+                                      str(tmp_path / "b")]) == 0
+        capsys.readouterr()
+        assert train_cli.main(base + ["--steps", "8", "--ckpt-dir",
+                                      str(tmp_path / "b")]) == 0
+        assert "resumed from step 4" in capsys.readouterr().out
+        a, b = _restored(tmp_path / "a", 8), _restored(tmp_path / "b", 8)
+        assert set(a) == set(b)
+        for path in a:
+            np.testing.assert_array_equal(a[path], b[path], err_msg=path)
+        # At the target already: nothing to do, exit 0.
+        assert train_cli.main(base + ["--steps", "8", "--ckpt-dir",
+                                      str(tmp_path / "b")]) == 0
+        assert "nothing to do" in capsys.readouterr().out
+
+    def test_serve_from_the_checkpoint(self, tmp_path, capsys):
+        """serve.py --ckpt answers with the restored model's greedy
+        tokens."""
+        import threading
+        import urllib.request
+
+        from tony_tpu_torch.models import DecodeSession
+
+        ck = tmp_path / "ck"
+        assert train_cli.main(["--device", "cpu", "--ckpt-dir", str(ck),
+                               *TINY_CLI]) == 0
+        addr = tmp_path / "serve.addr"
+        flags = TINY_MODEL[4:]  # the model flags, without --batch/--seq
+        rc = {}
+        thread = threading.Thread(target=lambda: rc.setdefault(
+            "rc", serve_cli.main(["--device", "cpu", "--ckpt", str(ck),
+                                  "--max-seq", "64", "--slots", "2",
+                                  "--port", "0", "--addr-file", str(addr),
+                                  "--max-requests", "1", *flags])),
+            daemon=True)
+        thread.start()
+        deadline = time.monotonic() + 60
+        while not addr.exists():
+            assert time.monotonic() < deadline and thread.is_alive()
+            time.sleep(0.05)
+        port = addr.read_text().strip().rpartition(":")[2]
+        prompt = [3, 1, 4, 1, 5, 9]
+        body = json.dumps({"prompt": prompt, "max_new_tokens": 6}).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/generate", data=body),
+                timeout=60) as resp:
+            got = json.loads(resp.read())["tokens"]
+        thread.join(timeout=60)
+        assert not thread.is_alive() and rc["rc"] == 0
+        assert "restored step 6" in capsys.readouterr().out
+        cfg = serve_cli.model_config_from_args(serve_cli.parse_args(
+            ["--max-seq", "64", *flags]), max_seq=64)
+        params = serve_cli.restore_params(str(ck), cfg, torch.device("cpu"))[1]
+        want = DecodeSession(params, cfg, device="cpu").generate(
+            np.asarray([prompt], np.int32), 6)[0].tolist()
+        assert got == want
 
     def test_weights_npz_start_from_jax_params(self, models, tmp_path,
                                                capsys):
@@ -388,22 +509,41 @@ class TestTrainCli:
         path = tmp_path / "w.npz"
         np.savez(path, **flat)
         assert train_cli.main(["--device", "cpu", "--weights-npz",
-                               str(path), *TINY_CLI]) == 0
+                               str(path), "--ckpt-dir", str(tmp_path / "ck"),
+                               *TINY_CLI]) == 0
 
-    def test_submitted_through_the_orchestrator(self):
-        """One worker, --framework pytorch: the executor injects RANK,
-        WORLD_SIZE, MASTER_ADDR/PORT and CLUSTER_SPEC; the script trains
-        and exits 0 with a descending loss."""
+    def test_submitted_through_the_orchestrator(self, tmp_path):
+        """One worker, --framework pytorch, submitted twice with the same
+        --ckpt-dir: the executor injects RANK, WORLD_SIZE, MASTER_ADDR/PORT
+        and CLUSTER_SPEC; the first job trains 3 steps (one epoch of its
+        corpus) and checkpoints, the second resumes and trains to 6. Its
+        other --seed would give other weights from scratch, so equality
+        with a straight 6-step run shows it resumed."""
+        data = _motif_corpus(tmp_path / "c.tokens", 3)
+        ck = tmp_path / "ck"
         env = dict(os.environ)
         env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
-        proc = subprocess.run(
-            [sys.executable, "-m", "tony_tpu.client.cli", "local",
-             "--executes", str(REPO / "tony_tpu_torch" / "train.py"),
-             "--framework", "pytorch",
-             "--python_binary_path", sys.executable,
-             "--conf", "tony.worker.instances=1",
-             "--conf", "tony.ps.instances=0",
-             "--task_params", " ".join(["--device", "cpu", *TINY_CLI])],
-            cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-        )
-        assert proc.returncode == 0, proc.stderr[-2000:]
+        run = ["--device", "cpu", "--data", data, "--lr", "3e-3",
+               *TINY_MODEL]
+        common = run + ["--ckpt-dir", str(ck)]
+        for steps, seed in (("3", "0"), ("6", "1")):
+            proc = subprocess.run(
+                [sys.executable, "-m", "tony_tpu.client.cli", "local",
+                 "--executes", str(REPO / "tony_tpu_torch" / "train.py"),
+                 "--framework", "pytorch",
+                 "--python_binary_path", sys.executable,
+                 "--conf", "tony.worker.instances=1",
+                 "--conf", "tony.ps.instances=0",
+                 "--task_params", " ".join(common + ["--steps", steps,
+                                                     "--seed", seed])],
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=300,
+            )
+            assert proc.returncode == 0, proc.stderr[-2000:]
+        ref = tmp_path / "ref"
+        assert train_cli.main(run + ["--ckpt-dir", str(ref), "--steps",
+                                     "6"]) == 0
+        got, want = _restored(ck, 6), _restored(ref, 6)
+        for path in want:
+            np.testing.assert_array_equal(got[path], want[path],
+                                          err_msg=path)

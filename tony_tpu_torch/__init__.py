@@ -4,8 +4,11 @@ It serves and trains the flagship LM on an NVIDIA H100: ``models`` (config,
 parameters, the training forward, ``lm_loss``, ``make_train_step``, KV-cache
 decode, ``DecodeSession``), ``serving`` (the continuous-batching
 ``ServingEngine`` and its HTTP front end), ``ops`` (RMSNorm, RoPE, flash
-attention forward and backward, cross-entropy) and ``runtime`` (the task
-identity and ``torch.distributed`` setup a launched script needs). The TPU
+attention forward and backward, cross-entropy), ``checkpoint`` (the
+``CheckpointManager``, in the JAX package's on-disk format), ``io`` (the
+sharded record reader and the device prefetcher) and ``runtime`` (the task
+identity, ``torch.distributed`` setup and sharded reader a launched script
+needs). The TPU
 kernels on those paths are hand-written CUDA kernels for Hopper under
 ``csrc/``, built with ``nvcc`` at first use (``kernels.py``); each has a plain
 PyTorch twin that runs when the tensors lie on the CPU. The CLIs are

@@ -23,3 +23,26 @@ TONY_SERVING_PREFILL_CHUNK = "TONY_SERVING_PREFILL_CHUNK"
 TONY_SERVING_DECODE_WINDOW = "TONY_SERVING_DECODE_WINDOW"
 TONY_SERVING_MAX_QUEUE = "TONY_SERVING_MAX_QUEUE"
 TONY_SERVING_PORT = "TONY_SERVING_PORT"
+
+# Checkpoint-aware retry: the newest complete step the coordinator saw
+# before retrying the session, and the checkpoint dir it probes (exported
+# when tony.checkpoint.location is set).
+TONY_RESUME_STEP = "TONY_RESUME_STEP"
+TONY_CHECKPOINT_DIR = "TONY_CHECKPOINT_DIR"
+
+# Checkpoint pipeline (tony.ckpt.* conf -> env -> checkpoint/manager.py
+# defaults): saves in flight, persist workers, differential saves and their
+# full-save interval, background snapshot, and the flush-signal file the
+# executor writes when a ckpt_flush order rides its heartbeat reply.
+TONY_CKPT_PIPELINE_DEPTH = "TONY_CKPT_PIPELINE_DEPTH"
+TONY_CKPT_PERSIST_WORKERS = "TONY_CKPT_PERSIST_WORKERS"
+TONY_CKPT_DIFFERENTIAL = "TONY_CKPT_DIFFERENTIAL"
+TONY_CKPT_FULL_EVERY = "TONY_CKPT_FULL_EVERY"
+TONY_CKPT_BG_SNAPSHOT = "TONY_CKPT_BG_SNAPSHOT"
+TONY_CKPT_FLUSH_FILE = "TONY_CKPT_FLUSH_FILE"
+
+# Data-plane tuning (tony.io.* conf -> env -> io/reader.py defaults):
+# prefetch depth, read workers, records per chunk.
+TONY_IO_PREFETCH_DEPTH = "TONY_IO_PREFETCH_DEPTH"
+TONY_IO_READ_WORKERS = "TONY_IO_READ_WORKERS"
+TONY_IO_CHUNK_RECORDS = "TONY_IO_CHUNK_RECORDS"

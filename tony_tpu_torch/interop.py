@@ -10,15 +10,33 @@ shape against the config and returns the same tree as torch tensors on
 the tree paths joined by ``/`` (``embed``, ``layers/wq``, ...).
 ``params_to_numpy`` goes the other way, so trained weights can be compared
 with the JAX package's.
+
+A whole ``TrainState`` maps onto the JAX package's by path:
+``train_state_leaves`` names every leaf of the port's state (step, params,
+and AdamW's per-parameter ``step``/``exp_avg``/``exp_avg_sq``) with the
+``jax.tree_util.keystr`` path of the matching leaf of the JAX ``TrainState``
+(optax's ``chain(clip_by_global_norm, adamw)`` state: one int32 ``count``
+and the ``mu``/``nu`` trees). ``train_state_to_numpy`` and
+``train_state_from_numpy`` move a state to and from ``{path: array}``;
+the checkpoint manager writes and reads the same paths.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import numpy as np
 import torch
 
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.models.train import TrainState
 from tony_tpu_torch.models.transformer import TransformerConfig
+
+# keystr paths of optax.chain(clip_by_global_norm, adamw)'s state: the clip
+# keeps EmptyState, adamw's chain holds ScaleByAdamState first.
+STEP_PATH = ".step"
+COUNT_PATH = ".opt_state[1][0].count"
+_MU, _NU = ".opt_state[1][0].mu", ".opt_state[1][0].nu"
 
 
 def _expected_shapes(cfg: TransformerConfig, fused: bool) -> dict:
@@ -107,3 +125,120 @@ def params_to_numpy(params: dict) -> dict:
     return {key: (params_to_numpy(val) if isinstance(val, dict)
                   else convert(val))
             for key, val in params.items()}
+
+
+def _param_paths(params: dict, prefix: str = "") -> list[tuple[str, Any]]:
+    """(keystr path, tensor) of a params dict, keys sorted as JAX flattens
+    dicts (the order of ``leaves``)."""
+    out = []
+    for key in sorted(params):
+        val, path = params[key], f"{prefix}[{key!r}]"
+        out.extend(_param_paths(val, path) if isinstance(val, dict)
+                   else [(path, val)])
+    return out
+
+
+def _adam_count(opt: torch.optim.Optimizer, params: list) -> int:
+    """optax's single ``count`` from AdamW's per-parameter ``step``: 0 for
+    an optimizer that has not stepped yet; raises unless every parameter
+    agrees."""
+    steps = {int(opt.state[p]["step"]) for p in params if opt.state.get(p)}
+    if steps and any(not opt.state.get(p) for p in params):
+        raise ValueError("AdamW holds state for only some parameters; "
+                         "optax's single count cannot describe it")
+    if len(steps) > 1:
+        raise ValueError(f"AdamW parameters disagree on their step: "
+                         f"{sorted(steps)}")
+    return steps.pop() if steps else 0
+
+
+def train_state_leaves(state: TrainState) -> list[tuple[str, Any]]:
+    """Every leaf of the port's ``TrainState`` as (JAX keystr path, value),
+    in the JAX state's flattening order. Values are the state's own
+    tensors (not copies); a moment of an optimizer that has not stepped
+    is a numpy array of zeros, which is what ``optax.adamw(...).init``
+    holds, and the count is an int32 numpy scalar."""
+    opt = state.opt_state
+    params = _param_paths(state.params)
+    tensors = [p for _, p in params]
+    given = opt.param_groups[0]["params"]
+    if len(opt.param_groups) != 1 or len(given) != len(tensors) or any(
+            a is not b for a, b in zip(given, tensors)):
+        raise ValueError("the optimizer's parameters are not the state's "
+                         "params (in leaves() order)")
+    count = _adam_count(opt, tensors)
+
+    def moment(p, key):
+        st = opt.state.get(p)
+        return st[key] if st else np.zeros(tuple(p.shape), np.float32)
+
+    out = [(STEP_PATH, state.step)]
+    out += [(".params" + path, p) for path, p in params]
+    out.append((COUNT_PATH, np.asarray(count, np.int32)))
+    out += [(_MU + path, moment(p, "exp_avg")) for path, p in params]
+    out += [(_NU + path, moment(p, "exp_avg_sq")) for path, p in params]
+    return out
+
+
+def _host_array(value) -> np.ndarray:
+    if torch.is_tensor(value):
+        t = value.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return np.array(value)
+
+
+def train_state_to_numpy(state: TrainState) -> dict[str, np.ndarray]:
+    """{JAX keystr path: numpy array} of every leaf of ``state`` (copies on
+    the host; bf16 comes back as float32, which holds it exactly)."""
+    return {path: _host_array(v) for path, v in train_state_leaves(state)}
+
+
+def load_train_state(state: TrainState,
+                     values: dict[str, torch.Tensor]) -> TrainState:
+    """Copy ``values`` ({path: tensor}, all of ``train_state_leaves``'s
+    paths) into ``state``'s own tensors, in place, and set AdamW's
+    per-parameter state from the count and moments: the optimizer keeps
+    pointing at the same parameter tensors. Raises on a missing path or
+    a shape or dtype that differs from the state's."""
+    opt = state.opt_state
+    params = _param_paths(state.params)
+
+    def value(path, like: torch.Tensor) -> torch.Tensor:
+        if path not in values:
+            raise ValueError(f"no value for leaf {path!r}")
+        v = values[path]
+        if tuple(v.shape) != tuple(like.shape) or v.dtype != like.dtype:
+            raise ValueError(
+                f"leaf {path!r}: {tuple(v.shape)} {v.dtype} does not match "
+                f"the state's {tuple(like.shape)} {like.dtype}")
+        return v
+
+    if COUNT_PATH not in values:
+        raise ValueError(f"no value for leaf {COUNT_PATH!r}")
+    count = int(values[COUNT_PATH])
+    group = opt.param_groups[0]
+    with torch.no_grad():
+        state.step.copy_(value(STEP_PATH, state.step))
+        for path, p in params:
+            p.copy_(value(".params" + path, p))
+            st = opt.state[p]
+            if not st:
+                on_param = group.get("capturable") or group.get("fused")
+                st["step"] = torch.zeros(
+                    (), dtype=torch.float32,
+                    device=p.device if on_param else "cpu")
+                st["exp_avg"] = torch.zeros_like(p)
+                st["exp_avg_sq"] = torch.zeros_like(p)
+            st["step"].fill_(count)
+            st["exp_avg"].copy_(value(_MU + path, p))
+            st["exp_avg_sq"].copy_(value(_NU + path, p))
+    return state
+
+
+def train_state_from_numpy(flat: dict, state: TrainState) -> TrainState:
+    """Load ``{JAX keystr path: numpy array}`` (e.g. ``train_state_to_numpy``
+    of another state, or a JAX ``TrainState`` flattened with
+    ``jax.tree_util.keystr`` paths) into ``state`` in place."""
+    device = state.step.device
+    return load_train_state(state, {path: _to_tensor(arr, device)
+                                    for path, arr in flat.items()})

@@ -9,7 +9,8 @@ a script needs one call before touching the card::
     ctx = rt.initialize()       # ctx.device: this process's card
 
 Outside a job, or in a job of one process, ``initialize`` only picks the
-device.
+device. ``sharded_reader`` hands the script a record reader over its own
+byte range of the corpus.
 """
 
 from __future__ import annotations
@@ -106,3 +107,21 @@ def initialize(device="cuda") -> TaskContext:
 def tensorboard_port() -> int | None:
     raw = os.environ.get(constants.TB_PORT)
     return int(raw) if raw else None
+
+
+def sharded_reader(paths: list[str], **kwargs):
+    """A ``ShardedRecordReader`` over ``paths`` sharded by this process's
+    identity (``RANK`` of ``WORLD_SIZE``), so every record is read exactly
+    once across the job::
+
+        reader = rt.sharded_reader(files, fmt="tokens", record_len=2049)
+        for batch in reader: ...
+
+    All ``ShardedRecordReader`` keyword arguments pass through."""
+    from tony_tpu_torch.io.reader import ShardedRecordReader
+
+    ctx = task_context()
+    return ShardedRecordReader(
+        paths, task_index=ctx.process_id, num_tasks=ctx.num_processes,
+        **kwargs,
+    )

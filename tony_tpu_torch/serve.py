@@ -5,15 +5,19 @@
         --n-layers 8 --n-heads 16 --n-kv-heads 4 --vocab 32000 \\
         --dtype bfloat16 --max-seq 2048 --slots 16
 
-Weights are fresh from ``--seed``, or read with ``--weights-npz`` from a
-numpy dump of JAX params (keys ``embed``, ``layers/wq``, ...; see
-``interop.params_from_npz``). They are fused once through ``DecodeSession``
+Weights come from ``--ckpt`` (a checkpoint directory written by
+``train.py`` or by the JAX package's ``lm_train.py``: the newest complete
+step's params, restored into a ``make_train_step`` template and cast to
+``--dtype``), or are read with ``--weights-npz`` from a numpy dump of JAX
+params (keys ``embed``, ``layers/wq``, ...; see ``interop.params_from_npz``),
+or are fresh from ``--seed``. They are fused once through ``DecodeSession``
 and served over HTTP through the continuous-batching ``ServingEngine``:
-``POST /generate``, ``GET /healthz``, ``POST /shutdown``. Engine knobs
-default from the ``TONY_SERVING_*`` env the executor exports from
+``POST /generate``, ``GET /healthz``, ``POST /shutdown``. Each ``--models
+name=ckpt_dir`` registers another checkpoint with the engine, restored on
+the first request routed to it (its ``model`` field). Engine knobs default
+from the ``TONY_SERVING_*`` env the executor exports from
 ``tony.serving.*`` conf, and the port from ``TB_PORT`` when a chief serving
-task reserved one. Checkpoint restore (``--ckpt``, ``--models``) waits for
-the checkpoint slice of the port.
+task reserved one.
 """
 
 from __future__ import annotations
@@ -24,10 +28,17 @@ import sys
 
 import torch
 
+import tony_tpu_torch.runtime as rt
 from tony_tpu_torch import constants
+from tony_tpu_torch.checkpoint import CheckpointManager
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.interop import params_from_npz
-from tony_tpu_torch.models import DecodeSession, TransformerConfig, init_params
+from tony_tpu_torch.models import (
+    DecodeSession,
+    TransformerConfig,
+    init_params,
+    make_train_step,
+)
 from tony_tpu_torch.serving import ServingEngine
 from tony_tpu_torch.serving.http import ServingServer
 
@@ -44,8 +55,8 @@ def parse_args(argv):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     p.add_argument("--ckpt", default="",
-                   help="checkpoint restore waits for the checkpoint slice "
-                        "of the port (raises)")
+                   help="checkpoint dir from train.py or lm_train.py (empty: "
+                        "--weights-npz, else fresh weights from --seed)")
     p.add_argument("--weights-npz", default="",
                    help="numpy dump of JAX params (empty: fresh weights "
                         "from --seed)")
@@ -71,7 +82,8 @@ def parse_args(argv):
                         "(0 = serve until /shutdown)")
     p.add_argument("--models", action="append", default=[],
                    help="extra resident checkpoint as name=ckpt_dir "
-                        "(waits for the checkpoint slice; raises)")
+                        "(repeatable); requests route by their 'model' "
+                        "field, restored on first use")
     p.add_argument("--max-resident-models", type=int, default=4)
     p.add_argument("--role", choices=("both", "prefill", "decode"),
                    default="both",
@@ -100,6 +112,27 @@ def model_config_from_args(args, *, max_seq: int) -> TransformerConfig:
     )
 
 
+def restore_params(ckpt_dir: str, cfg: TransformerConfig,
+                   device: torch.device) -> tuple[int, dict] | None:
+    """(step, params) of the newest complete checkpoint under ``ckpt_dir``:
+    the training job checkpoints the whole TrainState, serving keeps its
+    params, cast to the compute dtype. None when nothing is restorable."""
+    ctx = rt.task_context()
+    init_fn, _ = make_train_step(cfg, device=device)
+    mgr = CheckpointManager(ckpt_dir, process_id=ctx.process_id,
+                            num_processes=ctx.num_processes)
+    state = mgr.restore(init_fn(0))
+    if state is None:
+        return None
+
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict)
+                else v.detach().to(cfg.compute_dtype)
+                for k, v in tree.items()}
+
+    return int(state.step), cast(state.params)
+
+
 def _resolve_port(args) -> int:
     if args.port >= 0:
         return args.port
@@ -123,13 +156,24 @@ def _addr_file(args) -> str:
 def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
     device = resolve_device(args.device)
-    if args.ckpt or args.models:
-        raise NotImplementedError(
-            "checkpoint restore (--ckpt, --models) waits for the checkpoint "
-            "slice of the port"
-        )
     cfg = model_config_from_args(args, max_seq=args.max_seq)
-    if args.weights_npz:
+    models = []
+    for entry in args.models:
+        name, _, ckpt_dir = entry.partition("=")
+        if not name or not ckpt_dir:
+            print(f"bad --models entry {entry!r} (want name=ckpt_dir)",
+                  file=sys.stderr)
+            return 2
+        models.append((name, ckpt_dir))
+    if args.ckpt:
+        restored = restore_params(args.ckpt, cfg, device)
+        if restored is None:
+            print(f"no complete checkpoint under {args.ckpt}",
+                  file=sys.stderr)
+            return 2
+        step, params = restored
+        print(f"restored step {step} from {args.ckpt}", flush=True)
+    elif args.weights_npz:
         params = params_from_npz(args.weights_npz, cfg, device)
     else:
         gen = torch.Generator(device=device)
@@ -142,6 +186,15 @@ def main(argv=None) -> int:
         decode_window=args.decode_window, max_queue=args.max_queue,
         seed=args.seed, max_resident_models=args.max_resident_models,
     )
+    for name, ckpt_dir in models:
+        def load(ckpt_dir=ckpt_dir):
+            restored = restore_params(ckpt_dir, cfg, device)
+            if restored is None:
+                raise FileNotFoundError(
+                    f"no complete checkpoint under {ckpt_dir}")
+            return restored[1]
+
+        engine.add_model(name, loader=load)
     engine.start()
     server = ServingServer(engine, port=_resolve_port(args),
                            extra_health={"role": args.role})

@@ -11,25 +11,40 @@ Submitted through the orchestrator with ``--framework pytorch``::
         --conf tony.worker.instances=1 \\
         --task_params "--device cpu --steps 10 --d-model 64 --n-layers 2"
 
-The script calls ``runtime.initialize()`` first, trains on lm_train.py's
-synthetic motif corpus (sharded by process), prints ``step N: loss X`` and
-exits 1 unless the loss is finite and descended. Weights are fresh from
-``--seed`` or read with ``--weights-npz`` from a numpy dump of JAX params.
-File corpora (``--data``) wait for the port's input slice and checkpoints
-(``--ckpt-dir``) for its checkpoint slice; both raise.
+The script calls ``runtime.initialize()`` first and trains on ``--data``
+(comma-separated paths: ``*.jblk`` block-compressed jsonl containers with a
+``tokens`` field per record, anything else fixed-width uint16 token records
+of length seq+1), read through ``runtime.sharded_reader`` (each process
+reads its own byte range; the reader reopens every epoch) and carried onto
+the device by ``io.device_prefetch``; without ``--data``, lm_train.py's
+synthetic motif corpus. Weights are fresh from ``--seed`` or read with
+``--weights-npz`` from a numpy dump of JAX params.
+
+Checkpoints go to ``--ckpt-dir``, else ``$TONY_CHECKPOINT_DIR``, else
+``$TONY_LOG_DIR/lm-checkpoints``, in the JAX package's format: every
+``--checkpoint-every`` steps, when the coordinator's flush order asks, and
+once more (blocking) at the end. A run first restores the newest complete
+step (``TONY_RESUME_STEP`` first, in a retried session), prints ``resumed
+from step N``, and exits 0 at once when that is already ``--steps``. It
+prints ``step N: loss X`` and exits 1 unless the loss of the steps it ran
+is finite and descended.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 import time
 
 import numpy as np
 
 import tony_tpu_torch.runtime as rt
+from tony_tpu_torch import constants
+from tony_tpu_torch.checkpoint import CheckpointManager
 from tony_tpu_torch.interop import params_from_npz
+from tony_tpu_torch.io import device_prefetch
 from tony_tpu_torch.models import TransformerConfig, make_train_step
 
 
@@ -46,11 +61,15 @@ def parse_args(argv):
                    help="numpy dump of JAX params (empty: fresh weights "
                         "from --seed)")
     p.add_argument("--data", default="",
-                   help="file corpora wait for the input slice of the port "
-                        "(raises); empty: the synthetic motif corpus")
+                   help="corpus path(s, comma-sep): *.jblk = block-"
+                        "compressed jsonl containers with a 'tokens' "
+                        "field per record; anything else = fixed-width "
+                        "uint16 token records of length seq+1. Empty: "
+                        "the synthetic motif corpus.")
+    p.add_argument("--checkpoint-every", type=int, default=10)
     p.add_argument("--ckpt-dir", default="",
-                   help="checkpoints wait for the checkpoint slice of the "
-                        "port (raises)")
+                   help="checkpoint dir (default: $TONY_CHECKPOINT_DIR, "
+                        "else $TONY_LOG_DIR/lm-checkpoints)")
     # Model flags with lm_train.py's names and defaults.
     p.add_argument("--d-model", type=int, default=128)
     p.add_argument("--n-layers", type=int, default=2)
@@ -92,9 +111,83 @@ def synthetic_tokens(seed: int, n_docs: int, seq: int, vocab: int):
     return np.stack(docs).astype(np.int32)
 
 
+def _file_batches(args, ctx):
+    """Endless [batch, seq+1] int32 host batches from ``--data``, one
+    reader per epoch (the splits re-shard identically), with
+    examples/lm_train.py's validation."""
+    paths = [p for p in args.data.split(",") if p]
+    if not paths:
+        raise ValueError("--data given but no paths parsed from it")
+    jblk = [p.endswith(".jblk") for p in paths]
+    if any(jblk) and not all(jblk):
+        # A .jblk container fed to the fixed-width reader decodes
+        # compressed bytes as token ids — garbage that trains without
+        # erroring. Refuse the ambiguity.
+        raise ValueError(
+            f"--data mixes .jblk containers with raw token files: {paths}"
+        )
+    checked = False
+    while True:
+        yielded = 0
+        if all(jblk):
+            with rt.sharded_reader(
+                paths, fmt="jsonl-blocks", batch_size=args.batch
+            ) as r:
+                for recs in r:
+                    if not checked and recs:
+                        # Validate the first record once, up front: a
+                        # missing 'tokens' field or a wrong-width list would
+                        # otherwise surface as an opaque error mid-training.
+                        first = recs[0]
+                        tokens = first.get("tokens") if isinstance(
+                            first, dict) else None
+                        if tokens is None or not hasattr(tokens, "__len__"):
+                            fields = (sorted(first) if isinstance(first, dict)
+                                      else type(first).__name__)
+                            raise ValueError(
+                                f"--data {args.data}: records must carry a "
+                                f"'tokens' list; first record has fields "
+                                f"{fields}"
+                            )
+                        if len(tokens) != args.seq + 1:
+                            raise ValueError(
+                                f"--data {args.data}: 'tokens' must be "
+                                f"length seq+1 = {args.seq + 1} "
+                                f"(targets are inputs shifted by one); "
+                                f"first record has {len(tokens)}"
+                            )
+                        checked = True
+                    if len(recs) == args.batch:
+                        yielded += 1
+                        yield np.asarray(
+                            [rec["tokens"] for rec in recs], np.int32
+                        )
+        else:
+            with rt.sharded_reader(
+                paths, fmt="tokens", dtype=np.uint16,
+                record_len=args.seq + 1, batch_size=args.batch,
+            ) as r:
+                for b in r:
+                    if b.shape[0] == args.batch:
+                        yielded += 1
+                        yield b.astype(np.int32)
+        if not yielded:
+            # This process's byte-range shard holds less than one full
+            # batch: re-opening forever would hang training silently.
+            raise RuntimeError(
+                f"--data {args.data}: process {ctx.process_id}'s shard "
+                f"yielded no full batch of {args.batch} (corpus too "
+                f"small for this process count / batch size)"
+            )
+
+
 def corpus_batches(args, ctx):
-    """Endless [batch, seq+1] host batches from this process's shard of the
-    synthetic corpus."""
+    """Endless [batch, seq+1] int32 host batches: from ``--data`` through
+    the sharded reader, else from this process's shard of the synthetic
+    corpus."""
+    if args.data:
+        yield from _file_batches(args, ctx)
+        return
     corpus = synthetic_tokens(0, n_docs=64, seq=args.seq, vocab=args.vocab)
     shard = corpus[ctx.process_id::max(ctx.num_processes, 1)]
     rng = np.random.default_rng(ctx.process_id)
@@ -102,19 +195,18 @@ def corpus_batches(args, ctx):
         yield shard[rng.integers(0, len(shard), size=(args.batch,))]
 
 
+def checkpoint_dir(args) -> str:
+    """--ckpt-dir, else the coordinator-probed TONY_CHECKPOINT_DIR, else
+    the job's scratch dir (TONY_LOG_DIR, or the working directory)."""
+    scratch = os.environ.get(constants.TONY_LOG_DIR, ".")
+    return (args.ckpt_dir
+            or os.environ.get(constants.TONY_CHECKPOINT_DIR)
+            or os.path.join(scratch, "lm-checkpoints"))
+
+
 def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
     ctx = rt.initialize(device=args.device)
-    if args.data:
-        raise NotImplementedError(
-            "--data (sharded file corpora) waits for the input slice of the "
-            "port"
-        )
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir (CheckpointManager) waits for the checkpoint slice "
-            "of the port"
-        )
     print(f"[{ctx.job_name}:{ctx.task_index}] process {ctx.process_id}/"
           f"{ctx.num_processes} on {ctx.device}", flush=True)
     cfg = model_config_from_args(args, max_seq=args.seq + 1)
@@ -125,19 +217,43 @@ def main(argv=None) -> int:
                                                ctx.device))
     else:
         state = init_fn(args.seed)
-    batches = corpus_batches(args, ctx)
+    mgr = CheckpointManager(checkpoint_dir(args), process_id=ctx.process_id,
+                            num_processes=ctx.num_processes)
+    # Checkpoint-aware restart: a retried session is told the newest step
+    # the coordinator saw complete (TONY_RESUME_STEP); outside a retry the
+    # newest complete step is restored. The state is restored in place.
+    if mgr.restore_resumable(state) is not None:
+        print(f"resumed from step {int(state.step)}", flush=True)
+    step = int(state.step)
+    if step >= args.steps:
+        # A retried session can resume a checkpoint already at the
+        # target: that is success, not a crash.
+        print(f"already at step {step} >= {args.steps}; nothing to do",
+              flush=True)
+        return 0
     first = last = None
-    for step in range(1, args.steps + 1):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, next(batches))
-        loss = float(metrics["loss"])  # the step's one intended readback
-        dt = time.perf_counter() - t0
-        first = loss if first is None else first
-        last = loss
-        if step % 5 == 0 or step == args.steps:
-            print(f"step {step}: loss {loss:.4f} "
-                  f"({args.batch * args.seq / dt:.0f} tokens/s)", flush=True)
-    if last is None or not math.isfinite(last) or not last < first:
+    with device_prefetch(corpus_batches(args, ctx), ctx.device) as batches:
+        while step < args.steps:
+            tokens = next(batches)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, tokens)
+            loss = float(metrics["loss"])  # the step's one intended readback
+            dt = time.perf_counter() - t0
+            step += 1
+            first = loss if first is None else first
+            last = loss
+            if step % 5 == 0 or step == args.steps:
+                print(f"step {step}: loss {loss:.4f} "
+                      f"({args.batch * args.seq / dt:.0f} tokens/s)",
+                      flush=True)
+            # Interval saves, plus the coordinator's flush order (checked
+            # first, so an interval save at the order's target consumes
+            # it too).
+            flushed = mgr.flush_requested(step)
+            if flushed or step % args.checkpoint_every == 0:
+                mgr.save(step, state)
+    mgr.save(step, state, blocking=True)
+    if not math.isfinite(last) or not last < first:
         print(f"loss did not descend: {first} -> {last}", file=sys.stderr)
         return 1
     print(f"done: loss {first:.4f} -> {last:.4f}", flush=True)
