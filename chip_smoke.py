@@ -42,7 +42,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. train parity — fp32 (TF32 off), 2 layers, d 256, GQA 16/4: losses of 3
              steps and first-step gradients on the card equal the CPU's
              plain path, with remat off, "full" and "dots".
-9. job     — the train CLI as a job runs it, at bench_transformer's full
+9. dp      — the data-parallel path on one card: a one-rank NCCL group on
+             a HashStore, runtime.build_job_mesh() and the port's
+             collectives over it (each must return its input with one
+             rank), then make_train_step(cfg, mesh) at bench_transformer's
+             width from the train phase's init and batch: 3 steps equal
+             the mesh=None path bit for bit (losses and every leaf), then
+             the step median (10 after 2 warm-ups, CUDA events) beside
+             mesh=None's, timed before and after it, with peak memory
+             and each step's working set.
+10. job    — the train CLI as a job runs it, at bench_transformer's full
              width: a uint16 .tokens corpus of 32 records x 2049 tokens
              from --seed (4 batches, one epoch = 4 steps) read through
              runtime.sharded_reader and io.device_prefetch; job A trains 8
@@ -60,9 +69,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
              temporary directory, removed at the end (20 GB free needed).
 
 The launch counters are set to 0 just before each path (phases 3-4, the
-serving path; phase 7, the training path; phase 9's jobs and serving, the
-job path) and read just after; every kernel of a path must have launched
-there. The last three lines are the kernels
+serving path; phase 7, the training path; phase 9, the data-parallel
+path; phase 10's jobs and serving, the job path) and read just after; every
+kernel of a path must have launched there. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}.
 """
@@ -126,6 +135,12 @@ PARITY_REMAT = [(False, "full"), (True, "full"), (True, "dots")]
 # p and ds to bf16 read 1.8e-3 there, but only 9e-7 on the losses.
 TRAIN_LOSS_RTOL = 1e-6
 TRAIN_GRAD_TOL = 1e-5
+
+# dp phase: the data-parallel path at world 1 (one card) over NCCL on a
+# one-rank group: parity steps against the mesh=None path from the same init
+# and batch, then timed steps, mesh=None before and after the mesh path.
+DP_PARITY_STEPS = 3
+DP_TIMEOUT_S = 60.0
 
 # Job phase: bench_transformer's widths through the train CLI, a corpus of
 # 4 batches (one epoch = 4 steps), job A straight to 8 steps with a
@@ -1223,7 +1238,165 @@ def train_parity_phase(torch, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: a job that reads its data shard, checkpoints, resumes and serves
+# Phase 9: the data-parallel train step on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def timed_steps(torch, step_fn, state, tokens) -> tuple:
+    """TRAIN_WARMUP warm-ups, then TRAIN_STEPS steps between CUDA events at
+    the step boundaries (no host sync inside): (state, step ms, peak bytes
+    allocated since the warm-ups began, and of those above what was
+    allocated when they began: the step's own working set)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    for _ in range(TRAIN_WARMUP):
+        state, _ = step_fn(state, tokens)
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        state, _ = step_fn(state, tokens)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return (state, [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+            peak, peak - resident)
+
+
+def check_world1_collectives(torch, mesh) -> None:
+    """The port's collectives on CUDA tensors over the one-rank NCCL mesh:
+    with one rank each returns its input (the reduce-scatter and the
+    gradient mean sum one value, the gathers and the all-to-all keep one
+    block), and the gather's backward hands back the cotangent."""
+    from tony_tpu_torch.parallel import collectives as coll
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    x = torch.randn(4, 6, 8, device="cuda", generator=gen)
+    outs = {
+        "all_gather_tp": coll.all_gather_tp(x, 1, "dp", mesh=mesh),
+        "reduce_scatter_tp": coll.reduce_scatter_tp(x, 2, "dp", mesh=mesh),
+        "all_to_all_ep": coll.all_to_all_ep(x, 0, 1, "ep", mesh=mesh),
+        "pmean_gradients": coll.pmean_gradients([x.clone()], mesh)[0],
+    }
+    prev, nxt = coll.ring_halo_exchange(x, "sp", 2, axis=1, mesh=mesh)
+    outs["ring_halo_exchange"] = torch.cat([nxt, x[:, 2:-2], prev], dim=1)
+    leaf = x.clone().requires_grad_()
+    full = coll.all_gather_with_scatter_grad(leaf, 1, "dp", mesh=mesh)
+    full.backward(2 * x)
+    outs["gather backward"] = leaf.grad / 2
+    for name, got in outs.items():
+        if not torch.equal(got, x):
+            raise AssertionError(f"dp: {name} over one NCCL rank changed "
+                                 f"its input")
+
+
+def dp_phase(torch, attention, norms, seed: int) -> dict:
+    """Slice 3's path on one card: a one-rank NCCL group on a HashStore
+    (no TCP rendezvous), ``runtime.build_job_mesh()`` and
+    ``make_train_step(cfg, mesh)`` at bench_transformer's width. From the
+    init and batch of the train phase, DP_PARITY_STEPS steps of the mesh
+    path must equal the mesh=None path bit for bit (losses and every
+    parameter). Then the step median of each, timed mesh=None, mesh,
+    mesh=None. The launch counters are set to 0 just before the mesh path
+    and read just after."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.models.train import leaves
+
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    rng = np.random.default_rng(seed + 3)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    plain = init_fn(seed)
+    plain_losses = []
+    for _ in range(DP_PARITY_STEPS):
+        plain, metrics = step_fn(plain, tokens)
+        plain_losses.append(metrics["loss"])
+    # Copies: the timed steps below update the state in place.
+    plain_bits = {k: v.clone() for k, v in state_bits(torch, plain).items()}
+    plain, before_ms, _, plain_ws = timed_steps(torch, step_fn, plain,
+                                                tokens)
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = rt.build_job_mesh(device="cuda", timeout_s=DP_TIMEOUT_S)
+        check_world1_collectives(torch, mesh)
+        mesh_s = time.perf_counter() - t0
+        d_init, d_step = make_train_step(cfg, mesh, device="cuda")
+        norms.launches = 0
+        attention.launches = attention.launches_dq = 0
+        attention.launches_dkv = 0
+        state = d_init(seed)
+        losses = []
+        for _ in range(DP_PARITY_STEPS):
+            state, metrics = d_step(state, tokens)
+            losses.append(metrics["loss"])
+        losses, plain_losses = (_loss_list(torch, x)
+                                for x in (losses, plain_losses))
+        if losses != plain_losses:
+            raise AssertionError(f"dp: losses {losses} != mesh=None "
+                                 f"{plain_losses}")
+        bits = state_bits(torch, state)
+        if set(bits) != set(plain_bits):
+            raise AssertionError("dp: the states hold other leaves")
+        unequal = [p for p in bits
+                   if not torch.equal(bits[p], plain_bits[p])]
+        if unequal:
+            raise AssertionError(f"dp: {len(unequal)} of {len(bits)} "
+                                 f"leaves differ from mesh=None: "
+                                 f"{unequal[:6]}")
+        n_leaves = len(bits)
+        del bits, plain_bits
+        state, mesh_ms, mesh_peak, mesh_ws = timed_steps(torch, d_step,
+                                                         state, tokens)
+        launches = {"rms_norm": norms.launches,
+                    "flash_fwd": attention.launches,
+                    "flash_bwd_dq": attention.launches_dq,
+                    "flash_bwd_dkv": attention.launches_dkv}
+    finally:
+        dist.destroy_process_group()
+    plain, after_ms, _, _ = timed_steps(torch, step_fn, plain, tokens)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the dp "
+                                 f"path")
+    n_params = sum(p.numel() for p in leaves(state.params))
+    res = {
+        "params_m": n_params / 1e6, "world": 1, "backend": "nccl",
+        "mesh_setup_s": mesh_s, "parity_steps": DP_PARITY_STEPS,
+        "losses": losses, "leaves_equal": n_leaves,
+        "step_ms_median": float(np.median(mesh_ms)), "step_ms": mesh_ms,
+        "plain_step_ms_median_before": float(np.median(before_ms)),
+        "plain_step_ms_median_after": float(np.median(after_ms)),
+        "plain_step_ms": before_ms + after_ms,
+        # Both states are resident during the mesh steps: the working set
+        # (peak above what was allocated when the timing began) compares
+        # the two steps.
+        "peak_memory_gb": mesh_peak / 1e9,
+        "working_set_gb": mesh_ws / 1e9,
+        "plain_working_set_gb": plain_ws / 1e9,
+        "launches": launches,
+    }
+    log("dp: " + json.dumps(res))
+    log(f"dp: mesh step median {res['step_ms_median']:.3f} ms beside "
+        f"mesh=None {res['plain_step_ms_median_before']:.3f} / "
+        f"{res['plain_step_ms_median_after']:.3f} ms (before / after), on "
+        f"{card_line()}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: a job that reads its data shard, checkpoints, resumes and serves
 # ---------------------------------------------------------------------------
 
 def write_corpus(path: Path, seed: int, n_records: int, seq: int,
@@ -1606,6 +1779,9 @@ def main(argv=None) -> int:
     # itself and reads them just after).
     train, train_run = train_phase(torch, attention, norms, args.seed)
     train_parity_phase(torch, args.seed)
+    # Slice 3's path: the data-parallel train step over a one-rank NCCL
+    # mesh (it resets the counters itself and reads them just after).
+    dp = dp_phase(torch, attention, norms, args.seed)
 
     # Slice 5's path: jobs that read a file, checkpoint, resume and serve
     # (the counters are reset and read inside), then checkpoint and input
@@ -1627,7 +1803,8 @@ def main(argv=None) -> int:
         row["launches_by_path"] = {
             "train": train["launches"][row["name"]],
             "serve_generate": serve_path.get(row["name"], 0),
-            "job": job["launches"][row["name"]]}
+            "job": job["launches"][row["name"]],
+            "dp": dp["launches"][row["name"]]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,0 +1,346 @@
+#!/usr/bin/env python3
+"""Data-parallel training of tony_tpu_torch across the cards of one host.
+
+    python3 dp_study.py             # one rank on each card (at least 2)
+    python3 dp_study.py --ranks 4
+
+Builds the kernels once, then starts one process per card, each in its own
+session, on cuda:<rank>: they meet at a TCP store on a free localhost port,
+join one NCCL group (process-group timeout
+DP_TIMEOUT_S) and build the job mesh (dp = ranks); the parent waits on one
+deadline and kills and reaps every rank still alive. Each rank:
+
+1. parity — fp32, TF32 off, chip_smoke's PARITY_TRAIN model (2 layers, d
+   256, GQA 16/4, seq 256): 3 steps of make_train_step(cfg, mesh), each
+   rank fed its slice of a global batch of 2 x ranks rows, from the same
+   weights; rank 0 also runs the mesh=None step on the whole global batch
+   on its card, before it joins the group (a world above 1 refuses
+   mesh=None). The losses must agree to PARITY_LOSS_RTOL and each
+   gathered gradient of the first step (averaged over dp and clipped) to
+   chip_smoke's TRAIN_GRAD_TOL times its leaf's largest |gradient|. A
+   failed check is raised after the rank has left the group, so its peers
+   never wait on it.
+2. step — bench_transformer (bf16, 199.8 M parameters) at chip_smoke's
+   batch per rank, [8, 2049], so the global batch is 8 x ranks rows: the
+   mesh step's median (10 after 2 warm-ups, CUDA events) beside the
+   mesh=None step on the same card alone, timed before the rank joins the
+   group and after it leaves; the
+   launches of B1-B4 on the mesh path; then one more mesh step, profiled
+   on rank 0: device ms of the NCCL kernels and of everything else.
+
+Each rank logs its phases with the seconds since it started. Prints each
+rank's results as a JSON line, the cards' names and power limits, and a
+summary JSON line last. Exits non-zero if a rank fails or a check does not
+hold.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+
+import chip_smoke
+
+DP_TIMEOUT_S = 60.0
+DEADLINE_S = 420.0
+PARITY_STEPS = 3
+PARITY_ROWS_PER_RANK = 2
+# fp32 on the card, TF32 off: the global mean is a mean of the ranks'
+# means, summed in another order than one process's mean (the CPU tests
+# of the same path read ~1e-7).
+PARITY_LOSS_RTOL = 1e-5
+
+_T0 = time.perf_counter()
+
+
+def _log(rank: int, msg: str) -> None:
+    print(f"[rank {rank} {time.perf_counter() - _T0:7.1f} s] {msg}",
+          flush=True)
+
+
+def _gathered(tensors: list, placements: list, mesh) -> list:
+    """Each tensor of a mesh state (a parameter, or its gradient), its
+    split dimensions gathered."""
+    from tony_tpu_torch.parallel import all_gather_tp
+
+    out = []
+    for t, pl in zip(tensors, placements):
+        t = t.detach()
+        for dim, entry in enumerate(pl.spec):
+            if entry is not None:
+                t = all_gather_tp(t, dim, entry, mesh=mesh)
+        out.append(t)
+    return out
+
+
+def _parity_setup(torch, world: int, seed: int):
+    from tony_tpu_torch.models import TransformerConfig, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TransformerConfig(dtype="float32", remat=False,
+                            **chip_smoke.PARITY_TRAIN)
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    rng = np.random.default_rng(seed + 4)
+    batches = [torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (PARITY_ROWS_PER_RANK * world, cfg.max_seq + 1)))
+        for _ in range(PARITY_STEPS)]
+    return cfg, params, batches
+
+
+def _run(torch, step_fn, state, batches) -> tuple:
+    """(state, losses, the first step's gradients)."""
+    from tony_tpu_torch.models.train import leaves
+
+    losses, grads = [], None
+    for tokens in batches:
+        state, metrics = step_fn(state, tokens)
+        losses.append(metrics["loss"])
+        if grads is None:
+            grads = [p.grad.clone() for p in leaves(state.params)]
+    return state, chip_smoke._loss_list(torch, losses), grads
+
+
+def parity_reference(torch, world: int, device, seed: int) -> dict:
+    """The mesh=None step on the whole global batches (rank 0, before it
+    joins the group)."""
+    from tony_tpu_torch.models import make_train_step
+    from tony_tpu_torch.models.train import leaves
+
+    cfg, params, batches = _parity_setup(torch, world, seed)
+    init_fn, step_fn = make_train_step(cfg, device=device)
+    state, losses, grads = _run(torch, step_fn, init_fn(params=params),
+                                batches)
+    return {"losses": losses, "grads": grads,
+            "params": leaves(state.params)}
+
+
+def parity(torch, mesh, rank: int, world: int, device, seed: int,
+           ref: dict | None) -> dict:
+    """The mesh step on this rank's slices; rank 0 holds the losses and the
+    first step's gathered gradients against ``ref``
+    (``parity_reference``); "ok" says whether they held."""
+    from tony_tpu_torch.models import make_train_step
+    from tony_tpu_torch.models.train import leaves
+
+    cfg, params, batches = _parity_setup(torch, world, seed)
+    rows = PARITY_ROWS_PER_RANK
+    init_fn, step_fn = make_train_step(cfg, mesh, device=device)
+    state, losses, grads = _run(
+        torch, step_fn, init_fn(params=params),
+        [t[rank * rows:(rank + 1) * rows] for t in batches])
+    placements = leaves(state.placements)
+    grads = _gathered(grads, placements, mesh)
+    full = _gathered(leaves(state.params), placements, mesh)
+    out = {"losses": losses, "ok": True}
+    if ref is not None:
+        grad_err = max((a - b).abs().max().item()
+                       / b.abs().max().clamp_min(1e-30).item()
+                       for a, b in zip(grads, ref["grads"]))
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref["losses"]))
+        param_err = max((a - b).abs().max().item()
+                        for a, b in zip(full, ref["params"]))
+        out.update(ref_losses=ref["losses"], loss_rel_err=loss_err,
+                   worst_grad_rel_err=grad_err,
+                   worst_param_abs_err=param_err,
+                   ok=(loss_err <= PARITY_LOSS_RTOL
+                       and grad_err <= chip_smoke.TRAIN_GRAD_TOL))
+    return out
+
+
+def _step_setup(torch, rank: int, device, seed: int):
+    from tony_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(dtype="bfloat16", **chip_smoke.BENCH_TRANSFORMER)
+    rng = np.random.default_rng(seed + 3 + rank)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ + 1)),
+        device=device)
+    return cfg, tokens
+
+
+def plain_step_ms(torch, rank: int, device, seed: int) -> dict:
+    """The mesh=None step on this card alone (outside the group)."""
+    from tony_tpu_torch.models import make_train_step
+
+    cfg, tokens = _step_setup(torch, rank, device, seed)
+    init_fn, step_fn = make_train_step(cfg, device=device)
+    _, ms, _, ws = chip_smoke.timed_steps(torch, step_fn, init_fn(seed),
+                                          tokens)
+    return {"step_ms_median": float(np.median(ms)), "step_ms": ms,
+            "working_set_gb": ws / 1e9}
+
+
+def mesh_step_ms(torch, mesh, rank: int, device, seed: int) -> dict:
+    """The mesh step: median, working set, launches of B1-B4, and one more
+    step profiled on rank 0 (the others run it unprofiled)."""
+    from tony_tpu_torch.models import make_train_step
+    from tony_tpu_torch.ops import attention, norms
+
+    cfg, tokens = _step_setup(torch, rank, device, seed)
+    init_fn, step_fn = make_train_step(cfg, mesh, device=device)
+    state = init_fn(seed)
+    norms.launches = 0
+    attention.launches = attention.launches_dq = 0
+    attention.launches_dkv = 0
+    state, ms, peak, ws = chip_smoke.timed_steps(torch, step_fn, state,
+                                                 tokens)
+    launches = {"rms_norm": norms.launches, "flash_fwd": attention.launches,
+                "flash_bwd_dq": attention.launches_dq,
+                "flash_bwd_dkv": attention.launches_dkv}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the dp "
+                                 f"path")
+    profiled = None
+    if rank == 0:
+        events, wall_ms = chip_smoke.device_events(
+            torch, lambda: step_fn(state, tokens))
+        nccl = sum(us for name, us in events if "nccl" in name.lower())
+        total = sum(us for _, us in events)
+        profiled = {"wall_ms": wall_ms, "device_ms": total / 1e3,
+                    "nccl_ms": nccl / 1e3, "other_ms": (total - nccl) / 1e3}
+    else:
+        step_fn(state, tokens)
+        torch.cuda.synchronize(device)
+    return {"step_ms_median": float(np.median(ms)), "step_ms": ms,
+            "working_set_gb": ws / 1e9, "peak_memory_gb": peak / 1e9,
+            "launches": launches, "profiled_step": profiled}
+
+
+def run_rank(rank: int, world: int, store: str, outdir: str,
+             seed: int) -> None:
+    """One rank: the mesh=None runs outside the process group (a world
+    above 1 refuses mesh=None), the mesh runs inside it."""
+    import torch
+    import torch.distributed as dist
+
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch.parallel import MeshSpec
+
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    out = {"rank": rank, "world": world,
+           "card": torch.cuda.get_device_name(device)}
+    _log(rank, "started")
+    ref = parity_reference(torch, world, device, seed) if rank == 0 else None
+    out["plain_before"] = plain_step_ms(torch, rank, device, seed)
+    _log(rank, "mesh=None timed; joining the group")
+    dist.init_process_group("nccl", init_method=store, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = rt.build_job_mesh(MeshSpec(dp=world), device="cuda",
+                                 timeout_s=DP_TIMEOUT_S)
+        _log(rank, "mesh built")
+        out["parity"] = parity(torch, mesh, rank, world, device, seed, ref)
+        _log(rank, f"parity {out['parity']}")
+        out["mesh"] = mesh_step_ms(torch, mesh, rank, device, seed)
+        _log(rank, "mesh step timed")
+    finally:
+        dist.destroy_process_group()
+    out["plain_after"] = plain_step_ms(torch, rank, device, seed)
+    Path(outdir, f"rank_{rank}.json").write_text(json.dumps(out))
+    if not out["parity"]["ok"]:
+        raise AssertionError(f"parity failed: {out['parity']}")
+
+
+def launch(world: int, seed: int) -> list[dict]:
+    """One process per rank, each in its own session; one deadline; every
+    rank still alive is killed and reaped at the end."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="tony-dp-") as tmp:
+        procs = []
+        try:
+            for rank in range(world):
+                procs.append(subprocess.Popen(
+                    [sys.executable, __file__, "--rank", str(rank),
+                     "--ranks", str(world),
+                     "--store", f"tcp://127.0.0.1:{port}",
+                     "--outdir", tmp, "--seed", str(seed)],
+                    # The ranks share this host: NCCL's bootstrap stays on
+                    # the loopback interface.
+                    env={**os.environ, "NCCL_SOCKET_IFNAME": "lo"},
+                    start_new_session=True))
+            deadline = time.monotonic() + DEADLINE_S
+            for proc in procs:
+                proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+            if failed:
+                raise AssertionError(f"ranks {failed} failed")
+            return [json.loads(Path(tmp, f"rank_{r}.json").read_text())
+                    for r in range(world)]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="ranks, one per card (default: every card)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--store", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--outdir", default="", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.rank is not None:
+        run_rank(args.rank, args.ranks, args.store, args.outdir, args.seed)
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("dp_study: CUDA is not available; this script runs on the "
+              "cards only", file=sys.stderr)
+        return 1
+    world = args.ranks or torch.cuda.device_count()
+    if not 2 <= world <= torch.cuda.device_count():
+        print(f"dp_study: needs 2 to {torch.cuda.device_count()} ranks, one "
+              f"per card; got {world}", file=sys.stderr)
+        return 1
+    from tony_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.build()
+    chip_smoke.log(f"build: {time.perf_counter() - t0:.2f} s")
+    results = launch(world, args.seed)
+    for res in results:
+        print(json.dumps(res))
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(cards)
+    print(json.dumps({
+        "world": world, "total_s": time.perf_counter() - t0,
+        "parity": results[0]["parity"],
+        "step_ms_median_by_rank": [
+            r["mesh"]["step_ms_median"] for r in results],
+        "plain_step_ms_median_by_rank": [
+            (r["plain_before"]["step_ms_median"],
+             r["plain_after"]["step_ms_median"]) for r in results],
+        "rank0_profiled_step": results[0]["mesh"]["profiled_step"],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

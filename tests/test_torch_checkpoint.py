@@ -8,7 +8,10 @@ round; bf16 leaves both ways; the same tree gives the same manifest and
 blobs from both managers. Then the JAX manager's scenarios replayed on the
 port's (torn and corrupt steps, differential chains, GC, multi-process
 completeness, cross-topology restore, the flush signal, ``TONY_RESUME_STEP``),
-the in-place snapshot, and the port's refusals."""
+the in-place snapshot, and the port's refusals. Last, data-parallel states in
+two gloo ranks (``torch_ranks.launch``): they restore a checkpoint two JAX
+managers wrote, and their own save carries the shard coordinates JAX writes
+for a dp=2 mesh and restores bit for bit in the JAX manager."""
 
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ from tony_tpu.checkpoint import _FsCheckpointStore as JaxStore
 from tony_tpu.checkpoint import _MANIFEST as JAX_MANIFEST
 from tony_tpu.checkpoint import _encode as jax_encode
 from tony_tpu.models import TransformerConfig as JaxConfig
+from tony_tpu.checkpoint.manager import _normalize_index
+from tony_tpu.models import param_roles as jax_param_roles
+from tony_tpu.models.train import _sharding_for_tree
 from tony_tpu.models.train import make_train_step as jax_make_train_step
 from tony_tpu.parallel.mesh import MeshSpec, build_mesh
 from tony_tpu_torch import constants
@@ -39,6 +45,7 @@ from tony_tpu_torch.interop import (
     train_state_to_numpy,
 )
 from tony_tpu_torch.models import TransformerConfig, make_train_step
+from torch_ranks import launch
 
 torch.set_num_threads(1)
 
@@ -453,3 +460,61 @@ def test_no_port_module_imports_ml_dtypes():
                      and node.module else [])
             assert not any(n.split(".")[0] == "ml_dtypes" for n in names), \
                 path
+
+
+def test_two_rank_sharded_checkpoints_cross_restore_with_jax(
+        trained, mesh, tmp_path):
+    """Two gloo ranks over a dp=2 mesh (embed_fsdp leaves split, their
+    moments too). (1) They restore a step-2 JAX TrainState that two JAX
+    managers (process 0 and 1 of 2) wrote: the gathered state equals it
+    bit for bit. (2) After one more step each rank saves its pieces: the
+    manifests hold the global shapes and the shard_indices JAX's dp=2
+    shardings give each device, a fresh dp=2 state restores them bit for
+    bit (the fast path), and the JAX manager at one process restores the
+    step bit-equal to the gathered state."""
+    j_init, j_step, *_ = trained
+    jstate = j_init(jax.random.key(0))
+    for i in range(2):
+        jstate, _ = j_step(jstate, _tokens(i))
+    for pid in range(2):
+        JaxManager(tmp_path / "jax", process_id=pid, num_processes=2).save(
+            2, jstate, blocking=True)
+    params = jax.tree_util.tree_flatten_with_path(
+        jax.device_get(jstate.params))[0]
+    np.savez(tmp_path / "w.npz", **{"/".join(k.key for k in p): np.asarray(v)
+                                    for p, v in params})
+    np.save(tmp_path / "batch.npy", _tokens(5, b=4))
+    results = launch("checkpoint", tmp_path, args=(
+        tmp_path / "w.npz", tmp_path / "jax", tmp_path / "batch.npy",
+        tmp_path / "port"))
+    assert [(r["restored_step"], r["step"], r["round_trip_equal"])
+            for r in results] == [(2, 3, True)] * 2
+    ranks = [np.load(tmp_path / f"checkpoint.{r}.npz") for r in range(2)]
+    want = _jax_flat(jstate)
+    for data in ranks:
+        _assert_same({k[len("restored/"):]: data[k] for k in data.files
+                      if k.startswith("restored/")}, want)
+    saved = {k[len("saved/"):]: ranks[0][k] for k in ranks[0].files
+             if k.startswith("saved/")}
+
+    jmesh = build_mesh(MeshSpec(dp=2), devices=jax.devices()[:2])
+    shardings = {jax.tree_util.keystr(p): sh for p, sh in
+                 jax.tree_util.tree_flatten_with_path(_sharding_for_tree(
+                     jstate, jax_param_roles(JaxConfig(**TINY)), jmesh))[0]}
+    split = 0
+    for pid, device in enumerate(jmesh.devices.reshape(-1)):
+        with np.load(tmp_path / "port" / "step_3" / f"process_{pid}.npz") \
+                as npz:
+            manifest = json.loads(bytes(npz[JAX_MANIFEST]).decode())
+        assert set(manifest) == set(want)
+        for path, info in manifest.items():
+            shape = tuple(want[path].shape)
+            index = _normalize_index(
+                shardings[path].devices_indices_map(shape)[device], shape)
+            assert info["shape"] == list(shape), path
+            assert info["shard_indices"] == [index], path
+            assert info["shard_shapes"] == [[b - a for a, b in index]], path
+            split += index != [[0, d] for d in shape]
+    assert split == 2 * 3 * 8  # 8 split params, their mu and nu, 2 ranks
+    restored = JaxManager(tmp_path / "port").restore(j_init(jax.random.key(1)))
+    _assert_same(_jax_flat(restored), saved)

@@ -259,11 +259,26 @@ def test_runtime_sharded_reader_shards_by_rank(tmp_path, monkeypatch):
     assert len(seen) == len(set(seen)) == 63
 
 
+class _Rank1OfDp2:
+    """Rank 1 of a dp=2 mesh, as far as ``sharded_batches`` reads one
+    (a real mesh needs two processes)."""
+
+    device_type = "cpu"
+
+    def size(self, dim: int) -> int:
+        return 2 if dim == 0 else 1
+
+    def get_local_rank(self, name: str) -> int:
+        return 1 if name == "dp" else 0
+
+
 def test_sharded_batches_drop_the_short_tail(tmp_path):
     paths, kw = _corpus(tmp_path, "tokens")  # 63 records, batches of 4
     reader = ShardedRecordReader(paths, **kw)
     got = list(sharded_batches(reader, device="cpu", prefetch=2))
     assert len(got) == 15 and all(tuple(b.shape) == (4, RL) for b in got)
     reader.close()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        next(sharded_batches(reader, mesh=object(), device="cpu"))
+    # With a mesh the reader must be this rank's shard of the batch axes:
+    # rank 1 of dp=2 feeds shard 1 of 2, not a whole-corpus reader.
+    with pytest.raises(ValueError, match="batch shard 1 of 2"):
+        next(sharded_batches(reader, mesh=_Rank1OfDp2(), device="cpu"))

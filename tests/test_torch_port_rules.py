@@ -1,7 +1,8 @@
 """Rules of the PyTorch/CUDA port, checked on the CPU.
 
-* No module of ``tony_tpu_torch`` — nor ``chip_smoke.py`` — imports JAX or
-  anything of the JAX package ``tony_tpu``: the port keeps its own copies.
+* No module of ``tony_tpu_torch`` — nor ``chip_smoke.py``, nor the rank
+  programs of the multi-process tests — imports JAX or anything of the JAX
+  package ``tony_tpu``: the port keeps its own copies.
 * The port runs on the card unless the caller asks for the CPU: on a machine
   without CUDA every entry point raises instead of falling back, and
   ``chip_smoke.py`` exits non-zero without printing a result.
@@ -22,8 +23,11 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+# The rank programs of the multi-process tests (tests/torch_ranks.py) run
+# as port code too: ranks never import JAX.
 PORT_FILES = sorted((REPO / "tony_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "flash_bwd_study.py"
+    REPO / "chip_smoke.py", REPO / "flash_bwd_study.py",
+    REPO / "dp_study.py", REPO / "tests" / "torch_ranks.py",
 ]
 
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,

@@ -1,22 +1,23 @@
 """The port's training slice held against the JAX package on the CPU: the
 training forward's logits, ``lm_loss`` and its gradients on the same
 converted weights, remat policies, a 5-step trajectory of ``make_train_step``
-(clip + AdamW) with the final params, and the clip against optax. Then the
-runtime (``task_context``, ``local_rank``, ``initialize`` in two gloo
-processes), the train CLI (synthetic and file corpora, checkpoints, a
-resumed run equal to a straight one), serving from its checkpoint, and a job
+(clip + AdamW) with the final params, and the clip against optax. Then data
+parallelism: two gloo ranks (``torch_ranks.launch``) train over a dp=2 mesh
+and match the JAX package's dp=2 step and the port's single-process step.
+Then the runtime (``task_context``, ``local_rank``, ``initialize`` in two
+gloo processes), the train CLI (synthetic and file corpora, checkpoints, a
+resumed run equal to a straight one), serving from its checkpoint, a job
 submitted twice through the orchestrator with ``--framework pytorch``, the
-second resuming the first. Inputs come from seeded numpy generators; all
+second resuming the first, and a job of two workers equal to one process on
+the same global batches. Inputs come from seeded numpy generators; all
 comparisons are fp32 unless a test says otherwise."""
 
 from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
-import textwrap
 import time
 from pathlib import Path
 
@@ -55,6 +56,9 @@ from tony_tpu_torch.models import (
     param_roles,
 )
 from tony_tpu_torch.models.train import clip_by_global_norm_, leaves
+from tony_tpu_torch.parallel import MeshSpec as TorchMeshSpec
+from tony_tpu_torch.io import ShardedRecordReader
+from torch_ranks import launch
 
 torch.set_num_threads(1)
 
@@ -79,6 +83,19 @@ def models():
     jparams = jax_init_params(jax.random.key(0), jcfg)
     tparams = params_from_numpy(jax.device_get(jparams), tcfg, "cpu")
     return jcfg, jparams, tcfg, tparams
+
+
+class _SpecMesh:
+    """A mesh of the given axis sizes for the refusals, which read only
+    the sizes (a real mesh needs as many processes)."""
+
+    device_type = "cpu"
+
+    def __init__(self, **axes):
+        self.shape = TorchMeshSpec(**axes).shape
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
 
 
 def _tokens(seed, b=2, t=17):
@@ -181,8 +198,15 @@ class TestForwardAndLoss:
         with pytest.raises(NotImplementedError, match="slice 4"):
             forward(tparams, toks, TransformerConfig(**{**TINY,
                                                         "n_experts": 4}))
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            forward(tparams, toks, TransformerConfig(**TINY), mesh=object())
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            forward(tparams, toks, TransformerConfig(**TINY),
+                    mesh=_SpecMesh(dp=2, tp=2))
+        with pytest.raises(ValueError, match="gathered parameters"):
+            half = {**tparams, "layers": {
+                k: v[:, :16] if k in ("wq", "wk", "wv") else v
+                for k, v in tparams["layers"].items()}}
+            forward(half, toks, TransformerConfig(**TINY),
+                    mesh=_SpecMesh(dp=2))
 
     def test_param_roles_match_jax(self):
         for n_experts in (0, 4):
@@ -271,14 +295,91 @@ class TestTrainStep:
 
     def test_refuses_mesh_pipeline_plan(self):
         cfg = TransformerConfig(**TINY)
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            make_train_step(cfg, object(), device="cpu")
+        for axes in ({"tp": 2}, {"dp": 2, "sp": 2}, {"pp": 2},
+                     {"ep": 2}):
+            with pytest.raises(NotImplementedError, match="slice 4"):
+                make_train_step(cfg, _SpecMesh(**axes), device="cpu")
+        cuda_mesh = _SpecMesh(dp=2)
+        cuda_mesh.device_type = "cuda"
+        with pytest.raises(ValueError, match="a cuda mesh cannot train on"):
+            make_train_step(cfg, cuda_mesh, device="cpu")
         with pytest.raises(NotImplementedError, match="slice 4"):
             make_train_step(cfg, device="cpu", pipeline_microbatches=2)
         with pytest.raises(NotImplementedError, match="slice 4"):
             make_train_step(cfg, device="cpu", pipeline_schedule="1f1b")
         with pytest.raises(NotImplementedError, match="slice 7"):
             make_train_step(cfg, device="cpu", plan=object())
+
+    def test_dp_step_in_two_gloo_ranks_matches_jax_and_one_process(
+            self, models, tmp_path):
+        """Two ranks over a dp=2 mesh, each fed its half of 3 global
+        batches of 4: the losses match the JAX package's step on a dp=2
+        mesh of two devices and the port's single-process step to rtol
+        1e-5, and the gathered final params both to atol 1e-6 (fp32
+        reordering: the global mean is a mean of the ranks' means). The
+        rank program also pins the refusals (no mesh in a world of 2, a tp
+        mesh) and ``sharded_batches(mesh=)``."""
+        jcfg, jparams, tcfg, tparams = models
+        batches = np.stack([_tokens(30 + i, b=4) for i in range(3)])
+        np.savez(tmp_path / "w.npz", **_flat(jax.device_get(jparams)))
+        np.save(tmp_path / "batches.npy", batches)
+        corpus = np.arange(8 * 33, dtype=np.uint16).reshape(8, 33)
+        corpus.tofile(tmp_path / "c.tokens")
+        results = launch("train_dp", tmp_path, args=(
+            tmp_path / "w.npz", tmp_path / "batches.npy",
+            tmp_path / "c.tokens", 1e-3))
+        got = dict(np.load(tmp_path / "train_dp.0.npz"))
+
+        jmesh = build_mesh(MeshSpec(dp=2), devices=jax.devices()[:2])
+        t_init, t_step = make_train_step(tcfg, device="cpu",
+                                         learning_rate=1e-3)
+        tstate = t_init(params=tparams)
+        jlosses, tlosses = [], []
+        with jax.sharding.set_mesh(jmesh):
+            j_init, j_step = jax_make_train_step(jcfg, jmesh,
+                                                 learning_rate=1e-3)
+            jstate = j_init(jax.random.key(0))
+            for toks in batches:
+                jstate, jm = j_step(jstate, toks)
+                tstate, tm = t_step(tstate, toks)
+                jlosses.append(float(jm["loss"]))
+                tlosses.append(float(tm["loss"]))
+        for r in results:
+            np.testing.assert_allclose(r["losses"], jlosses, rtol=1e-5)
+            np.testing.assert_allclose(r["losses"], tlosses, rtol=1e-5)
+        jflat = _flat(jax.device_get(jstate.params))
+        tflat = _flat(params_to_numpy(tstate.params))
+        for path in jflat:
+            key = ".params" + "".join(f"[{k!r}]" for k in path.split("/"))
+            np.testing.assert_allclose(got[key], jflat[path], atol=1e-6,
+                                       err_msg=path)
+            np.testing.assert_allclose(got[key], tflat[path], atol=1e-6,
+                                       err_msg=path)
+        # The leaves with an embed_fsdp role are split over dp, on that
+        # dimension; the rest (embed, the norms) are replicated.
+        split = {k: v for k, v in results[0]["split"].items()
+                 if k.startswith(".params")}
+        assert split == {
+            ".params['layers']['wq']": [None, "dp", None, None],
+            ".params['layers']['wk']": [None, "dp", None, None],
+            ".params['layers']['wv']": [None, "dp", None, None],
+            ".params['layers']['wo']": [None, None, None, "dp"],
+            ".params['layers']['w_gate']": [None, "dp", None],
+            ".params['layers']['w_up']": [None, "dp", None],
+            ".params['layers']['w_down']": [None, None, "dp"],
+            ".params['unembed']": ["dp", None],
+        }
+        refused = results[0]["refused"]
+        assert refused["no_mesh"].startswith("ValueError") and \
+            "build_job_mesh" in refused["no_mesh"]
+        for key in ("tp_mesh", "tp_forward"):
+            assert refused[key].startswith("NotImplementedError") and \
+                "slice 4" in refused[key], key
+        assert "gathered parameters" in refused["pieces_forward"]
+        assert "batch shard 0 of 2" in refused["wrong_shard"]
+        for rank in range(2):
+            first = np.load(tmp_path / f"train_dp.{rank}.npz")["first_batch"]
+            np.testing.assert_array_equal(first, corpus[4 * rank:4 * rank + 2])
 
     def test_params_round_trip_through_numpy(self, models):
         jcfg, jparams, tcfg, tparams = models
@@ -290,12 +391,6 @@ class TestTrainStep:
             np.testing.assert_array_equal(got[path], want[path])
         bf = params_to_numpy({"w": torch.ones(2, dtype=torch.bfloat16)})
         assert bf["w"].dtype == np.float32
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 class TestRuntime:
@@ -331,44 +426,21 @@ class TestRuntime:
         assert ctx.device == "cpu" and not ctx.is_distributed
         assert not torch.distributed.is_initialized()
 
-    def test_initialize_joins_two_gloo_processes(self):
-        code = textwrap.dedent("""
-            import json, torch
-            import tony_tpu_torch.runtime as rt
-            from tony_tpu_torch.models import TransformerConfig, make_train_step
-            ctx = rt.initialize(device="cpu")
-            x = torch.tensor([ctx.process_id + 1.0])
-            torch.distributed.all_reduce(x)
-            try:
-                make_train_step(TransformerConfig(), device="cpu")
-                refused = ""
-            except NotImplementedError as e:
-                refused = str(e)
-            torch.distributed.destroy_process_group()
-            print(json.dumps({"rank": ctx.process_id, "sum": x.item(),
-                              "refused": refused}))
-        """)
-        port = _free_port()
-        spec = json.dumps({"worker": [f"127.0.0.1:{port}",
-                                      "127.0.0.1:0"]})
-        procs = []
-        for rank in range(2):
-            env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "2",
-                   "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-                   "CLUSTER_SPEC": spec,
-                   "PYTHONPATH": str(REPO) + os.pathsep
-                   + os.environ.get("PYTHONPATH", "")}
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", code], env=env, text=True,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
-        results = []
-        for proc in procs:
-            out, err = proc.communicate(timeout=120)
-            assert proc.returncode == 0, err[-2000:]
-            results.append(json.loads(out.strip().splitlines()[-1]))
-        assert sorted(r["rank"] for r in results) == [0, 1]
+    def test_initialize_joins_two_gloo_processes(self, tmp_path):
+        """Two processes with a job's env (RANK, WORLD_SIZE, MASTER_*,
+        CLUSTER_SPEC) join one gloo group (the rendezvous is a file store
+        here), all_reduce, and get the job mesh the JAX package's
+        build_job_mesh factors for two devices; make_train_step refuses
+        the world without a mesh."""
+        spec = json.dumps({"worker": ["127.0.0.1:1", "127.0.0.1:2"]})
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1",
+               "CLUSTER_SPEC": spec}
+        results = launch("initialize", tmp_path, env=env)
+        assert [r["rank"] for r in results] == [0, 1]
         assert all(r["sum"] == 3.0 for r in results)
-        assert all("slice 3" in r["refused"] for r in results)
+        want = list(MeshSpec.auto(2).shape)
+        assert all(r["mesh"] == want for r in results)
+        assert all("build_job_mesh" in r["refused"] for r in results)
 
 
 TINY_CLI = ["--steps", "6", "--batch", "4", "--seq", "32", "--d-model",
@@ -547,3 +619,54 @@ class TestTrainCli:
         for path in want:
             np.testing.assert_array_equal(got[path], want[path],
                                           err_msg=path)
+
+    def test_two_workers_train_data_parallel(self, tmp_path):
+        """Two workers, --framework pytorch: each reads its own half of a
+        4-batch corpus (batch 4 per worker: 2 batches each), trains over
+        the job's dp=2 mesh and checkpoints its own process_<i> file. The
+        final state equals one process trained on the same global batches
+        (the two workers' batches side by side) to atol 1e-6."""
+        data = _motif_corpus(tmp_path / "c.tokens", 4)
+        ck = tmp_path / "ck"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
+        flags = ["--device", "cpu", "--data", data, "--lr", "3e-3",
+                 "--steps", "4", "--checkpoint-every", "2",
+                 "--dist-timeout", "60", "--ckpt-dir", str(ck), *TINY_MODEL]
+        proc = subprocess.run(
+            [sys.executable, "-m", "tony_tpu.client.cli", "local",
+             "--executes", str(REPO / "tony_tpu_torch" / "train.py"),
+             "--framework", "pytorch",
+             "--python_binary_path", sys.executable,
+             "--conf", "tony.worker.instances=2",
+             "--conf", "tony.ps.instances=0",
+             "--task_params", " ".join(flags)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+        )
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        for step in (2, 4):
+            names = {p.name for p in (ck / f"step_{step}").iterdir()}
+            assert {"process_0.npz", "process_1.npz"} <= names, names
+            meta = json.loads((ck / f"step_{step}" / "metadata.json")
+                              .read_text())
+            assert meta["num_processes"] == 2
+        cfg = train_cli.model_config_from_args(
+            train_cli.parse_args(TINY_MODEL), max_seq=33)
+        shards = []
+        for rank in range(2):
+            with ShardedRecordReader([data], rank, 2, fmt="tokens",
+                                     dtype=np.uint16, record_len=33,
+                                     batch_size=4) as reader:
+                shards.append([b.astype(np.int32) for b in reader])
+        assert [len(s) for s in shards] == [2, 2]
+        init_fn, step_fn = make_train_step(cfg, device="cpu",
+                                           learning_rate=3e-3)
+        state = init_fn(0)
+        for k in range(4):
+            state, _ = step_fn(state, np.concatenate(
+                [shards[0][k % 2], shards[1][k % 2]]))
+        got, want = _restored(ck, 4), train_state_to_numpy(state)
+        assert set(got) == set(want)
+        for path in want:
+            np.testing.assert_allclose(got[path], want[path], atol=1e-6,
+                                       err_msg=path)

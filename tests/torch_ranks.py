@@ -1,0 +1,317 @@
+"""Groups of ``torch.distributed`` ranks for the port's CPU tests.
+
+``launch(program, tmp_path)`` starts one process per rank of ``program``
+(a function below), each in its own session, rendezvous through a
+``file://`` store under ``tmp_path`` (no TCP port, so parallel test workers
+cannot collide), waits for all of them on one deadline, and in ``finally``
+kills and reaps every rank still alive, so a failed or hung test leaves no
+process behind. It returns each rank's JSON result; arrays go to
+``<tmp_path>/<program>.<rank>.npz``. A failure reports each rank's exit
+code and stderr tail.
+
+Run as a script, this file is one rank: ``python torch_ranks.py PROGRAM
+RANK WORLD STORE OUTDIR [ARGS...]``. Ranks import torch, numpy and
+``tony_tpu_torch`` only, never jax: the JAX reference runs in the test
+process.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+from datetime import timedelta
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+# One deadline for a whole rank group, and the process-group timeout of
+# every group a rank joins: a dead rank fails its peers within a minute.
+DEADLINE_S = 120.0
+GROUP_TIMEOUT_S = 60.0
+
+TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+            head_dim=16, d_ff=64, max_seq=32, dtype="float32", remat=False)
+
+
+def launch(program: str, tmp_path: Path, world: int = 2, *,
+           args: tuple = (), env: dict | None = None,
+           deadline_s: float = DEADLINE_S) -> list[dict]:
+    if deadline_s > DEADLINE_S:
+        raise ValueError(f"a rank group's deadline is at most {DEADLINE_S} s")
+    tmp_path = Path(tmp_path)
+    store = tmp_path / f"{program}.store"
+    if store.exists():
+        raise ValueError(f"{store} is left from an earlier launch")
+    base = dict(os.environ if env is None else env)
+    base["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO), *filter(None, [base.get("PYTHONPATH")])])
+    base["OMP_NUM_THREADS"] = "1"
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            out = open(tmp_path / f"{program}.{rank}.stdout", "w")
+            err = open(tmp_path / f"{program}.{rank}.stderr", "w")
+            logs += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, program, str(rank), str(world),
+                 str(store), str(tmp_path), *map(str, args)],
+                env={**base, "RANK": str(rank), "WORLD_SIZE": str(world)},
+                stdout=out, stderr=err, start_new_session=True,
+            ))
+        deadline = time.monotonic() + deadline_s
+        timed_out = False
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                break
+        if timed_out or any(p.returncode != 0 for p in procs):
+            for f in logs:
+                f.flush()
+            tails = "\n".join(
+                f"--- rank {r} (exit {p.poll()}) stderr tail ---\n"
+                + (tmp_path / f"{program}.{r}.stderr").read_text()[-3000:]
+                for r, p in enumerate(procs))
+            raise AssertionError(
+                f"rank group {program!r} "
+                f"{'passed its deadline' if timed_out else 'failed'}:\n"
+                f"{tails}")
+        return [json.loads((tmp_path / f"{program}.{r}.json").read_text())
+                for r in range(world)]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        for f in logs:
+            f.close()
+
+
+# ---------------------------------------------------------------------------
+# The rank side
+# ---------------------------------------------------------------------------
+
+def _join(rank: int, world: int, store: str) -> None:
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=timedelta(seconds=GROUP_TIMEOUT_S))
+
+
+def _mesh(**axes):
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh
+
+    return build_mesh(MeshSpec(**axes), "cpu", timeout_s=GROUP_TIMEOUT_S)
+
+
+def _gathered(state, mesh) -> dict:
+    """{JAX keystr path: numpy array} of the whole state: every split leaf
+    all-gathered from the ranks' pieces."""
+    import torch
+
+    from tony_tpu_torch.interop import (train_state_leaves,
+                                        train_state_placements)
+    from tony_tpu_torch.parallel import all_gather_tp
+
+    placements = train_state_placements(state)
+    out = {}
+    for path, value in train_state_leaves(state):
+        t = torch.as_tensor(value).detach()
+        for dim, entry in enumerate(getattr(placements.get(path), "spec",
+                                            ())):
+            if entry is not None:
+                t = all_gather_tp(t, dim, entry, mesh=mesh)
+        out[path] = t.numpy().copy()
+    return out
+
+
+def _params(path: str):
+    from tony_tpu_torch.interop import params_from_npz
+    from tony_tpu_torch.models import TransformerConfig
+
+    cfg = TransformerConfig(**TINY)
+    return cfg, params_from_npz(path, cfg, "cpu")
+
+
+def _refusal(fn) -> str:
+    try:
+        fn()
+    except (NotImplementedError, ValueError) as exc:
+        return f"{type(exc).__name__}: {exc}"
+    return ""
+
+
+def prog_initialize(rank, world, store, outdir, args):
+    """runtime.initialize joins the group (MASTER_* name the job; the
+    rendezvous is the file store), build_job_mesh gives dp = world, and
+    make_train_step refuses a world above 1 without a mesh."""
+    import torch
+
+    import tony_tpu_torch.runtime as rt
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.parallel.mesh import mesh_spec
+
+    ctx = rt.initialize(device="cpu", init_method=f"file://{store}",
+                        timeout_s=GROUP_TIMEOUT_S)
+    x = torch.tensor([ctx.process_id + 1.0])
+    torch.distributed.all_reduce(x)
+    mesh = rt.build_job_mesh(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    refused = _refusal(lambda: make_train_step(
+        TransformerConfig(**TINY), device="cpu"))
+    return {"rank": ctx.process_id, "sum": x.item(), "refused": refused,
+            "mesh": list(mesh_spec(mesh).shape)}, {}
+
+
+def prog_collectives(rank, world, store, outdir, args):
+    """The five collectives on the inputs of ``args[0]`` (``<name>_<rank>``
+    arrays), each over a mesh whose named axis spans the two ranks."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.parallel import (all_gather_tp, all_to_all_ep,
+                                         collectives, pmean_gradients,
+                                         reduce_scatter_tp,
+                                         ring_halo_exchange)
+
+    _join(rank, world, store)
+    with np.load(args[0]) as data:
+        inp = {k: torch.from_numpy(data[f"{k}_{rank}"])
+               for k in ("pmean_a", "pmean_b", "pmean_c", "gather",
+                         "scatter", "a2a", "halo")}
+    dp, ep, sp, tp = (_mesh(dp=2), _mesh(ep=2), _mesh(sp=2), _mesh(tp=2))
+    out = {}
+    # 56-byte buckets: pmean_a (60 bytes) is reduced in place, pmean_b and
+    # pmean_c (28 and 48) take a bucket each; 1 MiB: one bucket for all.
+    for tag, mesh, bucket in (("dp", dp, 56), ("ep", ep, 2 ** 20)):
+        grads = {"a": inp["pmean_a"].clone(),
+                 "nested": [inp["pmean_b"].clone(), inp["pmean_c"].clone()]}
+        collectives.BUCKET_BYTES = bucket
+        same = pmean_gradients(grads, mesh)
+        assert same is grads
+        out[f"pmean_{tag}_a"] = grads["a"]
+        out[f"pmean_{tag}_b"], out[f"pmean_{tag}_c"] = grads["nested"]
+    out["gather"] = all_gather_tp(inp["gather"], 1, mesh=tp)
+    out["scatter"] = reduce_scatter_tp(inp["scatter"], 1, mesh=tp)
+    out["a2a"] = all_to_all_ep(inp["a2a"], 0, 1, mesh=ep)
+    out["halo_prev"], out["halo_next"] = ring_halo_exchange(
+        inp["halo"], "sp", 2, axis=1, mesh=sp)
+    return {"rank": rank}, {k: v.numpy() for k, v in out.items()}
+
+
+def prog_train_dp(rank, world, store, outdir, args):
+    """make_train_step over a dp=2 mesh from the weights of ``args[0]`` on
+    the global batches of ``args[1]`` (this rank feeds its half): the
+    losses and the gathered final state. Then the refusals, and
+    sharded_batches(mesh=) over this rank's shard of the token file
+    ``args[2]``."""
+    import numpy as np
+
+    from tony_tpu_torch.interop import train_state_placements
+    from tony_tpu_torch.io import ShardedRecordReader, sharded_batches
+    from tony_tpu_torch.models import forward, make_train_step
+
+    _join(rank, world, store)
+    cfg, params = _params(args[0])
+    mesh = _mesh(dp=2)
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=float(args[3]))
+    state = init_fn(params=params)
+    split = {path: list(pl.spec) for path, pl in
+             train_state_placements(state).items() if pl.sharded}
+    losses = []
+    batches = np.load(args[1])
+    for tokens in batches:
+        half = len(tokens) // world
+        state, metrics = step_fn(state, tokens[rank * half:(rank + 1) * half])
+        assert set(metrics) == {"loss", "cross_entropy"}
+        losses.append(float(metrics["loss"]))
+    tp = _mesh(tp=2)
+    refused = {
+        "no_mesh": _refusal(lambda: make_train_step(cfg, device="cpu")),
+        "tp_mesh": _refusal(lambda: make_train_step(cfg, tp, device="cpu")),
+        "tp_forward": _refusal(lambda: forward(params, batches[0], cfg, tp)),
+        "pieces_forward": _refusal(lambda: forward(state.params, batches[0],
+                                                   cfg, mesh)),
+    }
+    reader_kw = dict(fmt="tokens", dtype=np.uint16, record_len=33,
+                     batch_size=2)
+    first = next(sharded_batches(
+        ShardedRecordReader([args[2]], rank, world, **reader_kw), mesh,
+        device="cpu"))
+    refused["wrong_shard"] = _refusal(lambda: next(sharded_batches(
+        ShardedRecordReader([args[2]], 1 - rank, world, **reader_kw), mesh,
+        device="cpu")))
+    return ({"losses": losses, "split": split, "refused": refused},
+            {"first_batch": first.numpy(), **_gathered(state, mesh)})
+
+
+def prog_checkpoint(rank, world, store, outdir, args):
+    """A dp=2 state from the weights of ``args[0]`` restores the 2-process
+    JAX checkpoint under ``args[1]`` (the restored state, gathered, goes to
+    the npz under ``restored/``), takes one step on this rank's half of
+    the batch ``args[2]``, saves it under ``args[3]`` (the saved state,
+    gathered, under ``saved/``), and restores that save into a fresh
+    state, which must equal it bit for bit."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import train_state_to_numpy
+    from tony_tpu_torch.models import make_train_step
+
+    _join(rank, world, store)
+    cfg, params = _params(args[0])
+    mesh = _mesh(dp=2)
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3)
+    state = init_fn(params=params)
+    jax_ckpt = CheckpointManager(args[1], process_id=rank, num_processes=2)
+    restored_step = jax_ckpt.latest_step()
+    assert jax_ckpt.restore(state) is state
+    out = {f"restored/{k}": v for k, v in _gathered(state, mesh).items()}
+    tokens = np.load(args[2])
+    half = len(tokens) // world
+    state, _ = step_fn(state, tokens[rank * half:(rank + 1) * half])
+    mgr = CheckpointManager(args[3], process_id=rank, num_processes=2)
+    mgr.save(int(state.step), state, blocking=True)
+    out.update({f"saved/{k}": v for k, v in _gathered(state, mesh).items()})
+    torch.distributed.barrier()  # both pieces of the step are written
+    fresh = init_fn(0)
+    assert mgr.restore(fresh) is fresh
+    mine, back = train_state_to_numpy(state), train_state_to_numpy(fresh)
+    equal = all(np.array_equal(mine[k], back[k]) for k in mine)
+    return {"restored_step": restored_step, "step": int(state.step),
+            "round_trip_equal": equal}, out
+
+
+PROGRAMS = {name[len("prog_"):]: fn for name, fn in globals().items()
+            if name.startswith("prog_")}
+
+
+def main(argv: list[str]) -> int:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    program, rank, world, store, outdir, *args = argv
+    rank, world = int(rank), int(world)
+    try:
+        result, arrays = PROGRAMS[program](rank, world, store, outdir, args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out = Path(outdir)
+    if arrays:
+        np.savez(out / f"{program}.{rank}.npz", **arrays)
+    (out / f"{program}.{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -25,6 +25,13 @@ package restores what the other wrote.
   waits on the same event before it hashes. ``background_snapshot=True``
   (reading the live state later, on the encode thread) is only safe without
   in-place updates, so the port refuses it.
+* **Data-parallel states.** A rank of ``make_train_step(cfg, mesh)`` holds
+  pieces of its split leaves: it writes each piece with the leaf's global
+  ``shape`` and the piece's ``shard_shapes`` and ``shard_indices`` in global
+  coordinates, as a JAX process writes its addressable shards. A restore
+  reads its own file when the piece there lines up with the template's
+  placement, and otherwise reassembles the global leaf from every file
+  and cuts its piece.
 * **Pipeline, differential saves, fallback, GC, flush signal,
   cross-topology restore**: as in the JAX package (``pipeline.py``,
   ``differential.py``, ``layout.py``).
@@ -50,7 +57,11 @@ from tony_tpu_torch.checkpoint import layout
 from tony_tpu_torch.checkpoint.differential import DiffTracker, hash_pieces
 from tony_tpu_torch.checkpoint.pipeline import SavePipeline
 from tony_tpu_torch.checkpoint.stores import store_for
-from tony_tpu_torch.interop import load_train_state, train_state_leaves
+from tony_tpu_torch.interop import (
+    load_train_state,
+    train_state_leaves,
+    train_state_placements,
+)
 from tony_tpu_torch.models.train import TrainState
 
 log = logging.getLogger(__name__)
@@ -167,10 +178,25 @@ def _place(template: Any, value: torch.Tensor) -> Any:
     return value.numpy()
 
 
-def _leaf_info(t: torch.Tensor) -> dict:
-    shape = list(t.shape)
-    return {"dtype": _NAMES[t.dtype], "shape": shape, "num_shards": 1,
-            "shard_shapes": [shape], "shard_indices": [[[0, d] for d in shape]]}
+def _placements(tree: Any) -> dict[str, Any]:
+    """{path: Placement} of a data-parallel TrainState's split and
+    replicated leaves; empty for any other tree."""
+    return train_state_placements(tree) if _is_train_state(tree) else {}
+
+
+def _span(shape, placement) -> tuple[tuple[int, ...], list[list[int]]]:
+    """(global shape, [start, stop] per dim) of a leaf of local ``shape``
+    with ``placement`` (None: the whole leaf)."""
+    if placement is None:
+        return tuple(shape), [[0, int(d)] for d in shape]
+    return (tuple(placement.global_shape),
+            [[a, b] for a, b in placement.index])
+
+
+def _leaf_info(t: torch.Tensor, placement=None) -> dict:
+    shape, index = _span(t.shape, placement)
+    return {"dtype": _NAMES[t.dtype], "shape": list(shape), "num_shards": 1,
+            "shard_shapes": [list(t.shape)], "shard_indices": [index]}
 
 
 class _CorruptStepError(Exception):
@@ -387,7 +413,9 @@ class CheckpointManager:
         for path, t in leaves:
             if not t.is_cuda:
                 bufs[path].copy_(t)
-        snapped = [(path, bufs[path], _leaf_info(t)) for path, t in leaves]
+        placements = _placements(state)
+        snapped = [(path, bufs[path], _leaf_info(t, placements.get(path)))
+                   for path, t in leaves]
         return _SaveJob(step, snapped, ready, (key, bufs))
 
     @staticmethod
@@ -597,6 +625,7 @@ class CheckpointManager:
             if own is None:  # deleted between listing and read
                 raise _CorruptStepError("own shard file vanished")
             manifest, _ = own
+            placements = _placements(state_template)
             values = {}
             for key, leaf in _tree_leaves(state_template):
                 info = manifest.get(key)
@@ -606,13 +635,19 @@ class CheckpointManager:
                         f"model/optimizer structure changed since it was "
                         f"written"
                     )
-                shape = tuple(getattr(leaf, "shape", ()))
-                if not force_cross and self._fast_path_ok(shape, info):
+                local = tuple(getattr(leaf, "shape", ()))
+                placement = placements.get(key)
+                shape, index = _span(local, placement)
+                if not force_cross and self._fast_path_ok(shape, local,
+                                                          index, info):
                     values[key] = self._leaf_pieces(step, own_id, key, info,
                                                     files)[0]
-                else:
-                    values[key] = self._restore_leaf_cross_topology(
-                        shape, info, key, step, saved_n, files)
+                    continue
+                whole = self._restore_leaf_cross_topology(
+                    shape, info, key, step, saved_n, files)
+                values[key] = (whole[placement.region()].clone()
+                               if placement is not None and placement.sharded
+                               else whole)
             return values
         finally:
             for _, npz in files.values():
@@ -682,14 +717,19 @@ class CheckpointManager:
         return pieces
 
     @staticmethod
-    def _fast_path_ok(shape: tuple, info: dict) -> bool:
-        """True when this process's single piece spans the template's
-        global shape (a multi-process save records the global shape but
-        each file holds only a slab)."""
+    def _fast_path_ok(shape: tuple, local: tuple, index: list,
+                      info: dict) -> bool:
+        """True when this process's single piece is exactly the template's
+        piece: the same global ``shape``, the same ``local`` shape and
+        (when the manifest records it) the same ``index`` in global
+        coordinates. A multi-process save of a replicated leaf records the
+        global shape, a split one only a slab of it."""
+        recorded = info.get("shard_indices")
         return (
             info["num_shards"] == 1
             and tuple(info["shape"]) == shape
-            and tuple(info["shard_shapes"][0]) == shape
+            and tuple(info["shard_shapes"][0]) == local
+            and (recorded is None or recorded[0] == index)
         )
 
     def _restore_leaf_cross_topology(

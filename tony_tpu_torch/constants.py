@@ -28,6 +28,9 @@ TONY_SERVING_PORT = "TONY_SERVING_PORT"
 # before retrying the session, and the checkpoint dir it probes (exported
 # when tony.checkpoint.location is set).
 TONY_RESUME_STEP = "TONY_RESUME_STEP"
+# The coordinator's planned slice for the job type, as JSON (num_slices,
+# hosts_per_slice, ...); runtime.build_job_mesh reads num_slices.
+TONY_SLICE_TOPOLOGY = "TONY_SLICE_TOPOLOGY"
 TONY_CHECKPOINT_DIR = "TONY_CHECKPOINT_DIR"
 
 # Checkpoint pipeline (tony.ckpt.* conf -> env -> checkpoint/manager.py

@@ -180,6 +180,20 @@ def train_state_leaves(state: TrainState) -> list[tuple[str, Any]]:
     return out
 
 
+def train_state_placements(state: TrainState) -> dict[str, Any]:
+    """{keystr path: parallel.sharding.Placement} of every leaf of a
+    data-parallel state (``make_train_step(cfg, mesh)``): params and their
+    moments by their parameter's placement. Empty for a single-device
+    state; the step and the count are always whole."""
+    if state.placements is None:
+        return {}
+    out = {}
+    for path, placement in _param_paths(state.placements):
+        for prefix in (".params", _MU, _NU):
+            out[prefix + path] = placement
+    return out
+
+
 def _host_array(value) -> np.ndarray:
     if torch.is_tensor(value):
         t = value.detach().cpu()

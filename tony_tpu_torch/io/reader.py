@@ -60,6 +60,7 @@ from tony_tpu_torch import constants
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.io.splits import FileSegment, create_read_info
 from tony_tpu_torch.io.storage import file_size, open_lines
+from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
 
 _SENTINEL = object()
 
@@ -103,6 +104,7 @@ class ShardedRecordReader:
         if fmt == "tokens" and not record_len:
             raise ValueError("tokens format needs record_len")
         self.fmt = fmt
+        self.task_index, self.num_tasks = task_index, num_tasks
         self.dtype = np.dtype(dtype)
         self.record_len = record_len
         self.batch_size = batch_size
@@ -882,13 +884,24 @@ def sharded_batches(
     """Wrap a tokens-format reader into an iterator of tensors on
     ``device`` — the step input the train step expects. Short tail batches
     are dropped. Transfers are pipelined through ``device_prefetch``
-    (depth ``prefetch``, default ``TONY_IO_PREFETCH_DEPTH``). A ``mesh``
-    (batch sharded over ``axes``) waits for the data-parallel slice."""
+    (depth ``prefetch``, default ``TONY_IO_PREFETCH_DEPTH``).
+
+    With a ``mesh`` the batch is split over ``axes``: each rank's batches
+    are its own slice of the global batch, so ``reader`` must be this
+    rank's shard of the corpus (``task_index``/``num_tasks`` = its position
+    along ``axes`` and their size; ``runtime.sharded_reader`` builds it),
+    and ``device`` the mesh's device type."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded_batches(mesh=) waits for the data-parallel slice "
-            "(slice 3) of the port"
-        )
+        want = (axis_coordinate(mesh, axes), axis_size(mesh, axes))
+        if (reader.task_index, reader.num_tasks) != want:
+            raise ValueError(
+                f"this rank feeds batch shard {want[0]} of {want[1]} over "
+                f"mesh axes {axes}; the reader reads shard "
+                f"{reader.task_index} of {reader.num_tasks}"
+            )
+        if resolve_device(device).type != mesh.device_type:
+            raise ValueError(f"a {mesh.device_type} mesh takes no batches "
+                             f"on {device}")
 
     def full_batches():
         for batch in reader:

@@ -1,7 +1,19 @@
-"""The LM train step on one device: forward, next-token cross-entropy,
-backward, global-norm clipping and AdamW, as the JAX package's
-``make_train_step`` composes them (``optax.chain(clip_by_global_norm,
-adamw)``).
+"""The LM train step: forward, next-token cross-entropy, backward,
+global-norm clipping and AdamW, as the JAX package's ``make_train_step``
+composes them (``optax.chain(clip_by_global_norm, adamw)``), on one device
+or data-parallel over a mesh of processes.
+
+With a mesh (``parallel.build_mesh``; dp above 1, the other axes 1), each
+rank keeps plain local tensors, placed as the JAX package's
+``_sharding_for_tree`` places its state: a leaf whose role names
+``embed_fsdp`` is split over dp along that dimension where dp divides it,
+every other leaf is replicated, and the AdamW moments follow their
+parameters. A step gathers the split leaves for the forward (all_gather; the
+backward reduce-scatters their gradients), averages the replicated leaves'
+gradients over dp (``pmean_gradients``), clips by the global norm (local
+squared norms, one all_reduce) and runs AdamW on the local pieces. Each rank
+feeds its own ``[B_local, T+1]`` slice of the global batch; the loss is the
+mean over the global batch.
 
 JAX donates the old state so the update happens in place in device memory;
 here the update IS in place: ``step_fn`` writes the new weights and moments
@@ -16,20 +28,32 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.transformer import (
     TransformerConfig,
+    check_mesh,
     forward,
     init_params,
+    param_roles,
 )
 from tony_tpu_torch.ops import softmax_cross_entropy
+from tony_tpu_torch.parallel.collectives import (
+    all_gather_with_scatter_grad,
+    axis_group,
+    pmean_gradients,
+)
+from tony_tpu_torch.parallel.sharding import shard_pytree
 
 
 class TrainState(NamedTuple):
     step: torch.Tensor  # 0-d int32 on the device
     params: Any         # the params dict of fp32 masters (requires_grad)
     opt_state: Any      # the torch.optim.AdamW holding the moments
+    # With a mesh: the params-shaped dict of each leaf's
+    # parallel.sharding.Placement (params and moments are local pieces).
+    placements: Any = None
 
 
 def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -56,14 +80,18 @@ def leaves(params: dict) -> list[torch.Tensor]:
     return out
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, *,
+                         leaf_norms: list[torch.Tensor] | None = None
+                         ) -> torch.Tensor:
     """optax.clip_by_global_norm, in place and without a host sync: with
     g = ||grads||_2 over every leaf, leave the grads as they are when
     g < max_norm, else replace each t by (t / g) * max_norm (no epsilon,
-    unlike torch.nn.utils.clip_grad_norm_). Returns g as a 0-d tensor."""
-    norm = torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads)).float())
+    unlike torch.nn.utils.clip_grad_norm_). ``leaf_norms`` gives each
+    leaf's norm when the grads are pieces of larger leaves. Returns g as a
+    0-d tensor."""
+    if leaf_norms is None:
+        leaf_norms = torch._foreach_norm(grads)
+    norm = torch.linalg.vector_norm(torch.stack(leaf_norms).float())
     clip = ~(norm < max_norm)  # a NaN norm clips, as optax's select does
     one = torch.ones((), dtype=norm.dtype, device=norm.device)
     torch._foreach_div_(grads, torch.where(clip, norm, one))
@@ -71,13 +99,10 @@ def clip_by_global_norm_(grads: list[torch.Tensor],
     return norm
 
 
-def _single_device_only(mesh, plan, pipeline_microbatches,
-                        pipeline_schedule, pipeline_virtual) -> None:
+def _check_supported(mesh, plan, pipeline_microbatches, pipeline_schedule,
+                     pipeline_virtual) -> None:
     if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=) waits for the data-parallel slice "
-            "(slice 3) of the port"
-        )
+        check_mesh(mesh)
     if (pipeline_microbatches is not None or pipeline_schedule != "gpipe"
             or pipeline_virtual != 1):
         raise NotImplementedError(
@@ -89,13 +114,12 @@ def _single_device_only(mesh, plan, pipeline_microbatches,
             "make_train_step(plan=) waits for the measurement-plane slice "
             "(slice 7) of the port"
         )
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
+    if mesh is None and dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
-        raise NotImplementedError(
+        raise ValueError(
             f"a torch.distributed world of {dist.get_world_size()} "
-            f"processes needs data-parallel training, which waits for "
-            f"slice 3 of the port"
+            f"processes trains data-parallel over a mesh: pass "
+            f"make_train_step(cfg, runtime.build_job_mesh())"
         )
 
 
@@ -112,22 +136,30 @@ def make_train_step(
     pipeline_virtual: int = 1,
     plan=None,
 ):
-    """Returns ``(init_fn, step_fn)`` for one device.
+    """Returns ``(init_fn, step_fn)`` for one device, or for this rank of
+    a data-parallel ``mesh`` (see the module note).
 
     ``init_fn(seed_or_generator=0, *, params=None) -> TrainState``: fresh
     fp32 weights from an int seed or a ``torch.Generator`` on ``device``,
     or the given ``params`` (e.g. converted from the JAX package with
     ``interop.params_from_numpy``), copied to ``device`` as fp32 masters.
+    With a mesh every rank must start from the same weights (the same
+    seed); it keeps its pieces and their ``placements``.
 
     ``step_fn(state, tokens[B, T+1]) -> (state', {"loss", "cross_entropy"})``:
     one optimizer step, updating ``state`` in place (see the module note).
-    The optimizer is optax's: global-norm clipping at ``grad_clip``, then
-    AdamW with b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on every
-    parameter (``torch.optim.AdamW`` computes that update).
+    With a mesh, ``tokens`` is this rank's slice of the global batch and the
+    metrics are means over the global batch. The optimizer is optax's:
+    global-norm clipping at ``grad_clip``, then AdamW with b1 0.9, b2
+    0.999, eps 1e-8, decoupled weight decay on every parameter
+    (``torch.optim.AdamW`` computes that update).
     """
-    _single_device_only(mesh, plan, pipeline_microbatches, pipeline_schedule,
-                        pipeline_virtual)
+    _check_supported(mesh, plan, pipeline_microbatches, pipeline_schedule,
+                     pipeline_virtual)
     device = resolve_device(device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                         f"{device}")
 
     def init_fn(seed_or_generator=0, *, params=None) -> TrainState:
         if params is None:
@@ -136,29 +168,81 @@ def make_train_step(
                 gen = torch.Generator(device=device)
                 gen.manual_seed(int(seed_or_generator))
             params = init_params(cfg, gen, device)
+        placements = None
+        if mesh is not None:
+            params, placements = shard_pytree(params, param_roles(cfg), mesh)
         params = _masters(params, device)
         opt = torch.optim.AdamW(
             leaves(params), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=weight_decay,
         )
         step = torch.zeros((), dtype=torch.int32, device=device)
-        return TrainState(step, params, opt)
+        return TrainState(step, params, opt, placements)
 
     def step_fn(state: TrainState, tokens):
         opt = state.opt_state
         tokens = torch.as_tensor(tokens).to(device)
         opt.zero_grad(set_to_none=True)
-        loss, metrics = lm_loss(state.params, tokens, cfg,
+        params = state.params
+        if mesh is not None:
+            params = _gather(params, state.placements, mesh)
+        loss, metrics = lm_loss(params, tokens, cfg, mesh,
                                 return_metrics=True)
         loss.backward()
-        clip_by_global_norm_(
-            [p.grad for p in leaves(state.params)], grad_clip)
+        grads = [p.grad for p in leaves(state.params)]
+        metrics = {"loss": loss, **metrics}
+        metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        if mesh is None:
+            clip_by_global_norm_(grads, grad_clip)
+        else:
+            _reduce_and_clip(grads, leaves(state.placements), mesh,
+                             grad_clip)
+            pmean_gradients(list(metrics.values()), mesh)
         opt.step()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return (TrainState(state.step + 1, state.params, opt),
-                {"loss": loss.detach(), **metrics})
+        return (TrainState(state.step + 1, state.params, opt,
+                           state.placements), metrics)
 
     return init_fn, step_fn
+
+
+def _gather(params: dict, placements: dict, mesh) -> dict:
+    """The full parameters for the forward: every split dimension of a
+    leaf all-gathered (its gradient is reduce-scattered back)."""
+    out = {}
+    for key, val in params.items():
+        if isinstance(val, dict):
+            out[key] = _gather(val, placements[key], mesh)
+            continue
+        for dim, entry in enumerate(placements[key].spec):
+            if entry is not None:
+                val = all_gather_with_scatter_grad(val, dim, entry, mesh=mesh)
+        out[key] = val
+    return out
+
+
+def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
+                     grad_clip: float) -> None:
+    """Turn each rank's gradients into the global batch's and clip them by
+    the global norm. A split leaf's gradient arrives reduce-scattered (the
+    sum over dp of this rank's block): divide by dp. A replicated leaf's is
+    this rank's own: average it over dp. Then each split leaf's norm is
+    the root of its blocks' squared norms summed over dp (one all_reduce
+    for all of them), and every rank clips its pieces by the same global
+    norm."""
+    group, n = axis_group(mesh, ("dp", "ep"))
+    split = [i for i, pl in enumerate(placements) if pl.sharded]
+    if split:
+        torch._foreach_div_([grads[i] for i in split], n)
+    pmean_gradients([g for g, pl in zip(grads, placements)
+                     if not pl.sharded], mesh)
+    norms = list(torch._foreach_norm(grads))
+    if split:
+        blocks = torch.stack([norms[i] for i in split])
+        squares = blocks * blocks
+        dist.all_reduce(squares, op=dist.ReduceOp.SUM, group=group)
+        for i, norm in zip(split, squares.sqrt().unbind()):
+            norms[i] = norm
+    clip_by_global_norm_(grads, grad_clip, leaf_norms=norms)
 
 
 def _masters(params: dict, device: torch.device) -> dict:

@@ -8,8 +8,9 @@ master weights; compute runs in ``cfg.compute_dtype``. ``forward`` is the
 dense, single-device trunk of the JAX package's ``forward``: pre-norm
 attention (RMSNorm, separate q/k/v projections, RoPE, flash attention with
 GQA K/V as they are, output projection) and a SwiGLU MLP per layer, then the
-final norm and the logits. Meshes wait for the data-parallel slice of the
-port, MoE trunks for the model-parallel one.
+final norm and the logits. On a data-parallel mesh it takes the gathered
+(full) parameters; the other mesh axes and MoE trunks wait for the
+model-parallel slice of the port.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from tony_tpu_torch.ops import (
     flash_attention,
     rms_norm,
 )
+from tony_tpu_torch.parallel.mesh import mesh_spec
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -226,6 +228,19 @@ def _layer_slices(layers: dict, n_layers: int) -> list[dict]:
             for i in range(n_layers)]
 
 
+def check_mesh(mesh) -> None:
+    """Refuse a mesh whose model-parallel axes (pp, ep, sp, tp) are above
+    1: only data parallelism is ported so far."""
+    spec = mesh_spec(mesh)
+    wide = {a: getattr(spec, a) for a in ("pp", "ep", "sp", "tp")
+            if getattr(spec, a) > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide} wait for the model-parallel slice (slice 4) "
+            f"of the port; only dp may be above 1"
+        )
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None, *, return_aux: bool = False):
     """tokens [B, T] int -> logits [B, T, V] in the compute dtype, on the
@@ -235,12 +250,19 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     ``cfg.remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, ``cfg.remat_policy`` "full" or "dots").
     ``return_aux=True`` additionally returns the MoE router aux dict, empty
-    for the dense configs this trunk runs."""
+    for the dense configs this trunk runs.
+
+    With a data-parallel ``mesh`` (dp only), ``params`` are the full
+    parameters, gathered from the rank's pieces (``make_train_step`` does
+    that), and ``tokens`` are this rank's slice of the batch."""
     if mesh is not None:
-        raise NotImplementedError(
-            "forward(mesh=) waits for the data-parallel slice (slice 3) of "
-            "the port"
-        )
+        check_mesh(mesh)
+        d_in = params["layers"]["wq"].shape[1]
+        if d_in != cfg.d_model:
+            raise ValueError(
+                f"forward(mesh=) takes the gathered parameters: wq has "
+                f"{d_in} of d_model {cfg.d_model} rows"
+            )
     if cfg.n_experts:
         raise NotImplementedError(
             "MoE trunks wait for the model-parallel slice (slice 4) of the "

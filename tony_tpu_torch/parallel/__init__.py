@@ -1,0 +1,34 @@
+"""Parallelism over ``torch.distributed``: the five-axis device mesh, the
+logical sharding rules, and the collectives over mesh axes."""
+
+from tony_tpu_torch.parallel.collectives import (
+    all_gather_tp,
+    all_to_all_ep,
+    pmean_gradients,
+    reduce_scatter_tp,
+    ring_halo_exchange,
+)
+from tony_tpu_torch.parallel.mesh import AXES, MeshSpec, build_mesh
+from tony_tpu_torch.parallel.sharding import (
+    LOGICAL_RULES,
+    Placement,
+    logical_spec,
+    shard_pytree,
+    with_logical_constraint,
+)
+
+__all__ = [
+    "AXES",
+    "LOGICAL_RULES",
+    "MeshSpec",
+    "Placement",
+    "all_gather_tp",
+    "all_to_all_ep",
+    "build_mesh",
+    "logical_spec",
+    "pmean_gradients",
+    "reduce_scatter_tp",
+    "ring_halo_exchange",
+    "shard_pytree",
+    "with_logical_constraint",
+]

@@ -1,0 +1,165 @@
+"""Collectives over named mesh axes, on ``torch.distributed``.
+
+The port's counterpart of the JAX package's ``parallel/collectives.py``: the
+same five functions with the same semantics, over the process group of a
+mesh axis (``DeviceMesh.get_group(name)``) instead of a ``shard_map`` axis
+name, so each also takes the ``mesh``. Every rank of the axis must call them
+in the same order (SPMD). Each runs its collective also when the axis has
+size 1, so a one-process mesh drives the same path as a larger one.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from tony_tpu_torch.parallel.mesh import axis_size
+
+# Gradients are averaged in flat buckets of about this many bytes, one
+# collective per bucket rather than one per leaf.
+BUCKET_BYTES = 25 * 2 ** 20
+
+
+def axis_group(mesh, axis_names) -> tuple[Any, int]:
+    """(process group, size) of mesh axes ``axis_names`` (one name or a
+    tuple) taken together. Axes of size 1 add nothing; two axes both above
+    1 would need a group over their product, which only the expert-
+    parallel slice of the port uses."""
+    names = (axis_names,) if isinstance(axis_names, str) else tuple(
+        axis_names)
+    wide = [n for n in names if axis_size(mesh, n) > 1]
+    if len(wide) > 1:
+        raise NotImplementedError(
+            f"a collective over mesh axes {wide} together waits for the "
+            f"model-parallel slice (slice 4) of the port"
+        )
+    name = wide[0] if wide else names[0]
+    return mesh.get_group(name), axis_size(mesh, name)
+
+
+def _tensor_leaves(tree: Any) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def pmean_gradients(grads: Any, mesh, axis_names=("dp", "ep")) -> Any:
+    """Average every tensor of ``grads`` (a tensor, or dicts/lists/tuples
+    of them) over the data-parallel axes, in place, and return ``grads``.
+    Smaller leaves are packed into flat buckets of one dtype, up to
+    ``BUCKET_BYTES`` each: one all_reduce per bucket, not per leaf. A
+    contiguous leaf of ``BUCKET_BYTES`` or more is reduced where it lies,
+    with no copy into a bucket and back."""
+    group, n = axis_group(mesh, axis_names)
+    bucket_bytes = BUCKET_BYTES
+    buckets: dict[torch.dtype, list[list[torch.Tensor]]] = {}
+    for t in _tensor_leaves(grads):
+        if t.is_contiguous() and t.numel() * t.element_size() >= bucket_bytes:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            if n > 1:
+                t.div_(n)
+            continue
+        runs = buckets.setdefault(t.dtype, [[]])
+        size = sum(x.numel() for x in runs[-1]) * t.element_size()
+        if runs[-1] and size + t.numel() * t.element_size() > bucket_bytes:
+            runs.append([])
+        runs[-1].append(t)
+    for runs in buckets.values():
+        for run in runs:
+            flat = torch.cat([t.reshape(-1) for t in run])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            if n > 1:
+                flat.div_(n)
+            for t, piece in zip(run, flat.split([t.numel() for t in run])):
+                t.copy_(piece.view_as(t))
+    return grads
+
+
+def all_gather_tp(x: torch.Tensor, axis: int, axis_name: str = "tp", *,
+                  mesh) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``axis`` in rank order (JAX's
+    tiled ``all_gather``). Contiguous."""
+    group, n = axis_group(mesh, axis_name)
+    front = x.movedim(axis, 0).contiguous()
+    out = front.new_empty((n * front.shape[0], *front.shape[1:]))
+    dist.all_gather_into_tensor(out, front, group=group)
+    return out.movedim(0, axis).contiguous()
+
+
+def reduce_scatter_tp(x: torch.Tensor, axis: int, axis_name: str = "tp", *,
+                      mesh) -> torch.Tensor:
+    """Sum ``x`` over the ranks and keep this rank's block of ``axis``
+    (JAX's tiled ``psum_scatter``). Contiguous."""
+    group, n = axis_group(mesh, axis_name)
+    if x.shape[axis] % n:
+        raise ValueError(f"dimension {axis} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    front = x.movedim(axis, 0).contiguous()
+    out = front.new_empty((front.shape[0] // n, *front.shape[1:]))
+    dist.reduce_scatter_tensor(out, front, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, axis).contiguous()
+
+
+def all_to_all_ep(x: torch.Tensor, split_axis: int, concat_axis: int,
+                  axis_name: str = "ep", *, mesh) -> torch.Tensor:
+    """Token shuffle for expert parallelism (JAX's tiled ``all_to_all``):
+    block i of ``split_axis`` goes to rank i, and the blocks received are
+    concatenated along ``concat_axis`` in rank order."""
+    group, n = axis_group(mesh, axis_name)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dimension {split_axis} of {tuple(x.shape)} does "
+                         f"not split over {n} ranks")
+    send = torch.stack(x.chunk(n, split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+def ring_halo_exchange(x: torch.Tensor, axis_name: str, halo: int,
+                       axis: int = 0, *, mesh
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exchange ``halo``-wide boundary slabs with both ring neighbours
+    along ``axis``. Returns (from_prev, from_next): the previous rank's
+    last ``halo`` rows and the next rank's first."""
+    group, n = axis_group(mesh, axis_name)
+    lo = x.narrow(axis, 0, halo).contiguous()
+    hi = x.narrow(axis, x.shape[axis] - halo, halo).contiguous()
+    if n == 1:  # both neighbours are this rank
+        return hi.clone(), lo.clone()
+    ranks = dist.get_process_group_ranks(group)
+    me = ranks.index(dist.get_rank())
+    prev, nxt = ranks[(me - 1) % n], ranks[(me + 1) % n]
+    from_prev, from_next = torch.empty_like(hi), torch.empty_like(lo)
+    # With two ranks prev == next: the tags keep the two slabs apart.
+    ops = [dist.P2POp(dist.isend, hi, nxt, group, tag=0),
+           dist.P2POp(dist.irecv, from_prev, prev, group, tag=0),
+           dist.P2POp(dist.isend, lo, prev, group, tag=1),
+           dist.P2POp(dist.irecv, from_next, nxt, group, tag=1)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return from_prev, from_next
+
+
+class _GatherScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, axis_name, mesh):
+        ctx.args = (axis, axis_name, mesh)
+        return all_gather_tp(x, axis, axis_name, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis, axis_name, mesh = ctx.args
+        return (reduce_scatter_tp(grad, axis, axis_name, mesh=mesh),
+                None, None, None)
+
+
+def all_gather_with_scatter_grad(x: torch.Tensor, axis: int,
+                                 axis_name: str, *, mesh) -> torch.Tensor:
+    """``all_gather_tp`` that autograd differentiates: the gradient of the
+    gathered tensor is reduce-scattered (summed over the ranks, this rank's
+    block kept), the transpose JAX takes of a tiled all_gather."""
+    return _GatherScatter.apply(x, axis, axis_name, mesh)

@@ -7,10 +7,13 @@ a script needs one call before touching the card::
 
     import tony_tpu_torch.runtime as rt
     ctx = rt.initialize()       # ctx.device: this process's card
+    mesh = rt.build_job_mesh(MeshSpec(dp=ctx.num_processes),
+                             device=ctx.device)   # None alone
 
 Outside a job, or in a job of one process, ``initialize`` only picks the
-device. ``sharded_reader`` hands the script a record reader over its own
-byte range of the corpus.
+device and ``build_job_mesh`` returns None (``make_train_step(cfg, None)``
+is the single-device step). ``sharded_reader`` hands the script a record
+reader over its own byte range of the corpus.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass
+from datetime import timedelta
 
 import torch
 
 from tony_tpu_torch import constants
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.parallel.mesh import build_mesh
 
 
 @dataclass(frozen=True)
@@ -80,12 +85,19 @@ def local_rank(spec: dict[str, list[str]], rank: int,
     return hosts[:rank].count(hosts[rank])
 
 
-def initialize(device="cuda") -> TaskContext:
+def initialize(device="cuda", *, init_method: str | None = None,
+               timeout_s: float = 300.0) -> TaskContext:
     """Pick this process's device and, in a world larger than one, join the
     ``torch.distributed`` process group (NCCL on CUDA, gloo on the CPU) at
-    ``MASTER_ADDR:MASTER_PORT``. On CUDA the device is ``cuda:<local
-    rank>``, the process's index among the tasks on its host (from
-    ``CLUSTER_SPEC``; 0 without one), unless ``device`` names an index."""
+    ``MASTER_ADDR:MASTER_PORT`` (or ``init_method``, e.g. a ``file://``
+    store). On CUDA the device is ``cuda:<local rank>``, the process's index
+    among the tasks on its host (from ``CLUSTER_SPEC``; 0 without one),
+    unless ``device`` names an index.
+
+    Every collective of the group, the rendezvous included, fails after
+    ``timeout_s`` instead of waiting for a peer that died (300 s is
+    ``jax.distributed.initialize``'s default, which the JAX package
+    relies on)."""
     ctx = task_context()
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -98,8 +110,9 @@ def initialize(device="cuda") -> TaskContext:
     if ctx.is_distributed:
         torch.distributed.init_process_group(
             backend="nccl" if dev.type == "cuda" else "gloo",
-            init_method=f"tcp://{ctx.coordinator_address}",
+            init_method=init_method or f"tcp://{ctx.coordinator_address}",
             world_size=ctx.num_processes, rank=ctx.process_id,
+            timeout=timedelta(seconds=timeout_s),
         )
     return dataclasses.replace(ctx, device=str(dev))
 
@@ -125,3 +138,34 @@ def sharded_reader(paths: list[str], **kwargs):
         paths, task_index=ctx.process_id, num_tasks=ctx.num_processes,
         **kwargs,
     )
+
+
+def slice_topology() -> dict | None:
+    """The coordinator's planned slice for this job type (num_slices,
+    hosts_per_slice, ...) from ``TONY_SLICE_TOPOLOGY``, or None when the
+    job was not planned onto slices."""
+    raw = os.environ.get(constants.TONY_SLICE_TOPOLOGY)
+    return json.loads(raw) if raw else None
+
+
+def build_job_mesh(spec=None, device="cuda", *, timeout_s: float = 300.0):
+    """This job's data-parallel mesh (``parallel.build_mesh``) over the
+    process group ``initialize`` joined, with the slice count from
+    ``TONY_SLICE_TOPOLOGY`` (1 without it): dp is the outer axis, so only
+    the gradient mean crosses slices (on GPUs a slice is a node). With no
+    ``spec`` the world is factored as the JAX package does (tp first);
+    the port's train step takes dp only so far. Returns None without a
+    process group (a job of one process)::
+
+        ctx = rt.initialize()
+        mesh = rt.build_job_mesh(MeshSpec(dp=ctx.num_processes),
+                                 device=ctx.device)
+        init_fn, step_fn = make_train_step(cfg, mesh, device=ctx.device)
+    """
+    if not (torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        return None
+    plan = slice_topology()
+    num_slices = int(plan["num_slices"]) if plan else 1
+    return build_mesh(spec, device, num_slices=num_slices,
+                      timeout_s=timeout_s)

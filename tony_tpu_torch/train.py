@@ -8,10 +8,14 @@ Submitted through the orchestrator with ``--framework pytorch``::
 
     python -m tony_tpu.client.cli local \\
         --executes tony_tpu_torch/train.py --framework pytorch \\
-        --conf tony.worker.instances=1 \\
+        --conf tony.worker.instances=2 --conf tony.ps.instances=0 \\
         --task_params "--device cpu --steps 10 --d-model 64 --n-layers 2"
 
-The script calls ``runtime.initialize()`` first and trains on ``--data``
+The script calls ``runtime.initialize()`` and ``runtime.build_job_mesh()``
+first: with more than one process it trains data-parallel over the job's
+mesh (``--batch`` is per process, so the global batch is ``--batch`` times
+the process count), each process checkpointing its own pieces; alone it
+runs the single-device step. It trains on ``--data``
 (comma-separated paths: ``*.jblk`` block-compressed jsonl containers with a
 ``tokens`` field per record, anything else fixed-width uint16 token records
 of length seq+1), read through ``runtime.sharded_reader`` (each process
@@ -39,6 +43,7 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 import tony_tpu_torch.runtime as rt
 from tony_tpu_torch import constants
@@ -46,6 +51,7 @@ from tony_tpu_torch.checkpoint import CheckpointManager
 from tony_tpu_torch.interop import params_from_npz
 from tony_tpu_torch.io import device_prefetch
 from tony_tpu_torch.models import TransformerConfig, make_train_step
+from tony_tpu_torch.parallel.mesh import MeshSpec, mesh_spec
 
 
 def parse_args(argv):
@@ -67,6 +73,9 @@ def parse_args(argv):
                         "uint16 token records of length seq+1. Empty: "
                         "the synthetic motif corpus.")
     p.add_argument("--checkpoint-every", type=int, default=10)
+    p.add_argument("--dist-timeout", type=float, default=300.0,
+                   help="seconds a collective waits for a peer before "
+                        "failing (process group timeout)")
     p.add_argument("--ckpt-dir", default="",
                    help="checkpoint dir (default: $TONY_CHECKPOINT_DIR, "
                         "else $TONY_LOG_DIR/lm-checkpoints)")
@@ -206,11 +215,24 @@ def checkpoint_dir(args) -> str:
 
 def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    ctx = rt.initialize(device=args.device)
+    ctx = rt.initialize(device=args.device, timeout_s=args.dist_timeout)
+    try:
+        return _train(args, ctx)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, ctx) -> int:
+    # Data parallel over every process: the other axes wait for the
+    # model-parallel slice of the port.
+    mesh = rt.build_job_mesh(MeshSpec(dp=ctx.num_processes),
+                             device=ctx.device, timeout_s=args.dist_timeout)
     print(f"[{ctx.job_name}:{ctx.task_index}] process {ctx.process_id}/"
-          f"{ctx.num_processes} on {ctx.device}", flush=True)
+          f"{ctx.num_processes} on {ctx.device}, mesh "
+          f"{mesh_spec(mesh) if mesh is not None else None}", flush=True)
     cfg = model_config_from_args(args, max_seq=args.seq + 1)
-    init_fn, step_fn = make_train_step(cfg, device=ctx.device,
+    init_fn, step_fn = make_train_step(cfg, mesh, device=ctx.device,
                                        learning_rate=args.lr)
     if args.weights_npz:
         state = init_fn(params=params_from_npz(args.weights_npz, cfg,
