@@ -23,7 +23,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
              training shape, B1/B4 at the serving shapes too, and B1-B3
              against SDPA's forward and backward at the hd128 shape
              [8, 2048, 8, 128]; at those two shapes B1-B3 are also held row
-             by row (ROW_TOL).
+             by row (ROW_TOL). Each library reading (SDPA, F.rms_norm) is
+             taken 3 times; one below half the median of its other
+             readings is taken again, and refused (logged, not used) if it
+             stays low; the library ms is the median of those kept.
 3. serve   — the flagship GQA LM at full width (vocab 32000, d 1024,
              8 layers, 16/4 heads, head_dim 64, d_ff 4096, bf16, random
              weights from --seed) behind ServingEngine + ServingServer:
@@ -68,10 +71,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
              through the prefetcher. Everything is written under a
              temporary directory, removed at the end (20 GB free needed).
 
+11. moe train — make_train_step on bench.py's bench_moe configuration at
+             full width and depth (vocab 32000, d 1024, 8 layers, 16 heads
+             of 64, d_ff 4096, 4 experts, top-2, capacity factor 1.25,
+             bf16, remat "dots", ~502 M parameters) over a fixed batch of
+             4 x 2049 tokens: step median, tokens/s, MFU from the routed
+             FLOPs (formula printed), peak memory, the router's drop rate
+             and entropy, one profiled step split into routing/dispatch/
+             combine, experts, B1-B4 and the rest; the loss must fall.
+12. moe parity — fp32 (TF32 off), train parity's widths with 4 experts,
+             top-2, capacity factor 1.25 (tokens drop): card vs CPU at each
+             remat setting, then the expert-parallel path over a one-rank
+             NCCL mesh: 3 steps bit-equal to mesh=None, its all_to_all run.
+13. moe serve — DecodeSession.generate at bench_moe_decode's three points
+             (E 4 routed, E 16 routed, E 16 dense; d 512, 4 layers, batch
+             8, prompt 16; ms per step by differencing 256 and 896 new
+             tokens, bench.py's lengths), a ServingEngine on bench_moe's
+             trunk (bf16) answering 4 concurrent POSTs; then, outside the
+             counted window, routed == dense tokens in fp32 at E 4 and
+             E 16 and fp32 engine/generate parity on bench_moe's trunk.
+
 The launch counters are set to 0 just before each path (phases 3-4, the
 serving path; phase 7, the training path; phase 9, the data-parallel
-path; phase 10's jobs and serving, the job path) and read just after; every
-kernel of a path must have launched there. The last three lines are the kernels
+path; phase 10's jobs and serving, the job path; phase 11, the MoE train
+path; phase 13's bf16 generate and engine, the MoE serving path) and read
+just after; every kernel of a path must have launched there. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}.
 """
@@ -81,6 +105,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -155,6 +180,35 @@ JOB_SERVE_REQUESTS = 4
 # One PCIe Gen5 x16 direction, the D2H bound of a snapshot.
 PCIE_BYTES_PER_S = 64e9
 
+# MoE train: bench.py's bench_moe (vocab 32000, d 1024, 8 layers, 16 heads
+# of 64 (MHA), d_ff 4096, 4 experts, top-2, capacity factor 1.25, bf16,
+# remat "dots") at full width and depth, batch 4 x 2049 from --seed.
+BENCH_MOE = dict(
+    vocab_size=32_000, d_model=1024, n_layers=8, n_heads=16, head_dim=64,
+    d_ff=4096, max_seq=2048, n_kv_heads=0, n_experts=4, expert_top_k=2,
+    capacity_factor=1.25, remat=True, remat_policy="dots",
+)
+MOE_BATCH = 4
+# MoE parity: train parity's widths (GQA 16/4) with 4 experts, top-2 and
+# capacity factor 1.25, so tokens drop.
+MOE_PARITY = dict(PARITY_TRAIN, n_experts=4, expert_top_k=2,
+                  capacity_factor=1.25)
+# The MoE parity weights' embedding rows share one seeded offset of this
+# scale: routing is skewed and tokens drop (a drop rate of 0.17 on the
+# first batch, on the CPU), where the plain random init drops none.
+MOE_PARITY_SKEW = 1.0
+# MoE decode: bench.py's bench_moe_decode trunk (vocab 32000, d 512, 4
+# layers, 8 heads of 64, d_ff 1024, top-2, bf16) at its three points, batch
+# 8, prompt 16; the per-token ms is the wall difference of two lengths.
+MOE_DECODE = dict(
+    vocab_size=32_000, d_model=512, n_layers=4, n_heads=8, head_dim=64,
+    d_ff=1024, max_seq=1024, n_kv_heads=0, expert_top_k=2, remat=False,
+)
+MOE_DECODE_POINTS = [(4, "routed"), (16, "routed"), (16, "dense")]
+MOE_DECODE_BATCH, MOE_DECODE_PROMPT = 8, 16
+MOE_DECODE_LENGTHS = (256, 896)
+MOE_SERVE_REQUESTS = 4
+
 # Parity phase requests: (prompt length, new tokens, engine step at which it
 # is submitted). Six slots, prefill chunks of 32 and prefill batches of 4:
 # prompts shorter than a chunk and spanning three, two prefill calls in the
@@ -204,6 +258,8 @@ TOL = {
 ROW_TOL = 0.02
 ROW_FLOOR = 0.1
 PROFILE_TRIES = 3
+# Readings of each library yardstick (see library_ms).
+LIBRARY_READINGS = 3
 
 
 def log(msg: str) -> None:
@@ -253,6 +309,31 @@ def device_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 
     events, _ = device_events(torch, many)
     return sum(us for _, us in events) / iters / 1e3
+
+
+def library_ms(torch, name: str, fn, iters: int, warmup: int = 3) -> float:
+    """The device ms of a library yardstick call (SDPA, F.rms_norm),
+    guarded against a reading that reads low because the profiler dropped
+    events: LIBRARY_READINGS readings of ``device_ms``; one below half the
+    median of the other readings is taken again, and if it stays below,
+    it is logged as refused and not used. Returns the median of the
+    readings kept."""
+    readings = [device_ms(torch, fn, iters, warmup)
+                for _ in range(LIBRARY_READINGS)]
+    kept = []
+    for i, reading in enumerate(readings):
+        floor = 0.5 * float(np.median(readings[:i] + readings[i + 1:]))
+        if reading < floor:
+            again = device_ms(torch, fn, iters, warmup=1)
+            log(f"{name}: reading {reading:.6g} ms is below half the median "
+                f"of its other readings ({2 * floor:.6g} ms); taken again: "
+                f"{again:.6g} ms")
+            if again < floor:
+                log(f"{name}: refused {again:.6g} ms as a library ms")
+                continue
+            reading = again
+        kept.append(reading)
+    return float(np.median(kept))
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -407,10 +488,12 @@ def time_rms_norm(torch, norms, gen, rows: int, w_dtype) -> dict:
     fns = {
         "ms": lambda: norms._rms_norm_cuda(x, w, 1e-6),
         "plain_ms": lambda: norms._rms_norm_plain(x, w, 1e-6),
-        "library_ms": lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6),
     }
     iters = 200 if rows <= 1024 else 50
     res = {k: device_ms(torch, f, iters) for k, f in fns.items()}
+    res["library_ms"] = library_ms(
+        torch, f"F.rms_norm [{rows}, {d}]",
+        lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6), iters)
     nbytes = 2 * rows * d * x.element_size() + d * w.element_size()
     res["bound"] = bound(nbytes, 4 * rows * d, torch.float32)
     return res
@@ -573,8 +656,9 @@ def time_fwd(torch, attention, q, k, v, iters: int,
             q, k, v, causal=True, scale=scale), iters),
         "plain_ms": device_ms(torch, lambda: attention._flash_plain_bthd(
             q, k, v, causal=True, scale=scale), plain_iters),
-        "library_ms": device_ms(torch, lambda: sdpa(qs, ks, vs,
-                                                    is_causal=True), iters),
+        "library_ms": library_ms(
+            torch, f"SDPA forward {list(q.shape)}",
+            lambda: sdpa(qs, ks, vs, is_causal=True), iters),
     }
     res["bound"] = fwd_bound(q, k)
     return res
@@ -773,8 +857,10 @@ def time_sdpa_bwd(torch, q, k, v, do) -> float:
     dos = do.transpose(1, 2).contiguous()
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True)
-    return device_ms(torch, lambda: torch.autograd.grad(
-        lib_out, (qs, ks, vs), dos, retain_graph=True), 5, warmup=1)
+    return library_ms(torch, f"SDPA backward {list(q.shape)}",
+                      lambda: torch.autograd.grad(
+                          lib_out, (qs, ks, vs), dos, retain_graph=True),
+                      5, warmup=1)
 
 
 def bwd_bounds(q, k):
@@ -1039,17 +1125,19 @@ def profile_phase(torch, cfg, session) -> dict:
     return res
 
 
-def parity_phase(torch, params, seed: int) -> dict:
+def parity_phase(torch, params, seed: int, cfg_kw: dict = FLAGSHIP,
+                 tag: str = "parity") -> dict:
     """fp32, TF32 off: staggered requests of mixed lengths through the
     engine (chunked prefill + slot decode, several slots live at once)
     each equal DecodeSession.generate (flash prefill + cache decode) token
-    for token, at decode windows 1 and 3."""
+    for token, at decode windows 1 and 3. ``cfg_kw``: the model (FLAGSHIP,
+    or an MoE trunk, which both sides evaluate as the dense mixture)."""
     from tony_tpu_torch.models import DecodeSession, TransformerConfig
     from tony_tpu_torch.serving import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = TransformerConfig(dtype="float32", **FLAGSHIP)
+    cfg = TransformerConfig(dtype="float32", **cfg_kw)
     session = DecodeSession(params, cfg, device="cuda")
     rng = np.random.default_rng(seed + 2)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -1078,13 +1166,13 @@ def parity_phase(torch, params, seed: int) -> dict:
             got = np.asarray(req.result(timeout=1)["tokens"])
             if not np.array_equal(got, want):
                 raise AssertionError(
-                    f"engine/generate parity broken (window {window}, "
+                    f"{tag}: engine/generate parity broken (window {window}, "
                     f"request {i}, prompt {prompts[i].size}):\n  engine   "
                     f"{got.tolist()}\n  generate {want.tolist()}")
             n_tokens += int(got.size)
         if max_live <= engine.prefill_batch:
             raise AssertionError(f"only {max_live} slots were live at once")
-        log(f"parity fp32, decode window {window}: {len(reqs)} requests "
+        log(f"{tag} fp32, decode window {window}: {len(reqs)} requests "
             f"equal, up to {max_live} slots live at once, "
             f"{engine.stats()['retired']} retired")
     return {"requests": len(prompts), "tokens": n_tokens}
@@ -1183,14 +1271,30 @@ def train_phase(torch, attention, norms, seed: int) -> dict:
     return res, (cfg, init_fn, step_fn, state, tokens)
 
 
-def train_parity_phase(torch, seed: int) -> dict:
+def parity_params(torch, cfg, seed: int, skew: float = 0.0) -> dict:
+    """fp32 weights on the CPU from ``seed``; with ``skew``, every
+    embedding row plus one shared random offset of that scale."""
+    from tony_tpu_torch.models import init_params
+
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    if skew:
+        offset = torch.randn(cfg.d_model,
+                             generator=torch.Generator().manual_seed(seed + 1))
+        params["embed"] += skew * offset
+    return params
+
+
+def train_parity_phase(torch, seed: int, cfg_kw: dict = PARITY_TRAIN,
+                       tag: str = "train parity", skew: float = 0.0) -> dict:
     """fp32, TF32 off: the same weights and batches through make_train_step
     on the card and on the CPU (the plain path, which the CPU tests pin to
     the JAX package), with remat off, "full" and "dots": the losses of
     PARITY_TRAIN_STEPS steps and every gradient leaf of the first step
-    agree within the stated tolerances."""
-    from tony_tpu_torch.models import (TransformerConfig, init_params,
-                                       lm_loss, make_train_step)
+    agree within the stated tolerances. ``cfg_kw``: the model (the dense
+    PARITY_TRAIN, or MOE_PARITY, whose steps must drop tokens);
+    ``skew``: see parity_params."""
+    from tony_tpu_torch.models import (TransformerConfig, lm_loss,
+                                       make_train_step)
     from tony_tpu_torch.models.train import leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1199,8 +1303,8 @@ def train_parity_phase(torch, seed: int) -> dict:
     out = {}
     for remat, policy in PARITY_REMAT:
         cfg = TransformerConfig(dtype="float32", remat=remat,
-                                remat_policy=policy, **PARITY_TRAIN)
-        params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+                                remat_policy=policy, **cfg_kw)
+        params = parity_params(torch, cfg, seed, skew)
         batches = [torch.as_tensor(rng.integers(
             0, cfg.vocab_size, (PARITY_TRAIN_BATCH, cfg.max_seq + 1)))
             for _ in range(PARITY_TRAIN_STEPS)]
@@ -1215,23 +1319,26 @@ def train_parity_phase(torch, seed: int) -> dict:
             for toks in batches:
                 state, metrics = step_fn(state, toks)
                 run.append(metrics["loss"])
+                drop = metrics.get("moe_drop_rate")
             losses[dev] = _loss_list(torch, run)
-        tag = f"remat={remat}/{policy}"
+        key = f"remat={remat}/{policy}"
+        if cfg.n_experts and not float(drop) > 0:
+            raise AssertionError(f"{tag} {key}: no token dropped")
         if not np.allclose(losses["cuda"], losses["cpu"], rtol=TRAIN_LOSS_RTOL,
                            atol=0):
-            raise AssertionError(f"train parity {tag}: losses card "
+            raise AssertionError(f"{tag} {key}: losses card "
                                  f"{losses['cuda']} vs cpu {losses['cpu']}")
         worst = 0.0
         for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
             scale = b.abs().max().item()
             err = (a - b).abs().max().item()
             if not err <= TRAIN_GRAD_TOL * scale:
-                raise AssertionError(f"train parity {tag}: gradient leaf {i} "
+                raise AssertionError(f"{tag} {key}: gradient leaf {i} "
                                      f"err {err} > {TRAIN_GRAD_TOL} * {scale}")
             worst = max(worst, err / scale if scale else err)
-        out[tag] = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+        out[key] = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
                     "worst_grad_rel_err": worst}
-        log(f"train parity fp32 {tag}: losses card {losses['cuda']} / cpu "
+        log(f"{tag} fp32 {key}: losses card {losses['cuda']} / cpu "
             f"{losses['cpu']}, worst gradient err {worst:.3g} of the leaf "
             f"max: ok")
     return out
@@ -1678,6 +1785,395 @@ def job_timing(torch, train_cli_args: list[str], train: tuple, root: Path,
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13: the MoE model family
+# ---------------------------------------------------------------------------
+
+_KERNEL_CATEGORIES = (("flash_fwd_kernel", "B1"), ("flash_bwd_dq_kernel", "B2"),
+                      ("flash_bwd_dkv_kernel", "B3"), ("rms_norm", "B4"))
+_MOE_CATEGORIES = {"moe.route": "routing/dispatch/combine",
+                   "moe.dispatch": "routing/dispatch/combine",
+                   "moe.combine": "routing/dispatch/combine",
+                   "moe.experts": "experts"}
+
+
+def step_breakdown(torch, fn) -> dict:
+    """Device ms of one profiled call of fn() (a train step) by part:
+    B1-B4 by kernel name; the MoE layer's routing, dispatch and combine,
+    and its experts (the bmm products and the SwiGLU between them), by
+    the ``moe.*`` profiler range of the op that launched the kernel, or,
+    in the backward, of the forward op whose autograd node it runs (the
+    node carries the forward op's sequence number); everything else is
+    "rest" (the total less the parts). A kernel the profiler tied to no
+    op counts as "rest" too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        if kernels:
+            break
+        log("the profiler saw no device time; profiling the call again")
+    else:
+        raise AssertionError(f"the profiler saw no device time in "
+                             f"{PROFILE_TRIES} tries")
+
+    def enclosing(e):
+        """The innermost moe.* / decoder_layer range, or the backward node,
+        around a CPU event."""
+        while e is not None:
+            if e.name.startswith(("moe.", "decoder_layer",
+                                  "autograd::engine::evaluate_function")):
+                return e
+            e = e.cpu_parent
+        return None
+
+    def kernel_part(name: str):
+        return next((c for pat, c in _KERNEL_CATEGORIES if pat in name),
+                    None)
+
+    parts: dict[str, float] = {}
+    tops: dict[str, dict[str, float]] = {}
+
+    def add(part: str, name: str, us: float) -> None:
+        parts[part] = parts.get(part, 0.0) + us
+        top = tops.setdefault(part, {})
+        top[name[:80]] = top.get(name[:80], 0.0) + us
+
+    for k in kernels:
+        part = kernel_part(k.name)
+        if part is not None:
+            add(part, k.name, k.time_range.elapsed_us())
+    total = sum(k.time_range.elapsed_us() for k in kernels)
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    forward_part = {}
+    for e in cpu:
+        outer = enclosing(e)
+        if e.sequence_nr >= 0 and outer is not None and \
+                outer.name in _MOE_CATEGORIES:
+            forward_part[e.sequence_nr] = _MOE_CATEGORIES[outer.name]
+    # The profiler hands each op the kernels it launched (the ctypes
+    # launches of B1-B4 belong to no op; they are counted by name above).
+    for e in cpu:
+        launched = [k for k in getattr(e, "kernels", [])
+                    if kernel_part(k.name) is None]
+        if not launched:
+            continue
+        outer = enclosing(e)
+        name = outer.name if outer is not None else ""
+        part = (_MOE_CATEGORIES.get(name)
+                or (forward_part.get(outer.sequence_nr)
+                    if name.startswith("autograd::") else None))
+        if part is not None:
+            for k in launched:
+                add(part, k.name, k.duration)
+    parts["rest"] = total - sum(parts.values())
+    by_part = {k: v / 1e3 for k, v in sorted(parts.items(),
+                                             key=lambda kv: -kv[1])}
+    top_kernels = {
+        part: [{"kernel": n, "device_ms": us / 1e3} for n, us in
+               sorted(top.items(), key=lambda kv: -kv[1])[:6]]
+        for part, top in tops.items() if part in _MOE_CATEGORIES.values()}
+    return {"wall_ms": wall_ms, "device_ms": total / 1e3,
+            "device_busy_share": total / 1e3 / wall_ms, "by_part_ms": by_part,
+            "top_kernels_by_part": top_kernels}
+
+
+def moe_step_flops(cfg, batch: int, seq: int) -> tuple[float, str]:
+    """The routed model FLOPs of one train step and the formula: 3 times
+    the forward's matrix products, counting all E*C capacity rows of the
+    experts whether filled or not."""
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    e, f, v = cfg.n_experts, cfg.d_ff, cfg.vocab_size
+    tok = batch * seq
+    cap = max(1, int(cfg.capacity_factor * tok * cfg.expert_top_k / e))
+    layer = (2 * tok * d * (2 * h + 2 * hkv) * dh
+             + 2 * batch * h * dh * seq * (seq + 1)
+             + 2 * tok * d * e
+             + 2 * e * cap * 3 * d * f)
+    flops = 3 * (cfg.n_layers * layer + 2 * tok * d * v)
+    formula = ("3 * (L * (2*B*T*d*(2H+2Hkv)*Dh [q,k,v,o] + 2*B*H*Dh*T*(T+1) "
+               "[causal QK^T, PV] + 2*B*T*d*E [router] + 2*E*C*3*d*F "
+               "[experts, C = int(cf*B*T*k/E) rows each]) + 2*B*T*d*V "
+               f"[unembed]), C = {cap}")
+    return float(flops), formula
+
+
+def _reset_launches(attention, norms) -> None:
+    norms.launches = 0
+    attention.launches = attention.launches_dq = attention.launches_dkv = 0
+
+
+def _launches(attention, norms) -> dict:
+    return {"rms_norm": norms.launches, "flash_fwd": attention.launches,
+            "flash_bwd_dq": attention.launches_dq,
+            "flash_bwd_dkv": attention.launches_dkv}
+
+
+def moe_train_phase(torch, attention, norms, seed: int) -> dict:
+    """make_train_step on bench_moe's configuration at full width and depth
+    (BENCH_MOE), one fixed batch [4, 2049] from ``seed``: the step median
+    (TRAIN_STEPS after TRAIN_WARMUP warm-ups, CUDA events at the step
+    boundaries), tokens/s, peak memory, MFU from the routed FLOPs
+    (moe_step_flops), the router's drop rate and entropy, and one profiled
+    step split by part (step_breakdown). The loss must be finite and
+    fall; the launch counters are set to 0 just before and read just
+    after, and B1-B4 must each have launched. Then the step median and
+    peak memory of the same step with remat "full" and with no remat,
+    each from a fresh init (timed_steps)."""
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.models.train import leaves
+
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_MOE)
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    state = init_fn(seed)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    rng = np.random.default_rng(seed + 5)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (MOE_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    _reset_launches(attention, norms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, first = step_fn(state, tokens)
+    losses, metrics = [first["loss"]], first
+    for _ in range(TRAIN_WARMUP - 1):
+        state, metrics = step_fn(state, tokens)
+        losses.append(metrics["loss"])
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        state, metrics = step_fn(state, tokens)
+        losses.append(metrics["loss"])
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated()
+    router = {when: {k: float(m[k]) for k in ("moe_drop_rate", "moe_entropy",
+                                              "moe_balance", "moe_zloss")}
+              for when, m in (("first_step", first), ("last_step", metrics))}
+
+    def one_step():
+        nonlocal state
+        state, out = step_fn(state, tokens)
+        losses.append(out["loss"])
+
+    profiled = step_breakdown(torch, one_step)
+    launches = _launches(attention, norms)
+    n_steps = len(losses)
+    loss_values = _loss_list(torch, losses)
+    if not all(np.isfinite(loss_values)):
+        raise AssertionError(f"moe train: non-finite loss {loss_values}")
+    if not loss_values[-1] < loss_values[0]:
+        raise AssertionError(f"moe train: loss did not descend "
+                             f"{loss_values}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the MoE "
+                                 f"train path")
+    median_ms = float(np.median(step_ms))
+    flops, formula = moe_step_flops(cfg, MOE_BATCH, TRAIN_SEQ)
+    del state
+    # The same step at the other remat settings, for comparison ("dots"
+    # runs under a dispatch mode that sees every op on the host).
+    other_remat = {}
+    for remat, policy in ((True, "full"), (False, "full")):
+        other = dataclasses.replace(cfg, remat=remat, remat_policy=policy)
+        o_init, o_step = make_train_step(other, device="cuda")
+        _, o_ms, o_peak, _ = timed_steps(torch, o_step, o_init(seed), tokens)
+        other_remat["none" if not remat else policy] = {
+            "step_ms_median": float(np.median(o_ms)),
+            "peak_memory_gb": o_peak / 1e9}
+        torch.cuda.empty_cache()
+    res = {
+        "params_m": n_params / 1e6, "batch": MOE_BATCH, "seq": TRAIN_SEQ,
+        "step_ms_median": median_ms, "step_ms": step_ms,
+        "tokens_per_s": MOE_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+        "model_flops_per_step": flops, "flops_formula": formula,
+        "mfu": flops / (median_ms / 1e3) / PEAK_FLOPS["torch.bfloat16"],
+        "peak_memory_gb": peak / 1e9, "router": router,
+        "losses": loss_values, "launches": launches,
+        "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+        "profiled_step": profiled, "other_remat": other_remat,
+    }
+    log("moe train: " + json.dumps(res))
+    return res
+
+
+def moe_parity_phase(torch, seed: int) -> dict:
+    """fp32, TF32 off, MOE_PARITY with skewed weights (MOE_PARITY_SKEW:
+    tokens drop): the card against the CPU's plain path at each remat
+    setting (train_parity_phase), then the
+    expert-parallel path on a one-rank NCCL mesh (a group on a HashStore):
+    DP_PARITY_STEPS steps of make_train_step(cfg, mesh) at remat "dots"
+    equal mesh=None's bit for bit (losses, router metrics, every leaf),
+    and its all_to_all ran."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh
+
+    out = {"remat": train_parity_phase(torch, seed, MOE_PARITY,
+                                       "moe parity", MOE_PARITY_SKEW)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(dtype="float32", remat=True,
+                            remat_policy="dots", **MOE_PARITY)
+    params = parity_params(torch, cfg, seed, MOE_PARITY_SKEW)
+    rng = np.random.default_rng(seed + 6)
+    batches = [torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (PARITY_TRAIN_BATCH, cfg.max_seq + 1)),
+        device="cuda") for _ in range(DP_PARITY_STEPS)]
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    plain = init_fn(params=params)
+    plain_metrics = [step_fn(plain, b)[1] for b in batches]
+    calls = [0]
+    real = dist.all_to_all_single
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    dist.all_to_all_single = counted
+    try:
+        mesh = build_mesh(MeshSpec(), "cuda", timeout_s=DP_TIMEOUT_S)
+        m_init, m_step = make_train_step(cfg, mesh, device="cuda")
+        state = m_init(params=params)
+        metrics = [m_step(state, b)[1] for b in batches]
+        torch.cuda.synchronize()
+    finally:
+        dist.all_to_all_single = real
+        dist.destroy_process_group()
+    for i, (got, want) in enumerate(zip(metrics, plain_metrics)):
+        unequal = [k for k in want if not torch.equal(got[k], want[k])]
+        if unequal or set(got) != set(want):
+            raise AssertionError(f"moe ep: step {i} metrics {unequal} "
+                                 f"differ from mesh=None")
+    drop = float(plain_metrics[0]["moe_drop_rate"])
+    if not drop > 0:
+        raise AssertionError(f"moe ep: no token dropped (rate {drop})")
+    bits, plain_bits = state_bits(torch, state), state_bits(torch, plain)
+    unequal = [p for p in plain_bits if not torch.equal(bits[p],
+                                                        plain_bits[p])]
+    if unequal or set(bits) != set(plain_bits):
+        raise AssertionError(f"moe ep: {len(unequal)} leaves differ from "
+                             f"mesh=None: {unequal[:6]}")
+    if calls[0] <= 0:
+        raise AssertionError("moe ep: the all_to_all never ran")
+    out["ep_world1"] = {"steps": DP_PARITY_STEPS, "leaves_equal":
+                        len(bits), "all_to_all_calls": calls[0],
+                        "drop_rate": drop}
+    log("moe parity, ep over one NCCL rank: " + json.dumps(out["ep_world1"]))
+    return out
+
+
+def moe_decode_ms(torch, session, prompt) -> dict:
+    """The ms per decode step of ``session.generate`` on ``prompt``: the
+    wall difference of MOE_DECODE_LENGTHS new tokens over their
+    difference (the best of two calls each, after a warm-up)."""
+    session.generate(prompt, 8)
+    walls = {}
+    for n in MOE_DECODE_LENGTHS:
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = session.generate(prompt, n)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        if tuple(out.shape) != (prompt.shape[0], n):
+            raise AssertionError(f"moe generate shape {tuple(out.shape)}")
+        walls[n] = best * 1e3
+    short, long = MOE_DECODE_LENGTHS
+    return {"wall_ms": walls,
+            "ms_per_token": (walls[long] - walls[short]) / (long - short)}
+
+
+def moe_serve_phase(torch, attention, norms, seed: int) -> dict:
+    """DecodeSession.generate at bench_moe_decode's three points
+    (MOE_DECODE_POINTS, bf16; ms per step by differencing two lengths).
+    Then a ServingEngine on bench_moe's trunk (bf16, no remat) answers
+    MOE_SERVE_REQUESTS concurrent POSTs (serve_phase). The launch
+    counters are set to 0 before the bf16 generate and read after the
+    engine, so they count this path alone: B1 (prefill) and B4 must have
+    launched. Then the checks, outside that window: in fp32, routed and
+    dense give equal tokens at E 4 and E 16, and the engine equals
+    generate token for token on bench_moe's trunk (parity_phase)."""
+    from tony_tpu_torch.models import (DecodeSession, TransformerConfig,
+                                       init_params)
+
+    rng = np.random.default_rng(seed + 7)
+    prompt = torch.as_tensor(rng.integers(
+        0, MOE_DECODE["vocab_size"], (MOE_DECODE_BATCH, MOE_DECODE_PROMPT)),
+        device="cuda")
+    _reset_launches(attention, norms)
+    points, tokens = {}, {}
+    for n_experts, mode in MOE_DECODE_POINTS:
+        cfg = TransformerConfig(dtype="bfloat16", n_experts=n_experts,
+                                moe_decode_mode=mode, **MOE_DECODE)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        session = DecodeSession(init_params(cfg, gen, "cuda"), cfg,
+                                device="cuda")
+        points[f"E{n_experts}_{mode}"] = moe_decode_ms(torch, session,
+                                                       prompt)
+        del session
+    cfg = TransformerConfig(dtype="bfloat16", **{**BENCH_MOE,
+                                                 "remat": False})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, "cuda")
+    session = DecodeSession(params, cfg, device="cuda")
+    bodies = make_requests(cfg, session, seed, MOE_SERVE_REQUESTS)
+    serve = serve_phase(cfg, session, seed, bodies)
+    launches = _launches(attention, norms)
+    for name in ("rms_norm", "flash_fwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the MoE "
+                                 f"serving path")
+    del session
+    torch.cuda.empty_cache()
+    for n_experts in (4, 16):
+        fp32 = TransformerConfig(dtype="float32", n_experts=n_experts,
+                                 **MOE_DECODE)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        weights = init_params(fp32, gen, "cuda")
+        for mode in ("routed", "dense"):
+            session = DecodeSession(weights, dataclasses.replace(
+                fp32, moe_decode_mode=mode), device="cuda")
+            tokens[mode] = session.generate(prompt, 32).cpu().numpy()
+        if not np.array_equal(tokens["routed"], tokens["dense"]):
+            raise AssertionError(f"moe decode: routed and dense tokens "
+                                 f"differ at E {n_experts} (fp32)")
+        log(f"moe decode fp32 E {n_experts}: routed == dense, "
+            f"{tokens['dense'].size} tokens")
+    del session, weights
+    parity = parity_phase(torch, params, seed,
+                          {**BENCH_MOE, "remat": False}, "moe parity")
+    res = {"decode": points, "serve": serve, "parity": parity,
+           "launches": launches}
+    log("moe serve: " + json.dumps(res))
+    log("moe decode ms per token, batch 8, prompt 16: " + ", ".join(
+        f"{k} {v['ms_per_token']:.4f}" for k, v in points.items())
+        + f", on {card_line()}")
+    return res
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1797,6 +2293,16 @@ def main(argv=None) -> int:
         job["timing"] = job_timing(torch, job.pop("train_args"), train_run,
                                    root, train["step_ms_median"])
     del train_run
+    torch.cuda.empty_cache()
+
+    # Slice 7's paths: the MoE trunk's train step at bench_moe's full
+    # width, its parity (card vs CPU, and the ep path over one NCCL rank),
+    # then MoE decode and serving (each resets the counters itself and
+    # reads them just after).
+    moe_train = moe_train_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
+    moe_parity_phase(torch, args.seed)
+    moe_serve = moe_serve_phase(torch, attention, norms, args.seed)
     rows = (rms_row, flash_row, dq_row, dkv_row)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
@@ -1804,7 +2310,9 @@ def main(argv=None) -> int:
             "train": train["launches"][row["name"]],
             "serve_generate": serve_path.get(row["name"], 0),
             "job": job["launches"][row["name"]],
-            "dp": dp["launches"][row["name"]]}
+            "dp": dp["launches"][row["name"]],
+            "moe_train": moe_train["launches"][row["name"]],
+            "moe_serve": moe_serve["launches"][row["name"]]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -3,12 +3,14 @@
 
     python3 dp_study.py             # one rank on each card (at least 2)
     python3 dp_study.py --ranks 4
+    python3 dp_study.py --ep 2      # an MoE trunk over dp = ranks/2 x ep 2
 
 Builds the kernels once, then starts one process per card, each in its own
 session, on cuda:<rank>: they meet at a TCP store on a free localhost port,
 join one NCCL group (process-group timeout
-DP_TIMEOUT_S) and build the job mesh (dp = ranks); the parent waits on one
-deadline and kills and reaps every rank still alive. Each rank:
+DP_TIMEOUT_S) and build the job mesh (dp = ranks, or with ``--ep E`` dp =
+ranks / E x ep = E over an MoE trunk); the parent waits on one deadline
+and kills and reaps every rank still alive. Each rank:
 
 1. parity — fp32, TF32 off, chip_smoke's PARITY_TRAIN model (2 layers, d
    256, GQA 16/4, seq 256): 3 steps of make_train_step(cfg, mesh), each
@@ -19,14 +21,18 @@ deadline and kills and reaps every rank still alive. Each rank:
    gathered gradient of the first step (averaged over dp and clipped) to
    chip_smoke's TRAIN_GRAD_TOL times its leaf's largest |gradient|. A
    failed check is raised after the rank has left the group, so its peers
-   never wait on it.
+   never wait on it. With ``--ep``: chip_smoke's MOE_PARITY model at
+   capacity factor E, where nothing drops (each rank's capacity is local,
+   one process's global, so with drops the two keep other tokens).
 2. step — bench_transformer (bf16, 199.8 M parameters) at chip_smoke's
    batch per rank, [8, 2049], so the global batch is 8 x ranks rows: the
    mesh step's median (10 after 2 warm-ups, CUDA events) beside the
    mesh=None step on the same card alone, timed before the rank joins the
    group and after it leaves; the
    launches of B1-B4 on the mesh path; then one more mesh step, profiled
-   on rank 0: device ms of the NCCL kernels and of everything else.
+   on rank 0: device ms of the NCCL kernels and of everything else. With
+   ``--ep``: bench_moe (bf16, 502 M parameters, chip_smoke's BENCH_MOE)
+   at [4, 2049] per rank, each card holding E / ep of the experts.
 
 Each rank logs its phases with the seconds since it started. Prints each
 rank's results as a JSON line, the cards' names and power limits, and a
@@ -84,13 +90,15 @@ def _gathered(tensors: list, placements: list, mesh) -> list:
     return out
 
 
-def _parity_setup(torch, world: int, seed: int):
+def _parity_setup(torch, world: int, seed: int, ep: int):
     from tony_tpu_torch.models import TransformerConfig, init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = TransformerConfig(dtype="float32", remat=False,
-                            **chip_smoke.PARITY_TRAIN)
+    model = (chip_smoke.PARITY_TRAIN if ep == 1 else dict(
+        chip_smoke.MOE_PARITY,
+        capacity_factor=float(chip_smoke.MOE_PARITY["n_experts"])))
+    cfg = TransformerConfig(dtype="float32", remat=False, **model)
     params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     rng = np.random.default_rng(seed + 4)
     batches = [torch.as_tensor(rng.integers(
@@ -112,13 +120,14 @@ def _run(torch, step_fn, state, batches) -> tuple:
     return state, chip_smoke._loss_list(torch, losses), grads
 
 
-def parity_reference(torch, world: int, device, seed: int) -> dict:
+def parity_reference(torch, world: int, device, seed: int,
+                     ep: int) -> dict:
     """The mesh=None step on the whole global batches (rank 0, before it
     joins the group)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.models.train import leaves
 
-    cfg, params, batches = _parity_setup(torch, world, seed)
+    cfg, params, batches = _parity_setup(torch, world, seed, ep)
     init_fn, step_fn = make_train_step(cfg, device=device)
     state, losses, grads = _run(torch, step_fn, init_fn(params=params),
                                 batches)
@@ -126,7 +135,7 @@ def parity_reference(torch, world: int, device, seed: int) -> dict:
             "params": leaves(state.params)}
 
 
-def parity(torch, mesh, rank: int, world: int, device, seed: int,
+def parity(torch, mesh, rank: int, world: int, device, seed: int, ep: int,
            ref: dict | None) -> dict:
     """The mesh step on this rank's slices; rank 0 holds the losses and the
     first step's gathered gradients against ``ref``
@@ -134,7 +143,7 @@ def parity(torch, mesh, rank: int, world: int, device, seed: int,
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.models.train import leaves
 
-    cfg, params, batches = _parity_setup(torch, world, seed)
+    cfg, params, batches = _parity_setup(torch, world, seed, ep)
     rows = PARITY_ROWS_PER_RANK
     init_fn, step_fn = make_train_step(cfg, mesh, device=device)
     state, losses, grads = _run(
@@ -160,22 +169,27 @@ def parity(torch, mesh, rank: int, world: int, device, seed: int,
     return out
 
 
-def _step_setup(torch, rank: int, device, seed: int):
+def _step_setup(torch, rank: int, device, seed: int, ep: int):
     from tony_tpu_torch.models import TransformerConfig
 
-    cfg = TransformerConfig(dtype="bfloat16", **chip_smoke.BENCH_TRANSFORMER)
+    if ep == 1:
+        cfg = TransformerConfig(dtype="bfloat16",
+                                **chip_smoke.BENCH_TRANSFORMER)
+        rows = chip_smoke.TRAIN_BATCH
+    else:
+        cfg = TransformerConfig(dtype="bfloat16", **chip_smoke.BENCH_MOE)
+        rows = chip_smoke.MOE_BATCH
     rng = np.random.default_rng(seed + 3 + rank)
     tokens = torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ + 1)),
-        device=device)
+        0, cfg.vocab_size, (rows, chip_smoke.TRAIN_SEQ + 1)), device=device)
     return cfg, tokens
 
 
-def plain_step_ms(torch, rank: int, device, seed: int) -> dict:
+def plain_step_ms(torch, rank: int, device, seed: int, ep: int) -> dict:
     """The mesh=None step on this card alone (outside the group)."""
     from tony_tpu_torch.models import make_train_step
 
-    cfg, tokens = _step_setup(torch, rank, device, seed)
+    cfg, tokens = _step_setup(torch, rank, device, seed, ep)
     init_fn, step_fn = make_train_step(cfg, device=device)
     _, ms, _, ws = chip_smoke.timed_steps(torch, step_fn, init_fn(seed),
                                           tokens)
@@ -183,13 +197,14 @@ def plain_step_ms(torch, rank: int, device, seed: int) -> dict:
             "working_set_gb": ws / 1e9}
 
 
-def mesh_step_ms(torch, mesh, rank: int, device, seed: int) -> dict:
+def mesh_step_ms(torch, mesh, rank: int, device, seed: int,
+                 ep: int) -> dict:
     """The mesh step: median, working set, launches of B1-B4, and one more
     step profiled on rank 0 (the others run it unprofiled)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.ops import attention, norms
 
-    cfg, tokens = _step_setup(torch, rank, device, seed)
+    cfg, tokens = _step_setup(torch, rank, device, seed, ep)
     init_fn, step_fn = make_train_step(cfg, mesh, device=device)
     state = init_fn(seed)
     norms.launches = 0
@@ -221,7 +236,7 @@ def mesh_step_ms(torch, mesh, rank: int, device, seed: int) -> dict:
 
 
 def run_rank(rank: int, world: int, store: str, outdir: str,
-             seed: int) -> None:
+             seed: int, ep: int) -> None:
     """One rank: the mesh=None runs outside the process group (a world
     above 1 refuses mesh=None), the mesh runs inside it."""
     import torch
@@ -235,29 +250,31 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
     out = {"rank": rank, "world": world,
            "card": torch.cuda.get_device_name(device)}
     _log(rank, "started")
-    ref = parity_reference(torch, world, device, seed) if rank == 0 else None
-    out["plain_before"] = plain_step_ms(torch, rank, device, seed)
+    ref = (parity_reference(torch, world, device, seed, ep) if rank == 0
+           else None)
+    out["plain_before"] = plain_step_ms(torch, rank, device, seed, ep)
     _log(rank, "mesh=None timed; joining the group")
     dist.init_process_group("nccl", init_method=store, rank=rank,
                             world_size=world,
                             timeout=timedelta(seconds=DP_TIMEOUT_S))
     try:
-        mesh = rt.build_job_mesh(MeshSpec(dp=world), device="cuda",
-                                 timeout_s=DP_TIMEOUT_S)
+        mesh = rt.build_job_mesh(MeshSpec(dp=world // ep, ep=ep),
+                                 device="cuda", timeout_s=DP_TIMEOUT_S)
         _log(rank, "mesh built")
-        out["parity"] = parity(torch, mesh, rank, world, device, seed, ref)
+        out["parity"] = parity(torch, mesh, rank, world, device, seed, ep,
+                               ref)
         _log(rank, f"parity {out['parity']}")
-        out["mesh"] = mesh_step_ms(torch, mesh, rank, device, seed)
+        out["mesh"] = mesh_step_ms(torch, mesh, rank, device, seed, ep)
         _log(rank, "mesh step timed")
     finally:
         dist.destroy_process_group()
-    out["plain_after"] = plain_step_ms(torch, rank, device, seed)
+    out["plain_after"] = plain_step_ms(torch, rank, device, seed, ep)
     Path(outdir, f"rank_{rank}.json").write_text(json.dumps(out))
     if not out["parity"]["ok"]:
         raise AssertionError(f"parity failed: {out['parity']}")
 
 
-def launch(world: int, seed: int) -> list[dict]:
+def launch(world: int, seed: int, ep: int) -> list[dict]:
     """One process per rank, each in its own session; one deadline; every
     rank still alive is killed and reaped at the end."""
     with socket.socket() as sock:
@@ -271,7 +288,8 @@ def launch(world: int, seed: int) -> list[dict]:
                     [sys.executable, __file__, "--rank", str(rank),
                      "--ranks", str(world),
                      "--store", f"tcp://127.0.0.1:{port}",
-                     "--outdir", tmp, "--seed", str(seed)],
+                     "--outdir", tmp, "--seed", str(seed),
+                     "--ep", str(ep)],
                     # The ranks share this host: NCCL's bootstrap stays on
                     # the loopback interface.
                     env={**os.environ, "NCCL_SOCKET_IFNAME": "lo"},
@@ -296,12 +314,17 @@ def main(argv=None) -> int:
     ap.add_argument("--ranks", type=int, default=0,
                     help="ranks, one per card (default: every card)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ep", type=int, default=1,
+                    help="expert-parallel ranks: train an MoE trunk over "
+                         "dp = ranks / ep x ep (default 1: the dense trunk "
+                         "over dp = ranks)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--store", default="", help=argparse.SUPPRESS)
     ap.add_argument("--outdir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank is not None:
-        run_rank(args.rank, args.ranks, args.store, args.outdir, args.seed)
+        run_rank(args.rank, args.ranks, args.store, args.outdir, args.seed,
+                 args.ep)
         return 0
 
     import torch
@@ -315,12 +338,17 @@ def main(argv=None) -> int:
         print(f"dp_study: needs 2 to {torch.cuda.device_count()} ranks, one "
               f"per card; got {world}", file=sys.stderr)
         return 1
+    experts = chip_smoke.BENCH_MOE["n_experts"]
+    if args.ep < 1 or world % args.ep or experts % args.ep:
+        print(f"dp_study: --ep must divide the ranks ({world}) and the "
+              f"experts ({experts}); got {args.ep}", file=sys.stderr)
+        return 1
     from tony_tpu_torch import kernels
 
     t0 = time.perf_counter()
     kernels.build()
     chip_smoke.log(f"build: {time.perf_counter() - t0:.2f} s")
-    results = launch(world, args.seed)
+    results = launch(world, args.seed, args.ep)
     for res in results:
         print(json.dumps(res))
     cards = subprocess.run(
@@ -330,7 +358,8 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(cards)
     print(json.dumps({
-        "world": world, "total_s": time.perf_counter() - t0,
+        "world": world, "mesh": {"dp": world // args.ep, "ep": args.ep},
+        "total_s": time.perf_counter() - t0,
         "parity": results[0]["parity"],
         "step_ms_median_by_rank": [
             r["mesh"]["step_ms_median"] for r in results],

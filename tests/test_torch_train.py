@@ -195,9 +195,15 @@ class TestForwardAndLoss:
                                    "remat_policy": "offload"})
         with pytest.raises(ValueError, match="remat_policy"):
             forward(tparams, toks, cfg)
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        # MoE trunks run (tests/test_torch_moe.py); dense params under an
+        # MoE config, or experts the mesh's ep does not divide, raise.
+        with pytest.raises(ValueError, match="experts per rank"):
             forward(tparams, toks, TransformerConfig(**{**TINY,
                                                         "n_experts": 4}))
+        with pytest.raises(ValueError, match="must divide n_experts"):
+            forward(tparams, toks, TransformerConfig(**{**TINY,
+                                                        "n_experts": 3}),
+                    mesh=_SpecMesh(ep=2))
         with pytest.raises(NotImplementedError, match="slice 4"):
             forward(tparams, toks, TransformerConfig(**TINY),
                     mesh=_SpecMesh(dp=2, tp=2))
@@ -296,9 +302,13 @@ class TestTrainStep:
     def test_refuses_mesh_pipeline_plan(self):
         cfg = TransformerConfig(**TINY)
         for axes in ({"tp": 2}, {"dp": 2, "sp": 2}, {"pp": 2},
-                     {"ep": 2}):
+                     {"ep": 2, "tp": 2}):
             with pytest.raises(NotImplementedError, match="slice 4"):
                 make_train_step(cfg, _SpecMesh(**axes), device="cpu")
+        # ep is ported (tests/test_torch_moe.py), for experts it divides.
+        with pytest.raises(ValueError, match="must divide n_experts"):
+            make_train_step(TransformerConfig(**{**TINY, "n_experts": 3}),
+                            _SpecMesh(ep=2), device="cpu")
         cuda_mesh = _SpecMesh(dp=2)
         cuda_mesh.device_type = "cuda"
         with pytest.raises(ValueError, match="a cuda mesh cannot train on"):
@@ -528,6 +538,93 @@ class TestTrainCli:
         assert train_cli.main(base + ["--steps", "8", "--ckpt-dir",
                                       str(tmp_path / "b")]) == 0
         assert "nothing to do" in capsys.readouterr().out
+
+    def test_resume_mid_epoch_replays_the_first_batches(self, tmp_path,
+                                                         capsys):
+        """The behaviour the port shares with examples/lm_train.py, pinned:
+        a job resumed at step 2 of a 4-batch corpus opens a fresh reader at
+        the start of the corpus, so steps 3 and 4 train on batches 0 and 1
+        again, not on 2 and 3. Its step-4 state equals, bit for bit, 4
+        steps on batches 0, 1, 0, 1, and differs from a straight run. Batch
+        1 reads a higher loss than batch 0 here, so the resumed job's two
+        losses (those of the replay's steps 3 and 4, exactly) do not
+        descend and it exits 1, by the CLI's rule."""
+        data = _motif_corpus(tmp_path / "c.tokens", 4)
+        base = ["--device", "cpu", "--data", data, "--lr", "3e-3",
+                *TINY_MODEL, "--ckpt-dir", str(tmp_path / "b")]
+        assert train_cli.main(base + ["--steps", "2"]) == 0
+        assert train_cli.main(base + ["--steps", "4"]) == 1
+        out, err = capsys.readouterr()
+        assert "resumed from step 2" in out
+        cfg = train_cli.model_config_from_args(
+            train_cli.parse_args(TINY_MODEL), max_seq=33)
+        with ShardedRecordReader([data], 0, 1, fmt="tokens",
+                                 dtype=np.uint16, record_len=33,
+                                 batch_size=4) as reader:
+            batches = [b.astype(np.int32) for b in reader]
+        assert len(batches) == 4
+        runs, losses = {}, {}
+        for name, order in (("replay", (0, 1, 0, 1)),
+                            ("straight", (0, 1, 2, 3))):
+            init_fn, step_fn = make_train_step(cfg, device="cpu",
+                                               learning_rate=3e-3)
+            state = init_fn(0)
+            losses[name] = []
+            for i in order:
+                state, metrics = step_fn(state, batches[i])
+                losses[name].append(float(metrics["loss"]))
+            runs[name] = train_state_to_numpy(state)
+        first, last = losses["replay"][2:]
+        assert f"loss did not descend: {first} -> {last}" in err
+        got = _restored(tmp_path / "b", 4)
+        for path in got:
+            np.testing.assert_array_equal(got[path], runs["replay"][path],
+                                          err_msg=path)
+        assert not all(np.array_equal(got[p], runs["straight"][p])
+                       for p in got)
+
+    def test_moe_trunk_trains_resumes_and_serves(self, tmp_path, capsys):
+        """--n-experts 4: the CLI trains an MoE trunk, its checkpoints
+        carry the router and the expert leaves, 4 + 4 steps resumed at the
+        end of the second epoch of a 2-batch corpus equal 8 straight steps
+        bit for bit, and serve.py's restore of the checkpoint generates
+        what a session on the restored weights does."""
+        from tony_tpu_torch.models import DecodeSession
+
+        data = _motif_corpus(tmp_path / "c.tokens", 2)
+        flags = [*TINY_MODEL, "--n-experts", "4"]
+        base = ["--device", "cpu", "--data", data, "--lr", "3e-3", *flags]
+        assert train_cli.main(base + ["--steps", "8", "--ckpt-dir",
+                                      str(tmp_path / "a")]) == 0
+        assert train_cli.main(base + ["--steps", "4", "--ckpt-dir",
+                                      str(tmp_path / "b")]) == 0
+        assert train_cli.main(base + ["--steps", "8", "--ckpt-dir",
+                                      str(tmp_path / "b")]) == 0
+        assert "resumed from step 4" in capsys.readouterr().out
+        cfg = train_cli.model_config_from_args(train_cli.parse_args(flags),
+                                               max_seq=33)
+        init_fn, _ = make_train_step(cfg, device="cpu")
+        states = [CheckpointManager(tmp_path / d).restore(init_fn(9), step=8)
+                  for d in ("a", "b")]
+        a, b = (train_state_to_numpy(st) for st in states)
+        assert ".params['layers']['router']" in a
+        assert a[".params['layers']['w_gate']"].shape == (2, 4, 32, 128)
+        for path in a:
+            np.testing.assert_array_equal(a[path], b[path], err_msg=path)
+        serve_cfg = serve_cli.model_config_from_args(
+            serve_cli.parse_args(["--max-seq", "64", *flags[4:]]),
+            max_seq=64)
+        assert serve_cfg.n_experts == 4
+        step, params = serve_cli.restore_params(str(tmp_path / "b"),
+                                                serve_cfg,
+                                                torch.device("cpu"))
+        assert step == 8
+        prompt = np.asarray([[3, 1, 4, 1, 5, 9]], np.int32)
+        want = DecodeSession(states[1].params, serve_cfg,
+                             device="cpu").generate(prompt, 6)
+        got = DecodeSession(params, serve_cfg, device="cpu").generate(
+            prompt, 6)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
     def test_serve_from_the_checkpoint(self, tmp_path, capsys):
         """serve.py --ckpt answers with the restored model's greedy

@@ -34,6 +34,8 @@ GROUP_TIMEOUT_S = 60.0
 
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
             head_dim=16, d_ff=64, max_seq=32, dtype="float32", remat=False)
+# The MoE trunk of the expert-parallel tests: TINY with 4 experts, top-2.
+MOE_TINY = dict(TINY, n_experts=4, expert_top_k=2)
 
 
 def launch(program: str, tmp_path: Path, world: int = 2, *,
@@ -130,12 +132,31 @@ def _gathered(state, mesh) -> dict:
     return out
 
 
-def _params(path: str):
+def _params(path: str, **overrides):
     from tony_tpu_torch.interop import params_from_npz
     from tony_tpu_torch.models import TransformerConfig
 
-    cfg = TransformerConfig(**TINY)
+    cfg = TransformerConfig(**{**TINY, **overrides})
     return cfg, params_from_npz(path, cfg, "cpu")
+
+
+def _gathered_grads(state, mesh) -> dict:
+    """{".params" keystr path: the whole gradient} of a stepped state: the
+    reduced gradient each rank holds for its piece, all-gathered."""
+    import torch
+
+    from tony_tpu_torch.interop import _param_paths
+    from tony_tpu_torch.parallel import all_gather_tp
+
+    placements = dict(_param_paths(state.placements))
+    out = {}
+    for path, p in _param_paths(state.params):
+        g = p.grad.detach()
+        for dim, entry in enumerate(placements[path].spec):
+            if entry is not None:
+                g = all_gather_tp(g, dim, entry, mesh=mesh)
+        out[".params" + path] = torch.as_tensor(g).numpy().copy()
+    return out
 
 
 def _refusal(fn) -> str:
@@ -287,6 +308,153 @@ def prog_checkpoint(rank, world, store, outdir, args):
     equal = all(np.array_equal(mine[k], back[k]) for k in mine)
     return {"restored_step": restored_step, "step": int(state.step),
             "round_trip_equal": equal}, out
+
+
+def prog_moe_ep(rank, world, store, outdir, args):
+    """The MoE trunk over an ep=2 mesh (each rank holds 2 of the 4
+    experts and feeds its half of the batch). ``args``: the weights npz,
+    the global batches npy, the layer input npz, the JAX checkpoint dir,
+    the port's checkpoint dir.
+
+    (1) At cf = E (no drops), grad_clip 1e9 (no clip), 3 steps: each
+    step's metrics and its reduced gradients, gathered, under
+    ``step<i>/``. (2) One step of the same start with remat "dots": its
+    gradients under ``dots/``; one over a dp=2 mesh instead (experts whole
+    on each rank, split on d over dp): under ``dp2/``. (3) At cf 1.25
+    (drops), ``_moe_mlp`` of
+    layer 0 on this rank's half of the layer input: out and aux. (4) A
+    fresh ep=2 state restores the JAX checkpoint (gathered under
+    ``restored/``), takes one step, saves under the port's dir (gathered
+    under ``saved/``) and restores that save into a fresh state bit for
+    bit. Counts its all_to_all calls."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import (train_state_placements,
+                                        train_state_to_numpy)
+    from tony_tpu_torch.models import make_train_step
+    from tony_tpu_torch.models.transformer import _moe_mlp
+
+    _join(rank, world, store)
+    calls = {"all_to_all": 0}
+    real = dist.all_to_all_single
+
+    def counted(*a, **kw):
+        calls["all_to_all"] += 1
+        return real(*a, **kw)
+
+    dist.all_to_all_single = counted
+    mesh = _mesh(ep=2)
+    batches = np.load(args[1])
+    half = batches.shape[1] // world
+    mine = batches[:, rank * half:(rank + 1) * half]
+    arrays, result = {}, {"metrics": []}
+
+    cfg, params = _params(args[0], n_experts=4, expert_top_k=2,
+                          capacity_factor=4.0)
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3, grad_clip=1e9)
+    state = init_fn(params=params)
+    result["split"] = {path: list(pl.spec) for path, pl in
+                       train_state_placements(state).items()
+                       if path.startswith(".params") and pl.sharded}
+    for i, tokens in enumerate(mine):
+        state, metrics = step_fn(state, tokens)
+        result["metrics"].append({k: float(v) for k, v in metrics.items()})
+        arrays.update({f"step{i}/{k}": v for k, v in
+                       _gathered_grads(state, mesh).items()})
+    cfg_dots, _ = _params(args[0], n_experts=4, expert_top_k=2,
+                          capacity_factor=4.0, remat=True,
+                          remat_policy="dots")
+    init_dots, step_dots = make_train_step(cfg_dots, mesh, device="cpu",
+                                           learning_rate=1e-3, grad_clip=1e9)
+    dots, metrics = step_dots(init_dots(params=params), mine[0])
+    result["dots_loss"] = float(metrics["loss"])
+    arrays.update({f"dots/{k}": v for k, v in
+                   _gathered_grads(dots, mesh).items()})
+    dp_mesh = _mesh(dp=2)
+    init_dp, step_dp = make_train_step(cfg, dp_mesh, device="cpu",
+                                       learning_rate=1e-3, grad_clip=1e9)
+    dp_state, metrics = step_dp(init_dp(params=params), mine[0])
+    result["dp_loss"] = float(metrics["loss"])
+    arrays.update({f"dp2/{k}": v for k, v in
+                   _gathered_grads(dp_state, dp_mesh).items()})
+
+    cfg_drop, _ = _params(args[0], n_experts=4, expert_top_k=2,
+                          capacity_factor=1.25)
+    with np.load(args[2]) as data:
+        x = torch.from_numpy(data["x"])
+    rows = x.shape[0] // world
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    for k in ("w_gate", "w_up", "w_down"):
+        lp[k] = lp[k][2 * rank:2 * rank + 2]
+    with torch.no_grad():
+        out, aux = _moe_mlp(x[rank * rows:(rank + 1) * rows], lp, cfg_drop,
+                            mesh)
+    arrays["layer/out"] = out.numpy()
+    result["layer_aux"] = {k: float(v) for k, v in aux.items()}
+
+    init_ck, step_ck = init_fn, step_fn
+    state = init_ck(params=params)
+    assert CheckpointManager(args[3], process_id=rank,
+                             num_processes=2).restore(state) is state
+    arrays.update({f"restored/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    state, _ = step_ck(state, mine[0])
+    mgr = CheckpointManager(args[4], process_id=rank, num_processes=2)
+    mgr.save(int(state.step), state, blocking=True)
+    arrays.update({f"saved/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    dist.barrier()
+    fresh = init_ck(0)
+    assert mgr.restore(fresh) is fresh
+    a, b = train_state_to_numpy(state), train_state_to_numpy(fresh)
+    result["round_trip_equal"] = all(np.array_equal(a[k], b[k]) for k in a)
+    result["step"] = int(state.step)
+    result["all_to_all_calls"] = calls["all_to_all"]
+    return result, arrays
+
+
+def prog_moe_dp_ep(rank, world, store, outdir, args):
+    """The MoE trunk over a dp=2 x ep=2 mesh of four ranks (each holds 2
+    of the 4 experts, their d dimension split over dp, and feeds its
+    quarter of the batch). ``args``: the weights npz, the global batches
+    npy, grad_clip. At cf = E (no drops): each step's metrics and its
+    reduced, clipped gradients, gathered, under ``step<i>/``; the rank
+    list and size of the dp x ep group."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tony_tpu_torch.interop import train_state_placements
+    from tony_tpu_torch.models import make_train_step
+    from tony_tpu_torch.parallel.collectives import axis_group
+
+    _join(rank, world, store)
+    mesh = _mesh(dp=2, ep=2)
+    group, size = axis_group(mesh, ("ep", "dp"))
+    result = {"dp_ep_ranks": dist.get_process_group_ranks(group),
+              "dp_ep_size": size, "metrics": []}
+    batches = np.load(args[1])
+    rows = batches.shape[1] // world
+    mine = batches[:, rank * rows:(rank + 1) * rows]
+    cfg, params = _params(args[0], n_experts=4, expert_top_k=2,
+                          capacity_factor=4.0)
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3,
+                                       grad_clip=float(args[2]))
+    state = init_fn(params=params)
+    result["split"] = {path: list(pl.spec) for path, pl in
+                       train_state_placements(state).items()
+                       if path.startswith(".params") and pl.sharded}
+    arrays = {}
+    for i, tokens in enumerate(mine):
+        state, metrics = step_fn(state, tokens)
+        result["metrics"].append({k: float(v) for k, v in metrics.items()})
+        arrays.update({f"step{i}/{k}": v for k, v in
+                       _gathered_grads(state, mesh).items()})
+    return result, arrays
 
 
 PROGRAMS = {name[len("prog_"):]: fn for name, fn in globals().items()

@@ -3,7 +3,9 @@
 ``params_from_numpy`` takes a JAX parameter tree as numpy arrays (what
 ``jax.device_get`` returns) in either layout the JAX package uses: the raw
 training layout of ``init_params`` (``wq``/``wk``/``wv``, ``w_gate``/``w_up``)
-or the fused ``decode_weights`` layout (``qkv``, ``gate_up``). It checks every
+or the fused ``decode_weights`` layout (``qkv``, ``gate_up``), dense or MoE
+(a router [L, d, E] and expert FFN leaves [L, E, d, F] and [L, E, F, d];
+fused, gate_up [L, E, d, 2F]). It checks every
 shape against the config and returns the same tree as torch tensors on
 ``device``, so both packages compute the same function in the tests.
 ``params_from_npz`` reads such a tree from an ``.npz`` file whose keys are
@@ -44,19 +46,25 @@ def _expected_shapes(cfg: TransformerConfig, fused: bool) -> dict:
         cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers,
     )
     hkv = cfg.kv_heads
+    # MoE: the FFN leaves gain an expert axis after the layer axis, and a
+    # router [L, d, E] joins them.
+    ex = (cfg.n_experts,) if cfg.n_experts else ()
     if fused:
         layers = {
             "ln1": (n, d), "ln2": (n, d),
             "qkv": (n, d, h + 2 * hkv, dh), "wo": (n, h, dh, d),
-            "gate_up": (n, d, 2 * f), "w_down": (n, f, d),
+            "gate_up": (n, *ex, d, 2 * f), "w_down": (n, *ex, f, d),
         }
     else:
         layers = {
             "ln1": (n, d), "ln2": (n, d),
             "wq": (n, d, h, dh), "wk": (n, d, hkv, dh), "wv": (n, d, hkv, dh),
             "wo": (n, h, dh, d),
-            "w_gate": (n, d, f), "w_up": (n, d, f), "w_down": (n, f, d),
+            "w_gate": (n, *ex, d, f), "w_up": (n, *ex, d, f),
+            "w_down": (n, *ex, f, d),
         }
+    if cfg.n_experts:
+        layers["router"] = (n, d, cfg.n_experts)
     return {
         "embed": (cfg.vocab_size, d), "final_norm": (d,),
         "unembed": (d, cfg.vocab_size), "layers": layers,
@@ -76,10 +84,6 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
     """A JAX params tree of numpy arrays -> the port's dict of tensors on
     ``device``, dtypes kept. Raises on a missing key or a wrong shape."""
     device = resolve_device(device)
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE parameters wait for a later slice of the port"
-        )
     want = _expected_shapes(cfg, fused="qkv" in tree["layers"])
 
     def convert(path, arr, shape):

@@ -22,8 +22,15 @@ and ``torch.Generator`` draw different numbers, so temperature sampling
 keeps the contract, not the JAX package's bits; greedy decoding matches it
 token for token.
 
-MoE trunks and sharded sessions (``mesh=``) wait for later slices of the
-port and raise ``NotImplementedError``.
+MoE trunks evaluate their experts as ``cfg.moe_decode_mode`` says: "dense"
+(and "auto") runs every expert on the new tokens and weights the unselected
+by exactly 0; "routed" gathers each token's top-k experts' weights and runs
+only those, on single-token steps (a prefill takes the dense mixture).
+Neither drops a token: capacity is a training trade, not a serving one.
+Both route with training's ``_route_tokens`` from an fp32 router.
+
+Sharded sessions (``mesh=``) wait for a later slice of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from tony_tpu_torch.device import resolve_device
-from tony_tpu_torch.models.transformer import TransformerConfig
+from tony_tpu_torch.models.transformer import TransformerConfig, _route_tokens
 from tony_tpu_torch.ops import (
     apply_rope,
     cached_rope_frequencies,
@@ -44,19 +51,14 @@ from tony_tpu_torch.ops import (
 NEG_INF = -1e30
 
 
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE decode waits for a later slice of the port"
-        )
-
-
 def decode_weights(params: dict, cfg: TransformerConfig) -> dict:
     """Re-pack training params for decode: cast to the compute dtype and
     fuse wq|wk|wv on the head axis ([L, d, H + 2*Hkv, Dh]) and
-    w_gate|w_up on the feature axis ([L, d, 2F]). Norm weights are cast
-    to the compute dtype too."""
-    _dense_only(cfg)
+    w_gate|w_up on the feature axis ([L, d, 2F]; MoE: [L, E, d, 2F] per
+    expert). Norm weights are cast to the compute dtype too; an MoE
+    router stays fp32 (it is tiny, and a rounded router could flip near
+    ties between gate logits that training, routing from fp32 masters,
+    resolves the other way)."""
     dt = cfg.compute_dtype
     lp = params["layers"]
     layers = {
@@ -69,6 +71,8 @@ def decode_weights(params: dict, cfg: TransformerConfig) -> dict:
                              dim=-1),
         "w_down": lp["w_down"].to(dt),
     }
+    if cfg.n_experts:
+        layers["router"] = lp["router"].float()
     return {
         "embed": params["embed"].to(dt),
         "final_norm": params["final_norm"].to(dt),
@@ -133,10 +137,61 @@ def _out_proj(x, o, lp, cfg):
     return x + o.to(dt).reshape(b, s, -1) @ lp["wo"].reshape(-1, d)
 
 
-def _mlp(x, lp, cfg):
+def _moe_decode_mode(cfg: TransformerConfig) -> str:
+    """"routed" or "dense": "auto" resolves to the dense mixture."""
+    mode = cfg.moe_decode_mode
+    if mode not in ("auto", "routed", "dense"):
+        raise ValueError(f"unknown moe_decode_mode {mode!r}")
+    return "routed" if mode == "routed" else "dense"
+
+
+def _moe_mlp_decode(x, lp, cfg):
+    """The dense mixture: every expert runs on the new tokens and the
+    outputs are combined with the normalized top-k router weights (the
+    unselected experts get exactly 0). Training's dispatch and combine
+    without a capacity. x [B, S, d] -> [B, S, d]."""
+    dt = cfg.compute_dtype
+    b, s, d = x.shape
+    e = cfg.n_experts
+    hn = rms_norm(x, lp["ln2"])
+    _, _, gvals, gidx = _route_tokens(hn, lp["router"], cfg.expert_top_k)
+    weights = torch.zeros((b, s, e), dtype=torch.float32, device=x.device)
+    weights = weights.scatter_add(-1, gidx, gvals)              # [B, S, E]
+    gu = torch.matmul(hn.to(dt).reshape(1, b * s, d), lp["gate_up"])
+    f = gu.shape[-1] // 2                                      # [E, BS, 2F]
+    act = torch.nn.functional.silu(gu[..., :f].float()).to(dt) * gu[..., f:]
+    per_expert = torch.bmm(act, lp["w_down"])                  # [E, BS, d]
+    out = torch.einsum("end,ne->nd", per_expert,
+                       weights.reshape(b * s, e).to(dt))
+    return out.view(b, s, d)
+
+
+def _moe_mlp_decode_routed(x, lp, cfg):
+    """Top-k only: gather each token's k selected experts' weights and run
+    just those (B * k expert products a step). The same router and gate
+    weights as the dense mixture, no capacity; the terms the dense
+    mixture adds for unselected experts are exact zeros, so both give the
+    same tokens. x [B, S, d] -> [B, S, d]."""
+    dt = cfg.compute_dtype
+    hn = rms_norm(x, lp["ln2"])
+    _, _, gvals, gidx = _route_tokens(hn, lp["router"], cfg.expert_top_k)
+    w_gu = lp["gate_up"][gidx]                           # [B, S, k, d, 2F]
+    w_dn = lp["w_down"][gidx]                            # [B, S, k, F, d]
+    gu = torch.einsum("bsd,bskdf->bskf", hn.to(dt), w_gu)
+    f = gu.shape[-1] // 2
+    act = torch.nn.functional.silu(gu[..., :f].float()).to(dt) * gu[..., f:]
+    per_slot = torch.einsum("bskf,bskfd->bskd", act, w_dn)
+    return torch.einsum("bskd,bsk->bsd", per_slot, gvals.to(dt))
+
+
+def _mlp(x, lp, cfg, *, routed: bool = False):
     """Residual SwiGLU over the fused gate|up projection: silu in fp32,
-    cast to the compute dtype, times up."""
-    _dense_only(cfg)
+    cast to the compute dtype, times up. An MoE layer (a router in
+    ``lp``) takes the dense mixture, or with ``routed`` the top-k
+    gather."""
+    if "router" in lp:
+        moe = _moe_mlp_decode_routed if routed else _moe_mlp_decode
+        return x + moe(x, lp, cfg)
     dt = cfg.compute_dtype
     hn = rms_norm(x, lp["ln2"]).to(dt)
     gu = hn @ lp["gate_up"]
@@ -186,7 +241,11 @@ def _layer_decode(x, lp, k_all, v_all, layer, length, cfg, cos, sin,
         o = _attend_cache(q, k_all[layer, :, :t], v_all[layer, :, :t],
                           mask[None], cfg)
     x = _out_proj(x, o, lp, cfg)
-    return _mlp(x, lp, cfg)
+    # The routed gather applies to single-token steps only: its gathered
+    # weight copy grows with S (a long prefill would hold S * k experts).
+    routed = ("router" in lp and _moe_decode_mode(cfg) == "routed"
+              and s == 1)
+    return _mlp(x, lp, cfg, routed=routed)
 
 
 def advance(params: dict, cache: dict, tokens: torch.Tensor,

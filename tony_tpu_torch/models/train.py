@@ -3,17 +3,23 @@ global-norm clipping and AdamW, as the JAX package's ``make_train_step``
 composes them (``optax.chain(clip_by_global_norm, adamw)``), on one device
 or data-parallel over a mesh of processes.
 
-With a mesh (``parallel.build_mesh``; dp above 1, the other axes 1), each
+With a mesh (``parallel.build_mesh``; dp and ep, the other axes 1), each
 rank keeps plain local tensors, placed as the JAX package's
 ``_sharding_for_tree`` places its state: a leaf whose role names
 ``embed_fsdp`` is split over dp along that dimension where dp divides it,
-every other leaf is replicated, and the AdamW moments follow their
-parameters. A step gathers the split leaves for the forward (all_gather; the
-backward reduce-scatters their gradients), averages the replicated leaves'
-gradients over dp (``pmean_gradients``), clips by the global norm (local
-squared norms, one all_reduce) and runs AdamW on the local pieces. Each rank
-feeds its own ``[B_local, T+1]`` slice of the global batch; the loss is the
-mean over the global batch.
+a leaf with an ``expert`` dimension is split over ep there, every other
+leaf is replicated, and the AdamW moments follow their parameters. A step
+gathers the split leaves for the forward (all_gather; the backward
+reduce-scatters their gradients), except the expert dimension of the
+expert FFN weights, which the MoE layer uses as they lie (its all_to_all
+brings every ep peer's tokens to them). Each gradient is then made the
+global batch's mean: summed over the data axes (dp, ep) it is not split
+over and divided by the data-parallel size (``_reduce_and_clip``). The clip
+takes the global norm (each block's squared norm summed over the axes its
+leaf is split over, so each expert block counts once) and AdamW runs on
+the local pieces. Each rank feeds its own ``[B_local, T+1]`` slice of the
+global batch (split over dp x ep); the loss is the mean over the global
+batch.
 
 JAX donates the old state so the update happens in place in device memory;
 here the update IS in place: ``step_fn`` writes the new weights and moments
@@ -32,6 +38,8 @@ import torch.distributed as dist
 
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.transformer import (
+    DATA_AXES,
+    EXPERT_LEAVES,
     TransformerConfig,
     check_mesh,
     forward,
@@ -44,6 +52,7 @@ from tony_tpu_torch.parallel.collectives import (
     axis_group,
     pmean_gradients,
 )
+from tony_tpu_torch.parallel.mesh import axis_size
 from tony_tpu_torch.parallel.sharding import shard_pytree
 
 
@@ -58,16 +67,21 @@ class TrainState(NamedTuple):
 
 def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None, *, return_metrics: bool = False):
-    """Next-token cross-entropy. tokens: [B, T+1] int. With
-    ``return_metrics`` returns ``(total, {"cross_entropy": ce})``; dense
-    trunks have no router losses, so total == ce."""
+    """Next-token cross-entropy, plus ``moe_balance_coef`` times the
+    balance loss and ``moe_zloss_coef`` times the router z-loss when the
+    config has experts. tokens: [B, T+1] int. With ``return_metrics``
+    returns ``(total, {"cross_entropy": ce, **router aux})``."""
     tokens = tokens.to(params["embed"].device)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward(params, inputs, cfg, mesh, return_aux=True)
     ce = softmax_cross_entropy(logits, labels)
+    total = ce
+    if aux:
+        total = (total + cfg.moe_balance_coef * aux["moe_balance"]
+                 + cfg.moe_zloss_coef * aux["moe_zloss"])
     if not return_metrics:
-        return ce
-    return ce, {"cross_entropy": ce, **aux}
+        return total
+    return total, {"cross_entropy": ce, **aux}
 
 
 def leaves(params: dict) -> list[torch.Tensor]:
@@ -99,10 +113,10 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, *,
     return norm
 
 
-def _check_supported(mesh, plan, pipeline_microbatches, pipeline_schedule,
-                     pipeline_virtual) -> None:
+def _check_supported(cfg, mesh, plan, pipeline_microbatches,
+                     pipeline_schedule, pipeline_virtual) -> None:
     if mesh is not None:
-        check_mesh(mesh)
+        check_mesh(mesh, cfg)
     if (pipeline_microbatches is not None or pipeline_schedule != "gpipe"
             or pipeline_virtual != 1):
         raise NotImplementedError(
@@ -146,16 +160,18 @@ def make_train_step(
     With a mesh every rank must start from the same weights (the same
     seed); it keeps its pieces and their ``placements``.
 
-    ``step_fn(state, tokens[B, T+1]) -> (state', {"loss", "cross_entropy"})``:
-    one optimizer step, updating ``state`` in place (see the module note).
+    ``step_fn(state, tokens[B, T+1]) -> (state', metrics)``: one optimizer
+    step, updating ``state`` in place (see the module note). The metrics
+    are "loss" and "cross_entropy", and for an MoE config the layer means of
+    "moe_balance", "moe_zloss", "moe_drop_rate" and "moe_entropy".
     With a mesh, ``tokens`` is this rank's slice of the global batch and the
     metrics are means over the global batch. The optimizer is optax's:
     global-norm clipping at ``grad_clip``, then AdamW with b1 0.9, b2
     0.999, eps 1e-8, decoupled weight decay on every parameter
     (``torch.optim.AdamW`` computes that update).
     """
-    _check_supported(mesh, plan, pipeline_microbatches, pipeline_schedule,
-                     pipeline_virtual)
+    _check_supported(cfg, mesh, plan, pipeline_microbatches,
+                     pipeline_schedule, pipeline_virtual)
     device = resolve_device(device)
     if mesh is not None and mesh.device_type != device.type:
         raise ValueError(f"a {mesh.device_type} mesh cannot train on "
@@ -185,7 +201,8 @@ def make_train_step(
         opt.zero_grad(set_to_none=True)
         params = state.params
         if mesh is not None:
-            params = _gather(params, state.placements, mesh)
+            params = _gather(params, state.placements, mesh,
+                             EXPERT_LEAVES if cfg.n_experts else ())
         loss, metrics = lm_loss(params, tokens, cfg, mesh,
                                 return_metrics=True)
         loss.backward()
@@ -205,42 +222,68 @@ def make_train_step(
     return init_fn, step_fn
 
 
-def _gather(params: dict, placements: dict, mesh) -> dict:
-    """The full parameters for the forward: every split dimension of a
-    leaf all-gathered (its gradient is reduce-scattered back)."""
+def _gather(params: dict, placements: dict, mesh, resident=()) -> dict:
+    """The parameters the forward takes: every split dimension of a leaf
+    all-gathered (its gradient is reduce-scattered back), but the ep
+    dimension of the ``resident`` leaves (the expert FFN weights)."""
     out = {}
     for key, val in params.items():
         if isinstance(val, dict):
-            out[key] = _gather(val, placements[key], mesh)
+            out[key] = _gather(val, placements[key], mesh, resident)
             continue
         for dim, entry in enumerate(placements[key].spec):
-            if entry is not None:
+            if entry is not None and not (key in resident and entry == "ep"):
                 val = all_gather_with_scatter_grad(val, dim, entry, mesh=mesh)
         out[key] = val
     return out
 
 
+def _split_axes(placement) -> tuple[str, ...]:
+    """The data axes (of DATA_AXES) a leaf is split over."""
+    names = set()
+    for entry in placement.spec:
+        if entry is not None:
+            names.update((entry,) if isinstance(entry, str) else entry)
+    return tuple(a for a in DATA_AXES if a in names)
+
+
 def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
                      grad_clip: float) -> None:
     """Turn each rank's gradients into the global batch's and clip them by
-    the global norm. A split leaf's gradient arrives reduce-scattered (the
-    sum over dp of this rank's block): divide by dp. A replicated leaf's is
-    this rank's own: average it over dp. Then each split leaf's norm is
-    the root of its blocks' squared norms summed over dp (one all_reduce
-    for all of them), and every rank clips its pieces by the same global
-    norm."""
-    group, n = axis_group(mesh, ("dp", "ep"))
-    split = [i for i, pl in enumerate(placements) if pl.sharded]
-    if split:
-        torch._foreach_div_([grads[i] for i in split], n)
-    pmean_gradients([g for g, pl in zip(grads, placements)
-                     if not pl.sharded], mesh)
+    the global norm. A leaf's gradient arrives summed over the data axes it
+    is split over (a gathered dimension's reduce-scatter sums over dp; an
+    expert leaf holds its ep peers' tokens' sum, which the all_to_all
+    brought back) and is this rank's own over the others: a replicated
+    leaf's is averaged over dp x ep, a split one's summed over the data
+    axes above 1 it is not split over, and each divided so that it is the
+    mean over the global batch. Then each split leaf's norm is the root of
+    its blocks' squared norms summed over the axes it is split over (one
+    all_reduce per set of axes), so each block counts once, and every rank
+    clips its pieces by the same global norm."""
+    by_axes: dict[tuple[str, ...], list[int]] = {}
+    for i, pl in enumerate(placements):
+        by_axes.setdefault(_split_axes(pl), []).append(i)
+    for split, idx in by_axes.items():
+        gs = [grads[i] for i in idx]
+        if not split:
+            pmean_gradients(gs, mesh, DATA_AXES)
+            continue
+        rest = tuple(a for a in DATA_AXES
+                     if a not in split and axis_size(mesh, a) > 1)
+        if rest:
+            pmean_gradients(gs, mesh, rest)
+        n = axis_size(mesh, split)
+        if n > 1:
+            torch._foreach_div_(gs, n)
     norms = list(torch._foreach_norm(grads))
-    if split:
-        blocks = torch.stack([norms[i] for i in split])
+    for split, idx in by_axes.items():
+        if not split:
+            continue
+        blocks = torch.stack([norms[i] for i in idx])
         squares = blocks * blocks
-        dist.all_reduce(squares, op=dist.ReduceOp.SUM, group=group)
-        for i, norm in zip(split, squares.sqrt().unbind()):
+        dist.all_reduce(squares, op=dist.ReduceOp.SUM,
+                        group=axis_group(mesh, split)[0])
+        for i, norm in zip(idx, squares.sqrt().unbind()):
             norms[i] = norm
     clip_by_global_norm_(grads, grad_clip, leaf_norms=norms)
 

@@ -8,9 +8,16 @@ master weights; compute runs in ``cfg.compute_dtype``. ``forward`` is the
 dense, single-device trunk of the JAX package's ``forward``: pre-norm
 attention (RMSNorm, separate q/k/v projections, RoPE, flash attention with
 GQA K/V as they are, output projection) and a SwiGLU MLP per layer, then the
-final norm and the logits. On a data-parallel mesh it takes the gathered
-(full) parameters; the other mesh axes and MoE trunks wait for the
-model-parallel slice of the port.
+final norm and the logits. With ``n_experts`` every layer's MLP is the
+capacity-based top-k MoE layer (``_moe_mlp``), which returns the router's
+auxiliary losses beside its output.
+
+On a mesh (dp and ep; tp, sp and pp wait for later slices of the port) the
+forward takes the gathered parameters, except the expert FFN weights, of
+which each rank holds its E/ep experts: the MoE layer then runs the JAX
+package's manual form (``_moe_mlp_manual``), routing the rank's own tokens
+with a local capacity and exchanging per-expert slabs over ep with one
+all_to_all each way.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import functools
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 from torch.utils import checkpoint
 
 from tony_tpu_torch.device import resolve_device
@@ -28,7 +36,8 @@ from tony_tpu_torch.ops import (
     flash_attention,
     rms_norm,
 )
-from tony_tpu_torch.parallel.mesh import mesh_spec
+from tony_tpu_torch.parallel.collectives import exchange_ep, pmean
+from tony_tpu_torch.parallel.mesh import axis_size, mesh_spec
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -50,8 +59,10 @@ class TransformerConfig:
     # GQA: number of K/V heads; 0 = n_heads (MHA). The KV cache holds only
     # these heads, a n_heads/n_kv_heads shrink of the decode traffic.
     n_kv_heads: int = 0
-    # MoE fields mirror the JAX config; the port's decode path serves dense
-    # trunks only in this slice (n_experts > 0 raises there).
+    # MoE: 0 experts = dense SwiGLU; else every layer is a top-k MoE layer
+    # with capacity_factor token capacity and the Switch balance and router
+    # z losses (see _moe_mlp). Decode evaluates the experts as
+    # moe_decode_mode says (models/decode.py).
     n_experts: int = 0
     expert_top_k: int = 2
     capacity_factor: float = 1.25
@@ -187,9 +198,131 @@ def _dense_mlp(x, lp, cfg):
     return act @ lp["w_down"].to(dt)
 
 
-def _decoder_layer(x, lp, cfg, cos, sin):
-    x = x + _attention(x, lp, cfg, cos, sin)
-    return x + _dense_mlp(x, lp, cfg)
+# The expert FFN leaves: on an ep mesh each rank keeps its E/ep experts of
+# these (the router is gathered whole: every rank routes over all E).
+EXPERT_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
+# The data axes the router statistics are averaged over (sp is 1 in the
+# port: the ring waits for a later slice).
+DATA_AXES = ("dp", "ep")
+
+
+def _route_tokens(hn, router, top_k: int):
+    """Router gating shared by training and decode: fp32 logits and
+    softmax, top-k over the probabilities, the selected weights renormalized
+    with an epsilon guard. A stable descending sort breaks ties toward the
+    lower expert index, as ``lax.top_k`` does, and is deterministic, so a
+    remat recomputation picks the same experts. Returns (gate_logits [.., E]
+    fp32, probs [.., E], gvals [.., k] normalized, gidx [.., k])."""
+    gate_logits = hn.float() @ router.float()
+    probs = torch.softmax(gate_logits, dim=-1)
+    gvals, gidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gvals, gidx = gvals[..., :top_k], gidx[..., :top_k]
+    gvals = gvals / gvals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gate_logits, probs, gvals, gidx
+
+
+def _expert_slots(gidx, n_experts: int, cap: int):
+    """Capacity slots of the (choice, token) entries of gidx [b, t, k], in
+    (choice, token) order, every first choice before any second choice:
+    (choice [k * b * t] the expert, pos the entry's place in its expert's
+    queue (an int32 cumsum), keep = pos < cap, and the one-hot
+    [E, k * b * t] int32 of choice)."""
+    n, kk = gidx.shape[0] * gidx.shape[1], gidx.shape[2]
+    choice = gidx.reshape(n, kk).t().reshape(-1)
+    # A comparison, not F.one_hot, whose range check reads the indices
+    # back to the host on the card.
+    experts = torch.arange(n_experts, device=choice.device)
+    onehot = (experts[:, None] == choice).to(torch.int32)  # [E, k * b * t]
+    # The scan runs along the contiguous dimension: a scan down the
+    # columns of [k * b * t, E] is E serial threads on the card.
+    pos = ((onehot.cumsum(1, dtype=torch.int32) - onehot) * onehot).sum(0)
+    return choice, pos, pos < cap, onehot
+
+
+def _moe_mlp(x, lp, cfg, mesh=None):
+    """Capacity-based top-k MoE, the JAX package's ``_moe_mlp`` (and, with
+    a mesh, its manual form ``_moe_mlp_manual``). Returns ``(out, aux)``.
+
+    Capacity ``max(1, int(cf * b * t * k / E))`` slots per expert over
+    this rank's tokens; slots fill in (choice, token) order, every first
+    choice before any second choice (an int32 cumsum), and a (token,
+    choice) past its expert's capacity is dropped (the residual carries
+    the token). The JAX package dispatches and combines with one-hot
+    einsums of [b, t, E, C]; this computes the same sums by index: each
+    slot holds one token's normed input in the compute dtype (a copy into
+    the slot), and each output row is sum_k dt(gate_k) * dt(expert_out)
+    over the token's kept choices, summed in fp32 and cast once.
+
+    aux: the Switch balance loss E * sum_e f_e * P_e (f the fraction of
+    (token, choice) slots routed to e, P the mean router probability), the
+    router z-loss mean(logsumexp(logits)^2), the drop rate and the entropy
+    of f. With a mesh the statistics are averaged over the data axes
+    before they are combined (a differentiable pmean), and the slabs
+    [E, C, d] go to the ranks holding their experts and back with one
+    all_to_all over ep each way."""
+    dt = cfg.compute_dtype
+    b, t, d = x.shape
+    e, kk = cfg.n_experts, cfg.expert_top_k
+    n = b * t
+    cap = max(1, int(cfg.capacity_factor * b * t * kk / e))
+    with record_function("moe.route"):
+        hn = rms_norm(x, lp["ln2"])
+        gate_logits, probs, gvals, gidx = _route_tokens(hn, lp["router"], kk)
+        choice, pos, keep, onehot = _expert_slots(gidx, e, cap)
+        stats = torch.cat([
+            onehot.sum(1).float() / choice.numel(),             # f [E]
+            probs.reshape(n, e).mean(0),                        # P [E]
+            torch.logsumexp(gate_logits, dim=-1).square().mean()[None],
+            1.0 - keep.float().mean()[None],
+        ])
+        if mesh is not None:
+            stats = pmean(stats, mesh, DATA_AXES)
+        frac, mean_probs = stats[:e], stats[e:2 * e]
+        aux = {
+            "moe_balance": e * (frac * mean_probs).sum(),
+            "moe_zloss": stats[2 * e],
+            "moe_drop_rate": stats[2 * e + 1],
+            "moe_entropy": -(frac * torch.log(frac + 1e-9)).sum(),
+        }
+    with record_function("moe.dispatch"):
+        # Dropped entries land in a spare last row, cut off after.
+        slot = torch.where(keep, choice * cap + pos, e * cap)
+        src = hn.to(dt).reshape(1, n, d).expand(kk, n, d).reshape(kk * n, d)
+        xin = src.new_zeros(e * cap + 1, d).index_copy(0, slot, src)
+        xin = xin[:-1].view(e, cap, d)
+        if mesh is not None:
+            # [E, C, d] -> [ep, E_l, C, d] -> exchange -> [E_l, ep * C, d]:
+            # slab j of what arrives is peer j's tokens for my experts.
+            ep, e_local = axis_size(mesh, "ep"), lp["w_gate"].shape[0]
+            xin = exchange_ep(xin.reshape(ep, e_local, cap, d), mesh)
+            xin = xin.transpose(0, 1).reshape(e_local, ep * cap, d)
+    with record_function("moe.experts"):
+        g = torch.bmm(xin, lp["w_gate"].to(dt))
+        u = torch.bmm(xin, lp["w_up"].to(dt))
+        act = torch.nn.functional.silu(g.float()).to(dt) * u
+        out_e = torch.bmm(act, lp["w_down"].to(dt))
+    with record_function("moe.combine"):
+        if mesh is not None:
+            out_e = out_e.view(e_local, ep, cap, d).transpose(0, 1)
+            out_e = exchange_ep(out_e, mesh)
+        rows = torch.cat([out_e.reshape(e * cap, d), out_e.new_zeros(1, d)])
+        picked = rows.index_select(0, slot).view(kk, n, d)
+        gate = gvals.reshape(n, kk).t().to(dt)                 # [k, n]
+        out = (picked.float() * gate.float()[..., None]).sum(0)
+    return out.to(dt).view(b, t, d), aux
+
+
+def _decoder_layer(x, lp, cfg, cos, sin, mesh=None):
+    """Returns ``(x, aux)``: aux is the layer's MoE router dict, None for a
+    dense layer."""
+    # The range marks the layer's work when a remat recomputation runs it
+    # inside a backward node (a profile attributes it by the range).
+    with record_function("decoder_layer"):
+        x = x + _attention(x, lp, cfg, cos, sin)
+        if cfg.n_experts:
+            out, aux = _moe_mlp(x, lp, cfg, mesh)
+            return x + out, aux
+        return x + _dense_mlp(x, lp, cfg), None
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -228,17 +361,20 @@ def _layer_slices(layers: dict, n_layers: int) -> list[dict]:
             for i in range(n_layers)]
 
 
-def check_mesh(mesh) -> None:
-    """Refuse a mesh whose model-parallel axes (pp, ep, sp, tp) are above
-    1: only data parallelism is ported so far."""
+def check_mesh(mesh, cfg: TransformerConfig) -> None:
+    """Refuse a mesh whose pp, sp or tp axis is above 1 (dp and ep are
+    ported), and an ep that does not divide the config's experts."""
     spec = mesh_spec(mesh)
-    wide = {a: getattr(spec, a) for a in ("pp", "ep", "sp", "tp")
+    wide = {a: getattr(spec, a) for a in ("pp", "sp", "tp")
             if getattr(spec, a) > 1}
     if wide:
         raise NotImplementedError(
             f"mesh axes {wide} wait for the model-parallel slice (slice 4) "
-            f"of the port; only dp may be above 1"
+            f"of the port; only dp and ep may be above 1"
         )
+    if cfg.n_experts and cfg.n_experts % spec.ep:
+        raise ValueError(f"ep {spec.ep} must divide n_experts "
+                         f"{cfg.n_experts}")
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -248,15 +384,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     in the params: B1/B4 forward and B2/B3 backward on the card.
 
     ``cfg.remat`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``, ``cfg.remat_policy`` "full" or "dots").
-    ``return_aux=True`` additionally returns the MoE router aux dict, empty
-    for the dense configs this trunk runs.
+    (``torch.utils.checkpoint``, ``cfg.remat_policy`` "full" or "dots");
+    the recomputed routing picks the same experts (it is deterministic).
+    ``return_aux=True`` additionally returns the MoE router aux dict
+    (balance, z-loss, drop rate, entropy, each averaged over the layers),
+    empty for a dense config.
 
-    With a data-parallel ``mesh`` (dp only), ``params`` are the full
-    parameters, gathered from the rank's pieces (``make_train_step`` does
-    that), and ``tokens`` are this rank's slice of the batch."""
+    With a ``mesh`` (dp and ep), ``params`` are the gathered parameters
+    but for the expert FFN weights, of which this rank holds its E/ep
+    experts (``make_train_step`` gathers them so), and ``tokens`` are this
+    rank's slice of the batch."""
     if mesh is not None:
-        check_mesh(mesh)
+        check_mesh(mesh, cfg)
         d_in = params["layers"]["wq"].shape[1]
         if d_in != cfg.d_model:
             raise ValueError(
@@ -264,23 +403,34 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                 f"{d_in} of d_model {cfg.d_model} rows"
             )
     if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE trunks wait for the model-parallel slice (slice 4) of the "
-            "port"
-        )
+        ep = 1 if mesh is None else axis_size(mesh, "ep")
+        held = params["layers"]["w_gate"].shape[1]
+        if held * ep != cfg.n_experts:
+            raise ValueError(
+                f"forward takes E/ep = {cfg.n_experts // ep} experts per "
+                f"rank, the params hold {held}")
     dt = cfg.compute_dtype
     device = params["embed"].device
     cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
                                        theta=cfg.rope_theta, device=device)
     x = params["embed"][tokens.to(device).long()].to(dt)
-    layer_fn = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin)
+    layer_fn = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin,
+                                 mesh=mesh)
     context_fn = _remat_context(cfg) if cfg.remat else None
+    aux_layers = []
     for lp in _layer_slices(params["layers"], cfg.n_layers):
         if cfg.remat:
-            x = checkpoint.checkpoint(layer_fn, x, lp, use_reentrant=False,
-                                      context_fn=context_fn)
+            x, aux = checkpoint.checkpoint(layer_fn, x, lp,
+                                           use_reentrant=False,
+                                           context_fn=context_fn)
         else:
-            x = layer_fn(x, lp)
+            x, aux = layer_fn(x, lp)
+        if aux is not None:
+            aux_layers.append(aux)
     x = rms_norm(x, params["final_norm"]).to(dt)
     logits = x @ params["unembed"].to(dt)
-    return (logits, {}) if return_aux else logits
+    if not return_aux:
+        return logits
+    aux = {k: torch.stack([a[k] for a in aux_layers]).mean()
+           for k in (aux_layers[0] if aux_layers else ())}
+    return logits, aux

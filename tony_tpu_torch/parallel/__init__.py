@@ -4,11 +4,18 @@ logical sharding rules, and the collectives over mesh axes."""
 from tony_tpu_torch.parallel.collectives import (
     all_gather_tp,
     all_to_all_ep,
+    exchange_ep,
+    pmean,
     pmean_gradients,
     reduce_scatter_tp,
     ring_halo_exchange,
 )
-from tony_tpu_torch.parallel.mesh import AXES, MeshSpec, build_mesh
+from tony_tpu_torch.parallel.mesh import (
+    AXES,
+    MeshSpec,
+    axis_group_ranks,
+    build_mesh,
+)
 from tony_tpu_torch.parallel.sharding import (
     LOGICAL_RULES,
     Placement,
@@ -24,8 +31,11 @@ __all__ = [
     "Placement",
     "all_gather_tp",
     "all_to_all_ep",
+    "axis_group_ranks",
     "build_mesh",
+    "exchange_ep",
     "logical_spec",
+    "pmean",
     "pmean_gradients",
     "reduce_scatter_tp",
     "ring_halo_exchange",

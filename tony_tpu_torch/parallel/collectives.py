@@ -6,6 +6,11 @@ mesh axis (``DeviceMesh.get_group(name)``) instead of a ``shard_map`` axis
 name, so each also takes the ``mesh``. Every rank of the axis must call them
 in the same order (SPMD). Each runs its collective also when the axis has
 size 1, so a one-process mesh drives the same path as a larger one.
+
+Two more are differentiable, for the expert-parallel MoE layer: ``pmean``
+(``lax.pmean``: its gradient is the mean of the ranks' cotangents) and
+``exchange_ep`` (the all_to_all of ``lax.all_to_all`` over ep, whose
+gradient is the reverse exchange; ``all_to_all_single`` itself has none).
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from tony_tpu_torch.parallel.mesh import axis_size
+from tony_tpu_torch.parallel.mesh import AXES, DP_EP, axis_size
 
 # Gradients are averaged in flat buckets of about this many bytes, one
 # collective per bucket rather than one per leaf.
@@ -24,17 +29,19 @@ BUCKET_BYTES = 25 * 2 ** 20
 
 def axis_group(mesh, axis_names) -> tuple[Any, int]:
     """(process group, size) of mesh axes ``axis_names`` (one name or a
-    tuple) taken together. Axes of size 1 add nothing; two axes both above
-    1 would need a group over their product, which only the expert-
-    parallel slice of the port uses."""
+    tuple) taken together. Axes of size 1 add nothing; dp and ep both above
+    1 take the mesh's flattened dp x ep dimension (``build_mesh``)."""
     names = (axis_names,) if isinstance(axis_names, str) else tuple(
         axis_names)
-    wide = [n for n in names if axis_size(mesh, n) > 1]
+    wide = tuple(n for n in AXES if n in names and axis_size(mesh, n) > 1)
     if len(wide) > 1:
-        raise NotImplementedError(
-            f"a collective over mesh axes {wide} together waits for the "
-            f"model-parallel slice (slice 4) of the port"
-        )
+        if wide != ("dp", "ep"):
+            raise NotImplementedError(
+                f"a collective over mesh axes {wide} together waits for the "
+                f"model-parallel slices of the port")
+        # build_mesh flattened them: _flatten returns that mesh again.
+        group = mesh["dp", "ep"]._flatten(DP_EP).get_group()
+        return group, axis_size(mesh, wide)
     name = wide[0] if wide else names[0]
     return mesh.get_group(name), axis_size(mesh, name)
 
@@ -163,3 +170,61 @@ def all_gather_with_scatter_grad(x: torch.Tensor, axis: int,
     gathered tensor is reduce-scattered (summed over the ranks, this rank's
     block kept), the transpose JAX takes of a tiled all_gather."""
     return _GatherScatter.apply(x, axis, axis_name, mesh)
+
+
+class _Pmean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.args = (group, n)
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y.div_(n) if n > 1 else y
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, n = ctx.args
+        g = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        return (g.div_(n) if n > 1 else g), None, None
+
+
+def pmean(x: torch.Tensor, mesh, axis_names=("dp", "ep")) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of mesh axes ``axis_names``
+    (``lax.pmean``), differentiable: each rank's loss holds the same mean,
+    so a rank's ``x`` gets the mean of every rank's cotangent (one
+    all_reduce each way)."""
+    group, n = axis_group(mesh, axis_names)
+    return _Pmean.apply(x, group, n)
+
+
+class _ExchangeEp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Block j came from rank j: its cotangent goes back to rank j, the
+        # same exchange again.
+        return _exchange(grad, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    # all_to_all_single reads and writes memory in row-major order: both
+    # buffers must be contiguous (empty_like would copy x's strides).
+    send = x.contiguous()
+    out = torch.empty_like(send, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, send, group=group)
+    return out
+
+
+def exchange_ep(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` [ep, ...]: block i goes to rank i of the ep axis, and block j
+    of the result is what rank j sent (``lax.all_to_all(x, "ep", 0, 0)``).
+    Differentiable; runs its all_to_all also at ep = 1."""
+    group, n = axis_group(mesh, "ep")
+    if x.shape[0] != n:
+        raise ValueError(f"exchange_ep takes [ep={n}, ...], got "
+                         f"{tuple(x.shape)}")
+    return _ExchangeEp.apply(x, group)

@@ -14,6 +14,12 @@ process group, one device (one process) per mesh position:
 Ranks are laid out in C order over ``AXES``, so tp is innermost (adjacent
 ranks, the same host's NVLink) and dp outermost (the only axis that may cross
 hosts). On GPUs one node is one slice.
+
+A collective over two axes at once needs a group of its own: where dp and
+ep are both above 1, ``build_mesh`` flattens the two into one more mesh
+dimension, ``"dp_ep"`` (``axis_group_ranks`` lists its groups' ranks from
+the ``MeshSpec`` alone), which the MoE layer's router statistics and the
+replicated leaves' gradient mean use.
 """
 
 from __future__ import annotations
@@ -22,12 +28,15 @@ import math
 from dataclasses import dataclass
 from datetime import timedelta
 
+import numpy as np
 import torch.distributed as dist
 
 from tony_tpu_torch.device import resolve_device
 
 # Canonical axis order, outermost (across hosts) to innermost (NVLink-hot).
 AXES = ("dp", "pp", "ep", "sp", "tp")
+# The one axis product a collective spans: the data axes of an MoE trunk.
+DP_EP = "dp_ep"
 
 
 @dataclass(frozen=True)
@@ -178,16 +187,33 @@ def build_mesh(
     spec.validate(world)
     check_slices(spec, world, num_slices)
     timeout = timedelta(seconds=timeout_s)
-    overrides = {}
-    for name in AXES:
+
+    def options():
         opts = (dist.ProcessGroupNCCL.Options() if backend == "nccl"
                 else dist.ProcessGroupGloo._Options())
         opts._timeout = timeout
-        overrides[name] = (backend, opts)
+        return backend, opts
+
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(dev.type, spec.shape, mesh_dim_names=AXES,
-                            backend_override=overrides)
+    mesh = init_device_mesh(dev.type, spec.shape, mesh_dim_names=AXES,
+                            backend_override={n: options() for n in AXES})
+    if spec.dp > 1 and spec.ep > 1:
+        mesh["dp", "ep"]._flatten(DP_EP, backend_override=options())
+    return mesh
+
+
+def axis_group_ranks(spec: MeshSpec, names) -> list[list[int]]:
+    """The rank lists of the groups over mesh axes ``names`` taken
+    together: ranks that share their coordinates on every other axis, in
+    the C order of ``AXES`` over the named ones (the first named axis
+    major). A pure function of the spec."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    dims = [AXES.index(n) for n in names]
+    rest = [i for i in range(len(AXES)) if i not in dims]
+    grid = np.arange(spec.num_devices).reshape(spec.shape)
+    size = math.prod(spec.shape[i] for i in dims)
+    return grid.transpose(rest + dims).reshape(-1, size).tolist()
 
 
 def axis_size(mesh, names) -> int:

@@ -20,6 +20,10 @@ freed slot's stale K/V rows are only unmasked after the new request's own
 prefill/decode has written those positions (prefill covers [0, P); each
 decode step writes index ``pos`` before attention reads it).
 
+An MoE trunk's layers take the dense mixture (``models.decode``'s
+``_moe_mlp_decode``: every expert, the unselected weighted by 0), as the JAX
+engine does whatever ``moe_decode_mode`` says.
+
 The int8 KV cache (``kv_quant="int8"``) waits for a later slice of the port.
 """
 
