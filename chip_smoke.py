@@ -54,6 +54,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the step median (10 after 2 warm-ups, CUDA events) beside
              mesh=None's, timed before and after it, with peak memory
              and each step's working set.
+9b. tp     — the tensor-parallel path on one card: MeshSpec(tp=1) on a
+             one-rank NCCL group (the conjugate pair copy_to_tp /
+             reduce_from_tp is the identity at tp = 1; the vocab-parallel
+             loss's max and sum run as one-rank all_reduces; the per-part
+             decode split cuts whole blocks). fp32 (TF32 off) losses of 3
+             steps and first-step gradients at train parity's widths and
+             each remat setting against mesh=None (TRAIN_LOSS_RTOL,
+             TRAIN_GRAD_TOL); DecodeSession(mesh=) on the flagship model
+             in fp32 gives the greedy tokens of the session without a
+             mesh; the bf16 bench_transformer step over the mesh beside
+             mesh=None's, timed before and after, and the all_reduce calls
+             and bytes one step sends over the tp group.
 10. job    — the train CLI as a job runs it, at bench_transformer's full
              width: a uint16 .tokens corpus of 32 records x 2049 tokens
              from --seed (4 batches, one epoch = 4 steps) read through
@@ -93,9 +105,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 The launch counters are set to 0 just before each path (phases 3-4, the
 serving path; phase 7, the training path; phase 9, the data-parallel
-path; phase 10's jobs and serving, the job path; phase 11, the MoE train
-path; phase 13's bf16 generate and engine, the MoE serving path) and read
-just after; every kernel of a path must have launched there. The last three lines are the kernels
+path; phase 9b's mesh runs, the tp path; phase 10's jobs and serving, the
+job path; phase 11, the MoE train path; phase 13's bf16 generate and
+engine, the MoE serving path) and read just after; every kernel of a path must have launched there. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}.
 """
@@ -166,6 +178,9 @@ TRAIN_GRAD_TOL = 1e-5
 # and batch, then timed steps, mesh=None before and after the mesh path.
 DP_PARITY_STEPS = 3
 DP_TIMEOUT_S = 60.0
+# tp phase: DecodeSession(mesh=) on the flagship serving model in fp32 held
+# against the session without a mesh (batch, prompt length, new tokens).
+TP_DECODE = dict(batch=4, prompt=32, new=16)
 
 # Job phase: bench_transformer's widths through the train CLI, a corpus of
 # 4 batches (one epoch = 4 steps), job A straight to 8 steps with a
@@ -1503,6 +1518,161 @@ def dp_phase(torch, attention, norms, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9b: the tensor-parallel path on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def _tp_parity_run(torch, cfg, params, batches, mesh) -> tuple:
+    """PARITY_TRAIN_STEPS steps of make_train_step(cfg, mesh) on the card
+    from ``params``: (losses, the first step's clipped gradients)."""
+    from tony_tpu_torch.models import make_train_step
+    from tony_tpu_torch.models.train import leaves
+
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cuda")
+    state = init_fn(params=params)
+    losses, grads = [], None
+    for toks in batches:
+        state, metrics = step_fn(state, toks)
+        losses.append(metrics["loss"])
+        if grads is None:
+            grads = [p.grad.detach().cpu() for p in leaves(state.params)]
+    return _loss_list(torch, losses), grads
+
+
+def tp_phase(torch, attention, norms, seed: int) -> dict:
+    """Slice 4's tp path on one card: ``MeshSpec(tp=1)`` over a one-rank
+    NCCL group on a HashStore. The conjugate pair (``copy_to_tp`` /
+    ``reduce_from_tp``) runs as the identity it is at tp = 1, the
+    vocab-parallel cross-entropy's max and sum as one-rank all_reduces,
+    and the per-part decode split cuts whole blocks. Held against
+    mesh=None: fp32 (TF32 off) at PARITY_TRAIN's widths and each remat
+    setting, the losses of PARITY_TRAIN_STEPS steps within TRAIN_LOSS_RTOL
+    and every first-step gradient within TRAIN_GRAD_TOL of its leaf's
+    largest; DecodeSession(mesh=) on the flagship serving model in fp32
+    (TP_DECODE) gives the greedy tokens of the session without a mesh.
+    Then bench_transformer's bf16 step over the mesh, its median beside
+    mesh=None's (timed before and after), and the all_reduce calls and
+    bytes one step sends over the tp group. The launch counters are set to
+    0 just before the mesh path and read just after."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch.models import (DecodeSession, TransformerConfig,
+                                       init_params, make_train_step)
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh
+    from tony_tpu_torch.parallel.collectives import axis_group
+
+    rng = np.random.default_rng(seed + 8)
+    parity = {}
+    for remat, policy in PARITY_REMAT:
+        pcfg = TransformerConfig(dtype="float32", remat=remat,
+                                 remat_policy=policy, **PARITY_TRAIN)
+        batches = [torch.as_tensor(rng.integers(
+            0, pcfg.vocab_size, (PARITY_TRAIN_BATCH, pcfg.max_seq + 1)),
+            device="cuda") for _ in range(PARITY_TRAIN_STEPS)]
+        parity[f"remat={remat}/{policy}"] = (
+            pcfg, batches, _tp_parity_run(torch, pcfg, parity_params(
+                torch, pcfg, seed), batches, None))
+    dcfg = TransformerConfig(dtype="float32", **FLAGSHIP)
+    dgen = torch.Generator(device="cuda")
+    dgen.manual_seed(seed + 9)
+    dparams = init_params(dcfg, dgen, device="cuda")
+    prompt = torch.as_tensor(rng.integers(
+        0, dcfg.vocab_size, (TP_DECODE["batch"], TP_DECODE["prompt"])),
+        device="cuda")
+    want_tokens = DecodeSession(dparams, dcfg, device="cuda").generate(
+        prompt, TP_DECODE["new"])
+
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    plain, before_ms, _, _ = timed_steps(torch, step_fn, init_fn(seed),
+                                         tokens)
+    del plain
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    real = dist.all_reduce
+    try:
+        mesh = build_mesh(MeshSpec(tp=1), "cuda", timeout_s=DP_TIMEOUT_S)
+        tp_group = axis_group(mesh, "tp")[0]
+        _reset_launches(attention, norms)
+        m_init, m_step = make_train_step(cfg, mesh, device="cuda")
+        state = m_init(seed)
+        state, mesh_ms, mesh_peak, mesh_ws = timed_steps(torch, m_step,
+                                                         state, tokens)
+        sent = {"calls": 0, "bytes": 0}
+
+        def counted(tensor, *args, **kwargs):
+            if kwargs.get("group") is tp_group:
+                sent["calls"] += 1
+                sent["bytes"] += tensor.numel() * tensor.element_size()
+            return real(tensor, *args, **kwargs)
+
+        dist.all_reduce = counted
+        state, _ = m_step(state, tokens)
+        dist.all_reduce = real
+        torch.cuda.synchronize()
+        del state
+        checked = {}
+        for key, (pcfg, batches, (want_losses, want_grads)) in \
+                parity.items():
+            losses, grads = _tp_parity_run(torch, pcfg, parity_params(
+                torch, pcfg, seed), batches, mesh)
+            if not np.allclose(losses, want_losses, rtol=TRAIN_LOSS_RTOL,
+                               atol=0):
+                raise AssertionError(f"tp {key}: losses {losses} vs "
+                                     f"mesh=None {want_losses}")
+            worst = 0.0
+            for i, (a, b) in enumerate(zip(grads, want_grads)):
+                scale = b.abs().max().item()
+                err = (a - b).abs().max().item()
+                if not err <= TRAIN_GRAD_TOL * scale:
+                    raise AssertionError(f"tp {key}: gradient leaf {i} err "
+                                         f"{err} > {TRAIN_GRAD_TOL} * "
+                                         f"{scale}")
+                worst = max(worst, err / scale if scale else err)
+            checked[key] = {"losses": losses, "worst_grad_rel_err": worst}
+        session = DecodeSession(dparams, dcfg, device="cuda", mesh=mesh)
+        tokens_out = session.generate(prompt, TP_DECODE["new"])
+        torch.cuda.synchronize()
+        launches = _launches(attention, norms)
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+    if not torch.equal(tokens_out, want_tokens):
+        raise AssertionError("tp: DecodeSession(mesh=) greedy tokens differ "
+                             "from the session without a mesh")
+    plain, after_ms, _, _ = timed_steps(torch, step_fn, init_fn(seed),
+                                        tokens)
+    del plain, session, dparams
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the tp "
+                                 f"path")
+    res = {
+        "mesh": [1, 1, 1, 1, 1], "backend": "nccl", "parity": checked,
+        "decode_tokens_equal": list(tokens_out.shape),
+        "step_ms_median": float(np.median(mesh_ms)), "step_ms": mesh_ms,
+        "plain_step_ms_median_before": float(np.median(before_ms)),
+        "plain_step_ms_median_after": float(np.median(after_ms)),
+        "peak_memory_gb": mesh_peak / 1e9,
+        "working_set_gb": mesh_ws / 1e9,
+        "tp_all_reduce_per_step": sent,
+        "launches": launches,
+    }
+    log("tp: " + json.dumps(res))
+    log(f"tp: mesh step median {res['step_ms_median']:.3f} ms beside "
+        f"mesh=None {res['plain_step_ms_median_before']:.3f} / "
+        f"{res['plain_step_ms_median_after']:.3f} ms (before / after); "
+        f"{sent['calls']} all_reduces over tp a step, "
+        f"{sent['bytes'] / 1e6:.1f} MB, on {card_line()}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: a job that reads its data shard, checkpoints, resumes and serves
 # ---------------------------------------------------------------------------
 
@@ -2278,6 +2448,10 @@ def main(argv=None) -> int:
     # Slice 3's path: the data-parallel train step over a one-rank NCCL
     # mesh (it resets the counters itself and reads them just after).
     dp = dp_phase(torch, attention, norms, args.seed)
+    # Slice 4's tp path over a one-rank NCCL mesh (it resets the counters
+    # itself and reads them just after).
+    tp = tp_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
 
     # Slice 5's path: jobs that read a file, checkpoint, resume and serve
     # (the counters are reset and read inside), then checkpoint and input
@@ -2311,6 +2485,7 @@ def main(argv=None) -> int:
             "serve_generate": serve_path.get(row["name"], 0),
             "job": job["launches"][row["name"]],
             "dp": dp["launches"][row["name"]],
+            "tp": tp["launches"][row["name"]],
             "moe_train": moe_train["launches"][row["name"]],
             "moe_serve": moe_serve["launches"][row["name"]]}
 

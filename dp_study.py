@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Data-parallel training of tony_tpu_torch across the cards of one host.
+"""Data- and tensor-parallel training of tony_tpu_torch across the cards of
+one host.
 
     python3 dp_study.py             # one rank on each card (at least 2)
     python3 dp_study.py --ranks 4
     python3 dp_study.py --ep 2      # an MoE trunk over dp = ranks/2 x ep 2
+    python3 dp_study.py --ranks 2 --tp 2   # the dense trunk over tp 2
+    python3 dp_study.py --ranks 4 --tp 2   # dp 2 x tp 2
 
 Builds the kernels once, then starts one process per card, each in its own
 session, on cuda:<rank>: they meet at a TCP store on a free localhost port,
 join one NCCL group (process-group timeout
 DP_TIMEOUT_S) and build the job mesh (dp = ranks, or with ``--ep E`` dp =
-ranks / E x ep = E over an MoE trunk); the parent waits on one deadline
-and kills and reaps every rank still alive. Each rank:
+ranks / E x ep = E over an MoE trunk, or with ``--tp T`` dp = ranks / T x
+tp = T over the dense trunk, Megatron-split); the parent waits on one
+deadline and kills and reaps every rank still alive. The ranks of one data
+row (its tp ranks) feed the same rows. Each rank:
 
 1. parity — fp32, TF32 off, chip_smoke's PARITY_TRAIN model (2 layers, d
    256, GQA 16/4, seq 256): 3 steps of make_train_step(cfg, mesh), each
@@ -32,7 +37,17 @@ and kills and reaps every rank still alive. Each rank:
    launches of B1-B4 on the mesh path; then one more mesh step, profiled
    on rank 0: device ms of the NCCL kernels and of everything else. With
    ``--ep``: bench_moe (bf16, 502 M parameters, chip_smoke's BENCH_MOE)
-   at [4, 2049] per rank, each card holding E / ep of the experts.
+   at [4, 2049] per rank, each card holding E / ep of the experts. With
+   ``--tp``: [8, 2049] per data row, each card holding its tp block.
+3. decode (``--tp`` only) — chip_smoke's flagship serving model (d 1024,
+   8 layers, GQA 16/4) through DecodeSession(mesh=): fp32 greedy tokens
+   of batch 8 (prompt 32, 16 new) equal to the session without a mesh on
+   rank 0's card alone; then bf16 at bench.py's decode shape (batch 8,
+   prompt 128), the ms per token the wall difference of 512 and 256 new
+   tokens over 256, beside the same on rank 0's card alone; then one call
+   of 32 new tokens split up: its wall, the host ms inside the collective
+   calls, and (rank 0) the device ms of a profiled call, NCCL apart, and
+   the host ops with the most self time in a call under a CPU profiler.
 
 Each rank logs its phases with the seconds since it started. Prints each
 rank's results as a JSON line, the cards' names and power limits, and a
@@ -59,9 +74,18 @@ import numpy as np
 import chip_smoke
 
 DP_TIMEOUT_S = 60.0
-DEADLINE_S = 420.0
+DEADLINE_S = 600.0
 PARITY_STEPS = 3
 PARITY_ROWS_PER_RANK = 2
+# The decode phase of --tp: fp32 parity (batch, prompt, new tokens), then
+# bench.py's bench_decode shape in bf16 (batch 8, prompt 128) with the per
+# token ms from two horizons (2x and 4x its 128 new tokens).
+DECODE_PARITY = dict(batch=8, prompt=32, new=16)
+DECODE_BATCH, DECODE_PROMPT = 8, 128
+DECODE_LENGTHS = (256, 512)
+# New tokens of the one generate call whose host and device time decode
+# splits up.
+DECODE_WINDOW = 32
 # fp32 on the card, TF32 off: the global mean is a mean of the ranks'
 # means, summed in another order than one process's mean (the CPU tests
 # of the same path read ~1e-7).
@@ -90,7 +114,7 @@ def _gathered(tensors: list, placements: list, mesh) -> list:
     return out
 
 
-def _parity_setup(torch, world: int, seed: int, ep: int):
+def _parity_setup(torch, rows: int, seed: int, ep: int):
     from tony_tpu_torch.models import TransformerConfig, init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -102,7 +126,7 @@ def _parity_setup(torch, world: int, seed: int, ep: int):
     params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     rng = np.random.default_rng(seed + 4)
     batches = [torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (PARITY_ROWS_PER_RANK * world, cfg.max_seq + 1)))
+        0, cfg.vocab_size, (PARITY_ROWS_PER_RANK * rows, cfg.max_seq + 1)))
         for _ in range(PARITY_STEPS)]
     return cfg, params, batches
 
@@ -120,14 +144,14 @@ def _run(torch, step_fn, state, batches) -> tuple:
     return state, chip_smoke._loss_list(torch, losses), grads
 
 
-def parity_reference(torch, world: int, device, seed: int,
+def parity_reference(torch, rows: int, device, seed: int,
                      ep: int) -> dict:
-    """The mesh=None step on the whole global batches (rank 0, before it
-    joins the group)."""
+    """The mesh=None step on the whole global batches of ``rows`` data
+    rows (rank 0, before it joins the group)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.models.train import leaves
 
-    cfg, params, batches = _parity_setup(torch, world, seed, ep)
+    cfg, params, batches = _parity_setup(torch, rows, seed, ep)
     init_fn, step_fn = make_train_step(cfg, device=device)
     state, losses, grads = _run(torch, step_fn, init_fn(params=params),
                                 batches)
@@ -135,20 +159,20 @@ def parity_reference(torch, world: int, device, seed: int,
             "params": leaves(state.params)}
 
 
-def parity(torch, mesh, rank: int, world: int, device, seed: int, ep: int,
+def parity(torch, mesh, row: int, rows: int, device, seed: int, ep: int,
            ref: dict | None) -> dict:
-    """The mesh step on this rank's slices; rank 0 holds the losses and the
-    first step's gathered gradients against ``ref``
-    (``parity_reference``); "ok" says whether they held."""
+    """The mesh step on data row ``row``'s slices (of ``rows``); rank 0
+    holds the losses and the first step's gathered gradients against
+    ``ref`` (``parity_reference``); "ok" says whether they held."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.models.train import leaves
 
-    cfg, params, batches = _parity_setup(torch, world, seed, ep)
-    rows = PARITY_ROWS_PER_RANK
+    cfg, params, batches = _parity_setup(torch, rows, seed, ep)
+    n = PARITY_ROWS_PER_RANK
     init_fn, step_fn = make_train_step(cfg, mesh, device=device)
     state, losses, grads = _run(
         torch, step_fn, init_fn(params=params),
-        [t[rank * rows:(rank + 1) * rows] for t in batches])
+        [t[row * n:(row + 1) * n] for t in batches])
     placements = leaves(state.placements)
     grads = _gathered(grads, placements, mesh)
     full = _gathered(leaves(state.params), placements, mesh)
@@ -169,7 +193,7 @@ def parity(torch, mesh, rank: int, world: int, device, seed: int, ep: int,
     return out
 
 
-def _step_setup(torch, rank: int, device, seed: int, ep: int):
+def _step_setup(torch, row: int, device, seed: int, ep: int):
     from tony_tpu_torch.models import TransformerConfig
 
     if ep == 1:
@@ -179,17 +203,17 @@ def _step_setup(torch, rank: int, device, seed: int, ep: int):
     else:
         cfg = TransformerConfig(dtype="bfloat16", **chip_smoke.BENCH_MOE)
         rows = chip_smoke.MOE_BATCH
-    rng = np.random.default_rng(seed + 3 + rank)
+    rng = np.random.default_rng(seed + 3 + row)
     tokens = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (rows, chip_smoke.TRAIN_SEQ + 1)), device=device)
     return cfg, tokens
 
 
-def plain_step_ms(torch, rank: int, device, seed: int, ep: int) -> dict:
+def plain_step_ms(torch, row: int, device, seed: int, ep: int) -> dict:
     """The mesh=None step on this card alone (outside the group)."""
     from tony_tpu_torch.models import make_train_step
 
-    cfg, tokens = _step_setup(torch, rank, device, seed, ep)
+    cfg, tokens = _step_setup(torch, row, device, seed, ep)
     init_fn, step_fn = make_train_step(cfg, device=device)
     _, ms, _, ws = chip_smoke.timed_steps(torch, step_fn, init_fn(seed),
                                           tokens)
@@ -197,14 +221,14 @@ def plain_step_ms(torch, rank: int, device, seed: int, ep: int) -> dict:
             "working_set_gb": ws / 1e9}
 
 
-def mesh_step_ms(torch, mesh, rank: int, device, seed: int,
+def mesh_step_ms(torch, mesh, rank: int, row: int, device, seed: int,
                  ep: int) -> dict:
     """The mesh step: median, working set, launches of B1-B4, and one more
     step profiled on rank 0 (the others run it unprofiled)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.ops import attention, norms
 
-    cfg, tokens = _step_setup(torch, rank, device, seed, ep)
+    cfg, tokens = _step_setup(torch, row, device, seed, ep)
     init_fn, step_fn = make_train_step(cfg, mesh, device=device)
     state = init_fn(seed)
     norms.launches = 0
@@ -217,16 +241,13 @@ def mesh_step_ms(torch, mesh, rank: int, device, seed: int,
                 "flash_bwd_dkv": attention.launches_dkv}
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the dp "
-                                 f"path")
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"mesh path")
     profiled = None
     if rank == 0:
         events, wall_ms = chip_smoke.device_events(
             torch, lambda: step_fn(state, tokens))
-        nccl = sum(us for name, us in events if "nccl" in name.lower())
-        total = sum(us for _, us in events)
-        profiled = {"wall_ms": wall_ms, "device_ms": total / 1e3,
-                    "nccl_ms": nccl / 1e3, "other_ms": (total - nccl) / 1e3}
+        profiled = _profile_summary(events, wall_ms)
     else:
         step_fn(state, tokens)
         torch.cuda.synchronize(device)
@@ -235,8 +256,164 @@ def mesh_step_ms(torch, mesh, rank: int, device, seed: int,
             "launches": launches, "profiled_step": profiled}
 
 
+def _decode_setup(torch, device, seed: int, dtype: str, shape: tuple):
+    """The flagship serving model in ``dtype`` from ``seed`` on ``device``
+    and a prompt of ``shape`` (the same on every rank)."""
+    from tony_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(dtype=dtype, **chip_smoke.FLAGSHIP)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 9)
+    params = init_params(cfg, gen, device=device)
+    prompt = torch.as_tensor(np.random.default_rng(seed + 10).integers(
+        0, cfg.vocab_size, shape), device=device)
+    return cfg, params, prompt
+
+
+def decode_ms(torch, session, prompt) -> dict:
+    """ms per token of ``session.generate``: the wall difference of the
+    two DECODE_LENGTHS horizons over their difference in tokens (after one
+    warm-up call of each)."""
+    def wall(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.generate(prompt, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    short, long = DECODE_LENGTHS
+    wall(short)
+    wall(long)
+    walls = {n: wall(n) for n in DECODE_LENGTHS}
+    return {"ms_per_token": (walls[long] - walls[short]) * 1e3
+            / (long - short), "wall_s": walls}
+
+
+def decode_reference(torch, device, seed: int) -> dict:
+    """Rank 0 alone, before it joins the group: the fp32 greedy tokens of
+    the session without a mesh, and its bf16 ms per token."""
+    from tony_tpu_torch.models import DecodeSession
+
+    p = DECODE_PARITY
+    cfg, params, prompt = _decode_setup(torch, device, seed, "float32",
+                                        (p["batch"], p["prompt"]))
+    tokens = DecodeSession(params, cfg, device=device).generate(
+        prompt, p["new"]).cpu()
+    del params
+    cfg, params, prompt = _decode_setup(torch, device, seed, "bfloat16",
+                                        (DECODE_BATCH, DECODE_PROMPT))
+    session = DecodeSession(params, cfg, device=device)
+    timing = decode_ms(torch, session, prompt)
+    return {"tokens": tokens, "bf16": timing,
+            "anatomy": decode_anatomy(torch, session, prompt, 0)}
+
+
+def mesh_decode(torch, mesh, device, seed: int, ref: dict | None) -> dict:
+    """DecodeSession(mesh=): fp32 greedy tokens (held against ``ref`` on
+    rank 0), then the bf16 ms per token and the anatomy of one call."""
+    import torch.distributed as dist
+
+    from tony_tpu_torch.models import DecodeSession
+
+    p = DECODE_PARITY
+    cfg, params, prompt = _decode_setup(torch, device, seed, "float32",
+                                        (p["batch"], p["prompt"]))
+    tokens = DecodeSession(params, cfg, device=device, mesh=mesh).generate(
+        prompt, p["new"]).cpu()
+    del params
+    cfg, params, prompt = _decode_setup(torch, device, seed, "bfloat16",
+                                        (DECODE_BATCH, DECODE_PROMPT))
+    session = DecodeSession(params, cfg, device=device, mesh=mesh)
+    out = {"bf16": decode_ms(torch, session, prompt),
+           "anatomy": decode_anatomy(torch, session, prompt,
+                                     dist.get_rank()),
+           "ok": True}
+    if ref is not None:
+        out["tokens_equal"] = bool(torch.equal(tokens, ref["tokens"]))
+        out["plain_bf16"] = ref["bf16"]
+        out["plain_anatomy"] = ref["anatomy"]
+        out["ok"] = out["tokens_equal"]
+    return out
+
+
+def _profile_summary(events, wall_ms: float) -> dict:
+    """Device ms in all, in NCCL kernels and in the rest, and the 12
+    kernels that took the most."""
+    nccl = sum(us for name, us in events if "nccl" in name.lower())
+    total = sum(us for _, us in events)
+    by_name: dict[str, list[float]] = {}
+    for name, us in events:
+        by_name.setdefault(name, []).append(us)
+    top = sorted(((sum(v), k, len(v)) for k, v in by_name.items()),
+                 reverse=True)[:12]
+    return {"wall_ms": wall_ms, "device_ms": total / 1e3,
+            "nccl_ms": nccl / 1e3, "other_ms": (total - nccl) / 1e3,
+            "top": [{"kernel": k[:90], "device_ms": us / 1e3, "count": c}
+                    for us, k, c in top]}
+
+
+def decode_anatomy(torch, session, prompt, rank: int) -> dict:
+    """One generate of DECODE_WINDOW new tokens: its wall, the host ms
+    spent inside the collective calls (every rank), and on rank 0 the
+    device ms of a second, profiled call (NCCL and the rest)."""
+    import torch.distributed as dist
+
+    host = {"calls": 0, "ms": 0.0}
+    real = {name: getattr(dist, name)
+            for name in ("all_reduce", "all_gather_into_tensor")}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host["calls"] += 1
+            host["ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    try:
+        session.generate(prompt, DECODE_WINDOW)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    out = {"new_tokens": DECODE_WINDOW,
+           "wall_ms": (time.perf_counter() - t0) * 1e3,
+           "host_ms_in_collectives": host["ms"],
+           "collective_calls": host["calls"]}
+    if rank == 0:
+        events, wall_ms = chip_smoke.device_events(
+            torch, lambda: session.generate(prompt, DECODE_WINDOW))
+        out["profiled"] = _profile_summary(events, wall_ms)
+        out["host_top"] = host_profile(torch, lambda: session.generate(
+            prompt, DECODE_WINDOW))
+    else:
+        for _ in range(2):
+            session.generate(prompt, DECODE_WINDOW)
+            torch.cuda.synchronize()
+    return out
+
+
+def host_profile(torch, fn) -> list[dict]:
+    """The 15 host ops (and CUDA runtime calls) with the most self time
+    in one run of ``fn`` under a CPU-only profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)[:15]
+    return [{"op": e.key[:80], "self_ms": e.self_cpu_time_total / 1e3,
+             "count": e.count} for e in rows]
+
+
 def run_rank(rank: int, world: int, store: str, outdir: str,
-             seed: int, ep: int) -> None:
+             seed: int, ep: int, tp: int) -> None:
     """One rank: the mesh=None runs outside the process group (a world
     above 1 refuses mesh=None), the mesh runs inside it."""
     import torch
@@ -247,34 +424,43 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
 
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
-    out = {"rank": rank, "world": world,
+    # Ranks lie in C order over (dp, ep, tp): the data row is rank // tp.
+    row, rows = rank // tp, world // tp
+    out = {"rank": rank, "world": world, "row": row,
            "card": torch.cuda.get_device_name(device)}
     _log(rank, "started")
-    ref = (parity_reference(torch, world, device, seed, ep) if rank == 0
+    ref = (parity_reference(torch, rows, device, seed, ep) if rank == 0
            else None)
-    out["plain_before"] = plain_step_ms(torch, rank, device, seed, ep)
+    dec_ref = (decode_reference(torch, device, seed)
+               if rank == 0 and tp > 1 else None)
+    out["plain_before"] = plain_step_ms(torch, row, device, seed, ep)
     _log(rank, "mesh=None timed; joining the group")
     dist.init_process_group("nccl", init_method=store, rank=rank,
                             world_size=world,
                             timeout=timedelta(seconds=DP_TIMEOUT_S))
     try:
-        mesh = rt.build_job_mesh(MeshSpec(dp=world // ep, ep=ep),
+        mesh = rt.build_job_mesh(MeshSpec(dp=rows // ep, ep=ep, tp=tp),
                                  device="cuda", timeout_s=DP_TIMEOUT_S)
         _log(rank, "mesh built")
-        out["parity"] = parity(torch, mesh, rank, world, device, seed, ep,
+        out["parity"] = parity(torch, mesh, row, rows, device, seed, ep,
                                ref)
         _log(rank, f"parity {out['parity']}")
-        out["mesh"] = mesh_step_ms(torch, mesh, rank, device, seed, ep)
+        out["mesh"] = mesh_step_ms(torch, mesh, rank, row, device, seed, ep)
         _log(rank, "mesh step timed")
+        if tp > 1:
+            out["decode"] = mesh_decode(torch, mesh, device, seed, dec_ref)
+            _log(rank, f"decode {out['decode']}")
     finally:
         dist.destroy_process_group()
-    out["plain_after"] = plain_step_ms(torch, rank, device, seed, ep)
+    out["plain_after"] = plain_step_ms(torch, row, device, seed, ep)
     Path(outdir, f"rank_{rank}.json").write_text(json.dumps(out))
     if not out["parity"]["ok"]:
         raise AssertionError(f"parity failed: {out['parity']}")
+    if not out.get("decode", {"ok": True})["ok"]:
+        raise AssertionError(f"decode failed: {out['decode']}")
 
 
-def launch(world: int, seed: int, ep: int) -> list[dict]:
+def launch(world: int, seed: int, ep: int, tp: int) -> list[dict]:
     """One process per rank, each in its own session; one deadline; every
     rank still alive is killed and reaped at the end."""
     with socket.socket() as sock:
@@ -289,7 +475,7 @@ def launch(world: int, seed: int, ep: int) -> list[dict]:
                      "--ranks", str(world),
                      "--store", f"tcp://127.0.0.1:{port}",
                      "--outdir", tmp, "--seed", str(seed),
-                     "--ep", str(ep)],
+                     "--ep", str(ep), "--tp", str(tp)],
                     # The ranks share this host: NCCL's bootstrap stays on
                     # the loopback interface.
                     env={**os.environ, "NCCL_SOCKET_IFNAME": "lo"},
@@ -318,13 +504,17 @@ def main(argv=None) -> int:
                     help="expert-parallel ranks: train an MoE trunk over "
                          "dp = ranks / ep x ep (default 1: the dense trunk "
                          "over dp = ranks)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: train the dense trunk over "
+                         "dp = ranks / tp x tp and serve it over the same "
+                         "mesh (default 1)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--store", default="", help=argparse.SUPPRESS)
     ap.add_argument("--outdir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank is not None:
         run_rank(args.rank, args.ranks, args.store, args.outdir, args.seed,
-                 args.ep)
+                 args.ep, args.tp)
         return 0
 
     import torch
@@ -343,12 +533,19 @@ def main(argv=None) -> int:
         print(f"dp_study: --ep must divide the ranks ({world}) and the "
               f"experts ({experts}); got {args.ep}", file=sys.stderr)
         return 1
+    heads = chip_smoke.BENCH_TRANSFORMER["n_heads"]
+    if args.tp < 1 or world % args.tp or heads % args.tp or (
+            args.tp > 1 and args.ep > 1):
+        print(f"dp_study: --tp must divide the ranks ({world}) and the "
+              f"heads ({heads}), and takes no --ep (MoE x tp is not "
+              f"ported); got {args.tp}", file=sys.stderr)
+        return 1
     from tony_tpu_torch import kernels
 
     t0 = time.perf_counter()
     kernels.build()
     chip_smoke.log(f"build: {time.perf_counter() - t0:.2f} s")
-    results = launch(world, args.seed, args.ep)
+    results = launch(world, args.seed, args.ep, args.tp)
     for res in results:
         print(json.dumps(res))
     cards = subprocess.run(
@@ -357,16 +554,23 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(cards)
+    rows = chip_smoke.MOE_BATCH if args.ep > 1 else chip_smoke.TRAIN_BATCH
+    step_ms = [r["mesh"]["step_ms_median"] for r in results]
     print(json.dumps({
-        "world": world, "mesh": {"dp": world // args.ep, "ep": args.ep},
+        "world": world, "mesh": {"dp": world // (args.ep * args.tp),
+                                 "ep": args.ep, "tp": args.tp},
         "total_s": time.perf_counter() - t0,
         "parity": results[0]["parity"],
-        "step_ms_median_by_rank": [
-            r["mesh"]["step_ms_median"] for r in results],
+        "step_ms_median_by_rank": step_ms,
+        # Each data row (tp cards) trains rows x TRAIN_SEQ tokens a step.
+        "tokens_per_s_per_card": rows * chip_smoke.TRAIN_SEQ / args.tp
+        / (max(step_ms) / 1e3),
         "plain_step_ms_median_by_rank": [
             (r["plain_before"]["step_ms_median"],
              r["plain_after"]["step_ms_median"]) for r in results],
+        "launches_rank0": results[0]["mesh"]["launches"],
         "rank0_profiled_step": results[0]["mesh"]["profiled_step"],
+        "decode_rank0": results[0].get("decode"),
     }), flush=True)
     return 0
 

@@ -234,10 +234,12 @@ def test_interop_rejects_wrong_shapes(models):
 def test_moe_and_mesh_wait_for_later_slices(models):
     """MoE trunks decode now (tests/test_torch_moe.py holds them against
     the JAX package); a dense tree under an MoE config lacks the router
-    and raises, and sharded sessions still wait for tp."""
+    and raises. Sharded sessions serve dense trunks over tp and dp
+    (tests/test_torch_tp.py holds them against JAX's); a mesh that is not
+    a DeviceMesh is refused."""
     _, _, tcfg, tparams = models
     moe = TransformerConfig(**{**TINY, "n_experts": 2})
     with pytest.raises(KeyError, match="router"):
         DecodeSession(tparams, moe, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DecodeSession(tparams, tcfg, device="cpu", mesh=object())

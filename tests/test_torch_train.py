@@ -204,9 +204,18 @@ class TestForwardAndLoss:
             forward(tparams, toks, TransformerConfig(**{**TINY,
                                                         "n_experts": 3}),
                     mesh=_SpecMesh(ep=2))
+        # tp is ported for dense trunks (tests/test_torch_tp.py); sp, MoE
+        # x tp and a tp that does not divide the K/V heads are refused.
         with pytest.raises(NotImplementedError, match="slice 4"):
             forward(tparams, toks, TransformerConfig(**TINY),
-                    mesh=_SpecMesh(dp=2, tp=2))
+                    mesh=_SpecMesh(dp=2, sp=2))
+        with pytest.raises(NotImplementedError, match="item 11b"):
+            forward(tparams, toks, TransformerConfig(**{**TINY,
+                                                        "n_experts": 4}),
+                    mesh=_SpecMesh(tp=2))
+        with pytest.raises(ValueError, match="must divide kv_heads 2"):
+            forward(tparams, toks, TransformerConfig(**TINY),
+                    mesh=_SpecMesh(tp=4))
         with pytest.raises(ValueError, match="gathered parameters"):
             half = {**tparams, "layers": {
                 k: v[:, :16] if k in ("wq", "wk", "wv") else v
@@ -301,10 +310,21 @@ class TestTrainStep:
 
     def test_refuses_mesh_pipeline_plan(self):
         cfg = TransformerConfig(**TINY)
-        for axes in ({"tp": 2}, {"dp": 2, "sp": 2}, {"pp": 2},
-                     {"ep": 2, "tp": 2}):
+        for axes in ({"dp": 2, "sp": 2}, {"pp": 2}, {"sp": 2, "tp": 2}):
             with pytest.raises(NotImplementedError, match="slice 4"):
                 make_train_step(cfg, _SpecMesh(**axes), device="cpu")
+        # tp is ported for dense trunks whose heads, K/V heads, d_ff and
+        # vocab it divides (tests/test_torch_tp.py); MoE x tp is not.
+        with pytest.raises(NotImplementedError, match="item 11b"):
+            make_train_step(TransformerConfig(**{**TINY, "n_experts": 4}),
+                            _SpecMesh(ep=2, tp=2), device="cpu")
+        with pytest.raises(ValueError, match="must divide kv_heads 2"):
+            make_train_step(cfg, _SpecMesh(dp=2, tp=4), device="cpu")
+        with pytest.raises(ValueError, match="must divide d_ff 64"):
+            make_train_step(TransformerConfig(**{**TINY, "n_heads": 3,
+                                                 "n_kv_heads": 3,
+                                                 "d_ff": 64}),
+                            _SpecMesh(tp=3), device="cpu")
         # ep is ported (tests/test_torch_moe.py), for experts it divides.
         with pytest.raises(ValueError, match="must divide n_experts"):
             make_train_step(TransformerConfig(**{**TINY, "n_experts": 3}),
@@ -327,8 +347,8 @@ class TestTrainStep:
         mesh of two devices and the port's single-process step to rtol
         1e-5, and the gathered final params both to atol 1e-6 (fp32
         reordering: the global mean is a mean of the ranks' means). The
-        rank program also pins the refusals (no mesh in a world of 2, a tp
-        mesh) and ``sharded_batches(mesh=)``."""
+        rank program also pins the refusals (no mesh in a world of 2, an
+        sp mesh) and ``sharded_batches(mesh=)``."""
         jcfg, jparams, tcfg, tparams = models
         batches = np.stack([_tokens(30 + i, b=4) for i in range(3)])
         np.savez(tmp_path / "w.npz", **_flat(jax.device_get(jparams)))
@@ -382,7 +402,7 @@ class TestTrainStep:
         refused = results[0]["refused"]
         assert refused["no_mesh"].startswith("ValueError") and \
             "build_job_mesh" in refused["no_mesh"]
-        for key in ("tp_mesh", "tp_forward"):
+        for key in ("sp_mesh", "sp_forward"):
             assert refused[key].startswith("NotImplementedError") and \
                 "slice 4" in refused[key], key
         assert "gathered parameters" in refused["pieces_forward"]

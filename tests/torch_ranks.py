@@ -251,11 +251,11 @@ def prog_train_dp(rank, world, store, outdir, args):
         state, metrics = step_fn(state, tokens[rank * half:(rank + 1) * half])
         assert set(metrics) == {"loss", "cross_entropy"}
         losses.append(float(metrics["loss"]))
-    tp = _mesh(tp=2)
+    sp = _mesh(sp=2)
     refused = {
         "no_mesh": _refusal(lambda: make_train_step(cfg, device="cpu")),
-        "tp_mesh": _refusal(lambda: make_train_step(cfg, tp, device="cpu")),
-        "tp_forward": _refusal(lambda: forward(params, batches[0], cfg, tp)),
+        "sp_mesh": _refusal(lambda: make_train_step(cfg, sp, device="cpu")),
+        "sp_forward": _refusal(lambda: forward(params, batches[0], cfg, sp)),
         "pieces_forward": _refusal(lambda: forward(state.params, batches[0],
                                                    cfg, mesh)),
     }
@@ -454,6 +454,186 @@ def prog_moe_dp_ep(rank, world, store, outdir, args):
         result["metrics"].append({k: float(v) for k, v in metrics.items()})
         arrays.update({f"step{i}/{k}": v for k, v in
                        _gathered_grads(state, mesh).items()})
+    return result, arrays
+
+
+def _local_grads(state, names) -> dict:
+    """This rank's own gradient of each layer leaf of ``names``."""
+    return {f"local/{k}": state.params["layers"][k].grad.numpy().copy()
+            for k in names}
+
+
+def prog_train_tp(rank, world, store, outdir, args):
+    """The dense trunk over a tp=2 mesh, both ranks fed the same batches.
+    ``args``: the weights npz, the global batches npy [3, B, T+1],
+    grad_clip, the JAX checkpoint dir, the port's checkpoint dir, the
+    decode prompt npy.
+
+    (1) 3 steps at remat none and "full", 1 at "dots", from the same
+    weights: each step's metrics and its clipped gradients, gathered,
+    under ``<remat>/step<i>/``; this rank's own gradients of the
+    replicated norms under ``local/``. (2) A fresh tp=2 state restores the
+    JAX checkpoint (gathered under ``restored/``), takes one step, saves
+    under the port's dir (gathered under ``saved/``) and restores that
+    save into a fresh state bit for bit. (3) DecodeSession(mesh=) over the
+    tp=2 mesh and over a dp=2 mesh of the same ranks: greedy tokens, the
+    pieces of qkv/gate_up and the cache shape; the session without a mesh;
+    a temperature draw from a generator seeded by rank. (4) The
+    refusals."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import (train_state_placements,
+                                        train_state_to_numpy)
+    from tony_tpu_torch.models import (DecodeSession, TransformerConfig,
+                                       forward, init_cache, make_train_step)
+
+    _join(rank, world, store)
+    mesh = _mesh(tp=2)
+    batches = np.load(args[1])
+    clip = float(args[2])
+    cfg, params = _params(args[0])
+    result, arrays = {"metrics": {}}, {}
+    for tag, n_steps, kw in (("none", 3, {}),
+                             ("full", 3, dict(remat=True)),
+                             ("dots", 1, dict(remat=True,
+                                              remat_policy="dots"))):
+        init_fn, step_fn = make_train_step(
+            dataclasses.replace(cfg, **kw), mesh, device="cpu",
+            learning_rate=1e-3, grad_clip=clip)
+        state = init_fn(params=params)
+        result["metrics"][tag] = []
+        for i in range(n_steps):
+            state, metrics = step_fn(state, batches[i])
+            result["metrics"][tag].append(
+                {k: float(v) for k, v in metrics.items()})
+            arrays.update({f"{tag}/step{i}/{k}": v for k, v in
+                           _gathered_grads(state, mesh).items()})
+            if tag == "none" and i == 0:
+                arrays.update(_local_grads(state, ("ln1", "ln2")))
+                arrays["local/final_norm"] = (
+                    state.params["final_norm"].grad.numpy().copy())
+    result["split"] = {path: list(pl.spec) for path, pl in
+                       train_state_placements(state).items()
+                       if path.startswith(".params") and pl.sharded}
+
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3, grad_clip=clip)
+    state = init_fn(params=params)
+    assert CheckpointManager(args[3], process_id=rank,
+                             num_processes=2).restore(state) is state
+    arrays.update({f"restored/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    state, _ = step_fn(state, batches[2])
+    mgr = CheckpointManager(args[4], process_id=rank, num_processes=2)
+    mgr.save(int(state.step), state, blocking=True)
+    arrays.update({f"saved/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    dist.barrier()
+    fresh = init_fn(0)
+    assert mgr.restore(fresh) is fresh
+    a, b = train_state_to_numpy(state), train_state_to_numpy(fresh)
+    result["round_trip_equal"] = all(np.array_equal(a[k], b[k]) for k in a)
+    result["step"] = int(state.step)
+
+    prompt = np.load(args[5])
+    new = 6
+    arrays["decode/plain"] = DecodeSession(params, cfg, device="cpu").generate(
+        prompt, new).numpy()
+    dp = _mesh(dp=2)
+    for tag, m in (("tp", mesh), ("dp", dp)):
+        session = DecodeSession(params, cfg, device="cpu", mesh=m)
+        arrays[f"decode/{tag}"] = session.generate(prompt, new).numpy()
+        for part in ("qkv", "gate_up", "wo", "w_down"):
+            arrays[f"decode/{tag}/{part}"] = (
+                session.params["layers"][part].numpy().copy())
+        arrays[f"decode/{tag}/unembed"] = session.params["unembed"].numpy()
+        result[f"cache_{tag}"] = list(init_cache(
+            cfg, len(prompt), 12, "cpu", m)["k"].shape)
+        session.refresh(params)
+        result[f"refresh_{tag}"] = list(session.params["layers"]["qkv"].shape)
+    gen = torch.Generator().manual_seed(100 + rank)
+    arrays["decode/temperature"] = DecodeSession(
+        params, cfg, device="cpu", mesh=mesh).generate(
+        prompt, new, temperature=1.0, generator=gen).numpy()
+
+    moe = TransformerConfig(**{**TINY, "n_experts": 4})
+    kv1 = TransformerConfig(**{**TINY, "n_kv_heads": 1})
+    sp, pp = _mesh(sp=2), _mesh(pp=2)
+    result["refused"] = {
+        "moe_train": _refusal(lambda: make_train_step(moe, mesh,
+                                                      device="cpu")),
+        "moe_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
+                                                     mesh=mesh)),
+        "kv_train": _refusal(lambda: make_train_step(kv1, mesh,
+                                                     device="cpu")),
+        "kv_decode": _refusal(lambda: DecodeSession(params, kv1, "cpu",
+                                                    mesh=mesh)),
+        "sp_train": _refusal(lambda: make_train_step(cfg, sp, device="cpu")),
+        "pp_forward": _refusal(lambda: forward(params, batches[0], cfg, pp)),
+        "sp_decode": _refusal(lambda: DecodeSession(params, cfg, "cpu",
+                                                    mesh=sp)),
+        "pp_decode": _refusal(lambda: DecodeSession(params, cfg, "cpu",
+                                                    mesh=pp)),
+    }
+    return result, arrays
+
+
+def prog_tp_dp(rank, world, store, outdir, args):
+    """The dense trunk over a dp=2 x tp=2 mesh of four ranks: each dp row
+    (two tp ranks) feeds its half of the batch. ``args``: the weights npz,
+    the global batches npy, grad_clip, a tokens corpus, a checkpoint dir.
+    Each step's metrics and its reduced, clipped gradients, gathered,
+    under ``step<i>/``; the placements; the rank lists of the dp and tp
+    groups; the first batch ``sharded_batches(mesh=)`` gives this rank
+    from its dp row's shard of the corpus; and the state after the last
+    step saved to the checkpoint dir (gathered under ``saved/``)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import train_state_placements
+    from tony_tpu_torch.io import ShardedRecordReader, sharded_batches
+    from tony_tpu_torch.models import make_train_step
+    from tony_tpu_torch.parallel.collectives import axis_group
+    from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
+
+    _join(rank, world, store)
+    mesh = _mesh(dp=2, tp=2)
+    row, rows = axis_coordinate(mesh, ("dp", "ep")), axis_size(mesh, "dp")
+    result = {"metrics": [], "dp_row": row, "groups": {
+        a: dist.get_process_group_ranks(axis_group(mesh, a)[0])
+        for a in ("dp", "tp")}}
+    batches = np.load(args[1])
+    per_row = batches.shape[1] // rows
+    mine = batches[:, row * per_row:(row + 1) * per_row]
+    cfg, params = _params(args[0])
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3,
+                                       grad_clip=float(args[2]))
+    state = init_fn(params=params)
+    result["split"] = {path: list(pl.spec) for path, pl in
+                       train_state_placements(state).items()
+                       if path.startswith(".params") and pl.sharded}
+    arrays = {}
+    for i, tokens in enumerate(mine):
+        state, metrics = step_fn(state, tokens)
+        result["metrics"].append({k: float(v) for k, v in metrics.items()})
+        arrays.update({f"step{i}/{k}": v for k, v in
+                       _gathered_grads(state, mesh).items()})
+    reader = ShardedRecordReader([args[3]], row, rows, fmt="tokens",
+                                 dtype=np.uint16, record_len=33,
+                                 batch_size=2)
+    arrays["first_batch"] = next(sharded_batches(reader, mesh,
+                                                 device="cpu")).numpy()
+    CheckpointManager(args[4], process_id=rank, num_processes=world).save(
+        int(state.step), state, blocking=True)
+    arrays.update({f"saved/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
     return result, arrays
 
 

@@ -29,8 +29,18 @@ only those, on single-token steps (a prefill takes the dense mixture).
 Neither drops a token: capacity is a training trade, not a serving one.
 Both route with training's ``_route_tokens`` from an fp32 router.
 
-Sharded sessions (``mesh=``) wait for a later slice of the port and raise
-``NotImplementedError``.
+Sharded sessions (``DecodeSession(mesh=)``, dense trunks; an MoE trunk
+on a mesh whose tp and ep are 1) serve one model from the ranks of a mesh,
+the port's counterpart of the JAX package's ``decode_param_specs`` and
+``_cache_spec``, with explicit collectives. Each rank keeps its tp block of
+every part of the fused layout (``shard_decode_weights``: its q, k and v
+heads of ``qkv``, its gate and up columns of ``gate_up``, its head rows of
+``wo``, ff rows of ``w_down`` and vocab columns of ``unembed``; the norms
+and ``embed`` whole) and a cache [L, B/dp, Tmax, Hkv/tp, Dh] of its batch
+rows over dp and its K/V heads. Each layer sums the ``wo`` and ``w_down``
+partial products over tp; the last position's logits are gathered over tp
+(vocab) and dp (batch rows), so every rank samples the whole batch from the
+same numbers and ``generate`` returns the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -38,15 +48,23 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from tony_tpu_torch.device import resolve_device
-from tony_tpu_torch.models.transformer import TransformerConfig, _route_tokens
+from tony_tpu_torch.models.transformer import (
+    TransformerConfig,
+    _route_tokens,
+    check_mesh,
+)
 from tony_tpu_torch.ops import (
     apply_rope,
     cached_rope_frequencies,
     flash_attention,
     rms_norm,
 )
+from tony_tpu_torch.parallel.collectives import all_gather_tp, axis_group
+from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size, mesh_spec
 
 NEG_INF = -1e30
 
@@ -81,6 +99,57 @@ def decode_weights(params: dict, cfg: TransformerConfig) -> dict:
     }
 
 
+def shard_decode_weights(params: dict, cfg: TransformerConfig,
+                         mesh) -> dict:
+    """This rank's pieces of the whole fused decode layout on a mesh, per
+    part: its tp block of the query heads, of the K heads and of the V
+    heads of ``qkv`` (a block of the packed axis would give one rank all
+    of q and another all of v), of the gate columns and of the up columns
+    of ``gate_up``, of the head rows of ``wo``, the ff rows of ``w_down``
+    and the vocab columns of ``unembed``; norms, ``embed`` and an MoE
+    router whole. Contiguous copies."""
+    tp, i = axis_size(mesh, "tp"), axis_coordinate(mesh, "tp")
+    h, hkv, f = cfg.n_heads, cfg.kv_heads, cfg.d_ff
+
+    def block(n: int, start: int = 0) -> slice:
+        step = n // tp
+        return slice(start + i * step, start + (i + 1) * step)
+
+    lp = params["layers"]
+    qkv, gu = lp["qkv"], lp["gate_up"]
+    if qkv.shape[-2] != h + 2 * hkv:
+        raise ValueError(f"shard_decode_weights takes the whole fused "
+                         f"layout: {h + 2 * hkv} packed heads, got "
+                         f"{qkv.shape[-2]}")
+    layers = {
+        **lp,
+        "qkv": torch.cat([qkv[:, :, block(h)], qkv[:, :, block(hkv, h)],
+                          qkv[:, :, block(hkv, h + hkv)]], dim=2),
+        "wo": lp["wo"][:, block(h)].contiguous(),
+        "gate_up": torch.cat([gu[..., block(f)], gu[..., block(f, f)]],
+                             dim=-1),
+        "w_down": lp["w_down"][..., block(f), :].contiguous(),
+    }
+    return {**params, "layers": layers,
+            "unembed": params["unembed"][:, block(cfg.vocab_size)]
+            .contiguous()}
+
+
+def check_decode_mesh(mesh, cfg: TransformerConfig) -> None:
+    """Refuse what a sharded session cannot serve: anything but a
+    ``DeviceMesh`` (``parallel.build_mesh``), the meshes training refuses
+    (``check_mesh``: sp, pp, MoE x tp, a tp that does not divide the
+    heads, K/V heads, d_ff or vocab), and an MoE trunk over ep."""
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"DecodeSession(mesh=) takes a DeviceMesh from "
+                        f"parallel.build_mesh, got {type(mesh).__name__}")
+    check_mesh(mesh, cfg)
+    if cfg.n_experts and mesh_spec(mesh).ep > 1:
+        raise NotImplementedError(
+            "MoE decode over ep waits for ROADMAP item 11b (MoE x tp, MoE "
+            "decode on ep x tp) of the port")
+
+
 def place(params: dict, device: torch.device) -> dict:
     """The params tree with every tensor on ``device`` (no copy for
     tensors already there)."""
@@ -106,11 +175,27 @@ def layer_params(params: dict, layer: int) -> dict:
     return {name: w[layer] for name, w in params["layers"].items()}
 
 
+def _dp_rows(batch: int, mesh) -> slice:
+    """This rank's rows of a batch split over dp (all of them where dp
+    does not divide the batch, which then is replicated, as in
+    ``_cache_spec``)."""
+    dp = 1 if mesh is None else axis_size(mesh, "dp")
+    if batch % dp:
+        return slice(0, batch)
+    step = batch // dp
+    i = axis_coordinate(mesh, "dp") if dp > 1 else 0
+    return slice(i * step, (i + 1) * step)
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
-    """Zeroed cache pair [L, B, max_len, Hkv, Dh] in the compute dtype."""
+               device="cuda", mesh=None) -> dict:
+    """Zeroed cache pair [L, B, max_len, Hkv, Dh] in the compute dtype;
+    with a mesh, this rank's piece [L, B/dp, max_len, Hkv/tp, Dh]."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    rows = _dp_rows(batch, mesh)
+    tp = 1 if mesh is None else axis_size(mesh, "tp")
+    shape = (cfg.n_layers, rows.stop - rows.start, max_len,
+             cfg.kv_heads // tp, cfg.head_dim)
     dt = cfg.compute_dtype
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
@@ -121,20 +206,32 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 def _project(x, lp, cfg):
     """Pre-norm fused qkv projection: (q [B,S,H,Dh], k [B,S,Hkv,Dh],
-    v [B,S,Hkv,Dh]); k and v are views of one product."""
+    v [B,S,Hkv,Dh]) with the head counts ``lp`` holds (H/tp and Hkv/tp on
+    a mesh); k and v are views of one product."""
     dt = cfg.compute_dtype
     b, s, d = x.shape
-    n_h, h_kv = cfg.n_heads, cfg.kv_heads
+    tp = (cfg.n_heads + 2 * cfg.kv_heads) // lp["qkv"].shape[-2]
+    n_h, h_kv = cfg.n_heads // tp, cfg.kv_heads // tp
     h = rms_norm(x, lp["ln1"]).to(dt)
     qkv = (h @ lp["qkv"].reshape(d, -1)).view(b, s, n_h + 2 * h_kv,
                                               cfg.head_dim)
     return qkv[:, :, :n_h], qkv[:, :, n_h:n_h + h_kv], qkv[:, :, n_h + h_kv:]
 
 
-def _out_proj(x, o, lp, cfg):
+def _summed(partial, tp_group):
+    """A row-parallel product's partial sums, summed over tp in place (the
+    product is this call's own tensor); as they are without a group (one
+    tp rank)."""
+    if tp_group is not None:
+        dist.all_reduce(partial, op=dist.ReduceOp.SUM, group=tp_group)
+    return partial
+
+
+def _out_proj(x, o, lp, cfg, tp_group=None):
     dt = cfg.compute_dtype
     b, s, d = x.shape
-    return x + o.to(dt).reshape(b, s, -1) @ lp["wo"].reshape(-1, d)
+    return x + _summed(o.to(dt).reshape(b, s, -1) @ lp["wo"].reshape(-1, d),
+                       tp_group)
 
 
 def _moe_decode_mode(cfg: TransformerConfig) -> str:
@@ -184,11 +281,11 @@ def _moe_mlp_decode_routed(x, lp, cfg):
     return torch.einsum("bskd,bsk->bsd", per_slot, gvals.to(dt))
 
 
-def _mlp(x, lp, cfg, *, routed: bool = False):
+def _mlp(x, lp, cfg, *, routed: bool = False, tp_group=None):
     """Residual SwiGLU over the fused gate|up projection: silu in fp32,
-    cast to the compute dtype, times up. An MoE layer (a router in
-    ``lp``) takes the dense mixture, or with ``routed`` the top-k
-    gather."""
+    cast to the compute dtype, times up; with ``tp_group``, over this
+    rank's ff columns, summed over tp. An MoE layer (a router in ``lp``)
+    takes the dense mixture, or with ``routed`` the top-k gather."""
     if "router" in lp:
         moe = _moe_mlp_decode_routed if routed else _moe_mlp_decode
         return x + moe(x, lp, cfg)
@@ -197,7 +294,7 @@ def _mlp(x, lp, cfg, *, routed: bool = False):
     gu = hn @ lp["gate_up"]
     f = gu.shape[-1] // 2
     act = torch.nn.functional.silu(gu[..., :f].float()).to(dt) * gu[..., f:]
-    return x + act @ lp["w_down"]
+    return x + _summed(act @ lp["w_down"], tp_group)
 
 
 def _attend_cache(q, k_cache, v_cache, mask, cfg):
@@ -219,12 +316,14 @@ def _attend_cache(q, k_cache, v_cache, mask, cfg):
 
 
 def _layer_decode(x, lp, k_all, v_all, layer, length, cfg, cos, sin,
-                  prefill=False):
+                  prefill=False, tp_group=None):
     """One decoder layer over S new tokens at positions [length, length+S).
     x: [B, S, d]; the new K/V rows are written into the stacked caches
     ``k_all``/``v_all`` [L, B, Tmax, Hkv, Dh] in place. ``prefill=True``
     promises an empty cache: attention then runs the flash kernel over the
-    S new tokens only. Returns the new x."""
+    S new tokens only. With ``tp_group`` the layer runs on this rank's
+    heads and ff columns and sums its partial products over tp. Returns
+    the new x."""
     dt = cfg.compute_dtype
     s = x.shape[1]
     q, k_new, v_new = _project(x, lp, cfg)
@@ -240,22 +339,27 @@ def _layer_decode(x, lp, k_all, v_all, layer, length, cfg, cos, sin,
         mask = positions[:, None] >= torch.arange(t, device=x.device)[None]
         o = _attend_cache(q, k_all[layer, :, :t], v_all[layer, :, :t],
                           mask[None], cfg)
-    x = _out_proj(x, o, lp, cfg)
+    x = _out_proj(x, o, lp, cfg, tp_group)
     # The routed gather applies to single-token steps only: its gathered
     # weight copy grows with S (a long prefill would hold S * k experts).
     routed = ("router" in lp and _moe_decode_mode(cfg) == "routed"
               and s == 1)
-    return _mlp(x, lp, cfg, routed=routed)
+    return _mlp(x, lp, cfg, routed=routed, tp_group=tp_group)
 
 
 def advance(params: dict, cache: dict, tokens: torch.Tensor,
-            cfg: TransformerConfig, *, prefill: bool = False):
+            cfg: TransformerConfig, *, prefill: bool = False, mesh=None):
     """Feed ``tokens`` [B, S] at the cache's current length; returns
     (last-position logits [B, V] fp32, cache). The cache tensors are
     updated in place; the returned dict carries the new length.
 
     ``prefill=True`` selects the flash-attention path for the prompt and
-    requires an empty cache (it attends over the new tokens only)."""
+    requires an empty cache (it attends over the new tokens only).
+
+    With a ``mesh``, ``params`` are this rank's pieces
+    (``shard_decode_weights``), ``cache`` its piece (``init_cache(...,
+    mesh=)``) and ``tokens`` its batch rows; the logits of those rows come
+    back whole, gathered over the tp ranks' vocab columns."""
     capacity = cache["k"].shape[2]
     s = tokens.shape[1]
     length = int(cache["length"])
@@ -276,6 +380,17 @@ def advance(params: dict, cache: dict, tokens: torch.Tensor,
     device = cache["k"].device
     if "qkv" not in params["layers"]:
         params = decode_weights(params, cfg)
+    tp_group = None
+    if mesh is not None:
+        tp_group, tp = axis_group(mesh, "tp")
+        want = (cfg.n_heads + 2 * cfg.kv_heads) // tp
+        if params["layers"]["qkv"].shape[-2] != want:
+            raise ValueError(
+                f"advance(mesh=) takes this rank's pieces "
+                f"(shard_decode_weights): {want} packed heads, the params "
+                f"hold {params['layers']['qkv'].shape[-2]}")
+        if tp == 1:  # one rank's sums and gathers are its own tensors
+            tp_group = None
     dt = cfg.compute_dtype
     cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
                                        theta=cfg.rope_theta, device=device)
@@ -283,10 +398,12 @@ def advance(params: dict, cache: dict, tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         x = _layer_decode(x, layer_params(params, layer), cache["k"],
                           cache["v"], layer, length, cfg, cos, sin,
-                          prefill=prefill)
+                          prefill=prefill, tp_group=tp_group)
     # Only the last position is sampled: slice before the unembed.
     x = rms_norm(x[:, -1:], params["final_norm"]).to(dt)
     logits = (x @ params["unembed"])[:, 0].float()
+    if tp_group is not None:
+        logits = all_gather_tp(logits, 1, "tp", mesh=mesh)
     return logits, {"k": cache["k"], "v": cache["v"], "length": length + s}
 
 
@@ -346,6 +463,7 @@ def generate(
     pad_token: int = 0,
     generator: torch.Generator | None = None,
     device="cuda",
+    mesh=None,
 ):
     """Prefill the prompt [B, T0] (flash attention), then decode
     ``max_new_tokens`` greedily or by temperature sampling. Returns the
@@ -355,7 +473,14 @@ def generate(
     ``eos_id``) and the loop exits once every row is done; returns
     ``GenerateResult(tokens, lengths)``. ``eos_token`` (legacy): positions
     after a row's first EOS come back as ``pad_token`` after the full
-    horizon ran. The two are mutually exclusive."""
+    horizon ran. The two are mutually exclusive.
+
+    With a ``mesh`` (what ``DecodeSession(mesh=)`` passes), every rank
+    calls with the whole prompt and ``params`` its pieces
+    (``shard_decode_weights``); it decodes its rows over dp, and every rank
+    samples the whole batch from the gathered logits and returns it. A
+    temperature draw takes the generator state of the mesh's rank 0 on
+    every rank (one broadcast), so the ranks draw the same numbers."""
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=device).long()
     b, t0 = prompt.shape
@@ -381,9 +506,20 @@ def generate(
     if not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
     params = fused_on(params, cfg, device)
+    rows = _dp_rows(b, mesh)
+    split_rows = rows.stop - rows.start < b
 
     def sample(logits):
         return _sample(logits, temperature, top_k, top_p, generator)
+
+    def step(cache, tokens, prefill=False):
+        """The whole batch's last-position logits after ``tokens`` [B, S]
+        (this rank feeds its rows)."""
+        logits, cache = advance(params, cache, tokens[rows], cfg,
+                                prefill=prefill, mesh=mesh)
+        if split_rows:
+            logits = all_gather_tp(logits, 0, "dp", mesh=mesh)
+        return logits, cache
 
     with torch.no_grad():
         if max_new_tokens == 0:
@@ -392,16 +528,18 @@ def generate(
                 return GenerateResult(
                     toks, torch.zeros(b, dtype=torch.int32, device=device))
             return toks
-        cache = init_cache(cfg, b, t0 + max_new_tokens, device)
-        logits, cache = advance(params, cache, prompt, cfg, prefill=True)
+        if mesh is not None and generator is not None:
+            _share_generator(generator, mesh)
+        cache = init_cache(cfg, b, t0 + max_new_tokens, device, mesh)
+        logits, cache = step(cache, prompt, prefill=True)
         tok = sample(logits)
         if eos_id is not None:
-            return _generate_loop_eos(params, cache, tok, cfg,
-                                      max_new_tokens, sample, eos_id)
+            return _generate_loop_eos(step, cache, tok, max_new_tokens,
+                                      sample, eos_id)
         out = [tok]
         # The last sampled token is never fed back: no trailing forward.
         for _ in range(max_new_tokens - 1):
-            logits, cache = advance(params, cache, tok[:, None], cfg)
+            logits, cache = step(cache, tok[:, None])
             tok = sample(logits)
             out.append(tok)
         toks = torch.stack(out, dim=1).to(torch.int32)
@@ -412,8 +550,15 @@ def generate(
     return toks
 
 
-def _generate_loop_eos(params, cache, tok, cfg, max_new_tokens, sample,
-                       eos_id):
+def _share_generator(generator: torch.Generator, mesh) -> None:
+    """Set ``generator`` to the state the mesh's rank 0 holds in its
+    own (one broadcast over the default group, which the mesh spans)."""
+    state = generator.get_state().to(mesh.device_type)
+    dist.broadcast(state, src=0)
+    generator.set_state(state.cpu())
+
+
+def _generate_loop_eos(step, cache, tok, max_new_tokens, sample, eos_id):
     """EOS-aware decode: a per-row done mask; the loop exits when every
     row has emitted ``eos_id`` or the horizon runs out. Every step draws
     the same [B, V] noise as the plain loop, so a running row samples what
@@ -427,7 +572,7 @@ def _generate_loop_eos(params, cache, tok, cfg, max_new_tokens, sample,
     done = tok == eos_id
     i = 1
     while i < max_new_tokens and not bool(done.all()):
-        logits, cache = advance(params, cache, tok[:, None], cfg)
+        logits, cache = step(cache, tok[:, None])
         nxt = torch.where(done, torch.full_like(tok, eos_id), sample(logits))
         out[:, i] = nxt.to(torch.int32)
         lengths = torch.where(done, lengths, torch.full_like(lengths, i + 1))
@@ -444,29 +589,40 @@ class DecodeSession:
         session = DecodeSession(params, cfg)            # device="cuda"
         out = session.generate(prompt, max_new_tokens=128)
 
-    ``refresh(params)`` re-fuses updated weights. Sharded sessions
-    (``mesh=``) wait for a later slice of the port."""
+    ``refresh(params)`` re-fuses updated weights.
+
+    **Sharded serving**: pass ``mesh=`` (a ``parallel.build_mesh`` result,
+    e.g. over ``MeshSpec(tp=4)``; every rank of it builds the session from
+    the same whole weights and calls ``generate`` with the same prompt).
+    Each rank keeps its pieces (``shard_decode_weights``) and a cache of
+    its batch rows over dp and its K/V heads over tp, and ``generate``
+    returns the whole batch on every rank. The mesh's device type must be
+    the session's."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, device="cuda",
                  mesh=None) -> None:
         self.device = resolve_device(device)
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded DecodeSession(mesh=) waits for a later slice of "
-                "the port"
-            )
+            check_decode_mesh(mesh, cfg)
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot serve "
+                                 f"on {self.device}")
         self.cfg = cfg
+        self.mesh = mesh
         self.params: dict = {}
         self.refresh(params)
 
     def refresh(self, params: dict) -> None:
         """Re-fuse from (possibly updated) training params; fused layouts
         are taken as they are. Either way the weights move to the
-        session's device."""
-        self.params = fused_on(params, self.cfg, self.device)
+        session's device, and on a mesh each rank keeps its pieces."""
+        fused = fused_on(params, self.cfg, self.device)
+        if self.mesh is not None:
+            fused = shard_decode_weights(fused, self.cfg, self.mesh)
+        self.params = fused
 
     def generate(self, prompt, max_new_tokens: int, **kwargs):
-        """Same surface as module-level ``generate`` minus params, cfg and
-        device."""
+        """Same surface as module-level ``generate`` minus params, cfg,
+        device and mesh."""
         return generate(self.params, prompt, self.cfg, max_new_tokens,
-                        device=self.device, **kwargs)
+                        device=self.device, mesh=self.mesh, **kwargs)

@@ -3,23 +3,27 @@ global-norm clipping and AdamW, as the JAX package's ``make_train_step``
 composes them (``optax.chain(clip_by_global_norm, adamw)``), on one device
 or data-parallel over a mesh of processes.
 
-With a mesh (``parallel.build_mesh``; dp and ep, the other axes 1), each
-rank keeps plain local tensors, placed as the JAX package's
+With a mesh (``parallel.build_mesh``; dp, ep and tp, the other axes 1),
+each rank keeps plain local tensors, placed as the JAX package's
 ``_sharding_for_tree`` places its state: a leaf whose role names
 ``embed_fsdp`` is split over dp along that dimension where dp divides it,
-a leaf with an ``expert`` dimension is split over ep there, every other
-leaf is replicated, and the AdamW moments follow their parameters. A step
-gathers the split leaves for the forward (all_gather; the backward
-reduce-scatters their gradients), except the expert dimension of the
-expert FFN weights, which the MoE layer uses as they lie (its all_to_all
-brings every ep peer's tokens to them). Each gradient is then made the
-global batch's mean: summed over the data axes (dp, ep) it is not split
-over and divided by the data-parallel size (``_reduce_and_clip``). The clip
-takes the global norm (each block's squared norm summed over the axes its
-leaf is split over, so each expert block counts once) and AdamW runs on
-the local pieces. Each rank feeds its own ``[B_local, T+1]`` slice of the
-global batch (split over dp x ep); the loss is the mean over the global
-batch.
+a leaf with an ``expert`` dimension is split over ep there, one with a
+``heads``, ``mlp`` or ``vocab`` dimension over tp (Megatron's split), every
+other leaf is replicated, and the AdamW moments follow their parameters. A
+step gathers the dp-split dimensions for the forward (all_gather; the
+backward reduce-scatters their gradients); the tp blocks and the expert
+dimension of the expert FFN weights stay local (the trunk's tp collectives
+and the MoE layer's all_to_all work on them as they lie). Each gradient is
+then made the global batch's mean: summed over the data axes (dp, ep) it
+is not split over and divided by the data-parallel size
+(``_reduce_and_clip``); a tp block's gradient is its own, and a leaf
+replicated over tp has the same gradient on every tp rank. The clip takes
+the global norm (each block's squared norm summed over the axes its leaf is
+split over, tp included, so each block counts once) and AdamW runs on the
+local pieces. Each rank feeds its own ``[B_local, T+1]`` slice of the
+global batch (split over dp x ep; the tp ranks of one slice feed the same
+rows); the loss is the mean over the global batch, its cross-entropy the
+vocab-parallel one.
 
 JAX donates the old state so the update happens in place in device memory;
 here the update IS in place: ``step_fn`` writes the new weights and moments
@@ -46,7 +50,10 @@ from tony_tpu_torch.models.transformer import (
     init_params,
     param_roles,
 )
-from tony_tpu_torch.ops import softmax_cross_entropy
+from tony_tpu_torch.ops import (
+    softmax_cross_entropy,
+    vocab_parallel_cross_entropy,
+)
 from tony_tpu_torch.parallel.collectives import (
     all_gather_with_scatter_grad,
     axis_group,
@@ -70,11 +77,14 @@ def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
     """Next-token cross-entropy, plus ``moe_balance_coef`` times the
     balance loss and ``moe_zloss_coef`` times the router z-loss when the
     config has experts. tokens: [B, T+1] int. With ``return_metrics``
-    returns ``(total, {"cross_entropy": ce, **router aux})``."""
+    returns ``(total, {"cross_entropy": ce, **router aux})``. With a mesh
+    the logits are split over the vocab and the cross-entropy is
+    ``vocab_parallel_cross_entropy``."""
     tokens = tokens.to(params["embed"].device)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward(params, inputs, cfg, mesh, return_aux=True)
-    ce = softmax_cross_entropy(logits, labels)
+    ce = (softmax_cross_entropy(logits, labels) if mesh is None
+          else vocab_parallel_cross_entropy(logits, labels, mesh))
     total = ce
     if aux:
         total = (total + cfg.moe_balance_coef * aux["moe_balance"]
@@ -151,7 +161,7 @@ def make_train_step(
     plan=None,
 ):
     """Returns ``(init_fn, step_fn)`` for one device, or for this rank of
-    a data-parallel ``mesh`` (see the module note).
+    a ``mesh`` (see the module note).
 
     ``init_fn(seed_or_generator=0, *, params=None) -> TrainState``: fresh
     fp32 weights from an int seed or a ``torch.Generator`` on ``device``,
@@ -164,8 +174,9 @@ def make_train_step(
     step, updating ``state`` in place (see the module note). The metrics
     are "loss" and "cross_entropy", and for an MoE config the layer means of
     "moe_balance", "moe_zloss", "moe_drop_rate" and "moe_entropy".
-    With a mesh, ``tokens`` is this rank's slice of the global batch and the
-    metrics are means over the global batch. The optimizer is optax's:
+    With a mesh, ``tokens`` is this rank's slice of the global batch (the
+    same slice on every tp rank of a dp row) and the metrics are means over
+    the global batch. The optimizer is optax's:
     global-norm clipping at ``grad_clip``, then AdamW with b1 0.9, b2
     0.999, eps 1e-8, decoupled weight decay on every parameter
     (``torch.optim.AdamW`` computes that update).
@@ -224,27 +235,30 @@ def make_train_step(
 
 def _gather(params: dict, placements: dict, mesh, resident=()) -> dict:
     """The parameters the forward takes: every split dimension of a leaf
-    all-gathered (its gradient is reduce-scattered back), but the ep
-    dimension of the ``resident`` leaves (the expert FFN weights)."""
+    all-gathered (its gradient is reduce-scattered back), but the tp blocks
+    and the ep dimension of the ``resident`` leaves (the expert FFN
+    weights)."""
     out = {}
     for key, val in params.items():
         if isinstance(val, dict):
             out[key] = _gather(val, placements[key], mesh, resident)
             continue
         for dim, entry in enumerate(placements[key].spec):
-            if entry is not None and not (key in resident and entry == "ep"):
+            if entry is not None and entry != "tp" and not (
+                    key in resident and entry == "ep"):
                 val = all_gather_with_scatter_grad(val, dim, entry, mesh=mesh)
         out[key] = val
     return out
 
 
-def _split_axes(placement) -> tuple[str, ...]:
-    """The data axes (of DATA_AXES) a leaf is split over."""
+def _split_axes(placement) -> tuple[tuple[str, ...], bool]:
+    """(the data axes, of DATA_AXES, a leaf is split over; whether tp
+    splits it)."""
     names = set()
     for entry in placement.spec:
         if entry is not None:
             names.update((entry,) if isinstance(entry, str) else entry)
-    return tuple(a for a in DATA_AXES if a in names)
+    return tuple(a for a in DATA_AXES if a in names), "tp" in names
 
 
 def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
@@ -253,36 +267,42 @@ def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
     the global norm. A leaf's gradient arrives summed over the data axes it
     is split over (a gathered dimension's reduce-scatter sums over dp; an
     expert leaf holds its ep peers' tokens' sum, which the all_to_all
-    brought back) and is this rank's own over the others: a replicated
-    leaf's is averaged over dp x ep, a split one's summed over the data
-    axes above 1 it is not split over, and each divided so that it is the
-    mean over the global batch. Then each split leaf's norm is the root of
-    its blocks' squared norms summed over the axes it is split over (one
-    all_reduce per set of axes), so each block counts once, and every rank
+    brought back) and is this rank's own over the others: a leaf
+    replicated over the data axes has its gradient averaged over dp x ep, a
+    split one's is summed over the data axes above 1 it is not split over,
+    and each is divided so that it is the mean over the global batch. tp
+    takes no part in the mean: a tp block's gradient is its block's, and a
+    leaf replicated over tp gets the same gradient on every tp rank
+    (``copy_to_tp`` sums the cotangent over tp before the norms' backward).
+    Then each split leaf's norm is the root of its blocks' squared norms
+    summed over the axes it is split over (one all_reduce per set of data
+    axes, then one over tp), so each block counts once, and every rank
     clips its pieces by the same global norm."""
-    by_axes: dict[tuple[str, ...], list[int]] = {}
+    by_axes: dict[tuple[tuple[str, ...], bool], list[int]] = {}
     for i, pl in enumerate(placements):
         by_axes.setdefault(_split_axes(pl), []).append(i)
-    for split, idx in by_axes.items():
+    for (data, _), idx in by_axes.items():
         gs = [grads[i] for i in idx]
-        if not split:
+        if not data:
             pmean_gradients(gs, mesh, DATA_AXES)
             continue
         rest = tuple(a for a in DATA_AXES
-                     if a not in split and axis_size(mesh, a) > 1)
+                     if a not in data and axis_size(mesh, a) > 1)
         if rest:
             pmean_gradients(gs, mesh, rest)
-        n = axis_size(mesh, split)
+        n = axis_size(mesh, data)
         if n > 1:
             torch._foreach_div_(gs, n)
     norms = list(torch._foreach_norm(grads))
-    for split, idx in by_axes.items():
-        if not split:
+    for (data, tp), idx in by_axes.items():
+        if not (data or tp):
             continue
         blocks = torch.stack([norms[i] for i in idx])
         squares = blocks * blocks
-        dist.all_reduce(squares, op=dist.ReduceOp.SUM,
-                        group=axis_group(mesh, split)[0])
+        for axes in (data, ("tp",) if tp else ()):
+            if axes:
+                dist.all_reduce(squares, op=dist.ReduceOp.SUM,
+                                group=axis_group(mesh, axes)[0])
         for i, norm in zip(idx, squares.sqrt().unbind()):
             norms[i] = norm
     clip_by_global_norm_(grads, grad_clip, leaf_norms=norms)

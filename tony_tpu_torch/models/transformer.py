@@ -12,12 +12,21 @@ final norm and the logits. With ``n_experts`` every layer's MLP is the
 capacity-based top-k MoE layer (``_moe_mlp``), which returns the router's
 auxiliary losses beside its output.
 
-On a mesh (dp and ep; tp, sp and pp wait for later slices of the port) the
-forward takes the gathered parameters, except the expert FFN weights, of
-which each rank holds its E/ep experts: the MoE layer then runs the JAX
-package's manual form (``_moe_mlp_manual``), routing the rank's own tokens
-with a local capacity and exchanging per-expert slabs over ep with one
-all_to_all each way.
+On a mesh (dp, ep and tp; sp and pp wait for later slices of the port) the
+forward takes the parameters gathered over dp, except the expert FFN
+weights, of which each rank holds its E/ep experts, and the tp-split
+leaves, of which each rank holds its tp block. The MoE layer then runs the
+JAX package's manual form (``_moe_mlp_manual``), routing the rank's own
+tokens with a local capacity and exchanging per-expert slabs over ep with
+one all_to_all each way. The dense trunk runs Megatron's split over tp,
+the JAX package's manual trunk with explicit collectives: each rank holds
+its heads of wq/wk/wv and rows of wo, its mlp columns of w_gate/w_up and
+rows of w_down, its vocab rows of embed and columns of unembed; the
+replicated activations enter each column-parallel product through
+``copy_to_tp`` and the row-parallel partial sums leave through
+``reduce_from_tp``, and the logits stay split over the vocab (the loss is
+``vocab_parallel_cross_entropy``). The same code runs at tp = 1, where the
+conjugate pair is the identity.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import functools
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils import checkpoint
 
@@ -36,8 +46,13 @@ from tony_tpu_torch.ops import (
     flash_attention,
     rms_norm,
 )
-from tony_tpu_torch.parallel.collectives import exchange_ep, pmean
-from tony_tpu_torch.parallel.mesh import axis_size, mesh_spec
+from tony_tpu_torch.parallel.collectives import (
+    copy_to_tp,
+    exchange_ep,
+    pmean,
+    reduce_from_tp,
+)
+from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size, mesh_spec
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -144,8 +159,8 @@ def init_params(cfg: TransformerConfig,
 def param_roles(cfg: TransformerConfig) -> dict:
     """Logical-axis roles per leaf, the JAX package's table: tp splits
     heads/mlp/vocab, fsdp splits the embed dim, pp stages the stacked layers
-    axis, ep splits experts. The single-device trunk places nothing by it;
-    the sharded slices of the port will."""
+    axis, ep splits experts. ``make_train_step(cfg, mesh)`` places the
+    state by it (``parallel.sharding.shard_pytree``)."""
     layer = {
         "ln1": ("layers", None),
         "wq": ("layers", "embed_fsdp", "heads", None),
@@ -171,31 +186,40 @@ def param_roles(cfg: TransformerConfig) -> dict:
     }
 
 
-def _attention(x, lp, cfg, cos, sin):
-    """Pre-norm attention block. x: [b, t, d] in the compute dtype."""
+def _attention(x, lp, cfg, cos, sin, mesh=None):
+    """Pre-norm attention block. x: [b, t, d] in the compute dtype. The
+    head counts are those of ``lp``: with a mesh, this rank's H/tp query
+    and Hkv/tp K/V heads, whose partial output is summed over tp."""
     dt = cfg.compute_dtype
     b, t, d = x.shape
     h = rms_norm(x, lp["ln1"]).to(dt)
-    q = (h @ lp["wq"].to(dt).reshape(d, -1)).view(b, t, cfg.n_heads,
+    if mesh is not None:
+        h = copy_to_tp(h, mesh)
+    heads, kv_heads = lp["wq"].shape[-2], lp["wk"].shape[-2]
+    q = (h @ lp["wq"].to(dt).reshape(d, -1)).view(b, t, heads, cfg.head_dim)
+    k = (h @ lp["wk"].to(dt).reshape(d, -1)).view(b, t, kv_heads,
                                                    cfg.head_dim)
-    k = (h @ lp["wk"].to(dt).reshape(d, -1)).view(b, t, cfg.kv_heads,
-                                                   cfg.head_dim)
-    v = (h @ lp["wv"].to(dt).reshape(d, -1)).view(b, t, cfg.kv_heads,
+    v = (h @ lp["wv"].to(dt).reshape(d, -1)).view(b, t, kv_heads,
                                                    cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=True)
-    return o.to(dt).reshape(b, t, -1) @ lp["wo"].to(dt).reshape(-1, d)
+    out = o.to(dt).reshape(b, t, -1) @ lp["wo"].to(dt).reshape(-1, d)
+    return out if mesh is None else reduce_from_tp(out, mesh)
 
 
-def _dense_mlp(x, lp, cfg):
-    """SwiGLU, with silu in fp32."""
+def _dense_mlp(x, lp, cfg, mesh=None):
+    """SwiGLU, with silu in fp32. With a mesh, over this rank's F/tp
+    columns of w_gate/w_up and rows of w_down, summed over tp."""
     dt = cfg.compute_dtype
     h = rms_norm(x, lp["ln2"]).to(dt)
+    if mesh is not None:
+        h = copy_to_tp(h, mesh)
     g = h @ lp["w_gate"].to(dt)
     u = h @ lp["w_up"].to(dt)
     act = torch.nn.functional.silu(g.float()).to(dt) * u
-    return act @ lp["w_down"].to(dt)
+    out = act @ lp["w_down"].to(dt)
+    return out if mesh is None else reduce_from_tp(out, mesh)
 
 
 # The expert FFN leaves: on an ep mesh each rank keeps its E/ep experts of
@@ -318,11 +342,11 @@ def _decoder_layer(x, lp, cfg, cos, sin, mesh=None):
     # The range marks the layer's work when a remat recomputation runs it
     # inside a backward node (a profile attributes it by the range).
     with record_function("decoder_layer"):
-        x = x + _attention(x, lp, cfg, cos, sin)
+        x = x + _attention(x, lp, cfg, cos, sin, mesh)
         if cfg.n_experts:
             out, aux = _moe_mlp(x, lp, cfg, mesh)
             return x + out, aux
-        return x + _dense_mlp(x, lp, cfg), None
+        return x + _dense_mlp(x, lp, cfg, mesh), None
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -362,19 +386,51 @@ def _layer_slices(layers: dict, n_layers: int) -> list[dict]:
 
 
 def check_mesh(mesh, cfg: TransformerConfig) -> None:
-    """Refuse a mesh whose pp, sp or tp axis is above 1 (dp and ep are
-    ported), and an ep that does not divide the config's experts."""
+    """Refuse a mesh whose pp or sp axis is above 1 (dp, ep and tp are
+    ported), tp above 1 under an MoE config, a tp that does not divide the
+    heads, K/V heads, d_ff or vocab (the JAX GSPMD trunk would replicate
+    such a dimension; the manual split cannot), and an ep that does not
+    divide the config's experts."""
     spec = mesh_spec(mesh)
-    wide = {a: getattr(spec, a) for a in ("pp", "sp", "tp")
-            if getattr(spec, a) > 1}
+    wide = {a: getattr(spec, a) for a in ("pp", "sp") if getattr(spec, a) > 1}
     if wide:
         raise NotImplementedError(
             f"mesh axes {wide} wait for the model-parallel slice (slice 4) "
-            f"of the port; only dp and ep may be above 1"
+            f"of the port; only dp, ep and tp may be above 1"
         )
+    if spec.tp > 1:
+        if cfg.n_experts:
+            raise NotImplementedError(
+                f"an MoE trunk over tp {spec.tp} waits for ROADMAP item 11b "
+                f"(MoE x tp) of the port")
+        for name, dim in (("n_heads", cfg.n_heads), ("kv_heads",
+                                                     cfg.kv_heads),
+                          ("d_ff", cfg.d_ff),
+                          ("vocab_size", cfg.vocab_size)):
+            if dim % spec.tp:
+                raise ValueError(f"tp {spec.tp} must divide {name} {dim}")
     if cfg.n_experts and cfg.n_experts % spec.ep:
         raise ValueError(f"ep {spec.ep} must divide n_experts "
                          f"{cfg.n_experts}")
+
+
+def _embed(embed, tokens, cfg, mesh=None):
+    """The embedding rows of ``tokens`` in the compute dtype. With a mesh,
+    ``embed`` holds this rank's block of V/tp vocab rows: tokens outside
+    it look up zeros, and the sum over tp gives every rank every row.
+
+    ``F.embedding``, not indexing: the tokens outside the block all look
+    up the block's edge rows, and indexing's backward adds a row's
+    duplicates one after another (8.4 ms of a 58 ms step at tp 4 on an
+    H100), where the embedding's backward sums them by segments."""
+    dt = cfg.compute_dtype
+    if mesh is None:
+        return F.embedding(tokens, embed).to(dt)
+    v = embed.shape[0]
+    local = tokens - axis_coordinate(mesh, "tp") * v
+    mine = ((local >= 0) & (local < v))[..., None]
+    rows = torch.where(mine, F.embedding(local.clamp(0, v - 1), embed), 0.0)
+    return reduce_from_tp(rows.to(dt), mesh)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -390,10 +446,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     (balance, z-loss, drop rate, entropy, each averaged over the layers),
     empty for a dense config.
 
-    With a ``mesh`` (dp and ep), ``params`` are the gathered parameters
-    but for the expert FFN weights, of which this rank holds its E/ep
-    experts (``make_train_step`` gathers them so), and ``tokens`` are this
-    rank's slice of the batch."""
+    With a ``mesh``, ``params`` are the parameters gathered over dp but
+    for the expert FFN weights, of which this rank holds its E/ep experts,
+    and the tp-split leaves, of which it holds its tp block
+    (``make_train_step`` gathers them so); ``tokens`` are this rank's slice
+    of the batch, the same on every tp rank, and the logits are this rank's
+    V/tp vocab columns."""
     if mesh is not None:
         check_mesh(mesh, cfg)
         d_in = params["layers"]["wq"].shape[1]
@@ -402,6 +460,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                 f"forward(mesh=) takes the gathered parameters: wq has "
                 f"{d_in} of d_model {cfg.d_model} rows"
             )
+        tp = axis_size(mesh, "tp")
+        heads = params["layers"]["wq"].shape[2]
+        if heads * tp != cfg.n_heads:
+            raise ValueError(
+                f"forward(mesh=) takes n_heads/tp = {cfg.n_heads // tp} "
+                f"heads per rank, the params hold {heads}")
     if cfg.n_experts:
         ep = 1 if mesh is None else axis_size(mesh, "ep")
         held = params["layers"]["w_gate"].shape[1]
@@ -413,7 +477,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     device = params["embed"].device
     cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
                                        theta=cfg.rope_theta, device=device)
-    x = params["embed"][tokens.to(device).long()].to(dt)
+    x = _embed(params["embed"], tokens.to(device).long(), cfg, mesh)
     layer_fn = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin,
                                  mesh=mesh)
     context_fn = _remat_context(cfg) if cfg.remat else None
@@ -428,6 +492,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         if aux is not None:
             aux_layers.append(aux)
     x = rms_norm(x, params["final_norm"]).to(dt)
+    if mesh is not None:
+        x = copy_to_tp(x, mesh)
     logits = x @ params["unembed"].to(dt)
     if not return_aux:
         return logits

@@ -3,7 +3,10 @@
 differentiable), RoPE and the cross-entropy loss (plain PyTorch)."""
 
 from tony_tpu_torch.ops.attention import flash_attention, flash_attention_lse
-from tony_tpu_torch.ops.losses import softmax_cross_entropy
+from tony_tpu_torch.ops.losses import (
+    softmax_cross_entropy,
+    vocab_parallel_cross_entropy,
+)
 from tony_tpu_torch.ops.norms import rms_norm
 from tony_tpu_torch.ops.rope import (
     apply_rope,
@@ -19,4 +22,5 @@ __all__ = [
     "rms_norm",
     "rope_frequencies",
     "softmax_cross_entropy",
+    "vocab_parallel_cross_entropy",
 ]

@@ -4,9 +4,11 @@ logical sharding rules, and the collectives over mesh axes."""
 from tony_tpu_torch.parallel.collectives import (
     all_gather_tp,
     all_to_all_ep,
+    copy_to_tp,
     exchange_ep,
     pmean,
     pmean_gradients,
+    reduce_from_tp,
     reduce_scatter_tp,
     ring_halo_exchange,
 )
@@ -33,10 +35,12 @@ __all__ = [
     "all_to_all_ep",
     "axis_group_ranks",
     "build_mesh",
+    "copy_to_tp",
     "exchange_ep",
     "logical_spec",
     "pmean",
     "pmean_gradients",
+    "reduce_from_tp",
     "reduce_scatter_tp",
     "ring_halo_exchange",
     "shard_pytree",

@@ -149,12 +149,15 @@ def slice_topology() -> dict | None:
 
 
 def build_job_mesh(spec=None, device="cuda", *, timeout_s: float = 300.0):
-    """This job's data-parallel mesh (``parallel.build_mesh``) over the
-    process group ``initialize`` joined, with the slice count from
+    """This job's mesh (``parallel.build_mesh``) over the process group
+    ``initialize`` joined, with the slice count from
     ``TONY_SLICE_TOPOLOGY`` (1 without it): dp is the outer axis, so only
     the gradient mean crosses slices (on GPUs a slice is a node). With no
-    ``spec`` the world is factored as the JAX package does (tp first);
-    the port's train step takes dp only so far. Returns None without a
+    ``spec`` the world is factored as the JAX package does (tp first, then
+    sp and pp): the port's train step and ``DecodeSession`` take dp, ep
+    and tp, and refuse sp and pp, which ``MeshSpec.auto`` gives from four
+    processes up, so a job of more than two processes passes its spec (the
+    train CLI passes ``MeshSpec(dp=processes)``). Returns None without a
     process group (a job of one process)::
 
         ctx = rt.initialize()
