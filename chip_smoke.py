@@ -66,6 +66,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
              mesh; the bf16 bench_transformer step over the mesh beside
              mesh=None's, timed before and after, and the all_reduce calls
              and bytes one step sends over the tp group.
+9c. sp     — sequence parallelism on one card. The ring: the port's ring
+             body for every rank of a ring of 2 and of 4 ranks run in one
+             process (ring_attention_in_process: each rotation hands out
+             the next owner's slice of whole-sequence K/V) at bench.py's
+             transformer_16k_hd128 attention shape (q [1, 16384, 8, 128]
+             bf16, causal; K/V heads 8 and 2): every B1 and B2/B3 launch
+             of the ring (the diagonal block causal, each past block
+             unmasked, the merge's lse cotangent into B2/B3) held against
+             its plain version on the same inputs; the ring's output
+             against the plain forward over the whole sequence, its dq,
+             dk, dv against the plain backward fed B1's out and lse, and
+             all four against B1-B3 over the whole sequence, whose
+             launches are held against their plain versions too (TOL and
+             ROW_TOL, as the kernels phase holds them), then in fp32 (TF32
+             off) at
+             [1, 2048, 8, 128] within SP_FP32_TOL; B1 and B2 launch
+             n(n+1)/2 times a ring of n, rank i's body 1 + i times. The
+             trunk: MeshSpec(sp=1) on a one-rank NCCL group, fp32 losses
+             and first-step gradients at train parity's widths and each
+             remat setting against mesh=None, and the bf16
+             bench_transformer step over the mesh beside mesh=None's. At
+             sp=1 the trunk does not reach the ring's NCCL rotation, the
+             loss's sequence slice or the RoPE offset: dp_study.py --sp on
+             several cards runs those.
 10. job    — the train CLI as a job runs it, at bench_transformer's full
              width: a uint16 .tokens corpus of 32 records x 2049 tokens
              from --seed (4 batches, one epoch = 4 steps) read through
@@ -105,7 +129,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 The launch counters are set to 0 just before each path (phases 3-4, the
 serving path; phase 7, the training path; phase 9, the data-parallel
-path; phase 9b's mesh runs, the tp path; phase 10's jobs and serving, the
+path; phase 9b's mesh runs, the tp path; phase 9c's rings and mesh
+runs, the sp path; phase 10's jobs and serving, the
 job path; phase 11, the MoE train path; phase 13's bf16 generate and
 engine, the MoE serving path) and read just after; every kernel of a path must have launched there. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
@@ -181,6 +206,19 @@ DP_TIMEOUT_S = 60.0
 # tp phase: DecodeSession(mesh=) on the flagship serving model in fp32 held
 # against the session without a mesh (batch, prompt length, new tokens).
 TP_DECODE = dict(batch=4, prompt=32, new=16)
+# sp phase: the ring of SP_RINGS ranks in one process at bench.py's
+# transformer_16k_hd128 attention shape (batch 1, 16384 positions, 8 heads
+# of 128; bf16, causal), with 8 (MHA) and 2 (GQA) K/V heads, each of its
+# launches against the plain version on the same inputs, and the ring
+# against the plain versions and B1-B3 over the whole sequence; then in
+# fp32 (TF32 off) at a shorter sequence, where the ring's chunks and merge
+# sum the same terms as one plain or kernel call in another order (~1e-6),
+# within SP_FP32_TOL.
+SP_ATTN = dict(b=1, t=16384, h=8, d=128)
+SP_FP32_ATTN = dict(b=1, t=2048, h=8, d=128)
+SP_RINGS = (2, 4)
+SP_KV_HEADS = (8, 2)
+SP_FP32_TOL = 1e-5
 
 # Job phase: bench_transformer's widths through the train CLI, a corpus of
 # 4 batches (one epoch = 4 steps), job A straight to 8 steps with a
@@ -547,9 +585,10 @@ def fwd_checks(errs: dict, dtype, rows: bool = False) -> dict[str, bool]:
     return checks
 
 
-def _check_fwd(tag, got, want, dtype, rows: bool = False) -> float:
+def _check_fwd(tag, got, want, dtype, rows: bool = False,
+               quiet: bool = False) -> float:
     """Holds B1's (out, lse) against the plain version's (fwd_checks);
-    returns the max abs error of out."""
+    returns the max abs error of out. ``quiet`` logs nothing on success."""
     errs = fwd_errors(got, want)
     if not all(fwd_checks(errs, dtype, rows).values()):
         raise AssertionError(
@@ -557,9 +596,9 @@ def _check_fwd(tag, got, want, dtype, rows: bool = False) -> float:
             f"{TOL[('flash_fwd', str(dtype))]}, lse tol "
             f"{TOL[('flash_lse', str(dtype))]}"
             f"{f', row tol {ROW_TOL}' if rows else ''})")
-    if rows:
+    if rows and not quiet:
         log(f"flash {tag}: {json.dumps(errs)}: ok")
-    else:
+    elif not quiet:
         log(f"flash {tag}: out err {errs['max_abs_err']:.3g}, lse err "
             f"{errs['lse_err']:.3g}: ok")
     return errs["max_abs_err"]
@@ -756,11 +795,12 @@ def bwd_errors(torch, got, want) -> dict[str, dict[str, float]]:
     return out
 
 
-def _check_bwd(torch, tag, got, want, dtype,
-               rows: bool = False) -> tuple[float, float]:
+def _check_bwd(torch, tag, got, want, dtype, rows: bool = False,
+               quiet: bool = False) -> tuple[float, float]:
     """Holds (dq, dk, dv) from B2 + B3 against the plain version's within
     TOL, and with ``rows`` row by row within ROW_TOL; returns the max abs
-    error of B2 (dq) and of B3 (dk and dv)."""
+    error of B2 (dq) and of B3 (dk and dv). ``quiet`` logs nothing on
+    success."""
     tol = TOL[("flash_bwd", str(dtype))]
     errs = bwd_errors(torch, got, want)
     for name, e in errs.items():
@@ -771,9 +811,9 @@ def _check_bwd(torch, tag, got, want, dtype,
         if rows and not e["row_err"] <= ROW_TOL:
             raise AssertionError(f"flash bwd {tag}: {name} row err "
                                  f"{e['row_err']} > {ROW_TOL}")
-    if rows:
+    if rows and not quiet:
         log(f"flash bwd {tag}: " + json.dumps(errs) + ": ok")
-    else:
+    elif not quiet:
         log(f"flash bwd {tag}: dq/dk/dv err " + "/".join(
             f"{e['max_abs_err']:.3g}" for e in errs.values()) + ": ok")
     return errs["dq"]["max_abs_err"], max(errs["dk"]["max_abs_err"],
@@ -1401,6 +1441,7 @@ def check_world1_collectives(torch, mesh) -> None:
         "all_to_all_ep": coll.all_to_all_ep(x, 0, 1, "ep", mesh=mesh),
         "pmean_gradients": coll.pmean_gradients([x.clone()], mesh)[0],
     }
+    outs["ppermute"] = coll.ppermute((x,), "sp", mesh=mesh)[0]
     prev, nxt = coll.ring_halo_exchange(x, "sp", 2, axis=1, mesh=mesh)
     outs["ring_halo_exchange"] = torch.cat([nxt, x[:, 2:-2], prev], dim=1)
     leaf = x.clone().requires_grad_()
@@ -1538,6 +1579,50 @@ def _tp_parity_run(torch, cfg, params, batches, mesh) -> tuple:
     return _loss_list(torch, losses), grads
 
 
+def _parity_references(torch, rng, seed: int) -> dict:
+    """The mesh=None runs of ``_tp_parity_run`` in fp32 at PARITY_TRAIN's
+    widths and each remat setting, weights from ``seed``, batches from
+    ``rng``: {setting: (cfg, batches, (losses, first-step gradients))}."""
+    from tony_tpu_torch.models import TransformerConfig
+
+    refs = {}
+    for remat, policy in PARITY_REMAT:
+        pcfg = TransformerConfig(dtype="float32", remat=remat,
+                                 remat_policy=policy, **PARITY_TRAIN)
+        batches = [torch.as_tensor(rng.integers(
+            0, pcfg.vocab_size, (PARITY_TRAIN_BATCH, pcfg.max_seq + 1)),
+            device="cuda") for _ in range(PARITY_TRAIN_STEPS)]
+        refs[f"remat={remat}/{policy}"] = (
+            pcfg, batches, _tp_parity_run(torch, pcfg, parity_params(
+                torch, pcfg, seed), batches, None))
+    return refs
+
+
+def _check_mesh_parity(torch, tag: str, refs: dict, mesh, seed: int) -> dict:
+    """The runs of ``refs`` (``_parity_references``) again over ``mesh``:
+    the losses within TRAIN_LOSS_RTOL and every first-step gradient within
+    TRAIN_GRAD_TOL of its leaf's largest. Returns {setting: {"losses",
+    "worst_grad_rel_err"}}."""
+    checked = {}
+    for key, (pcfg, batches, (want_losses, want_grads)) in refs.items():
+        losses, grads = _tp_parity_run(torch, pcfg, parity_params(
+            torch, pcfg, seed), batches, mesh)
+        if not np.allclose(losses, want_losses, rtol=TRAIN_LOSS_RTOL,
+                           atol=0):
+            raise AssertionError(f"{tag} {key}: losses {losses} vs "
+                                 f"mesh=None {want_losses}")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(grads, want_grads)):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            if not err <= TRAIN_GRAD_TOL * scale:
+                raise AssertionError(f"{tag} {key}: gradient leaf {i} err "
+                                     f"{err} > {TRAIN_GRAD_TOL} * {scale}")
+            worst = max(worst, err / scale if scale else err)
+        checked[key] = {"losses": losses, "worst_grad_rel_err": worst}
+    return checked
+
+
 def tp_phase(torch, attention, norms, seed: int) -> dict:
     """Slice 4's tp path on one card: ``MeshSpec(tp=1)`` over a one-rank
     NCCL group on a HashStore. The conjugate pair (``copy_to_tp`` /
@@ -1563,16 +1648,7 @@ def tp_phase(torch, attention, norms, seed: int) -> dict:
     from tony_tpu_torch.parallel.collectives import axis_group
 
     rng = np.random.default_rng(seed + 8)
-    parity = {}
-    for remat, policy in PARITY_REMAT:
-        pcfg = TransformerConfig(dtype="float32", remat=remat,
-                                 remat_policy=policy, **PARITY_TRAIN)
-        batches = [torch.as_tensor(rng.integers(
-            0, pcfg.vocab_size, (PARITY_TRAIN_BATCH, pcfg.max_seq + 1)),
-            device="cuda") for _ in range(PARITY_TRAIN_STEPS)]
-        parity[f"remat={remat}/{policy}"] = (
-            pcfg, batches, _tp_parity_run(torch, pcfg, parity_params(
-                torch, pcfg, seed), batches, None))
+    parity = _parity_references(torch, rng, seed)
     dcfg = TransformerConfig(dtype="float32", **FLAGSHIP)
     dgen = torch.Generator(device="cuda")
     dgen.manual_seed(seed + 9)
@@ -1616,25 +1692,7 @@ def tp_phase(torch, attention, norms, seed: int) -> dict:
         dist.all_reduce = real
         torch.cuda.synchronize()
         del state
-        checked = {}
-        for key, (pcfg, batches, (want_losses, want_grads)) in \
-                parity.items():
-            losses, grads = _tp_parity_run(torch, pcfg, parity_params(
-                torch, pcfg, seed), batches, mesh)
-            if not np.allclose(losses, want_losses, rtol=TRAIN_LOSS_RTOL,
-                               atol=0):
-                raise AssertionError(f"tp {key}: losses {losses} vs "
-                                     f"mesh=None {want_losses}")
-            worst = 0.0
-            for i, (a, b) in enumerate(zip(grads, want_grads)):
-                scale = b.abs().max().item()
-                err = (a - b).abs().max().item()
-                if not err <= TRAIN_GRAD_TOL * scale:
-                    raise AssertionError(f"tp {key}: gradient leaf {i} err "
-                                         f"{err} > {TRAIN_GRAD_TOL} * "
-                                         f"{scale}")
-                worst = max(worst, err / scale if scale else err)
-            checked[key] = {"losses": losses, "worst_grad_rel_err": worst}
+        checked = _check_mesh_parity(torch, "tp", parity, mesh, seed)
         session = DecodeSession(dparams, dcfg, device="cuda", mesh=mesh)
         tokens_out = session.generate(prompt, TP_DECODE["new"])
         torch.cuda.synchronize()
@@ -1669,6 +1727,286 @@ def tp_phase(torch, attention, norms, seed: int) -> dict:
         f"{res['plain_step_ms_median_after']:.3f} ms (before / after); "
         f"{sent['calls']} all_reduces over tp a step, "
         f"{sent['bytes'] / 1e6:.1f} MB, on {card_line()}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 9c: sequence parallelism: the ring in one process, the sp trunk
+# ---------------------------------------------------------------------------
+
+def _attention_grads(torch, fn, q, k, v, do) -> tuple:
+    """(out, dq, dk, dv) of ``fn(q, k, v)`` for the output cotangent
+    ``do``."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(do)
+    torch.cuda.synchronize()
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+@contextlib.contextmanager
+def _held_to_plain(torch, attention, tag: str, worst: dict):
+    """Inside, every B1 launch and every B2/B3 launch is held against its
+    plain version on the same inputs, at the shapes and masks its caller
+    gives it (for the ring: the diagonal block causal, each past block
+    unmasked, and in the backward the lse cotangent of the merge), as the
+    kernels phase holds them, row by row (``_check_fwd``, ``_check_bwd``).
+    The plain calls launch no kernel, so no launch is added to the counts.
+    ``worst`` gathers the largest errors and the number of launches held."""
+    fwd, bwd = attention._flash_attention_cuda, attention._flash_bwd_cuda
+
+    def note(key, value):
+        worst[key] = max(worst.get(key, 0.0), value)
+
+    def count(key):
+        worst[key] = worst.get(key, 0) + 1
+
+    def held_fwd(q, k, v, *, causal, scale):
+        got = fwd(q, k, v, causal=causal, scale=scale)
+        want = attention._flash_plain_bthd(q, k, v, causal=causal,
+                                           scale=scale)
+        errs = fwd_errors(got, want)
+        _check_fwd(f"{tag} B1 tq={q.shape[1]} tk={k.shape[1]} "
+                   f"causal={causal}", got, want, q.dtype, rows=True,
+                   quiet=True)
+        count("b1_launches")
+        note("b1_row_err", errs["row_err"])
+        note("b1_lse_err", errs["lse_err"])
+        return got
+
+    def held_bwd(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
+        got = bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
+                  g_lse=g_lse)
+        want = attention._flash_bwd_plain(q, k, v, out, lse, do,
+                                          causal=causal, scale=scale,
+                                          g_lse=g_lse)
+        errs = bwd_errors(torch, got, want)
+        _check_bwd(torch, f"{tag} B2/B3 tq={q.shape[1]} tk={k.shape[1]} "
+                   f"causal={causal} g_lse={g_lse is not None}", got, want,
+                   q.dtype, rows=True, quiet=True)
+        count("b2_b3_launches")
+        if g_lse is not None:
+            count("b2_b3_with_g_lse")
+        note("b2_row_err", errs["dq"]["row_err"])
+        note("b3_row_err", max(errs["dk"]["row_err"], errs["dv"]["row_err"]))
+        return got
+
+    attention._flash_attention_cuda = held_fwd
+    attention._flash_bwd_cuda = held_bwd
+    try:
+        yield
+    finally:
+        attention._flash_attention_cuda = fwd
+        attention._flash_bwd_cuda = bwd
+
+
+def _whole_sequence(torch, attention, tag: str, q, k, v, do) -> tuple:
+    """B1-B3 over the whole sequence, each held against its plain version
+    on the same inputs (``_held_to_plain``), and the plain reference for
+    the ring: (kernels' (out, dq, dk, dv), plain (out, dq, dk, dv), their
+    worst errors). The plain out is ``_flash_plain_bthd``'s; the plain
+    gradients are ``_flash_bwd_plain``'s from B1's out and lse, the inputs
+    B2/B3 take. A whole chain's bf16 gradients (each from its own
+    bf16-rounded out) differ from one another at the first rows by more
+    than ROW_TOL, plain and kernels alike (``attention_chain_study.py``
+    measures it), so each kernel is held on its own inputs."""
+    worst = {}
+    with _held_to_plain(torch, attention, f"sp whole {tag}", worst):
+        kernels = _attention_grads(torch, lambda q, k, v: (
+            attention.flash_attention(q, k, v, causal=True)), q, k, v, do)
+    scale = q.shape[-1] ** -0.5
+    out, lse = attention._flash_attention_cuda(q, k, v, causal=True,
+                                               scale=scale)
+    plain_out, _ = attention._flash_plain_bthd(q, k, v, causal=True,
+                                               scale=scale)
+    plain = (plain_out, *attention._flash_bwd_plain(
+        q, k, v, out, lse, do, causal=True, scale=scale))
+    torch.cuda.synchronize()
+    log(f"sp whole-sequence B1-B3 {tag} against the plain versions: "
+        f"{json.dumps(worst)}: ok")
+    return kernels, plain, worst
+
+
+def _check_ring(torch, tag: str, got: tuple, want: tuple, dtype) -> dict:
+    """The ring's (out, dq, dk, dv) against ``want``: bf16 out within
+    TOL and row by row within ROW_TOL, the gradients as the kernels phase
+    holds B2/B3 (``_check_bwd`` with rows); fp32 every one within
+    SP_FP32_TOL of max(1, its largest |value|)."""
+    out_diff = (got[0].float() - want[0].float()).flatten(0, -2)
+    errs = {"out": {"max_abs_err": out_diff.abs().max().item(),
+                    "row_err": row_error(out_diff,
+                                         want[0].float().flatten(0, -2))}}
+    if dtype == torch.float32:
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            err = (a - b).abs().max().item()
+            largest = b.abs().max().item()
+            limit = SP_FP32_TOL * max(1.0, largest)
+            errs[name] = {"max_abs_err": err, "max_want": largest}
+            if not err <= limit:
+                raise AssertionError(f"sp ring {tag}: {name} err {err} > "
+                                     f"{limit}")
+    else:
+        e = errs["out"]
+        if not (e["max_abs_err"] <= TOL[("flash_fwd", str(dtype))]
+                and e["row_err"] <= ROW_TOL):
+            raise AssertionError(f"sp ring {tag}: out {json.dumps(e)} (tol "
+                                 f"{TOL[('flash_fwd', str(dtype))]}, row "
+                                 f"tol {ROW_TOL})")
+        dq_err, dkv_err = _check_bwd(torch, f"sp ring {tag}", got[1:],
+                                     want[1:], dtype, rows=True)
+        errs.update(dq={"max_abs_err": dq_err},
+                    dkv={"max_abs_err": dkv_err})
+    log(f"sp ring {tag}: {json.dumps(errs)}: ok")
+    return errs
+
+
+def sp_phase(torch, attention, norms, seed: int) -> dict:
+    """Sequence parallelism on one card, in two parts.
+
+    The ring: ``ring_attention_in_process`` runs the port's ring body for
+    every rank of a ring of SP_RINGS ranks, one after another, each
+    rotation handing out the next owner's slice of whole-sequence K/V.
+    At transformer_16k_hd128's attention shape (SP_ATTN, bf16, causal),
+    MHA and GQA 8/2 (SP_KV_HEADS), every B1 and B2/B3 launch of the ring is
+    held against its plain version on the same inputs (``_held_to_plain``);
+    the ring's output and dq, dk, dv are held against the plain versions
+    over the whole sequence and against B1-B3 over the whole sequence,
+    whose launches are held against the plain versions first
+    (``_whole_sequence``, ``_check_ring``); and all of it again in fp32 at
+    SP_FP32_ATTN within SP_FP32_TOL. Rank i of a causal ring launches B1
+    1 + i times (its diagonal block and the past blocks), the ring
+    n(n+1)/2 times, and B2/B3 as often in the backward.
+
+    The trunk: ``MeshSpec(sp=1)`` on a one-rank NCCL group (the ring is
+    its step 0, the flash call): fp32 losses and first-step gradients at
+    PARITY_TRAIN's widths and each remat setting against mesh=None, and
+    bench_transformer's bf16 step over the mesh beside mesh=None's, timed
+    before and after. At sp=1 the trunk's attention is the flash call and
+    ``ppermute`` the identity, so this phase does not run the sp > 1 trunk
+    (``ring_attention`` over NCCL, the loss's sequence slice, the RoPE
+    offset): ``dp_study.py --sp`` on several cards is its witness on the
+    card.
+
+    The references (the plain versions, the whole-sequence kernels,
+    mesh=None) run outside the counted window; the launch counters are set
+    to 0 just before the ring runs and read just after the mesh steps."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh, ring
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    cases, whole_errs = [], {}
+    for dtype, shape in ((torch.bfloat16, SP_ATTN),
+                         (torch.float32, SP_FP32_ATTN)):
+        for h_kv in SP_KV_HEADS:
+            b, t, h, d = (shape[n] for n in "bthd")
+            q, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, t, h_kv, d, generator=gen, device="cuda")
+                    .to(dtype) for _ in range(2))
+            tag = f"[{b}, {t}, {h}/{h_kv}, {d}] {dtype}"
+            whole, plain, whole_errs[tag] = _whole_sequence(
+                torch, attention, tag, q, k, v, do)
+            cases.append((tag, (q, k, v, do), plain, whole))
+    rng = np.random.default_rng(seed + 12)
+    parity = _parity_references(torch, rng, seed)
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    plain, before_ms, _, _ = timed_steps(torch, step_fn, init_fn(seed),
+                                         tokens)
+    del plain
+
+    _reset_launches(attention, norms)
+    ring_errs, by_rank = {}, {}
+    for tag, inputs, plain, whole in cases:
+        for sp in SP_RINGS:
+            fwd, dq = attention.launches, attention.launches_dq
+            held = {}
+            with _held_to_plain(torch, attention, f"sp ring {tag} sp {sp}",
+                                held):
+                got = _attention_grads(torch, lambda q, k, v: (
+                    ring.ring_attention_in_process(q, k, v, sp,
+                                                   causal=True)), *inputs)
+            log(f"sp ring {tag} sp {sp}: each launch against its plain "
+                f"version: {json.dumps(held)}: ok")
+            n_chunks = sp * (sp + 1) // 2
+            if (attention.launches - fwd, attention.launches_dq - dq) != (
+                    n_chunks, n_chunks):
+                raise AssertionError(
+                    f"sp ring {tag} sp {sp}: B1/B2 launched "
+                    f"{attention.launches - fwd}/"
+                    f"{attention.launches_dq - dq} times, not {n_chunks}")
+            ring_errs[f"{tag} sp {sp}"] = {
+                "launches_vs_plain": held,
+                "vs_plain": _check_ring(torch, f"{tag} sp {sp} vs plain",
+                                        got, plain, inputs[0].dtype),
+                "vs_whole_kernels": _check_ring(
+                    torch, f"{tag} sp {sp} vs whole-sequence B1-B3", got,
+                    whole, inputs[0].dtype)}
+            del got
+    q, k, v, _ = cases[0][1]
+    t_k = k.shape[1]
+    for sp in SP_RINGS:
+        by_rank[sp] = []
+        with torch.no_grad():
+            for idx in range(sp):
+                own = slice(idx * t_k // sp, (idx + 1) * t_k // sp)
+                before = attention.launches
+                ring.ring_body(q[:, own], k[:, own], v[:, own],
+                               ring._slice_rotation(k, v, sp, idx),
+                               axis_size=sp, axis_index=idx, causal=True,
+                               scale=q.shape[-1] ** -0.5)
+                by_rank[sp].append(attention.launches - before)
+        if by_rank[sp] != [1 + i for i in range(sp)]:
+            raise AssertionError(f"sp ring sp {sp}: B1 launches by rank "
+                                 f"{by_rank[sp]}, not 1 + the rank")
+    del cases, q, k, v
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = build_mesh(MeshSpec(sp=1), "cuda", timeout_s=DP_TIMEOUT_S)
+        m_init, m_step = make_train_step(cfg, mesh, device="cuda")
+        state, mesh_ms, mesh_peak, _ = timed_steps(torch, m_step,
+                                                   m_init(seed), tokens)
+        del state
+        checked = _check_mesh_parity(torch, "sp", parity, mesh, seed)
+        torch.cuda.synchronize()
+        launches = _launches(attention, norms)
+    finally:
+        dist.destroy_process_group()
+    plain, after_ms, _, _ = timed_steps(torch, step_fn, init_fn(seed),
+                                        tokens)
+    del plain
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the sp "
+                                 f"path")
+    res = {
+        "ring": ring_errs, "whole_sequence_kernels": whole_errs,
+        "ring_b1_launches_by_rank": by_rank,
+        "mesh": [1, 1, 1, 1, 1], "backend": "nccl", "parity": checked,
+        "step_ms_median": float(np.median(mesh_ms)), "step_ms": mesh_ms,
+        "plain_step_ms_median_before": float(np.median(before_ms)),
+        "plain_step_ms_median_after": float(np.median(after_ms)),
+        "peak_memory_gb": mesh_peak / 1e9,
+        "launches": launches,
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    log("sp: " + json.dumps(res))
+    log(f"sp: mesh step median {res['step_ms_median']:.3f} ms beside "
+        f"mesh=None {res['plain_step_ms_median_before']:.3f} / "
+        f"{res['plain_step_ms_median_after']:.3f} ms (before / after), on "
+        f"{card_line()}")
     return res
 
 
@@ -2452,6 +2790,11 @@ def main(argv=None) -> int:
     # itself and reads them just after).
     tp = tp_phase(torch, attention, norms, args.seed)
     torch.cuda.empty_cache()
+    # Slice 4's sp path: the ring in one process and the trunk over a
+    # one-rank NCCL mesh (it resets the counters itself and reads them just
+    # after).
+    sp = sp_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
 
     # Slice 5's path: jobs that read a file, checkpoint, resume and serve
     # (the counters are reset and read inside), then checkpoint and input
@@ -2486,6 +2829,7 @@ def main(argv=None) -> int:
             "job": job["launches"][row["name"]],
             "dp": dp["launches"][row["name"]],
             "tp": tp["launches"][row["name"]],
+            "sp": sp["launches"][row["name"]],
             "moe_train": moe_train["launches"][row["name"]],
             "moe_serve": moe_serve["launches"][row["name"]]}
 

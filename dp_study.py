@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Data- and tensor-parallel training of tony_tpu_torch across the cards of
-one host.
+"""Data-, tensor- and sequence-parallel training of tony_tpu_torch across
+the cards of one host.
 
     python3 dp_study.py             # one rank on each card (at least 2)
     python3 dp_study.py --ranks 4
     python3 dp_study.py --ep 2      # an MoE trunk over dp = ranks/2 x ep 2
     python3 dp_study.py --ranks 2 --tp 2   # the dense trunk over tp 2
     python3 dp_study.py --ranks 4 --tp 2   # dp 2 x tp 2
+    python3 dp_study.py --ranks 2 --sp 2   # one [1, 16384] sequence over sp 2
+    python3 dp_study.py --ranks 4 --sp 2 --tp 2        # MeshSpec.auto(4)
+    python3 dp_study.py --ranks 4 --sp 4 --seq 65536   # [1, 65536] over sp 4
 
 Builds the kernels once, then starts one process per card, each in its own
 session, on cuda:<rank>: they meet at a TCP store on a free localhost port,
 join one NCCL group (process-group timeout
 DP_TIMEOUT_S) and build the job mesh (dp = ranks, or with ``--ep E`` dp =
 ranks / E x ep = E over an MoE trunk, or with ``--tp T`` dp = ranks / T x
-tp = T over the dense trunk, Megatron-split); the parent waits on one
-deadline and kills and reaps every rank still alive. The ranks of one data
-row (its tp ranks) feed the same rows. Each rank:
+tp = T over the dense trunk, Megatron-split, or with ``--sp S`` dp = ranks
+/ (S x T) x sp = S x tp = T, each rank holding a block of the sequence and
+the attention a ring over sp); the parent waits on one deadline and kills
+and reaps every rank still alive. The ranks of one data row (its sp and tp
+ranks) feed the same rows. Each rank:
 
 1. parity — fp32, TF32 off, chip_smoke's PARITY_TRAIN model (2 layers, d
    256, GQA 16/4, seq 256): 3 steps of make_train_step(cfg, mesh), each
@@ -38,16 +43,25 @@ row (its tp ranks) feed the same rows. Each rank:
    on rank 0: device ms of the NCCL kernels and of everything else. With
    ``--ep``: bench_moe (bf16, 502 M parameters, chip_smoke's BENCH_MOE)
    at [4, 2049] per rank, each card holding E / ep of the experts. With
-   ``--tp``: [8, 2049] per data row, each card holding its tp block.
-3. decode (``--tp`` only) — chip_smoke's flagship serving model (d 1024,
-   8 layers, GQA 16/4) through DecodeSession(mesh=): fp32 greedy tokens
-   of batch 8 (prompt 32, 16 new) equal to the session without a mesh on
-   rank 0's card alone; then bf16 at bench.py's decode shape (batch 8,
-   prompt 128), the ms per token the wall difference of 512 and 256 new
-   tokens over 256, beside the same on rank 0's card alone; then one call
-   of 32 new tokens split up: its wall, the host ms inside the collective
-   calls, and (rank 0) the device ms of a profiled call, NCCL apart, and
-   the host ops with the most self time in a call under a CPU profiler.
+   ``--tp``: [8, 2049] per data row, each card holding its tp block. With
+   ``--sp``: bench.py's transformer_16k_hd128 (bench_transformer's widths
+   with 8 heads of 128, no remat) at [1, seq + 1] per data row (``--seq``,
+   default 16384), each rank training its block of seq / sp positions;
+   the mesh=None step on one card alone trains
+   the whole sequence, and an out-of-memory error there is recorded, not
+   raised. The mesh step is profiled on rank 0 and on the last rank of the
+   sp axis, whose causal rings differ: device ms of NCCL, of B1-B3 and of
+   the rest.
+3. decode (``--tp`` above 1 only) — chip_smoke's flagship serving model
+   (d 1024, 8 layers, GQA 16/4) through DecodeSession(mesh=): fp32 greedy
+   tokens of batch 8 (prompt 32, 16 new) equal to the session without a
+   mesh on rank 0's card alone; then bf16 at bench.py's decode shape
+   (batch 8, prompt 128), the ms per token the wall difference of 512 and
+   256 new tokens over 256, beside the same on rank 0's card alone; then
+   one call of 32 new tokens split up: its wall, the host ms inside the
+   collective calls, and (rank 0) the device ms of a profiled call, NCCL
+   apart, and the host ops with the most self time in a call under a CPU
+   profiler.
 
 Each rank logs its phases with the seconds since it started. Prints each
 rank's results as a JSON line, the cards' names and power limits, and a
@@ -77,6 +91,10 @@ DP_TIMEOUT_S = 60.0
 DEADLINE_S = 600.0
 PARITY_STEPS = 3
 PARITY_ROWS_PER_RANK = 2
+# --sp: bench.py's transformer_16k_hd128 (bench_transformer's widths, 8
+# heads of 128, MHA, bf16, no remat) on one sequence a data row.
+SP_MODEL = dict(chip_smoke.BENCH_TRANSFORMER, n_heads=8, head_dim=128)
+SP_SEQ, SP_BATCH = 16384, 1
 # The decode phase of --tp: fp32 parity (batch, prompt, new tokens), then
 # bench.py's bench_decode shape in bf16 (batch 8, prompt 128) with the per
 # token ms from two horizons (2x and 4x its 128 new tokens).
@@ -193,42 +211,61 @@ def parity(torch, mesh, row: int, rows: int, device, seed: int, ep: int,
     return out
 
 
-def _step_setup(torch, row: int, device, seed: int, ep: int):
+def step_model(job: dict) -> tuple[dict, int, int]:
+    """(model config fields, rows, sequence length) of the timed step of
+    ``job`` (its ep, sp and seq)."""
+    if job["ep"] > 1:
+        return chip_smoke.BENCH_MOE, chip_smoke.MOE_BATCH, chip_smoke.TRAIN_SEQ
+    if job["sp"] > 1:
+        model = dict(SP_MODEL, max_seq=job["seq"])
+        return model, SP_BATCH, job["seq"]
+    return chip_smoke.BENCH_TRANSFORMER, chip_smoke.TRAIN_BATCH, \
+        chip_smoke.TRAIN_SEQ
+
+
+def _step_setup(torch, row: int, device, seed: int, job: dict):
     from tony_tpu_torch.models import TransformerConfig
 
-    if ep == 1:
-        cfg = TransformerConfig(dtype="bfloat16",
-                                **chip_smoke.BENCH_TRANSFORMER)
-        rows = chip_smoke.TRAIN_BATCH
-    else:
-        cfg = TransformerConfig(dtype="bfloat16", **chip_smoke.BENCH_MOE)
-        rows = chip_smoke.MOE_BATCH
+    model, rows, seq = step_model(job)
+    cfg = TransformerConfig(dtype="bfloat16", **model)
     rng = np.random.default_rng(seed + 3 + row)
     tokens = torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (rows, chip_smoke.TRAIN_SEQ + 1)), device=device)
+        0, cfg.vocab_size, (rows, seq + 1)), device=device)
     return cfg, tokens
 
 
-def plain_step_ms(torch, row: int, device, seed: int, ep: int) -> dict:
-    """The mesh=None step on this card alone (outside the group)."""
+def plain_step_ms(torch, row: int, device, seed: int, job: dict) -> dict:
+    """The mesh=None step on this card alone (outside the group). With
+    --sp, an out-of-memory error is the reading (the whole sequence may
+    not fit one card)."""
     from tony_tpu_torch.models import make_train_step
 
-    cfg, tokens = _step_setup(torch, row, device, seed, ep)
+    cfg, tokens = _step_setup(torch, row, device, seed, job)
     init_fn, step_fn = make_train_step(cfg, device=device)
-    _, ms, _, ws = chip_smoke.timed_steps(torch, step_fn, init_fn(seed),
-                                          tokens)
-    return {"step_ms_median": float(np.median(ms)), "step_ms": ms,
-            "working_set_gb": ws / 1e9}
+    try:
+        _, ms, peak, ws = chip_smoke.timed_steps(torch, step_fn,
+                                                 init_fn(seed), tokens)
+    except torch.cuda.OutOfMemoryError as exc:
+        if job["sp"] == 1:
+            raise
+        oom = str(exc)[:300]
+    else:
+        return {"step_ms_median": float(np.median(ms)), "step_ms": ms,
+                "working_set_gb": ws / 1e9, "peak_memory_gb": peak / 1e9}
+    peak = torch.cuda.max_memory_allocated(device)
+    del init_fn, step_fn
+    torch.cuda.empty_cache()
+    return {"out_of_memory": oom, "peak_memory_gb": peak / 1e9}
 
 
 def mesh_step_ms(torch, mesh, rank: int, row: int, device, seed: int,
-                 ep: int) -> dict:
+                 job: dict, profiled: bool) -> dict:
     """The mesh step: median, working set, launches of B1-B4, and one more
-    step profiled on rank 0 (the others run it unprofiled)."""
+    step, profiled where ``profiled`` (the others run it unprofiled)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.ops import attention, norms
 
-    cfg, tokens = _step_setup(torch, row, device, seed, ep)
+    cfg, tokens = _step_setup(torch, row, device, seed, job)
     init_fn, step_fn = make_train_step(cfg, mesh, device=device)
     state = init_fn(seed)
     norms.launches = 0
@@ -243,17 +280,17 @@ def mesh_step_ms(torch, mesh, rank: int, row: int, device, seed: int,
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"mesh path")
-    profiled = None
-    if rank == 0:
+    summary = None
+    if profiled:
         events, wall_ms = chip_smoke.device_events(
             torch, lambda: step_fn(state, tokens))
-        profiled = _profile_summary(events, wall_ms)
+        summary = _profile_summary(events, wall_ms)
     else:
         step_fn(state, tokens)
         torch.cuda.synchronize(device)
     return {"step_ms_median": float(np.median(ms)), "step_ms": ms,
             "working_set_gb": ws / 1e9, "peak_memory_gb": peak / 1e9,
-            "launches": launches, "profiled_step": profiled}
+            "launches": launches, "profiled_step": summary}
 
 
 def _decode_setup(torch, device, seed: int, dtype: str, shape: tuple):
@@ -337,9 +374,10 @@ def mesh_decode(torch, mesh, device, seed: int, ref: dict | None) -> dict:
 
 
 def _profile_summary(events, wall_ms: float) -> dict:
-    """Device ms in all, in NCCL kernels and in the rest, and the 12
-    kernels that took the most."""
+    """Device ms in all, in NCCL kernels, in B1-B3 (the flash kernels)
+    and in the rest, and the 12 kernels that took the most."""
     nccl = sum(us for name, us in events if "nccl" in name.lower())
+    flash = sum(us for name, us in events if "flash_" in name)
     total = sum(us for _, us in events)
     by_name: dict[str, list[float]] = {}
     for name, us in events:
@@ -347,7 +385,8 @@ def _profile_summary(events, wall_ms: float) -> dict:
     top = sorted(((sum(v), k, len(v)) for k, v in by_name.items()),
                  reverse=True)[:12]
     return {"wall_ms": wall_ms, "device_ms": total / 1e3,
-            "nccl_ms": nccl / 1e3, "other_ms": (total - nccl) / 1e3,
+            "nccl_ms": nccl / 1e3, "attention_ms": flash / 1e3,
+            "other_ms": (total - nccl) / 1e3,
             "top": [{"kernel": k[:90], "device_ms": us / 1e3, "count": c}
                     for us, k, c in top]}
 
@@ -413,7 +452,7 @@ def host_profile(torch, fn) -> list[dict]:
 
 
 def run_rank(rank: int, world: int, store: str, outdir: str,
-             seed: int, ep: int, tp: int) -> None:
+             seed: int, job: dict) -> None:
     """One rank: the mesh=None runs outside the process group (a world
     above 1 refuses mesh=None), the mesh runs inside it."""
     import torch
@@ -422,10 +461,14 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
     import tony_tpu_torch.runtime as rt
     from tony_tpu_torch.parallel import MeshSpec
 
+    ep, sp, tp = job["ep"], job["sp"], job["tp"]
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
-    # Ranks lie in C order over (dp, ep, tp): the data row is rank // tp.
-    row, rows = rank // tp, world // tp
+    # Ranks lie in C order over (dp, ep, sp, tp): the data row is
+    # rank // (sp x tp). The last rank of the first row's sp axis runs the
+    # ring with the most chunks.
+    row, rows = rank // (sp * tp), world // (sp * tp)
+    profiled = rank in (0, (sp - 1) * tp)
     out = {"rank": rank, "world": world, "row": row,
            "card": torch.cuda.get_device_name(device)}
     _log(rank, "started")
@@ -433,26 +476,28 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
            else None)
     dec_ref = (decode_reference(torch, device, seed)
                if rank == 0 and tp > 1 else None)
-    out["plain_before"] = plain_step_ms(torch, row, device, seed, ep)
+    out["plain_before"] = plain_step_ms(torch, row, device, seed, job)
     _log(rank, "mesh=None timed; joining the group")
     dist.init_process_group("nccl", init_method=store, rank=rank,
                             world_size=world,
                             timeout=timedelta(seconds=DP_TIMEOUT_S))
     try:
-        mesh = rt.build_job_mesh(MeshSpec(dp=rows // ep, ep=ep, tp=tp),
+        mesh = rt.build_job_mesh(MeshSpec(dp=rows // ep, ep=ep, sp=sp,
+                                          tp=tp),
                                  device="cuda", timeout_s=DP_TIMEOUT_S)
         _log(rank, "mesh built")
         out["parity"] = parity(torch, mesh, row, rows, device, seed, ep,
                                ref)
         _log(rank, f"parity {out['parity']}")
-        out["mesh"] = mesh_step_ms(torch, mesh, rank, row, device, seed, ep)
+        out["mesh"] = mesh_step_ms(torch, mesh, rank, row, device, seed,
+                                   job, profiled)
         _log(rank, "mesh step timed")
         if tp > 1:
             out["decode"] = mesh_decode(torch, mesh, device, seed, dec_ref)
             _log(rank, f"decode {out['decode']}")
     finally:
         dist.destroy_process_group()
-    out["plain_after"] = plain_step_ms(torch, row, device, seed, ep)
+    out["plain_after"] = plain_step_ms(torch, row, device, seed, job)
     Path(outdir, f"rank_{rank}.json").write_text(json.dumps(out))
     if not out["parity"]["ok"]:
         raise AssertionError(f"parity failed: {out['parity']}")
@@ -460,7 +505,7 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
         raise AssertionError(f"decode failed: {out['decode']}")
 
 
-def launch(world: int, seed: int, ep: int, tp: int) -> list[dict]:
+def launch(world: int, seed: int, job: dict) -> list[dict]:
     """One process per rank, each in its own session; one deadline; every
     rank still alive is killed and reaped at the end."""
     with socket.socket() as sock:
@@ -475,7 +520,7 @@ def launch(world: int, seed: int, ep: int, tp: int) -> list[dict]:
                      "--ranks", str(world),
                      "--store", f"tcp://127.0.0.1:{port}",
                      "--outdir", tmp, "--seed", str(seed),
-                     "--ep", str(ep), "--tp", str(tp)],
+                     *(f"--{k}={v}" for k, v in job.items())],
                     # The ranks share this host: NCCL's bootstrap stays on
                     # the loopback interface.
                     env={**os.environ, "NCCL_SOCKET_IFNAME": "lo"},
@@ -508,13 +553,21 @@ def main(argv=None) -> int:
                     help="tensor-parallel ranks: train the dense trunk over "
                          "dp = ranks / tp x tp and serve it over the same "
                          "mesh (default 1)")
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel ranks: train one sequence a "
+                         "data row, split over sp (with --tp: dp = ranks / "
+                         "(sp x tp)), through the ring (default 1)")
+    ap.add_argument("--seq", type=int, default=SP_SEQ,
+                    help=f"with --sp: the sequence length (default "
+                         f"{SP_SEQ})")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--store", default="", help=argparse.SUPPRESS)
     ap.add_argument("--outdir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    job = {"ep": args.ep, "sp": args.sp, "tp": args.tp, "seq": args.seq}
     if args.rank is not None:
         run_rank(args.rank, args.ranks, args.store, args.outdir, args.seed,
-                 args.ep, args.tp)
+                 job)
         return 0
 
     import torch
@@ -540,12 +593,18 @@ def main(argv=None) -> int:
               f"heads ({heads}), and takes no --ep (MoE x tp is not "
               f"ported); got {args.tp}", file=sys.stderr)
         return 1
+    if args.sp < 1 or world % (args.sp * args.tp) or args.seq % args.sp or (
+            args.sp > 1 and args.ep > 1):
+        print(f"dp_study: --sp x --tp must divide the ranks ({world}), --sp "
+              f"the sequence ({args.seq}), and --sp takes no --ep (MoE x sp "
+              f"is not ported); got {args.sp}", file=sys.stderr)
+        return 1
     from tony_tpu_torch import kernels
 
     t0 = time.perf_counter()
     kernels.build()
     chip_smoke.log(f"build: {time.perf_counter() - t0:.2f} s")
-    results = launch(world, args.seed, args.ep, args.tp)
+    results = launch(world, args.seed, job)
     for res in results:
         print(json.dumps(res))
     cards = subprocess.run(
@@ -554,22 +613,31 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(cards)
-    rows = chip_smoke.MOE_BATCH if args.ep > 1 else chip_smoke.TRAIN_BATCH
+    _, rows, seq = step_model(job)
     step_ms = [r["mesh"]["step_ms_median"] for r in results]
+    last_sp = (args.sp - 1) * args.tp
     print(json.dumps({
-        "world": world, "mesh": {"dp": world // (args.ep * args.tp),
-                                 "ep": args.ep, "tp": args.tp},
+        "world": world, "mesh": {"dp": world // (args.ep * args.sp * args.tp),
+                                 "ep": args.ep, "sp": args.sp, "tp": args.tp},
+        "seq": seq, "rows_per_data_row": rows,
         "total_s": time.perf_counter() - t0,
         "parity": results[0]["parity"],
         "step_ms_median_by_rank": step_ms,
-        # Each data row (tp cards) trains rows x TRAIN_SEQ tokens a step.
-        "tokens_per_s_per_card": rows * chip_smoke.TRAIN_SEQ / args.tp
+        # Each data row (sp x tp cards) trains rows x seq tokens a step.
+        "tokens_per_s_per_card": rows * seq / (args.sp * args.tp)
         / (max(step_ms) / 1e3),
-        "plain_step_ms_median_by_rank": [
-            (r["plain_before"]["step_ms_median"],
-             r["plain_after"]["step_ms_median"]) for r in results],
+        "peak_memory_gb_by_rank": [r["mesh"]["peak_memory_gb"]
+                                   for r in results],
+        "plain_by_rank": [
+            {when: {k: r[when][k] for k in ("step_ms_median",
+                                             "peak_memory_gb",
+                                             "out_of_memory") if k in r[when]}
+             for when in ("plain_before", "plain_after")} for r in results],
         "launches_rank0": results[0]["mesh"]["launches"],
         "rank0_profiled_step": results[0]["mesh"]["profiled_step"],
+        f"launches_rank{last_sp}": results[last_sp]["mesh"]["launches"],
+        f"rank{last_sp}_profiled_step":
+            results[last_sp]["mesh"]["profiled_step"],
         "decode_rank0": results[0].get("decode"),
     }), flush=True)
     return 0

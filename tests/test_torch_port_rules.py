@@ -27,7 +27,8 @@ REPO = Path(__file__).resolve().parent.parent
 # as port code too: ranks never import JAX.
 PORT_FILES = sorted((REPO / "tony_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "flash_bwd_study.py",
-    REPO / "dp_study.py", REPO / "tests" / "torch_ranks.py",
+    REPO / "dp_study.py", REPO / "attention_chain_study.py",
+    REPO / "tests" / "torch_ranks.py",
 ]
 
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,

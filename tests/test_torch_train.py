@@ -204,9 +204,15 @@ class TestForwardAndLoss:
             forward(tparams, toks, TransformerConfig(**{**TINY,
                                                         "n_experts": 3}),
                     mesh=_SpecMesh(ep=2))
-        # tp is ported for dense trunks (tests/test_torch_tp.py); sp, MoE
-        # x tp and a tp that does not divide the K/V heads are refused.
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        # tp and sp are ported for dense trunks (tests/test_torch_tp.py,
+        # tests/test_torch_sp.py); MoE x sp, MoE x tp, an sp block longer
+        # than max_seq allows and a tp that does not divide the K/V heads
+        # are refused.
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            forward(tparams, toks, TransformerConfig(**{**TINY,
+                                                        "n_experts": 4}),
+                    mesh=_SpecMesh(dp=2, sp=2))
+        with pytest.raises(ValueError, match="exceeds max_seq 32"):
             forward(tparams, toks, TransformerConfig(**TINY),
                     mesh=_SpecMesh(dp=2, sp=2))
         with pytest.raises(NotImplementedError, match="item 11b"):
@@ -310,9 +316,16 @@ class TestTrainStep:
 
     def test_refuses_mesh_pipeline_plan(self):
         cfg = TransformerConfig(**TINY)
-        for axes in ({"dp": 2, "sp": 2}, {"pp": 2}, {"sp": 2, "tp": 2}):
-            with pytest.raises(NotImplementedError, match="slice 4"):
-                make_train_step(cfg, _SpecMesh(**axes), device="cpu")
+        # sp is ported for dense trunks (tests/test_torch_sp.py); pp and
+        # MoE x sp are not.
+        for axes in ({"dp": 2, "sp": 2}, {"sp": 2, "tp": 2}):
+            make_train_step(cfg, _SpecMesh(**axes), device="cpu")
+            with pytest.raises(NotImplementedError, match="item 12b"):
+                make_train_step(TransformerConfig(**{**TINY,
+                                                     "n_experts": 4}),
+                                _SpecMesh(**axes), device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            make_train_step(cfg, _SpecMesh(pp=2), device="cpu")
         # tp is ported for dense trunks whose heads, K/V heads, d_ff and
         # vocab it divides (tests/test_torch_tp.py); MoE x tp is not.
         with pytest.raises(NotImplementedError, match="item 11b"):
@@ -402,9 +415,15 @@ class TestTrainStep:
         refused = results[0]["refused"]
         assert refused["no_mesh"].startswith("ValueError") and \
             "build_job_mesh" in refused["no_mesh"]
-        for key in ("sp_mesh", "sp_forward"):
-            assert refused[key].startswith("NotImplementedError") and \
-                "slice 4" in refused[key], key
+        # The dense trunk over sp is taken; MoE x sp, a sequence longer
+        # than max_seq over sp (2 x 17 positions) and pp are refused.
+        assert refused["sp_dense"] == ""
+        assert refused["sp_mesh"].startswith("NotImplementedError") and \
+            "item 12b" in refused["sp_mesh"]
+        assert refused["sp_forward"].startswith("ValueError") and \
+            "exceeds max_seq 32" in refused["sp_forward"]
+        assert refused["pp_mesh"].startswith("NotImplementedError") and \
+            "slice 4" in refused["pp_mesh"]
         assert "gathered parameters" in refused["pieces_forward"]
         assert "batch shard 0 of 2" in refused["wrong_shard"]
         for rank in range(2):

@@ -227,9 +227,11 @@ def prog_collectives(rank, world, store, outdir, args):
 def prog_train_dp(rank, world, store, outdir, args):
     """make_train_step over a dp=2 mesh from the weights of ``args[0]`` on
     the global batches of ``args[1]`` (this rank feeds its half): the
-    losses and the gathered final state. Then the refusals, and
-    sharded_batches(mesh=) over this rank's shard of the token file
-    ``args[2]``."""
+    losses and the gathered final state. Then the refusals (and that a
+    dense trunk over sp is taken), and sharded_batches(mesh=) over this
+    rank's shard of the token file ``args[2]``."""
+    import dataclasses
+
     import numpy as np
 
     from tony_tpu_torch.interop import train_state_placements
@@ -251,11 +253,14 @@ def prog_train_dp(rank, world, store, outdir, args):
         state, metrics = step_fn(state, tokens[rank * half:(rank + 1) * half])
         assert set(metrics) == {"loss", "cross_entropy"}
         losses.append(float(metrics["loss"]))
-    sp = _mesh(sp=2)
+    sp, pp = _mesh(sp=2), _mesh(pp=2)
+    moe = dataclasses.replace(cfg, n_experts=4)
     refused = {
         "no_mesh": _refusal(lambda: make_train_step(cfg, device="cpu")),
-        "sp_mesh": _refusal(lambda: make_train_step(cfg, sp, device="cpu")),
+        "sp_mesh": _refusal(lambda: make_train_step(moe, sp, device="cpu")),
+        "sp_dense": _refusal(lambda: make_train_step(cfg, sp, device="cpu")),
         "sp_forward": _refusal(lambda: forward(params, batches[0], cfg, sp)),
+        "pp_mesh": _refusal(lambda: make_train_step(cfg, pp, device="cpu")),
         "pieces_forward": _refusal(lambda: forward(state.params, batches[0],
                                                    cfg, mesh)),
     }
@@ -479,7 +484,7 @@ def prog_train_tp(rank, world, store, outdir, args):
     tp=2 mesh and over a dp=2 mesh of the same ranks: greedy tokens, the
     pieces of qkv/gate_up and the cache shape; the session without a mesh;
     a temperature draw from a generator seeded by rank. (4) The
-    refusals."""
+    refusals (MoE over tp and over sp, pp)."""
     import dataclasses
 
     import numpy as np
@@ -573,9 +578,9 @@ def prog_train_tp(rank, world, store, outdir, args):
                                                      device="cpu")),
         "kv_decode": _refusal(lambda: DecodeSession(params, kv1, "cpu",
                                                     mesh=mesh)),
-        "sp_train": _refusal(lambda: make_train_step(cfg, sp, device="cpu")),
+        "sp_train": _refusal(lambda: make_train_step(moe, sp, device="cpu")),
         "pp_forward": _refusal(lambda: forward(params, batches[0], cfg, pp)),
-        "sp_decode": _refusal(lambda: DecodeSession(params, cfg, "cpu",
+        "sp_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
                                                     mesh=sp)),
         "pp_decode": _refusal(lambda: DecodeSession(params, cfg, "cpu",
                                                     mesh=pp)),
@@ -634,6 +639,203 @@ def prog_tp_dp(rank, world, store, outdir, args):
         int(state.step), state, blocking=True)
     arrays.update({f"saved/{k}": v for k, v in
                    _gathered(state, mesh).items()})
+    return result, arrays
+
+
+def prog_ring(rank, world, store, outdir, args):
+    """ring_attention over an sp=2 mesh (real ppermute over gloo) on the
+    cases of the npz ``args[0]`` (``<case>/q``, ``k``, ``v``, ``g`` whole
+    over the sequence, ``<case>/causal``): this rank's blocks of the output
+    and of dq, dk and dv for the cotangent ``g``, under ``<case>/``; the
+    send/recv batches each case issued."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.parallel import ring_attention
+
+    _join(rank, world, store)
+    mesh = _mesh(sp=world)
+    calls = _count_p2p()
+    arrays, batches = {}, {}
+    with np.load(args[0]) as data:
+        cases = sorted({k.split("/")[0] for k in data.files})
+        for case in cases:
+            whole = {n: torch.from_numpy(data[f"{case}/{n}"])
+                     for n in ("q", "k", "v", "g")}
+            t_q = whole["q"].shape[1] // world
+            t_k = whole["k"].shape[1] // world
+            mine = {n: (x[:, rank * t_q:(rank + 1) * t_q] if n in "qg"
+                        else x[:, rank * t_k:(rank + 1) * t_k])
+                    .clone().requires_grad_(n != "g")
+                    for n, x in whole.items()}
+            calls["n"] = 0
+            out = ring_attention(mine["q"], mine["k"], mine["v"], mesh,
+                                 causal=bool(data[f"{case}/causal"]))
+            out.backward(mine["g"])
+            batches[case] = calls["n"]
+            arrays[f"{case}/out"] = out.detach().numpy()
+            for n in "qkv":
+                arrays[f"{case}/d{n}"] = mine[n].grad.numpy()
+    return {"batches": batches}, arrays
+
+
+def _count_p2p():
+    """Count dist.batch_isend_irecv calls (the ring's rotations) into the
+    returned dict's "n"."""
+    import torch.distributed as dist
+
+    calls = {"n": 0}
+    real = dist.batch_isend_irecv
+
+    def counted(ops):
+        calls["n"] += 1
+        return real(ops)
+
+    dist.batch_isend_irecv = counted
+    return calls
+
+
+def prog_train_sp(rank, world, store, outdir, args):
+    """The dense trunk over an sp=2 mesh, both ranks fed the same rows
+    (each keeps its block of the shifted sequence). ``args``: the weights
+    npz, the global batches npy [3, B, T+1], grad_clip, the JAX checkpoint
+    dir, the port's checkpoint dir, the decode prompt npy.
+
+    (1) 3 steps at remat none, "full" and "dots" from the same weights:
+    each step's metrics, and the first step's clipped gradients under
+    ``<remat>/``; the ring's send/recv batches of the first step. (2) A
+    fresh sp=2 state restores the JAX checkpoint (gathered under
+    ``restored/``), takes one step, saves under the port's dir (under
+    ``saved/``) and restores that save into a fresh state bit for bit.
+    (3) DecodeSession(mesh=) over the sp=2 mesh: greedy tokens. (4) The
+    refusals: MoE x sp (train and decode), pp, an sp that does not divide
+    the sequence."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import (train_state_placements,
+                                        train_state_to_numpy)
+    from tony_tpu_torch.models import DecodeSession, make_train_step
+
+    _join(rank, world, store)
+    mesh = _mesh(sp=2)
+    calls = _count_p2p()
+    batches = np.load(args[1])
+    clip = float(args[2])
+    cfg, params = _params(args[0])
+    result, arrays = {"metrics": {}, "p2p_first_step": {}}, {}
+    for tag, kw in (("none", {}), ("full", dict(remat=True)),
+                    ("dots", dict(remat=True, remat_policy="dots"))):
+        init_fn, step_fn = make_train_step(
+            dataclasses.replace(cfg, **kw), mesh, device="cpu",
+            learning_rate=1e-3, grad_clip=clip)
+        state = init_fn(params=params)
+        result["metrics"][tag] = []
+        for i, tokens in enumerate(batches):
+            calls["n"] = 0
+            state, metrics = step_fn(state, tokens)
+            result["metrics"][tag].append(
+                {k: float(v) for k, v in metrics.items()})
+            if i == 0:
+                result["p2p_first_step"][tag] = calls["n"]
+                arrays.update({f"{tag}/{k}": v for k, v in
+                               _gathered_grads(state, mesh).items()})
+    result["split"] = {path: list(pl.spec) for path, pl in
+                       train_state_placements(state).items() if pl.sharded}
+
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3, grad_clip=clip)
+    state = init_fn(params=params)
+    assert CheckpointManager(args[3], process_id=rank,
+                             num_processes=2).restore(state) is state
+    arrays.update({f"restored/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    state, _ = step_fn(state, batches[2])
+    mgr = CheckpointManager(args[4], process_id=rank, num_processes=2)
+    mgr.save(int(state.step), state, blocking=True)
+    arrays.update({f"saved/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    dist.barrier()
+    fresh = init_fn(0)
+    assert mgr.restore(fresh) is fresh
+    a, b = train_state_to_numpy(state), train_state_to_numpy(fresh)
+    result["round_trip_equal"] = all(np.array_equal(a[k], b[k]) for k in a)
+    result["step"] = int(state.step)
+
+    arrays["decode/sp"] = DecodeSession(params, cfg, device="cpu",
+                                        mesh=mesh).generate(
+        np.load(args[5]), 6).numpy()
+
+    moe = dataclasses.replace(cfg, n_experts=4)
+    pp = _mesh(pp=2)
+    result["refused"] = {
+        "moe_train": _refusal(lambda: make_train_step(moe, mesh,
+                                                      device="cpu")),
+        "moe_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
+                                                     mesh=mesh)),
+        "pp_train": _refusal(lambda: make_train_step(cfg, pp, device="cpu")),
+        "odd_sequence": _refusal(lambda: step_fn(state, batches[0][:, :16])),
+    }
+    return result, arrays
+
+
+def _mesh_steps(mesh, args, batches, tag: str, arrays: dict) -> list:
+    """The steps of make_train_step(cfg, mesh) on ``batches`` from the
+    weights ``args[0]`` with grad_clip ``args[2]``: each step's metrics,
+    and its clipped gradients, gathered, under ``<tag>/step<i>/``."""
+    from tony_tpu_torch.models import make_train_step
+
+    cfg, params = _params(args[0])
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3,
+                                       grad_clip=float(args[2]))
+    state = init_fn(params=params)
+    metrics_out = []
+    for i, tokens in enumerate(batches):
+        state, metrics = step_fn(state, tokens)
+        metrics_out.append({k: float(v) for k, v in metrics.items()})
+        arrays.update({f"{tag}/step{i}/{k}": v for k, v in
+                       _gathered_grads(state, mesh).items()})
+    return metrics_out
+
+
+def prog_sp_mesh(rank, world, store, outdir, args):
+    """The dense trunk over sp=2 x tp=2 (every rank fed the whole batch)
+    and over dp=2 x sp=2 (each dp row its half) on four ranks. ``args``:
+    the weights npz, the global batches npy, grad_clip, the decode prompt
+    npy. Each mesh's step metrics and clipped gradients, gathered, under
+    ``<mesh>/step<i>/``; the rank lists of the data-axes group of each
+    mesh; DecodeSession(mesh=) greedy tokens over sp=2 x tp=2."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tony_tpu_torch.models import DecodeSession
+    from tony_tpu_torch.parallel.collectives import axis_group
+    from tony_tpu_torch.parallel.mesh import (DATA_AXES, axis_coordinate,
+                                              axis_size)
+
+    _join(rank, world, store)
+    batches = np.load(args[1])
+    result, arrays = {"metrics": {}, "data_group": {}}, {}
+    for tag, axes in (("sp_tp", dict(sp=2, tp=2)), ("dp_sp", dict(dp=2,
+                                                                  sp=2))):
+        mesh = _mesh(**axes)
+        result["data_group"][tag] = dist.get_process_group_ranks(
+            axis_group(mesh, DATA_AXES)[0])
+        rows = axis_size(mesh, "dp")
+        per_row = batches.shape[1] // rows
+        row = axis_coordinate(mesh, "dp") if rows > 1 else 0
+        result["metrics"][tag] = _mesh_steps(
+            mesh, args, batches[:, row * per_row:(row + 1) * per_row], tag,
+            arrays)
+        if tag == "sp_tp":
+            cfg, params = _params(args[0])
+            arrays["decode"] = DecodeSession(params, cfg, device="cpu",
+                                             mesh=mesh).generate(
+                np.load(args[3]), 6).numpy()
     return result, arrays
 
 

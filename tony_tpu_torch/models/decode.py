@@ -30,8 +30,8 @@ Neither drops a token: capacity is a training trade, not a serving one.
 Both route with training's ``_route_tokens`` from an fp32 router.
 
 Sharded sessions (``DecodeSession(mesh=)``, dense trunks; an MoE trunk
-on a mesh whose tp and ep are 1) serve one model from the ranks of a mesh,
-the port's counterpart of the JAX package's ``decode_param_specs`` and
+on a mesh whose tp, ep and sp are 1) serve one model from the ranks of a
+mesh, the port's counterpart of the JAX package's ``decode_param_specs`` and
 ``_cache_spec``, with explicit collectives. Each rank keeps its tp block of
 every part of the fused layout (``shard_decode_weights``: its q, k and v
 heads of ``qkv``, its gate and up columns of ``gate_up``, its head rows of
@@ -40,7 +40,10 @@ and ``embed`` whole) and a cache [L, B/dp, Tmax, Hkv/tp, Dh] of its batch
 rows over dp and its K/V heads. Each layer sums the ``wo`` and ``w_down``
 partial products over tp; the last position's logits are gathered over tp
 (vocab) and dp (batch rows), so every rank samples the whole batch from the
-same numbers and ``generate`` returns the whole batch on every rank.
+same numbers and ``generate`` returns the whole batch on every rank. The
+session is replicated over sp (no spec of the JAX package's
+``decode_param_specs`` names it): the sp ranks of a dp row and tp block
+compute the same tokens.
 """
 
 from __future__ import annotations
@@ -138,7 +141,7 @@ def shard_decode_weights(params: dict, cfg: TransformerConfig,
 def check_decode_mesh(mesh, cfg: TransformerConfig) -> None:
     """Refuse what a sharded session cannot serve: anything but a
     ``DeviceMesh`` (``parallel.build_mesh``), the meshes training refuses
-    (``check_mesh``: sp, pp, MoE x tp, a tp that does not divide the
+    (``check_mesh``: pp, MoE x tp, MoE x sp, a tp that does not divide the
     heads, K/V heads, d_ff or vocab), and an MoE trunk over ep."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"DecodeSession(mesh=) takes a DeviceMesh from "

@@ -3,7 +3,7 @@ global-norm clipping and AdamW, as the JAX package's ``make_train_step``
 composes them (``optax.chain(clip_by_global_norm, adamw)``), on one device
 or data-parallel over a mesh of processes.
 
-With a mesh (``parallel.build_mesh``; dp, ep and tp, the other axes 1),
+With a mesh (``parallel.build_mesh``; dp, ep, sp and tp, pp at 1),
 each rank keeps plain local tensors, placed as the JAX package's
 ``_sharding_for_tree`` places its state: a leaf whose role names
 ``embed_fsdp`` is split over dp along that dimension where dp divides it,
@@ -14,16 +14,18 @@ step gathers the dp-split dimensions for the forward (all_gather; the
 backward reduce-scatters their gradients); the tp blocks and the expert
 dimension of the expert FFN weights stay local (the trunk's tp collectives
 and the MoE layer's all_to_all work on them as they lie). Each gradient is
-then made the global batch's mean: summed over the data axes (dp, ep) it
-is not split over and divided by the data-parallel size
-(``_reduce_and_clip``); a tp block's gradient is its own, and a leaf
-replicated over tp has the same gradient on every tp rank. The clip takes
-the global norm (each block's squared norm summed over the axes its leaf is
-split over, tp included, so each block counts once) and AdamW runs on the
-local pieces. Each rank feeds its own ``[B_local, T+1]`` slice of the
-global batch (split over dp x ep; the tp ranks of one slice feed the same
-rows); the loss is the mean over the global batch, its cross-entropy the
-vocab-parallel one.
+then made the global batch's mean: summed over the data axes (dp, ep, sp)
+it is not split over and divided by their size (``_reduce_and_clip``); a
+tp block's gradient is its own, and a leaf replicated over tp has the same
+gradient on every tp rank. The clip takes the global norm (each block's
+squared norm summed over the axes its leaf is split over, tp included, so
+each block counts once) and AdamW runs on the local pieces. Each rank feeds its own ``[B_local, T+1]`` slice of the
+global batch (split over dp x ep; the sp and tp ranks of one slice feed
+the same rows). Over sp, each rank shifts the rows into inputs and labels
+and keeps its block of T/sp positions of both, as JAX's shift re-shards
+the tokens onto sp; the rank's loss is its block's mean, and since the
+blocks are equal the mean over the data axes is the global batch's mean.
+The cross-entropy is the vocab-parallel one.
 
 JAX donates the old state so the update happens in place in device memory;
 here the update IS in place: ``step_fn`` writes the new weights and moments
@@ -42,7 +44,6 @@ import torch.distributed as dist
 
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.transformer import (
-    DATA_AXES,
     EXPERT_LEAVES,
     TransformerConfig,
     check_mesh,
@@ -59,7 +60,7 @@ from tony_tpu_torch.parallel.collectives import (
     axis_group,
     pmean_gradients,
 )
-from tony_tpu_torch.parallel.mesh import axis_size
+from tony_tpu_torch.parallel.mesh import DATA_AXES, axis_coordinate, axis_size
 from tony_tpu_torch.parallel.sharding import shard_pytree
 
 
@@ -79,9 +80,18 @@ def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
     config has experts. tokens: [B, T+1] int. With ``return_metrics``
     returns ``(total, {"cross_entropy": ce, **router aux})``. With a mesh
     the logits are split over the vocab and the cross-entropy is
-    ``vocab_parallel_cross_entropy``."""
+    ``vocab_parallel_cross_entropy``; over sp, the inputs and labels are
+    this rank's block of the shifted sequence and the loss is its mean."""
     tokens = tokens.to(params["embed"].device)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    sp = 1 if mesh is None else axis_size(mesh, "sp")
+    if sp > 1:
+        t = inputs.shape[1]
+        if t % sp:
+            raise ValueError(f"sp {sp} must divide the sequence length {t}")
+        start = axis_coordinate(mesh, "sp") * (t // sp)
+        inputs = inputs[:, start:start + t // sp]
+        labels = labels[:, start:start + t // sp]
     logits, aux = forward(params, inputs, cfg, mesh, return_aux=True)
     ce = (softmax_cross_entropy(logits, labels) if mesh is None
           else vocab_parallel_cross_entropy(logits, labels, mesh))
@@ -175,8 +185,8 @@ def make_train_step(
     are "loss" and "cross_entropy", and for an MoE config the layer means of
     "moe_balance", "moe_zloss", "moe_drop_rate" and "moe_entropy".
     With a mesh, ``tokens`` is this rank's slice of the global batch (the
-    same slice on every tp rank of a dp row) and the metrics are means over
-    the global batch. The optimizer is optax's:
+    same slice on every sp and tp rank of a dp row) and the metrics are
+    means over the global batch. The optimizer is optax's:
     global-norm clipping at ``grad_clip``, then AdamW with b1 0.9, b2
     0.999, eps 1e-8, decoupled weight decay on every parameter
     (``torch.optim.AdamW`` computes that update).
@@ -225,7 +235,7 @@ def make_train_step(
         else:
             _reduce_and_clip(grads, leaves(state.placements), mesh,
                              grad_clip)
-            pmean_gradients(list(metrics.values()), mesh)
+            pmean_gradients(list(metrics.values()), mesh, DATA_AXES)
         opt.step()
         return (TrainState(state.step + 1, state.params, opt,
                            state.placements), metrics)
@@ -268,9 +278,13 @@ def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
     is split over (a gathered dimension's reduce-scatter sums over dp; an
     expert leaf holds its ep peers' tokens' sum, which the all_to_all
     brought back) and is this rank's own over the others: a leaf
-    replicated over the data axes has its gradient averaged over dp x ep, a
-    split one's is summed over the data axes above 1 it is not split over,
-    and each is divided so that it is the mean over the global batch. tp
+    replicated over the data axes has its gradient averaged over dp x ep x
+    sp, a split one's is summed over the data axes above 1 it is not split
+    over (sp after a dp reduce-scatter), and each is divided so that it is
+    the mean over the global batch. Over sp a rank's gradient is that of
+    the sum of the ranks' block losses through its own activations (the
+    ring's backward sends each block's dk/dv back to its owner), so the
+    mean over sp is the gradient of the mean loss. tp
     takes no part in the mean: a tp block's gradient is its block's, and a
     leaf replicated over tp gets the same gradient on every tp rank
     (``copy_to_tp`` sums the cotangent over tp before the norms' backward).

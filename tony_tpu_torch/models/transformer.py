@@ -12,10 +12,13 @@ final norm and the logits. With ``n_experts`` every layer's MLP is the
 capacity-based top-k MoE layer (``_moe_mlp``), which returns the router's
 auxiliary losses beside its output.
 
-On a mesh (dp, ep and tp; sp and pp wait for later slices of the port) the
+On a mesh (dp, ep, sp and tp; pp waits for a later slice of the port) the
 forward takes the parameters gathered over dp, except the expert FFN
 weights, of which each rank holds its E/ep experts, and the tp-split
-leaves, of which each rank holds its tp block. The MoE layer then runs the
+leaves, of which each rank holds its tp block. Over sp each rank holds a
+block of the sequence: RoPE takes the block's global positions, and the
+attention is the ring (``parallel.ring``), whose K/V blocks travel over the
+sp axis. The MoE layer then runs the
 JAX package's manual form (``_moe_mlp_manual``), routing the rank's own
 tokens with a local capacity and exchanging per-expert slabs over ep with
 one all_to_all each way. The dense trunk runs Megatron's split over tp,
@@ -52,7 +55,13 @@ from tony_tpu_torch.parallel.collectives import (
     pmean,
     reduce_from_tp,
 )
-from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size, mesh_spec
+from tony_tpu_torch.parallel.mesh import (
+    DATA_AXES,
+    axis_coordinate,
+    axis_size,
+    mesh_spec,
+)
+from tony_tpu_torch.parallel.ring import ring_attention
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -189,7 +198,10 @@ def param_roles(cfg: TransformerConfig) -> dict:
 def _attention(x, lp, cfg, cos, sin, mesh=None):
     """Pre-norm attention block. x: [b, t, d] in the compute dtype. The
     head counts are those of ``lp``: with a mesh, this rank's H/tp query
-    and Hkv/tp K/V heads, whose partial output is summed over tp."""
+    and Hkv/tp K/V heads, whose partial output is summed over tp. Over sp
+    above 1, x is this rank's block of t positions of the sequence: RoPE
+    rotates by their global positions and the ring attends over every
+    block (K/V at their Hkv heads)."""
     dt = cfg.compute_dtype
     b, t, d = x.shape
     h = rms_norm(x, lp["ln1"]).to(dt)
@@ -201,9 +213,18 @@ def _attention(x, lp, cfg, cos, sin, mesh=None):
                                                    cfg.head_dim)
     v = (h @ lp["wv"].to(dt).reshape(d, -1)).view(b, t, kv_heads,
                                                    cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    o = flash_attention(q, k, v, causal=True)
+    sp = 1 if mesh is None else axis_size(mesh, "sp")
+    positions = None
+    if sp > 1:
+        positions = (axis_coordinate(mesh, "sp") * t
+                     + torch.arange(t, device=x.device))
+    q = apply_rope(q, cos, sin, positions=positions)
+    k = apply_rope(k, cos, sin, positions=positions)
+    if sp > 1:
+        o = ring_attention(q, k, v, mesh, axis_name="sp", causal=True,
+                           scale=cfg.head_dim ** -0.5)
+    else:
+        o = flash_attention(q, k, v, causal=True)
     out = o.to(dt).reshape(b, t, -1) @ lp["wo"].to(dt).reshape(-1, d)
     return out if mesh is None else reduce_from_tp(out, mesh)
 
@@ -225,9 +246,6 @@ def _dense_mlp(x, lp, cfg, mesh=None):
 # The expert FFN leaves: on an ep mesh each rank keeps its E/ep experts of
 # these (the router is gathered whole: every rank routes over all E).
 EXPERT_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
-# The data axes the router statistics are averaged over (sp is 1 in the
-# port: the ring waits for a later slice).
-DATA_AXES = ("dp", "ep")
 
 
 def _route_tokens(hn, router, top_k: int):
@@ -300,6 +318,7 @@ def _moe_mlp(x, lp, cfg, mesh=None):
             1.0 - keep.float().mean()[None],
         ])
         if mesh is not None:
+            # Over dp x ep: sp is 1 under an MoE config (check_mesh).
             stats = pmean(stats, mesh, DATA_AXES)
         frac, mean_probs = stats[:e], stats[e:2 * e]
         aux = {
@@ -386,18 +405,23 @@ def _layer_slices(layers: dict, n_layers: int) -> list[dict]:
 
 
 def check_mesh(mesh, cfg: TransformerConfig) -> None:
-    """Refuse a mesh whose pp or sp axis is above 1 (dp, ep and tp are
-    ported), tp above 1 under an MoE config, a tp that does not divide the
-    heads, K/V heads, d_ff or vocab (the JAX GSPMD trunk would replicate
-    such a dimension; the manual split cannot), and an ep that does not
-    divide the config's experts."""
+    """Refuse a mesh whose pp axis is above 1 (dp, ep, sp and tp are
+    ported), tp or sp above 1 under an MoE config, a tp that does not
+    divide the heads, K/V heads, d_ff or vocab (the JAX GSPMD trunk would
+    replicate such a dimension; the manual split cannot), and an ep that
+    does not divide the config's experts. That sp divides the sequence is
+    checked where the sequence is known (``lm_loss``, ``forward``)."""
     spec = mesh_spec(mesh)
-    wide = {a: getattr(spec, a) for a in ("pp", "sp") if getattr(spec, a) > 1}
-    if wide:
+    if spec.pp > 1:
         raise NotImplementedError(
-            f"mesh axes {wide} wait for the model-parallel slice (slice 4) "
-            f"of the port; only dp, ep and tp may be above 1"
+            f"mesh axis pp {spec.pp} waits for the model-parallel slice "
+            f"(slice 4, ROADMAP item 13) of the port; only dp, ep, sp and "
+            f"tp may be above 1"
         )
+    if cfg.n_experts and spec.sp > 1:
+        raise NotImplementedError(
+            f"an MoE trunk over sp {spec.sp} waits for ROADMAP item 12b "
+            f"(MoE x sp) of the port")
     if spec.tp > 1:
         if cfg.n_experts:
             raise NotImplementedError(
@@ -450,10 +474,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     for the expert FFN weights, of which this rank holds its E/ep experts,
     and the tp-split leaves, of which it holds its tp block
     (``make_train_step`` gathers them so); ``tokens`` are this rank's slice
-    of the batch, the same on every tp rank, and the logits are this rank's
-    V/tp vocab columns."""
+    of the batch, the same on every tp rank, and over sp its block of the
+    sequence (rank i of sp holds positions [i * T, (i + 1) * T)); the
+    logits are this rank's V/tp vocab columns of those positions."""
     if mesh is not None:
         check_mesh(mesh, cfg)
+        seq = axis_size(mesh, "sp") * tokens.shape[1]
+        if seq > cfg.max_seq:
+            raise ValueError(
+                f"a sequence of {seq} positions (sp x {tokens.shape[1]}) "
+                f"exceeds max_seq {cfg.max_seq}")
         d_in = params["layers"]["wq"].shape[1]
         if d_in != cfg.d_model:
             raise ValueError(

@@ -1,5 +1,6 @@
 """Parallelism over ``torch.distributed``: the five-axis device mesh, the
-logical sharding rules, and the collectives over mesh axes."""
+logical sharding rules, the collectives over mesh axes, and ring attention
+over the sequence axis."""
 
 from tony_tpu_torch.parallel.collectives import (
     all_gather_tp,
@@ -8,6 +9,7 @@ from tony_tpu_torch.parallel.collectives import (
     exchange_ep,
     pmean,
     pmean_gradients,
+    ppermute,
     reduce_from_tp,
     reduce_scatter_tp,
     ring_halo_exchange,
@@ -18,6 +20,7 @@ from tony_tpu_torch.parallel.mesh import (
     axis_group_ranks,
     build_mesh,
 )
+from tony_tpu_torch.parallel.ring import ring_attention
 from tony_tpu_torch.parallel.sharding import (
     LOGICAL_RULES,
     Placement,
@@ -40,8 +43,10 @@ __all__ = [
     "logical_spec",
     "pmean",
     "pmean_gradients",
+    "ppermute",
     "reduce_from_tp",
     "reduce_scatter_tp",
+    "ring_attention",
     "ring_halo_exchange",
     "shard_pytree",
     "with_logical_constraint",

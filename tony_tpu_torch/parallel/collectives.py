@@ -19,6 +19,12 @@ forward, identity backward) on the partial sums of a row-parallel one. The
 JAX package's manual trunk writes the second as ``lax.psum(out, "tp")``;
 the first is the transpose JAX takes of an input it broadcasts over tp.
 These two, unlike the rest, are the identity at tp = 1.
+
+And the ring's rotation over sp, for ring attention: ``ppermute`` sends
+tensors to the next rank of an axis and receives them from the previous
+one (``lax.ppermute`` with the permutation i -> i + 1); its gradient is
+the reverse rotation of the cotangents, the transpose JAX takes. It too is
+the identity at axis size 1.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from tony_tpu_torch.parallel.mesh import AXES, DP_EP, axis_size
+from tony_tpu_torch.parallel.mesh import AXES, DATA_AXES, axis_size, flat_name
 
 # Gradients are averaged in flat buckets of about this many bytes, one
 # collective per bucket rather than one per leaf.
@@ -37,18 +43,19 @@ BUCKET_BYTES = 25 * 2 ** 20
 
 def axis_group(mesh, axis_names) -> tuple[Any, int]:
     """(process group, size) of mesh axes ``axis_names`` (one name or a
-    tuple) taken together. Axes of size 1 add nothing; dp and ep both above
-    1 take the mesh's flattened dp x ep dimension (``build_mesh``)."""
+    tuple) taken together. Axes of size 1 add nothing; two or more data
+    axes above 1 take the mesh dimension ``build_mesh`` flattened from
+    them."""
     names = (axis_names,) if isinstance(axis_names, str) else tuple(
         axis_names)
     wide = tuple(n for n in AXES if n in names and axis_size(mesh, n) > 1)
     if len(wide) > 1:
-        if wide != ("dp", "ep"):
+        if not set(wide) <= set(DATA_AXES):
             raise NotImplementedError(
-                f"a collective over mesh axes {wide} together waits for the "
-                f"model-parallel slices of the port")
+                f"a collective over mesh axes {wide} together: only the data "
+                f"axes {DATA_AXES} have flattened groups")
         # build_mesh flattened them: _flatten returns that mesh again.
-        group = mesh["dp", "ep"]._flatten(DP_EP).get_group()
+        group = mesh[wide]._flatten(flat_name(wide)).get_group()
         return group, axis_size(mesh, wide)
     name = wide[0] if wide else names[0]
     return mesh.get_group(name), axis_size(mesh, name)
@@ -157,6 +164,54 @@ def ring_halo_exchange(x: torch.Tensor, axis_name: str, halo: int,
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return from_prev, from_next
+
+
+def _rotate(tensors, group, n: int, shift: int) -> list[torch.Tensor]:
+    """Send each of ``tensors`` to the rank ``shift`` places on along the
+    ring of ``group`` and receive its peer from the rank ``shift`` places
+    back: one batch of P2P calls, in the same order on every rank. NCCL
+    matches a pair's calls in order and ignores the tags; with two ranks
+    the previous rank is the next one, and the order keeps the tensors
+    apart."""
+    ranks = dist.get_process_group_ranks(group)
+    me = ranks.index(dist.get_rank())
+    to, frm = ranks[(me + shift) % n], ranks[(me - shift) % n]
+    sends = [t.contiguous() for t in tensors]
+    recvs = [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for t in sends]
+    ops = []
+    for tag, (send, recv) in enumerate(zip(sends, recvs)):
+        ops += [dist.P2POp(dist.isend, send, to, group, tag=tag),
+                dist.P2POp(dist.irecv, recv, frm, group, tag=tag)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recvs
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, n, *tensors):
+        ctx.args = (group, n)
+        return tuple(_rotate(tensors, group, n, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # A received tensor's cotangent goes back to the rank that sent it;
+        # an unused one is zeros (materialized), so every rank of the ring
+        # sends and receives in every backward.
+        return (None, None, *_rotate(grads, *ctx.args, -1))
+
+
+def ppermute(tensors, axis_name: str = "sp", *, mesh) -> tuple:
+    """Rotate ``tensors`` (a sequence of tensors) one rank on along the
+    ring of mesh axis ``axis_name``: each rank gets what the previous rank
+    held (``lax.ppermute`` with i -> i + 1), as a tuple of contiguous
+    tensors. Differentiable: the gradient is the reverse rotation. The
+    identity at axis size 1."""
+    group, n = axis_group(mesh, axis_name)
+    if n == 1:
+        return tuple(tensors)
+    return _Ppermute.apply(group, n, *tensors)
 
 
 class _GatherScatter(torch.autograd.Function):

@@ -15,15 +15,18 @@ Ranks are laid out in C order over ``AXES``, so tp is innermost (adjacent
 ranks, the same host's NVLink) and dp outermost (the only axis that may cross
 hosts). On GPUs one node is one slice.
 
-A collective over two axes at once needs a group of its own: where dp and
-ep are both above 1, ``build_mesh`` flattens the two into one more mesh
-dimension, ``"dp_ep"`` (``axis_group_ranks`` lists its groups' ranks from
-the ``MeshSpec`` alone), which the MoE layer's router statistics and the
-replicated leaves' gradient mean use.
+A collective over two or more axes at once needs a group of its own: for
+each set of the data axes (dp, ep, sp) with two or more axes above 1,
+``build_mesh`` flattens them into one more mesh dimension named by the
+axes joined with ``_`` (``"dp_ep"``, ``"dp_sp"``, ``"dp_ep_sp"``, ...;
+``axis_group_ranks`` lists its groups' ranks from the ``MeshSpec`` alone).
+The gradient mean of the train step runs over the data axes, and the MoE
+layer's router statistics over dp x ep.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from datetime import timedelta
@@ -35,8 +38,9 @@ from tony_tpu_torch.device import resolve_device
 
 # Canonical axis order, outermost (across hosts) to innermost (NVLink-hot).
 AXES = ("dp", "pp", "ep", "sp", "tp")
-# The one axis product a collective spans: the data axes of an MoE trunk.
-DP_EP = "dp_ep"
+# The data axes: a batch or sequence split over them leaves each rank its
+# own tokens, and the gradients are averaged over all of them.
+DATA_AXES = ("dp", "ep", "sp")
 
 
 @dataclass(frozen=True)
@@ -198,9 +202,20 @@ def build_mesh(
 
     mesh = init_device_mesh(dev.type, spec.shape, mesh_dim_names=AXES,
                             backend_override={n: options() for n in AXES})
-    if spec.dp > 1 and spec.ep > 1:
-        mesh["dp", "ep"]._flatten(DP_EP, backend_override=options())
+    # Every rank creates the same groups in the same order (_flatten makes
+    # process groups).
+    wide = [a for a in DATA_AXES if getattr(spec, a) > 1]
+    for n in range(2, len(wide) + 1):
+        for names in itertools.combinations(wide, n):
+            mesh[names]._flatten(flat_name(names),
+                                 backend_override=options())
     return mesh
+
+
+def flat_name(names) -> str:
+    """The name of the mesh dimension ``build_mesh`` flattens from data
+    axes ``names`` (in ``AXES`` order)."""
+    return "_".join(names)
 
 
 def axis_group_ranks(spec: MeshSpec, names) -> list[list[int]]:
