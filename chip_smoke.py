@@ -90,6 +90,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
              sp=1 the trunk does not reach the ring's NCCL rotation, the
              loss's sequence slice or the RoPE offset: dp_study.py --sp on
              several cards runs those.
+9d. pp     — pipeline parallelism on one card. The schedules: the
+             pipelined trunk with every stage in one process
+             (pipeline_apply_in_process: each tick runs every stage, then
+             a list shift hands stage s's output to stage s + 1) at
+             bench_transformer's full width over 8 microbatches of
+             [8, 2049], under pp 2 and 4 GPipe and pp 4 interleaved with
+             2 virtual stages: loss and every gradient leaf against the
+             mesh=None step on the same batch in bf16 (PP_BF16_LOSS_RTOL,
+             PP_BF16_GRAD_TOL), every B1 and B2/B3 launch of the schedule
+             held against its plain version on the same inputs, and the
+             launch count a schedule's ticks give; the same in fp32 (TF32
+             off) at train parity's widths and 8 layers, within
+             TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL. The trunk: MeshSpec(pp=1)
+             on a one-rank NCCL group through make_train_step(...,
+             pipeline_microbatches=...) and pipeline_apply: fp32 parity at
+             each remat setting against mesh=None, and the bf16
+             bench_transformer step beside mesh=None's. pp above 1 over
+             NCCL runs in dp_study.py --pp on several cards.
 10. job    — the train CLI as a job runs it, at bench_transformer's full
              width: a uint16 .tokens corpus of 32 records x 2049 tokens
              from --seed (4 batches, one epoch = 4 steps) read through
@@ -130,7 +148,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 The launch counters are set to 0 just before each path (phases 3-4, the
 serving path; phase 7, the training path; phase 9, the data-parallel
 path; phase 9b's mesh runs, the tp path; phase 9c's rings and mesh
-runs, the sp path; phase 10's jobs and serving, the
+runs, the sp path; phase 9d's schedules and mesh runs, the pp path;
+phase 10's jobs and serving, the
 job path; phase 11, the MoE train path; phase 13's bf16 generate and
 engine, the MoE serving path) and read just after; every kernel of a path must have launched there. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
@@ -219,6 +238,22 @@ SP_FP32_ATTN = dict(b=1, t=2048, h=8, d=128)
 SP_RINGS = (2, 4)
 SP_KV_HEADS = (8, 2)
 SP_FP32_TOL = 1e-5
+# pp phase: the pipelined trunk with every stage in one process
+# (pipeline_apply_in_process) at bench_transformer's full width over
+# PP_MICROBATCHES microbatches of [8, 2049], under each (stages, schedule,
+# virtual stages) of PP_SCHEDULES, against the mesh=None step on the same
+# batch. In bf16 the pipeline rounds each microbatch's products and its
+# weight gradients to bf16 on their own (8 partial sums in fp32 where
+# mesh=None rounds one): the loss within PP_BF16_LOSS_RTOL and every
+# gradient leaf within PP_BF16_GRAD_TOL of its largest |value| (bf16's
+# relative step is 2^-8 = 3.9e-3). In fp32 (TF32 off) at train parity's
+# widths (8 layers) the same math in another order: within TRAIN_LOSS_RTOL
+# and TRAIN_GRAD_TOL. MeshSpec(pp=1)'s parity runs PARITY_TRAIN_BATCH
+# microbatches (one row each).
+PP_MICROBATCHES = 8
+PP_SCHEDULES = ((2, "gpipe", 1), (4, "gpipe", 1), (4, "interleaved", 2))
+PP_BF16_LOSS_RTOL = 1e-2
+PP_BF16_GRAD_TOL = 5e-2
 
 # Job phase: bench_transformer's widths through the train CLI, a corpus of
 # 4 batches (one epoch = 4 steps), job A straight to 8 steps with a
@@ -555,10 +590,15 @@ def time_rms_norm(torch, norms, gen, rows: int, w_dtype) -> dict:
 def row_error(diff, want) -> float:
     """The row error (see ROW_TOL) of ``diff`` = got - want, both
     [rows, head_dim] fp32: the worst ||diff_r|| / max(||want_r||,
-    ROW_FLOOR * the RMS row norm of ``want``)."""
+    ROW_FLOOR * the RMS row norm of ``want``). A ``want`` of zeros (a
+    pipeline's bubble tick on zero activations, a zero cotangent) takes
+    the smallest normal fp32 as its floor: an exact result reads 0, any
+    other fails."""
     w_norm = want.norm(dim=1)
     floor = ROW_FLOOR * w_norm.square().mean().sqrt()
-    return (diff.norm(dim=1) / w_norm.clamp(min=floor)).max().item()
+    tiny = float(np.finfo(np.float32).tiny)
+    return (diff.norm(dim=1) / w_norm.clamp(min=floor).clamp(min=tiny)
+            ).max().item()
 
 
 def fwd_errors(got, want) -> dict[str, float]:
@@ -1562,13 +1602,14 @@ def dp_phase(torch, attention, norms, seed: int) -> dict:
 # Phase 9b: the tensor-parallel path on a one-rank NCCL mesh
 # ---------------------------------------------------------------------------
 
-def _tp_parity_run(torch, cfg, params, batches, mesh) -> tuple:
-    """PARITY_TRAIN_STEPS steps of make_train_step(cfg, mesh) on the card
-    from ``params``: (losses, the first step's clipped gradients)."""
+def _tp_parity_run(torch, cfg, params, batches, mesh, **trunk) -> tuple:
+    """PARITY_TRAIN_STEPS steps of make_train_step(cfg, mesh, **trunk) on
+    the card from ``params``: (losses, the first step's clipped
+    gradients)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.models.train import leaves
 
-    init_fn, step_fn = make_train_step(cfg, mesh, device="cuda")
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cuda", **trunk)
     state = init_fn(params=params)
     losses, grads = [], None
     for toks in batches:
@@ -1598,15 +1639,17 @@ def _parity_references(torch, rng, seed: int) -> dict:
     return refs
 
 
-def _check_mesh_parity(torch, tag: str, refs: dict, mesh, seed: int) -> dict:
-    """The runs of ``refs`` (``_parity_references``) again over ``mesh``:
-    the losses within TRAIN_LOSS_RTOL and every first-step gradient within
-    TRAIN_GRAD_TOL of its leaf's largest. Returns {setting: {"losses",
-    "worst_grad_rel_err"}}."""
+def _check_mesh_parity(torch, tag: str, refs: dict, mesh, seed: int,
+                       **trunk) -> dict:
+    """The runs of ``refs`` (``_parity_references``) again over ``mesh``
+    (make_train_step's ``trunk`` arguments): the losses within
+    TRAIN_LOSS_RTOL and every first-step gradient within TRAIN_GRAD_TOL of
+    its leaf's largest. Returns {setting: {"losses", "worst_grad_rel_err",
+    "bit_equal"}}."""
     checked = {}
     for key, (pcfg, batches, (want_losses, want_grads)) in refs.items():
         losses, grads = _tp_parity_run(torch, pcfg, parity_params(
-            torch, pcfg, seed), batches, mesh)
+            torch, pcfg, seed), batches, mesh, **trunk)
         if not np.allclose(losses, want_losses, rtol=TRAIN_LOSS_RTOL,
                            atol=0):
             raise AssertionError(f"{tag} {key}: losses {losses} vs "
@@ -1619,7 +1662,10 @@ def _check_mesh_parity(torch, tag: str, refs: dict, mesh, seed: int) -> dict:
                 raise AssertionError(f"{tag} {key}: gradient leaf {i} err "
                                      f"{err} > {TRAIN_GRAD_TOL} * {scale}")
             worst = max(worst, err / scale if scale else err)
-        checked[key] = {"losses": losses, "worst_grad_rel_err": worst}
+        checked[key] = {"losses": losses, "worst_grad_rel_err": worst,
+                        "bit_equal": losses == want_losses and all(
+                            torch.equal(a, b)
+                            for a, b in zip(grads, want_grads))}
     return checked
 
 
@@ -2007,6 +2053,199 @@ def sp_phase(torch, attention, norms, seed: int) -> dict:
         f"mesh=None {res['plain_step_ms_median_before']:.3f} / "
         f"{res['plain_step_ms_median_after']:.3f} ms (before / after), on "
         f"{card_line()}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 9d: pipeline parallelism: the schedules in one process, the pp trunk
+# ---------------------------------------------------------------------------
+
+def _trunk_grads(torch, cfg, params: dict, tokens, **pipe) -> tuple:
+    """(loss, every leaf's gradient in ``leaves`` order) of lm_loss
+    without a mesh on fresh trainable copies of ``params``; with ``pipe``
+    (lm_loss's pipeline arguments and ``pipeline_stages``) through the
+    pipeline run in this process."""
+    from tony_tpu_torch.models import lm_loss
+    from tony_tpu_torch.models.train import leaves
+
+    def trainable(tree):
+        return {k: (trainable(v) if isinstance(v, dict) else
+                    v.detach().to("cuda", copy=True).requires_grad_())
+                for k, v in tree.items()}
+
+    params = trainable(params)
+    loss = lm_loss(params, tokens, cfg, None, **pipe)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), [p.grad for p in leaves(params)]
+
+
+def _compare_grads(tag: str, loss: float, grads: list, want: tuple,
+                   loss_rtol: float, grad_tol: float) -> dict:
+    """``loss`` within ``loss_rtol`` of ``want``'s and every leaf of
+    ``grads`` within ``grad_tol`` of its leaf's largest |value|."""
+    want_loss, want_grads = want
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(grads, want_grads)):
+        scale = b.abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        if not err <= grad_tol * scale:
+            raise AssertionError(f"pp {tag}: gradient leaf {i} err {err} > "
+                                 f"{grad_tol} * {scale}")
+        worst = max(worst, err / scale if scale else err)
+    if not loss_err <= loss_rtol:
+        raise AssertionError(f"pp {tag}: loss {loss} vs mesh=None "
+                             f"{want_loss} (rtol {loss_rtol})")
+    out = {"loss": loss, "want_loss": want_loss, "loss_rel_err": loss_err,
+           "worst_grad_rel_err": worst}
+    log(f"pp {tag}: {json.dumps(out)}: ok")
+    return out
+
+
+def pp_phase(torch, attention, norms, seed: int) -> dict:
+    """Pipeline parallelism on one card, in two parts.
+
+    The schedules: ``forward_pipeline`` with every stage run in this
+    process (``pipeline_apply_in_process``: each tick runs every stage,
+    then hands stage s's output to stage s + 1 by a list shift) drives
+    bench_transformer's full-width trunk over PP_MICROBATCHES microbatches
+    of [8, 2049] under each of PP_SCHEDULES (pp 2 and 4 GPipe, pp 4
+    interleaved with 2 virtual stages): the loss and every gradient leaf
+    against the mesh=None step's on the same batch and weights in bf16
+    (PP_BF16_LOSS_RTOL, PP_BF16_GRAD_TOL), and every B1 and B2/B3 launch
+    inside the schedule held against its plain version on the same inputs
+    (``_held_to_plain``); B1, B2 and B3 launch once a layer a computed
+    tick of every stage (the backward runs every tick, as across ranks).
+    Then in fp32 (TF32 off) at PARITY_TRAIN's widths and 8 layers over 8
+    rows: within TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL of mesh=None.
+
+    The trunk: ``MeshSpec(pp=1)`` on a one-rank NCCL group runs
+    ``make_train_step(..., pipeline_microbatches=...)`` through
+    ``pipeline_apply``'s own code (``ppermute`` and the masked sum over pp
+    the identity at pp = 1, ``select`` picking the injected microbatch):
+    fp32 parity against mesh=None at each remat setting, and
+    bench_transformer's bf16 step over PP_MICROBATCHES microbatches beside
+    mesh=None's, timed before and after. pp above 1 over NCCL (the sends
+    between ranks, the masked sum, the chunk exchange) runs only in
+    ``dp_study.py --pp`` on several cards.
+
+    The references (mesh=None, the plain versions) run outside the counted
+    window; the launch counters are set to 0 just before the schedules
+    run and read just after the mesh steps."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch.models import (TransformerConfig, init_params,
+                                       make_train_step)
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh, schedule_info
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 13)
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    params = init_params(cfg, gen, device="cuda")
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    want = _trunk_grads(torch, cfg, params, tokens)
+    # Train parity's widths at the full trunk's depth, which pp x virtual
+    # stages divide.
+    pcfg = TransformerConfig(dtype="float32", remat=False,
+                             **dict(PARITY_TRAIN, n_layers=cfg.n_layers))
+    pparams = parity_params(torch, pcfg, seed)
+    ptokens = torch.as_tensor(rng.integers(
+        0, pcfg.vocab_size, (PP_MICROBATCHES, pcfg.max_seq + 1)),
+        device="cuda")
+    pwant = _trunk_grads(torch, pcfg, pparams, ptokens)
+    parity = _parity_references(torch, rng, seed)
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    plain, before_ms, _, _ = timed_steps(torch, step_fn, init_fn(seed),
+                                         tokens)
+    del plain
+
+    _reset_launches(attention, norms)
+    schedules = {}
+    for stages, schedule, virtual in PP_SCHEDULES:
+        tag = f"pp {stages} {schedule} v {virtual}"
+        pipe = dict(pipeline_microbatches=PP_MICROBATCHES,
+                    pipeline_schedule=schedule, pipeline_virtual=virtual,
+                    pipeline_stages=stages)
+        info = schedule_info(schedule, PP_MICROBATCHES, stages,
+                             cfg.n_layers, virtual)
+        # Every stage computes every tick but the interleaved schedule's
+        # last (a record only), one B1 a layer of the tick.
+        computed = info.ticks - (schedule == "interleaved")
+        res = {"ticks": info.ticks, "bubble_fraction": info.bubble_fraction}
+        for dtype, model, inputs, ref, loss_rtol, grad_tol in (
+                ("bf16", cfg, (params, tokens), want, PP_BF16_LOSS_RTOL,
+                 PP_BF16_GRAD_TOL),
+                ("fp32", pcfg, (pparams, ptokens), pwant, TRAIN_LOSS_RTOL,
+                 TRAIN_GRAD_TOL)):
+            held = {}
+            fwd, dq, dkv = (attention.launches, attention.launches_dq,
+                            attention.launches_dkv)
+            with _held_to_plain(torch, attention, f"pp {tag} {dtype}", held):
+                loss, grads = _trunk_grads(torch, model, *inputs, **pipe)
+            n = computed * model.n_layers // virtual
+            got = (attention.launches - fwd, attention.launches_dq - dq,
+                   attention.launches_dkv - dkv)
+            if got != (n, n, n):
+                raise AssertionError(f"pp {tag} {dtype}: B1/B2/B3 launched "
+                                     f"{got} times, not {n} each")
+            log(f"pp {tag} {dtype}: each launch against its plain version: "
+                f"{json.dumps(held)}: ok")
+            res[dtype] = {"b1_launches": n, "launches_vs_plain": held,
+                          "vs_mesh_none": _compare_grads(
+                              f"{tag} {dtype}", loss, grads, ref, loss_rtol,
+                              grad_tol)}
+            del grads
+        schedules[tag] = res
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = build_mesh(MeshSpec(pp=1), "cuda", timeout_s=DP_TIMEOUT_S)
+        m_init, m_step = make_train_step(
+            cfg, mesh, device="cuda", pipeline_microbatches=PP_MICROBATCHES)
+        state, mesh_ms, mesh_peak, _ = timed_steps(torch, m_step,
+                                                   m_init(seed), tokens)
+        del state
+        checked = _check_mesh_parity(
+            torch, "pp", parity, mesh, seed,
+            pipeline_microbatches=PARITY_TRAIN_BATCH)
+        torch.cuda.synchronize()
+        launches = _launches(attention, norms)
+    finally:
+        dist.destroy_process_group()
+    plain, after_ms, _, _ = timed_steps(torch, step_fn, init_fn(seed),
+                                        tokens)
+    del plain
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the pp "
+                                 f"path")
+    res = {
+        "schedules": schedules,
+        "mesh": [1, 1, 1, 1, 1], "backend": "nccl", "parity": checked,
+        "step_microbatches": PP_MICROBATCHES,
+        "step_ms_median": float(np.median(mesh_ms)), "step_ms": mesh_ms,
+        "plain_step_ms_median_before": float(np.median(before_ms)),
+        "plain_step_ms_median_after": float(np.median(after_ms)),
+        "peak_memory_gb": mesh_peak / 1e9,
+        "launches": launches,
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    log("pp: " + json.dumps(res))
+    log(f"pp: MeshSpec(pp=1) step over {PP_MICROBATCHES} microbatches, "
+        f"median {res['step_ms_median']:.3f} ms beside mesh=None "
+        f"{res['plain_step_ms_median_before']:.3f} / "
+        f"{res['plain_step_ms_median_after']:.3f} ms (before / after), on "
+        f"{card_line()}; pp above 1 over NCCL runs only in dp_study.py "
+        f"--pp")
     return res
 
 
@@ -2795,6 +3034,11 @@ def main(argv=None) -> int:
     # after).
     sp = sp_phase(torch, attention, norms, args.seed)
     torch.cuda.empty_cache()
+    # Slice 4's pp path: the schedules with every stage in one process and
+    # the trunk over a one-rank NCCL mesh (it resets the counters itself
+    # and reads them just after).
+    pp = pp_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
 
     # Slice 5's path: jobs that read a file, checkpoint, resume and serve
     # (the counters are reset and read inside), then checkpoint and input
@@ -2830,6 +3074,7 @@ def main(argv=None) -> int:
             "dp": dp["launches"][row["name"]],
             "tp": tp["launches"][row["name"]],
             "sp": sp["launches"][row["name"]],
+            "pp": pp["launches"][row["name"]],
             "moe_train": moe_train["launches"][row["name"]],
             "moe_serve": moe_serve["launches"][row["name"]]}
 

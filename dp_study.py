@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Data-, tensor- and sequence-parallel training of tony_tpu_torch across
-the cards of one host.
+"""Data-, tensor-, sequence- and pipeline-parallel training of
+tony_tpu_torch across the cards of one host.
 
     python3 dp_study.py             # one rank on each card (at least 2)
     python3 dp_study.py --ranks 4
@@ -10,6 +10,11 @@ the cards of one host.
     python3 dp_study.py --ranks 2 --sp 2   # one [1, 16384] sequence over sp 2
     python3 dp_study.py --ranks 4 --sp 2 --tp 2        # MeshSpec.auto(4)
     python3 dp_study.py --ranks 4 --sp 4 --seq 65536   # [1, 65536] over sp 4
+    python3 dp_study.py --ranks 2 --pp 2   # GPipe over 8 microbatches
+    python3 dp_study.py --ranks 4 --pp 4 --schedule interleaved --virtual 2
+    python3 dp_study.py --ranks 4 --pp 2 --tp 2        # pp 2 x tp 2
+    python3 dp_study.py --ranks 4 --pp 2               # dp 2 x pp 2
+    python3 dp_study.py --ranks 2 --pp 2 --microbatches 0  # stack over pp
 
 Builds the kernels once, then starts one process per card, each in its own
 session, on cuda:<rank>: they meet at a TCP store on a free localhost port,
@@ -18,9 +23,13 @@ DP_TIMEOUT_S) and build the job mesh (dp = ranks, or with ``--ep E`` dp =
 ranks / E x ep = E over an MoE trunk, or with ``--tp T`` dp = ranks / T x
 tp = T over the dense trunk, Megatron-split, or with ``--sp S`` dp = ranks
 / (S x T) x sp = S x tp = T, each rank holding a block of the sequence and
-the attention a ring over sp); the parent waits on one deadline and kills
-and reaps every rank still alive. The ranks of one data row (its sp and tp
-ranks) feed the same rows. Each rank:
+the attention a ring over sp, or with ``--pp P`` dp = ranks / (P x T) x pp
+= P x tp = T, each rank holding L/P layers of the dense trunk and running
+them as a stage of ``--schedule`` over ``--microbatches`` microbatches, or
+with ``--microbatches 0`` the trunk whole on every pp rank with the layer
+stack gathered over pp); the parent waits on one deadline and kills and
+reaps every rank still alive. The ranks of one data row (its pp, sp and
+tp ranks) feed the same rows. Each rank:
 
 1. parity — fp32, TF32 off, chip_smoke's PARITY_TRAIN model (2 layers, d
    256, GQA 16/4, seq 256): 3 steps of make_train_step(cfg, mesh), each
@@ -33,7 +42,10 @@ ranks) feed the same rows. Each rank:
    failed check is raised after the rank has left the group, so its peers
    never wait on it. With ``--ep``: chip_smoke's MOE_PARITY model at
    capacity factor E, where nothing drops (each rank's capacity is local,
-   one process's global, so with drops the two keep other tokens).
+   one process's global, so with drops the two keep other tokens). With
+   ``--pp``: PARITY_TRAIN's widths at 8 layers (which pp x virtual stages
+   divide), 8 rows a data row, through the same trunk and schedule as the
+   step.
 2. step — bench_transformer (bf16, 199.8 M parameters) at chip_smoke's
    batch per rank, [8, 2049], so the global batch is 8 x ranks rows: the
    mesh step's median (10 after 2 warm-ups, CUDA events) beside the
@@ -51,9 +63,17 @@ ranks) feed the same rows. Each rank:
    the whole sequence, and an out-of-memory error there is recorded, not
    raised. The mesh step is profiled on rank 0 and on the last rank of the
    sp axis, whose causal rings differ: device ms of NCCL, of B1-B3 and of
-   the rest.
-3. decode (``--tp`` above 1 only) — chip_smoke's flagship serving model
-   (d 1024, 8 layers, GQA 16/4) through DecodeSession(mesh=): fp32 greedy
+   the rest. With ``--pp``: bench_transformer at [8, 2049] per data row,
+   every rank's step profiled: device ms of NCCL and of its SendRecv
+   kernels (the stage-to-stage sends), the busy share (device time outside
+   NCCL over the step median) beside ``schedule_info``'s bubble fraction,
+   and the ms of one send of a microbatch's activations between the pp
+   ranks (the shortest SendRecv kernel of sends made after a barrier),
+   from which the SendRecv time spent waiting for the peer is the
+   SendRecv ms less the sends times that.
+3. decode (``--tp`` above 1 without ``--pp`` only) — chip_smoke's
+   flagship serving model (d 1024, 8 layers, GQA 16/4) through
+   DecodeSession(mesh=): fp32 greedy
    tokens of batch 8 (prompt 32, 16 new) equal to the session without a
    mesh on rank 0's card alone; then bf16 at bench.py's decode shape
    (batch 8, prompt 128), the ms per token the wall difference of 512 and
@@ -91,6 +111,11 @@ DP_TIMEOUT_S = 60.0
 DEADLINE_S = 600.0
 PARITY_STEPS = 3
 PARITY_ROWS_PER_RANK = 2
+# --pp: the parity model at the step's depth (pp x virtual stages divide
+# 8 layers) and 8 rows a data row (the microbatches divide them).
+PP_PARITY_LAYERS, PP_PARITY_ROWS = 8, 8
+# --pp: sends of one microbatch's activations timed between ready ranks.
+P2P_REPEATS = 20
 # --sp: bench.py's transformer_16k_hd128 (bench_transformer's widths, 8
 # heads of 128, MHA, bf16, no remat) on one sequence a data row.
 SP_MODEL = dict(chip_smoke.BENCH_TRANSFORMER, n_heads=8, head_dim=128)
@@ -132,19 +157,35 @@ def _gathered(tensors: list, placements: list, mesh) -> list:
     return out
 
 
-def _parity_setup(torch, rows: int, seed: int, ep: int):
+def trunk(job: dict) -> dict:
+    """make_train_step's pipeline arguments of ``job`` (none without
+    --pp or with --microbatches 0)."""
+    if job["pp"] == 1 or not job["microbatches"]:
+        return {}
+    return dict(pipeline_microbatches=job["microbatches"],
+                pipeline_schedule=job["schedule"],
+                pipeline_virtual=job["virtual"])
+
+
+def parity_rows(job: dict) -> int:
+    return PP_PARITY_ROWS if job["pp"] > 1 else PARITY_ROWS_PER_RANK
+
+
+def _parity_setup(torch, rows: int, seed: int, job: dict):
     from tony_tpu_torch.models import TransformerConfig, init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = (chip_smoke.PARITY_TRAIN if ep == 1 else dict(
+    model = (chip_smoke.PARITY_TRAIN if job["ep"] == 1 else dict(
         chip_smoke.MOE_PARITY,
         capacity_factor=float(chip_smoke.MOE_PARITY["n_experts"])))
+    if job["pp"] > 1:
+        model = dict(model, n_layers=PP_PARITY_LAYERS)
     cfg = TransformerConfig(dtype="float32", remat=False, **model)
     params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
     rng = np.random.default_rng(seed + 4)
     batches = [torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (PARITY_ROWS_PER_RANK * rows, cfg.max_seq + 1)))
+        0, cfg.vocab_size, (parity_rows(job) * rows, cfg.max_seq + 1)))
         for _ in range(PARITY_STEPS)]
     return cfg, params, batches
 
@@ -163,13 +204,13 @@ def _run(torch, step_fn, state, batches) -> tuple:
 
 
 def parity_reference(torch, rows: int, device, seed: int,
-                     ep: int) -> dict:
+                     job: dict) -> dict:
     """The mesh=None step on the whole global batches of ``rows`` data
     rows (rank 0, before it joins the group)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.models.train import leaves
 
-    cfg, params, batches = _parity_setup(torch, rows, seed, ep)
+    cfg, params, batches = _parity_setup(torch, rows, seed, job)
     init_fn, step_fn = make_train_step(cfg, device=device)
     state, losses, grads = _run(torch, step_fn, init_fn(params=params),
                                 batches)
@@ -177,7 +218,7 @@ def parity_reference(torch, rows: int, device, seed: int,
             "params": leaves(state.params)}
 
 
-def parity(torch, mesh, row: int, rows: int, device, seed: int, ep: int,
+def parity(torch, mesh, row: int, rows: int, device, seed: int, job: dict,
            ref: dict | None) -> dict:
     """The mesh step on data row ``row``'s slices (of ``rows``); rank 0
     holds the losses and the first step's gathered gradients against
@@ -185,9 +226,10 @@ def parity(torch, mesh, row: int, rows: int, device, seed: int, ep: int,
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.models.train import leaves
 
-    cfg, params, batches = _parity_setup(torch, rows, seed, ep)
-    n = PARITY_ROWS_PER_RANK
-    init_fn, step_fn = make_train_step(cfg, mesh, device=device)
+    cfg, params, batches = _parity_setup(torch, rows, seed, job)
+    n = parity_rows(job)
+    init_fn, step_fn = make_train_step(cfg, mesh, device=device,
+                                       **trunk(job))
     state, losses, grads = _run(
         torch, step_fn, init_fn(params=params),
         [t[row * n:(row + 1) * n] for t in batches])
@@ -261,12 +303,14 @@ def plain_step_ms(torch, row: int, device, seed: int, job: dict) -> dict:
 def mesh_step_ms(torch, mesh, rank: int, row: int, device, seed: int,
                  job: dict, profiled: bool) -> dict:
     """The mesh step: median, working set, launches of B1-B4, and one more
-    step, profiled where ``profiled`` (the others run it unprofiled)."""
+    step, profiled where ``profiled`` (the others run it unprofiled); with
+    --pp the ms of one send between ready pp ranks (``p2p_ms``)."""
     from tony_tpu_torch.models import make_train_step
     from tony_tpu_torch.ops import attention, norms
 
     cfg, tokens = _step_setup(torch, row, device, seed, job)
-    init_fn, step_fn = make_train_step(cfg, mesh, device=device)
+    init_fn, step_fn = make_train_step(cfg, mesh, device=device,
+                                       **trunk(job))
     state = init_fn(seed)
     norms.launches = 0
     attention.launches = attention.launches_dq = 0
@@ -288,9 +332,59 @@ def mesh_step_ms(torch, mesh, rank: int, row: int, device, seed: int,
     else:
         step_fn(state, tokens)
         torch.cuda.synchronize(device)
-    return {"step_ms_median": float(np.median(ms)), "step_ms": ms,
-            "working_set_gb": ws / 1e9, "peak_memory_gb": peak / 1e9,
-            "launches": launches, "profiled_step": summary}
+    out = {"step_ms_median": float(np.median(ms)), "step_ms": ms,
+           "working_set_gb": ws / 1e9, "peak_memory_gb": peak / 1e9,
+           "launches": launches, "profiled_step": summary}
+    if job["pp"] > 1 and trunk(job):
+        out.update(pipeline_reading(torch, mesh, cfg, tokens, job,
+                                    out["step_ms_median"], summary))
+    return out
+
+
+def pipeline_reading(torch, mesh, cfg, tokens, job: dict, step_ms: float,
+                     summary: dict) -> dict:
+    """The schedule's ticks and bubble fraction (``schedule_info``); the
+    busy share: the profiled step's device time outside NCCL over the
+    step median (the profiler stretches the profiled step's own wall);
+    and the ms of one send of a microbatch's activations [rows / m, T, d]
+    between the pp ranks: the shortest SendRecv kernel of P2P_REPEATS
+    sends made after a barrier, under the profiler (a kernel's own device
+    time, without the host's gaps between sends). The SendRecv ms of a
+    step beyond sends x that is time spent waiting for the peer."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.parallel import ppermute, schedule_info
+
+    m, pp = job["microbatches"], job["pp"]
+    info = schedule_info(job["schedule"], m, pp, cfg.n_layers,
+                         job["virtual"])
+    x = torch.zeros((tokens.shape[0] // m, tokens.shape[1] - 1, cfg.d_model),
+                    dtype=cfg.compute_dtype, device=tokens.device)
+    ppermute((x,), "pp", mesh=mesh)
+    dist.barrier()
+    torch.cuda.synchronize()
+    # One profiled run on every rank, never retried: a rank that sent
+    # again alone would wait for peers that do not.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(P2P_REPEATS):
+            ppermute((x,), "pp", mesh=mesh)
+        torch.cuda.synchronize()
+    kernels = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "sendrecv" in e.name.lower())
+    p2p_ms = kernels[0] if kernels else None
+    # A send after every tick but the last, forward and backward.
+    sends = 2 * (info.ticks - 1)
+    return {"ticks": info.ticks, "bubble_fraction": info.bubble_fraction,
+            "busy_share": (summary["device_ms"] - summary["nccl_ms"])
+            / step_ms,
+            "sends_per_step": sends, "send_mb": x.numel()
+            * x.element_size() / 1e6, "p2p_ms": p2p_ms,
+            "p2p_median_ms": kernels[len(kernels) // 2] if kernels else None,
+            "sendrecv_wait_ms": (summary["sendrecv_ms"] - sends * p2p_ms
+                                 if kernels else None)}
 
 
 def _decode_setup(torch, device, seed: int, dtype: str, shape: tuple):
@@ -377,6 +471,8 @@ def _profile_summary(events, wall_ms: float) -> dict:
     """Device ms in all, in NCCL kernels, in B1-B3 (the flash kernels)
     and in the rest, and the 12 kernels that took the most."""
     nccl = sum(us for name, us in events if "nccl" in name.lower())
+    sendrecv = [us for name, us in events
+                if "nccl" in name.lower() and "sendrecv" in name.lower()]
     flash = sum(us for name, us in events if "flash_" in name)
     total = sum(us for _, us in events)
     by_name: dict[str, list[float]] = {}
@@ -386,6 +482,8 @@ def _profile_summary(events, wall_ms: float) -> dict:
                  reverse=True)[:12]
     return {"wall_ms": wall_ms, "device_ms": total / 1e3,
             "nccl_ms": nccl / 1e3, "attention_ms": flash / 1e3,
+            "sendrecv_ms": sum(sendrecv) / 1e3,
+            "sendrecv_kernels": len(sendrecv),
             "other_ms": (total - nccl) / 1e3,
             "top": [{"kernel": k[:90], "device_ms": us / 1e3, "count": c}
                     for us, k, c in top]}
@@ -461,38 +559,40 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
     import tony_tpu_torch.runtime as rt
     from tony_tpu_torch.parallel import MeshSpec
 
-    ep, sp, tp = job["ep"], job["sp"], job["tp"]
+    ep, pp, sp, tp = job["ep"], job["pp"], job["sp"], job["tp"]
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
-    # Ranks lie in C order over (dp, ep, sp, tp): the data row is
-    # rank // (sp x tp). The last rank of the first row's sp axis runs the
-    # ring with the most chunks.
-    row, rows = rank // (sp * tp), world // (sp * tp)
-    profiled = rank in (0, (sp - 1) * tp)
+    # Ranks lie in C order over (dp, pp, ep, sp, tp): the data row is
+    # rank // (pp x sp x tp). The last rank of the first row's sp axis runs
+    # the ring with the most chunks; over pp every stage is profiled.
+    row, rows = rank // (pp * sp * tp), world // (pp * sp * tp)
+    profiled = pp > 1 or rank in (0, (sp - 1) * tp)
     out = {"rank": rank, "world": world, "row": row,
            "card": torch.cuda.get_device_name(device)}
     _log(rank, "started")
-    ref = (parity_reference(torch, rows, device, seed, ep) if rank == 0
+    ref = (parity_reference(torch, rows, device, seed, job) if rank == 0
            else None)
+    # Decode is a tp reading: a pp mesh replicates the session over pp.
+    decode = tp > 1 and pp == 1
     dec_ref = (decode_reference(torch, device, seed)
-               if rank == 0 and tp > 1 else None)
+               if rank == 0 and decode else None)
     out["plain_before"] = plain_step_ms(torch, row, device, seed, job)
     _log(rank, "mesh=None timed; joining the group")
     dist.init_process_group("nccl", init_method=store, rank=rank,
                             world_size=world,
                             timeout=timedelta(seconds=DP_TIMEOUT_S))
     try:
-        mesh = rt.build_job_mesh(MeshSpec(dp=rows // ep, ep=ep, sp=sp,
-                                          tp=tp),
+        mesh = rt.build_job_mesh(MeshSpec(dp=rows // ep, pp=pp, ep=ep,
+                                          sp=sp, tp=tp),
                                  device="cuda", timeout_s=DP_TIMEOUT_S)
         _log(rank, "mesh built")
-        out["parity"] = parity(torch, mesh, row, rows, device, seed, ep,
+        out["parity"] = parity(torch, mesh, row, rows, device, seed, job,
                                ref)
         _log(rank, f"parity {out['parity']}")
         out["mesh"] = mesh_step_ms(torch, mesh, rank, row, device, seed,
                                    job, profiled)
         _log(rank, "mesh step timed")
-        if tp > 1:
+        if decode:
             out["decode"] = mesh_decode(torch, mesh, device, seed, dec_ref)
             _log(rank, f"decode {out['decode']}")
     finally:
@@ -560,11 +660,28 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=SP_SEQ,
                     help=f"with --sp: the sequence length (default "
                          f"{SP_SEQ})")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel ranks: train the dense trunk "
+                         "over dp = ranks / (pp x tp) x pp x tp, each rank "
+                         "a stage of L/pp layers (default 1)")
+    ap.add_argument("--microbatches", type=int, default=8,
+                    help="with --pp: the pipeline's microbatches of the [8, "
+                         "2049] rows a data row; 0 trains the trunk whole "
+                         "on every pp rank, the layer stack gathered over "
+                         "pp (default 8)")
+    ap.add_argument("--schedule", default="gpipe",
+                    choices=("gpipe", "interleaved"),
+                    help="with --pp: the pipeline schedule (default gpipe)")
+    ap.add_argument("--virtual", type=int, default=1,
+                    help="with --schedule interleaved: virtual stages a rank "
+                         "(default 1)")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--store", default="", help=argparse.SUPPRESS)
     ap.add_argument("--outdir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    job = {"ep": args.ep, "sp": args.sp, "tp": args.tp, "seq": args.seq}
+    job = {"ep": args.ep, "sp": args.sp, "tp": args.tp, "seq": args.seq,
+           "pp": args.pp, "microbatches": args.microbatches,
+           "schedule": args.schedule, "virtual": args.virtual}
     if args.rank is not None:
         run_rank(args.rank, args.ranks, args.store, args.outdir, args.seed,
                  job)
@@ -599,6 +716,15 @@ def main(argv=None) -> int:
               f"the sequence ({args.seq}), and --sp takes no --ep (MoE x sp "
               f"is not ported); got {args.sp}", file=sys.stderr)
         return 1
+    layers = chip_smoke.BENCH_TRANSFORMER["n_layers"]
+    if args.pp < 1 or world % (args.pp * args.sp * args.tp) or (
+            args.pp > 1 and (args.ep > 1 or args.sp > 1 or layers % (
+                args.pp * args.virtual))):
+        print(f"dp_study: --pp x --tp must divide the ranks ({world}), --pp x "
+              f"--virtual the layers ({layers}), and --pp takes no --ep "
+              f"(MoE x pp is not ported) or --sp; got {args.pp}",
+              file=sys.stderr)
+        return 1
     from tony_tpu_torch import kernels
 
     t0 = time.perf_counter()
@@ -616,15 +742,20 @@ def main(argv=None) -> int:
     _, rows, seq = step_model(job)
     step_ms = [r["mesh"]["step_ms_median"] for r in results]
     last_sp = (args.sp - 1) * args.tp
+    row_cards = args.pp * args.sp * args.tp
     print(json.dumps({
-        "world": world, "mesh": {"dp": world // (args.ep * args.sp * args.tp),
-                                 "ep": args.ep, "sp": args.sp, "tp": args.tp},
+        "world": world, "mesh": {"dp": world // (args.ep * row_cards),
+                                 "pp": args.pp, "ep": args.ep, "sp": args.sp,
+                                 "tp": args.tp},
+        "trunk": trunk(job) or ("the layer stack gathered over pp"
+                                if args.pp > 1 else None),
         "seq": seq, "rows_per_data_row": rows,
         "total_s": time.perf_counter() - t0,
         "parity": results[0]["parity"],
         "step_ms_median_by_rank": step_ms,
-        # Each data row (sp x tp cards) trains rows x seq tokens a step.
-        "tokens_per_s_per_card": rows * seq / (args.sp * args.tp)
+        # Each data row (pp x sp x tp cards) trains rows x seq tokens a
+        # step.
+        "tokens_per_s_per_card": rows * seq / row_cards
         / (max(step_ms) / 1e3),
         "peak_memory_gb_by_rank": [r["mesh"]["peak_memory_gb"]
                                    for r in results],
@@ -639,6 +770,14 @@ def main(argv=None) -> int:
         f"rank{last_sp}_profiled_step":
             results[last_sp]["mesh"]["profiled_step"],
         "decode_rank0": results[0].get("decode"),
+        "pipeline_by_rank": [
+            {k: r["mesh"].get(k) for k in (
+                "ticks", "bubble_fraction", "busy_share", "sends_per_step",
+                "send_mb", "p2p_ms", "p2p_median_ms", "sendrecv_wait_ms")}
+            | {k: (r["mesh"]["profiled_step"] or {}).get(k) for k in (
+                "wall_ms", "device_ms", "nccl_ms", "sendrecv_ms",
+                "sendrecv_kernels")}
+            for r in results] if args.pp > 1 else None,
     }), flush=True)
     return 0
 

@@ -399,6 +399,23 @@ def test_bwd_row_error_sees_a_fault_in_small_rows():
         "dk"]["row_err"] == 0.0
 
 
+def test_row_error_of_an_all_zero_reference():
+    """A pipeline's bubble ticks run the kernels on zero activations and
+    zero cotangents, where the plain version's rows are all zero: the row
+    error of chip_smoke.py reads 0 for an exact result and fails any
+    other (not NaN, which no comparison fails)."""
+    chip_smoke = _repo_module("chip_smoke")
+    want = torch.zeros(8, 16)
+    assert chip_smoke.row_error(want - want, want) == 0.0
+    got = want.clone()
+    got[3, 5] = 1e-6
+    assert chip_smoke.row_error(got - want, want) > chip_smoke.ROW_TOL
+    errs = chip_smoke.fwd_errors((want.reshape(1, 8, 1, 16), want[0]),
+                                 (want.reshape(1, 8, 1, 16), want[0]))
+    assert all(chip_smoke.fwd_checks(errs, torch.bfloat16, rows=True)
+               .values())
+
+
 def test_fwd_row_error_sees_a_fault_in_small_late_rows():
     """B1's row error in chip_smoke.py: a 10 % fault in the late rows of a
     causal output, which are small, reads 0.1 while the max abs error of

@@ -63,8 +63,9 @@ def test_sp2_in_two_gloo_ranks_matches_jax(jparams, tmp_path):
     3. DecodeSession(mesh=) over sp=2 (replicated) gives the greedy
        tokens of JAX's DecodeSession(mesh=) on the same mesh and of the
        port's session without a mesh.
-    4. The refusals: MoE x sp (train and decode), pp, and an sp that
-       does not divide the sequence.
+    4. The refusals: MoE x sp (train and decode), a pipeline whose pp
+       does not divide the layers, and an sp that does not divide the
+       sequence.
     """
     jcfg = JaxConfig(**TINY)
     np.savez(tmp_path / "w.npz", **_flat(jax.device_get(jparams)))
@@ -144,7 +145,7 @@ def test_sp2_in_two_gloo_ranks_matches_jax(jparams, tmp_path):
     for key in ("moe_train", "moe_decode"):
         assert refused[key].startswith("NotImplementedError") and \
             "item 12b" in refused[key], key
-    assert refused["pp_train"].startswith("NotImplementedError") and \
-        "slice 4" in refused["pp_train"]
+    assert refused["pp_train"].startswith("ValueError") and \
+        "n_layers 3 not divisible by pp*virtual 2" in refused["pp_train"]
     assert refused["odd_sequence"].startswith("ValueError") and \
         "sp 2 must divide the sequence length 15" in refused["odd_sequence"]

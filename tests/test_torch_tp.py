@@ -214,7 +214,7 @@ def test_tp2_in_two_gloo_ranks_matches_jax(jparams, tmp_path):
        refresh() keeps them. A temperature draw, from generators seeded
        differently on the two ranks, gives the same tokens on both.
     4. The refusals: MoE x tp and a tp that does not divide the K/V heads
-       (train and decode), MoE over an sp mesh and pp meshes.
+       (train and decode), MoE over an sp mesh and over a pp mesh.
     """
     jcfg = JaxConfig(**TINY)
     np.savez(tmp_path / "w.npz", **_flat(jax.device_get(jparams)))
@@ -340,9 +340,9 @@ def test_tp2_in_two_gloo_ranks_matches_jax(jparams, tmp_path):
     for key in ("kv_train", "kv_decode"):
         assert refused[key].startswith("ValueError") and \
             "must divide kv_heads 1" in refused[key], key
-    for key in ("pp_forward", "pp_decode"):
+    for key in ("pp_forward", "pp_decode"):  # MoE x pp; dense pp is taken
         assert refused[key].startswith("NotImplementedError") and \
-            "slice 4" in refused[key], key
+            "item 13b" in refused[key], key
     for key in ("sp_train", "sp_decode"):  # MoE x sp; dense sp is taken
         assert refused[key].startswith("NotImplementedError") and \
             "item 12b" in refused[key], key

@@ -316,16 +316,18 @@ class TestTrainStep:
 
     def test_refuses_mesh_pipeline_plan(self):
         cfg = TransformerConfig(**TINY)
-        # sp is ported for dense trunks (tests/test_torch_sp.py); pp and
-        # MoE x sp are not.
+        # sp and pp are ported for dense trunks (tests/test_torch_sp.py,
+        # tests/test_torch_pp.py); MoE x sp and MoE x pp are not.
         for axes in ({"dp": 2, "sp": 2}, {"sp": 2, "tp": 2}):
             make_train_step(cfg, _SpecMesh(**axes), device="cpu")
             with pytest.raises(NotImplementedError, match="item 12b"):
                 make_train_step(TransformerConfig(**{**TINY,
                                                      "n_experts": 4}),
                                 _SpecMesh(**axes), device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            make_train_step(cfg, _SpecMesh(pp=2), device="cpu")
+        make_train_step(cfg, _SpecMesh(pp=2), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 13b"):
+            make_train_step(TransformerConfig(**{**TINY, "n_experts": 4}),
+                            _SpecMesh(pp=2), device="cpu")
         # tp is ported for dense trunks whose heads, K/V heads, d_ff and
         # vocab it divides (tests/test_torch_tp.py); MoE x tp is not.
         with pytest.raises(NotImplementedError, match="item 11b"):
@@ -346,9 +348,10 @@ class TestTrainStep:
         cuda_mesh.device_type = "cuda"
         with pytest.raises(ValueError, match="a cuda mesh cannot train on"):
             make_train_step(cfg, cuda_mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        # The pipeline runs over a mesh's pp axis, by a known schedule.
+        with pytest.raises(ValueError, match="over a mesh's pp axis"):
             make_train_step(cfg, device="cpu", pipeline_microbatches=2)
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(ValueError, match="unknown schedule '1f1b'"):
             make_train_step(cfg, device="cpu", pipeline_schedule="1f1b")
         with pytest.raises(NotImplementedError, match="slice 7"):
             make_train_step(cfg, device="cpu", plan=object())
@@ -416,14 +419,14 @@ class TestTrainStep:
         assert refused["no_mesh"].startswith("ValueError") and \
             "build_job_mesh" in refused["no_mesh"]
         # The dense trunk over sp is taken; MoE x sp, a sequence longer
-        # than max_seq over sp (2 x 17 positions) and pp are refused.
+        # than max_seq over sp (2 x 17 positions) and MoE x pp are refused.
         assert refused["sp_dense"] == ""
         assert refused["sp_mesh"].startswith("NotImplementedError") and \
             "item 12b" in refused["sp_mesh"]
         assert refused["sp_forward"].startswith("ValueError") and \
             "exceeds max_seq 32" in refused["sp_forward"]
         assert refused["pp_mesh"].startswith("NotImplementedError") and \
-            "slice 4" in refused["pp_mesh"]
+            "item 13b" in refused["pp_mesh"]
         assert "gathered parameters" in refused["pieces_forward"]
         assert "batch shard 0 of 2" in refused["wrong_shard"]
         for rank in range(2):

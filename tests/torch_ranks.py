@@ -260,7 +260,7 @@ def prog_train_dp(rank, world, store, outdir, args):
         "sp_mesh": _refusal(lambda: make_train_step(moe, sp, device="cpu")),
         "sp_dense": _refusal(lambda: make_train_step(cfg, sp, device="cpu")),
         "sp_forward": _refusal(lambda: forward(params, batches[0], cfg, sp)),
-        "pp_mesh": _refusal(lambda: make_train_step(cfg, pp, device="cpu")),
+        "pp_mesh": _refusal(lambda: make_train_step(moe, pp, device="cpu")),
         "pieces_forward": _refusal(lambda: forward(state.params, batches[0],
                                                    cfg, mesh)),
     }
@@ -484,7 +484,7 @@ def prog_train_tp(rank, world, store, outdir, args):
     tp=2 mesh and over a dp=2 mesh of the same ranks: greedy tokens, the
     pieces of qkv/gate_up and the cache shape; the session without a mesh;
     a temperature draw from a generator seeded by rank. (4) The
-    refusals (MoE over tp and over sp, pp)."""
+    refusals (MoE over tp, over sp and over pp)."""
     import dataclasses
 
     import numpy as np
@@ -579,10 +579,10 @@ def prog_train_tp(rank, world, store, outdir, args):
         "kv_decode": _refusal(lambda: DecodeSession(params, kv1, "cpu",
                                                     mesh=mesh)),
         "sp_train": _refusal(lambda: make_train_step(moe, sp, device="cpu")),
-        "pp_forward": _refusal(lambda: forward(params, batches[0], cfg, pp)),
+        "pp_forward": _refusal(lambda: forward(params, batches[0], moe, pp)),
         "sp_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
                                                     mesh=sp)),
-        "pp_decode": _refusal(lambda: DecodeSession(params, cfg, "cpu",
+        "pp_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
                                                     mesh=pp)),
     }
     return result, arrays
@@ -680,15 +680,20 @@ def prog_ring(rank, world, store, outdir, args):
 
 
 def _count_p2p():
-    """Count dist.batch_isend_irecv calls (the ring's rotations) into the
-    returned dict's "n"."""
+    """Count dist.batch_isend_irecv calls (the ring's rotations, the
+    pipeline's sends) into the returned dict: all of them under "n", and
+    under "bwd" those autograd's engine makes (the backward), under "fwd"
+    the others."""
+    import torch
     import torch.distributed as dist
 
-    calls = {"n": 0}
+    calls = {"n": 0, "fwd": 0, "bwd": 0}
     real = dist.batch_isend_irecv
 
     def counted(ops):
         calls["n"] += 1
+        node = torch._C._current_autograd_node()
+        calls["fwd" if node is None else "bwd"] += 1
         return real(ops)
 
     dist.batch_isend_irecv = counted
@@ -708,7 +713,8 @@ def prog_train_sp(rank, world, store, outdir, args):
     ``restored/``), takes one step, saves under the port's dir (under
     ``saved/``) and restores that save into a fresh state bit for bit.
     (3) DecodeSession(mesh=) over the sp=2 mesh: greedy tokens. (4) The
-    refusals: MoE x sp (train and decode), pp, an sp that does not divide
+    refusals: MoE x sp (train and decode), a pipeline whose pp does not
+    divide the layers, an sp that does not divide
     the sequence."""
     import dataclasses
 
@@ -776,7 +782,9 @@ def prog_train_sp(rank, world, store, outdir, args):
                                                       device="cpu")),
         "moe_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
                                                      mesh=mesh)),
-        "pp_train": _refusal(lambda: make_train_step(cfg, pp, device="cpu")),
+        "pp_train": _refusal(lambda: make_train_step(
+            dataclasses.replace(cfg, n_layers=3), pp, device="cpu",
+            pipeline_microbatches=2)),
         "odd_sequence": _refusal(lambda: step_fn(state, batches[0][:, :16])),
     }
     return result, arrays
@@ -836,6 +844,217 @@ def prog_sp_mesh(rank, world, store, outdir, args):
             arrays["decode"] = DecodeSession(params, cfg, device="cpu",
                                              mesh=mesh).generate(
                 np.load(args[3]), 6).numpy()
+    return result, arrays
+
+
+# The pipelined trunks of the pp tests: the unpipelined trunk over pp (the
+# layer stack gathered, meaning (a)), GPipe and interleaved with 2 virtual
+# stages, each over 4 microbatches.
+PP_TRUNKS = {"plain": {},
+             "gpipe": dict(pipeline_microbatches=4),
+             "interleaved": dict(pipeline_microbatches=4,
+                                 pipeline_schedule="interleaved",
+                                 pipeline_virtual=2)}
+# TINY at 4 layers, so that pp 2 x virtual 2 has whole chunks.
+PP_TINY = dict(TINY, n_layers=4)
+# The four-rank pp runs: run -> (mesh axes, trunk of PP_TRUNKS).
+PP_MESH_RUNS = {"pp_tp_gpipe": (dict(pp=2, tp=2), "gpipe"),
+                "pp_tp_interleaved": (dict(pp=2, tp=2), "interleaved"),
+                "pp_sp": (dict(pp=2, sp=2), "gpipe"),
+                "dp_pp": (dict(dp=2, pp=2), "gpipe")}
+
+
+def _replicated(state, over: str) -> dict:
+    """{path: this rank's value} of every params and AdamW leaf of
+    ``state`` not split over mesh axis ``over``."""
+    import numpy as np
+    import torch
+
+    from tony_tpu_torch.interop import (train_state_leaves,
+                                        train_state_placements)
+
+    placements = train_state_placements(state)
+    out = {}
+    for path, value in train_state_leaves(state):
+        spec = getattr(placements.get(path), "spec", ())
+        if not any(e == over or (isinstance(e, tuple) and over in e)
+                   for e in spec):
+            out[path] = (value.detach().numpy().copy()
+                         if torch.is_tensor(value) else np.asarray(value))
+    return out
+
+
+def _pp_steps(mesh, cfg, params, batches, clip: float, trunk: dict,
+              tag: str, arrays: dict, calls=None) -> dict:
+    """make_train_step(cfg, mesh, **trunk) from ``params`` over
+    ``batches``: each step's metrics, its clipped gradients, gathered,
+    under ``<tag>/step<i>/``; with ``calls`` (``_count_p2p``) the
+    first step's P2P batches, forward and backward."""
+    from tony_tpu_torch.models import make_train_step
+
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3, grad_clip=clip,
+                                       **trunk)
+    state = init_fn(params=params)
+    out = {"metrics": []}
+    for i, tokens in enumerate(batches):
+        if calls is not None:
+            calls.update(fwd=0, bwd=0)
+        state, metrics = step_fn(state, tokens)
+        if calls is not None and i == 0:
+            out["p2p_first_step"] = {k: calls[k] for k in ("fwd", "bwd")}
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        arrays.update({f"{tag}/step{i}/{k}": v for k, v in
+                       _gathered_grads(state, mesh).items()})
+    out["state"] = state
+    return out
+
+
+def prog_train_pp(rank, world, store, outdir, args):
+    """The dense trunk (PP_TINY) over a pp=2 mesh, both ranks fed the same
+    batches. ``args``: the weights npz, the global batches npy [3, B,
+    T+1], grad_clip, the JAX checkpoint dir, the port's checkpoint dir,
+    the decode prompt npy.
+
+    (1) 3 steps of each trunk of PP_TRUNKS: each step's metrics and its
+    clipped gradients, gathered, under ``<trunk>/step<i>/``; the first
+    step's P2P batches, forward and backward, and the chunk exchange's
+    all_to_all calls; every leaf not split over pp after the steps under
+    ``rep/<trunk>/``. Then one GPipe step at remat "full"
+    (``gpipe_remat/``). (2) A fresh state restores the JAX checkpoint
+    (gathered under ``restored/``), takes one step of the plain trunk and
+    one of GPipe's from it, each saved under ``<port dir>/<trunk>``
+    (gathered under ``saved/<trunk>/``) and restored into a fresh state
+    bit for bit. (3) DecodeSession(mesh=) over pp=2: greedy tokens. (4)
+    The refusals: MoE x pp, layers pp x virtual does not divide, a batch
+    the microbatches do not divide, interleaved microbatches pp does not
+    divide, K/V heads tp does not divide."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import (train_state_placements,
+                                        train_state_to_numpy)
+    from tony_tpu_torch.models import DecodeSession, make_train_step
+
+    _join(rank, world, store)
+    mesh = _mesh(pp=2)
+    calls = _count_p2p()
+    a2a = {"n": 0}
+    real_a2a = dist.all_to_all_single
+
+    def counted_a2a(*a, **kw):
+        a2a["n"] += 1
+        return real_a2a(*a, **kw)
+
+    dist.all_to_all_single = counted_a2a
+    batches = np.load(args[1])
+    clip = float(args[2])
+    cfg, params = _params(args[0], n_layers=4)
+    result, arrays = {"metrics": {}, "p2p_first_step": {},
+                      "all_to_all_per_step": {}}, {}
+    for tag, trunk in PP_TRUNKS.items():
+        a2a["n"] = 0
+        run = _pp_steps(mesh, cfg, params, batches, clip, trunk, tag,
+                        arrays, calls)
+        result["metrics"][tag] = run["metrics"]
+        result["p2p_first_step"][tag] = run["p2p_first_step"]
+        result["all_to_all_per_step"][tag] = a2a["n"] / len(batches)
+        arrays.update({f"rep/{tag}/{k}": v for k, v in
+                       _replicated(run["state"], "pp").items()})
+    result["split"] = {path: list(pl.spec) for path, pl in
+                       train_state_placements(run["state"]).items()
+                       if pl.sharded}
+    # Under remat the stages recompute their layers in the backward; the
+    # sends between them are outside the layers and run once.
+    run = _pp_steps(mesh, dataclasses.replace(cfg, remat=True), params,
+                    batches[:1], clip, PP_TRUNKS["gpipe"], "gpipe_remat",
+                    arrays, calls)
+    result["metrics"]["gpipe_remat"] = run["metrics"]
+    result["p2p_first_step"]["gpipe_remat"] = run["p2p_first_step"]
+
+    result["round_trip_equal"] = {}
+    for tag in ("plain", "gpipe"):
+        init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                           learning_rate=1e-3,
+                                           grad_clip=clip, **PP_TRUNKS[tag])
+        state = init_fn(params=params)
+        assert CheckpointManager(args[3], process_id=rank,
+                                 num_processes=2).restore(state) is state
+        arrays.update({f"restored/{tag}/{k}": v for k, v in
+                       _gathered(state, mesh).items()})
+        state, _ = step_fn(state, batches[2])
+        mgr = CheckpointManager(f"{args[4]}/{tag}", process_id=rank,
+                                num_processes=2)
+        mgr.save(int(state.step), state, blocking=True)
+        arrays.update({f"saved/{tag}/{k}": v for k, v in
+                       _gathered(state, mesh).items()})
+        dist.barrier()
+        fresh = init_fn(0)
+        assert mgr.restore(fresh) is fresh
+        a, b = train_state_to_numpy(state), train_state_to_numpy(fresh)
+        result["round_trip_equal"][tag] = all(np.array_equal(a[k], b[k])
+                                              for k in a)
+
+    arrays["decode/pp"] = DecodeSession(params, cfg, device="cpu",
+                                        mesh=mesh).generate(
+        np.load(args[5]), 6).numpy()
+
+    moe = dataclasses.replace(cfg, n_experts=4)
+    kv1 = dataclasses.replace(cfg, n_kv_heads=1)
+    tp = _mesh(tp=2)
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       **PP_TRUNKS["gpipe"])
+    state = init_fn(params=params)
+    result["refused"] = {
+        "moe_train": _refusal(lambda: make_train_step(moe, mesh,
+                                                      device="cpu")),
+        "moe_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
+                                                     mesh=mesh)),
+        "layers": _refusal(lambda: make_train_step(
+            cfg, mesh, device="cpu", pipeline_microbatches=4,
+            pipeline_schedule="interleaved", pipeline_virtual=4)),
+        "batch": _refusal(lambda: step_fn(state, batches[0][:3])),
+        "interleaved_microbatches": _refusal(lambda: make_train_step(
+            cfg, mesh, device="cpu", pipeline_microbatches=3,
+            pipeline_schedule="interleaved", pipeline_virtual=2)),
+        "kv_heads": _refusal(lambda: make_train_step(
+            kv1, tp, device="cpu", pipeline_microbatches=2)),
+    }
+    return result, arrays
+
+
+def prog_pp_mesh(rank, world, store, outdir, args):
+    """The dense trunk (PP_TINY) on four ranks over the meshes of
+    PP_MESH_RUNS: pp=2 x tp=2 (GPipe and interleaved; every rank fed the
+    whole batch), pp=2 x sp=2 (GPipe; every rank the whole batch, each sp
+    rank its block of the sequence) and dp=2 x pp=2 (GPipe; each dp row
+    its half). ``args``: the weights
+    npz, the global batches npy, grad_clip. Each run's step metrics and
+    clipped gradients, gathered, under ``<run>/step<i>/``; every leaf not
+    split over pp after the steps under ``rep/<run>/``."""
+    import numpy as np
+
+    from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
+
+    _join(rank, world, store)
+    batches = np.load(args[1])
+    clip = float(args[2])
+    cfg, params = _params(args[0], n_layers=4)
+    result, arrays = {"metrics": {}}, {}
+    for tag, (axes, trunk) in PP_MESH_RUNS.items():
+        mesh = _mesh(**axes)
+        rows = axis_size(mesh, "dp")
+        per_row = batches.shape[1] // rows
+        row = axis_coordinate(mesh, "dp") if rows > 1 else 0
+        run = _pp_steps(mesh, cfg, params,
+                        batches[:, row * per_row:(row + 1) * per_row],
+                        clip, PP_TRUNKS[trunk], tag, arrays)
+        result["metrics"][tag] = run["metrics"]
+        arrays.update({f"rep/{tag}/{k}": v for k, v in
+                       _replicated(run["state"], "pp").items()})
     return result, arrays
 
 

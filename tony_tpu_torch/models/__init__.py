@@ -13,6 +13,7 @@ from tony_tpu_torch.models.train import TrainState, lm_loss, make_train_step
 from tony_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
+    forward_pipeline,
     init_params,
     param_roles,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "advance",
     "decode_weights",
     "forward",
+    "forward_pipeline",
     "generate",
     "init_cache",
     "init_params",

@@ -141,8 +141,10 @@ def shard_decode_weights(params: dict, cfg: TransformerConfig,
 def check_decode_mesh(mesh, cfg: TransformerConfig) -> None:
     """Refuse what a sharded session cannot serve: anything but a
     ``DeviceMesh`` (``parallel.build_mesh``), the meshes training refuses
-    (``check_mesh``: pp, MoE x tp, MoE x sp, a tp that does not divide the
-    heads, K/V heads, d_ff or vocab), and an MoE trunk over ep."""
+    (``check_mesh``: MoE x pp, MoE x tp, MoE x sp, a tp that does not
+    divide the heads, K/V heads, d_ff or vocab), and an MoE trunk over ep.
+    A dense session replicates over pp and sp, as the JAX package's
+    ``decode_param_specs`` has no entry for either."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"DecodeSession(mesh=) takes a DeviceMesh from "
                         f"parallel.build_mesh, got {type(mesh).__name__}")

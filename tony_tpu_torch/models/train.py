@@ -1,27 +1,37 @@
 """The LM train step: forward, next-token cross-entropy, backward,
 global-norm clipping and AdamW, as the JAX package's ``make_train_step``
 composes them (``optax.chain(clip_by_global_norm, adamw)``), on one device
-or data-parallel over a mesh of processes.
+or over a mesh of processes.
 
-With a mesh (``parallel.build_mesh``; dp, ep, sp and tp, pp at 1),
+With a mesh (``parallel.build_mesh``; dp, pp, ep, sp and tp),
 each rank keeps plain local tensors, placed as the JAX package's
 ``_sharding_for_tree`` places its state: a leaf whose role names
 ``embed_fsdp`` is split over dp along that dimension where dp divides it,
 a leaf with an ``expert`` dimension is split over ep there, one with a
-``heads``, ``mlp`` or ``vocab`` dimension over tp (Megatron's split), every
-other leaf is replicated, and the AdamW moments follow their parameters. A
-step gathers the dp-split dimensions for the forward (all_gather; the
-backward reduce-scatters their gradients); the tp blocks and the expert
-dimension of the expert FFN weights stay local (the trunk's tp collectives
-and the MoE layer's all_to_all work on them as they lie). Each gradient is
+``heads``, ``mlp`` or ``vocab`` dimension over tp (Megatron's split), the
+layer stack over pp in contiguous blocks, every other leaf is replicated,
+and the AdamW moments follow their parameters. A step gathers the
+dp-split dimensions for the forward (all_gather; the backward
+reduce-scatters their gradients); the tp blocks and the expert dimension
+of the expert FFN weights stay local (the trunk's tp collectives and the
+MoE layer's all_to_all work on them as they lie). Over pp the step runs
+one of the JAX package's two trunks: without ``pipeline_microbatches``
+the layer stack is gathered over pp and every pp rank runs the whole
+trunk on the same rows (each keeps its block's slice of the gradient);
+with it each rank runs its own L/pp layers as a stage of
+``forward_pipeline``'s schedule. Either way a leaf replicated over pp has
+the same gradient on every pp rank (the pipeline's input sums its
+cotangent over pp, the logits are computed on every pp rank from the
+same outputs), so pp takes no part in the mean. Each gradient is
 then made the global batch's mean: summed over the data axes (dp, ep, sp)
 it is not split over and divided by their size (``_reduce_and_clip``); a
 tp block's gradient is its own, and a leaf replicated over tp has the same
 gradient on every tp rank. The clip takes the global norm (each block's
-squared norm summed over the axes its leaf is split over, tp included, so
-each block counts once) and AdamW runs on the local pieces. Each rank feeds its own ``[B_local, T+1]`` slice of the
-global batch (split over dp x ep; the sp and tp ranks of one slice feed
-the same rows). Over sp, each rank shifts the rows into inputs and labels
+squared norm summed over the axes its leaf is split over, pp and tp
+included, so each block counts once) and AdamW runs on the local pieces.
+Each rank feeds its own ``[B_local, T+1]`` slice of the global batch
+(split over dp x ep; the pp, sp and tp ranks of one slice feed the same
+rows). Over sp, each rank shifts the rows into inputs and labels
 and keeps its block of T/sp positions of both, as JAX's shift re-shards
 the tokens onto sp; the rank's loss is its block's mean, and since the
 blocks are equal the mean over the data axes is the global batch's mean.
@@ -47,7 +57,9 @@ from tony_tpu_torch.models.transformer import (
     EXPERT_LEAVES,
     TransformerConfig,
     check_mesh,
+    check_pipeline,
     forward,
+    forward_pipeline,
     init_params,
     param_roles,
 )
@@ -57,11 +69,18 @@ from tony_tpu_torch.ops import (
 )
 from tony_tpu_torch.parallel.collectives import (
     all_gather_with_scatter_grad,
+    all_gather_with_slice_grad,
     axis_group,
     pmean_gradients,
 )
 from tony_tpu_torch.parallel.mesh import DATA_AXES, axis_coordinate, axis_size
+from tony_tpu_torch.parallel.pipeline import SCHEDULES, check_schedule_args
 from tony_tpu_torch.parallel.sharding import shard_pytree
+
+# The axes that split a model's leaves without splitting its tokens: a
+# leaf's gradient is its own block's over them, and its norm sums the
+# blocks' squares over them.
+MODEL_AXES = ("pp", "tp")
 
 
 class TrainState(NamedTuple):
@@ -74,14 +93,20 @@ class TrainState(NamedTuple):
 
 
 def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
-            mesh=None, *, return_metrics: bool = False):
+            mesh=None, *, pipeline_microbatches: int | None = None,
+            pipeline_schedule: str = "gpipe", pipeline_virtual: int = 1,
+            pipeline_stages: int | None = None,
+            return_metrics: bool = False):
     """Next-token cross-entropy, plus ``moe_balance_coef`` times the
     balance loss and ``moe_zloss_coef`` times the router z-loss when the
     config has experts. tokens: [B, T+1] int. With ``return_metrics``
     returns ``(total, {"cross_entropy": ce, **router aux})``. With a mesh
     the logits are split over the vocab and the cross-entropy is
     ``vocab_parallel_cross_entropy``; over sp, the inputs and labels are
-    this rank's block of the shifted sequence and the loss is its mean."""
+    this rank's block of the shifted sequence and the loss is its mean.
+    With ``pipeline_microbatches`` the trunk is ``forward_pipeline``'s
+    (``pipeline_schedule``, ``pipeline_virtual`` virtual stages); without a
+    mesh, ``pipeline_stages`` stages of it run in this process."""
     tokens = tokens.to(params["embed"].device)
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     sp = 1 if mesh is None else axis_size(mesh, "sp")
@@ -92,7 +117,13 @@ def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
         start = axis_coordinate(mesh, "sp") * (t // sp)
         inputs = inputs[:, start:start + t // sp]
         labels = labels[:, start:start + t // sp]
-    logits, aux = forward(params, inputs, cfg, mesh, return_aux=True)
+    if pipeline_microbatches is not None:
+        logits, aux = forward_pipeline(
+            params, inputs, cfg, mesh, num_microbatches=pipeline_microbatches,
+            schedule=pipeline_schedule, virtual_stages=pipeline_virtual,
+            return_aux=True, stages=pipeline_stages)
+    else:
+        logits, aux = forward(params, inputs, cfg, mesh, return_aux=True)
     ce = (softmax_cross_entropy(logits, labels) if mesh is None
           else vocab_parallel_cross_entropy(logits, labels, mesh))
     total = ce
@@ -135,14 +166,19 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, *,
 
 def _check_supported(cfg, mesh, plan, pipeline_microbatches,
                      pipeline_schedule, pipeline_virtual) -> None:
+    if pipeline_schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {pipeline_schedule!r}")
+    if pipeline_microbatches is not None:
+        if mesh is None:
+            raise ValueError(
+                "pipeline training runs over a mesh's pp axis: pass "
+                "make_train_step(cfg, mesh, pipeline_microbatches=...)")
+        pp, tp = axis_size(mesh, "pp"), axis_size(mesh, "tp")
+        check_schedule_args(pipeline_microbatches, pp, pipeline_schedule,
+                            pipeline_virtual)
+        check_pipeline(cfg, pp, tp, pipeline_schedule, pipeline_virtual)
     if mesh is not None:
         check_mesh(mesh, cfg)
-    if (pipeline_microbatches is not None or pipeline_schedule != "gpipe"
-            or pipeline_virtual != 1):
-        raise NotImplementedError(
-            "pipeline training waits for the model-parallel slice (slice 4) "
-            "of the port"
-        )
     if plan is not None:
         raise NotImplementedError(
             "make_train_step(plan=) waits for the measurement-plane slice "
@@ -185,8 +221,12 @@ def make_train_step(
     are "loss" and "cross_entropy", and for an MoE config the layer means of
     "moe_balance", "moe_zloss", "moe_drop_rate" and "moe_entropy".
     With a mesh, ``tokens`` is this rank's slice of the global batch (the
-    same slice on every sp and tp rank of a dp row) and the metrics are
-    means over the global batch. The optimizer is optax's:
+    same slice on every pp, sp and tp rank of a dp row) and the metrics
+    are means over the global batch. ``pipeline_microbatches`` (with a
+    mesh) trains through ``forward_pipeline``: its schedule
+    (``pipeline_schedule``, "gpipe" or "interleaved" with
+    ``pipeline_virtual`` virtual stages) over the mesh's pp axis, even at
+    pp = 1; the microbatches must divide this rank's rows. The optimizer is optax's:
     global-norm clipping at ``grad_clip``, then AdamW with b1 0.9, b2
     0.999, eps 1e-8, decoupled weight decay on every parameter
     (``torch.optim.AdamW`` computes that update).
@@ -194,6 +234,9 @@ def make_train_step(
     _check_supported(cfg, mesh, plan, pipeline_microbatches,
                      pipeline_schedule, pipeline_virtual)
     device = resolve_device(device)
+    pipeline = dict(pipeline_microbatches=pipeline_microbatches,
+                    pipeline_schedule=pipeline_schedule,
+                    pipeline_virtual=pipeline_virtual)
     if mesh is not None and mesh.device_type != device.type:
         raise ValueError(f"a {mesh.device_type} mesh cannot train on "
                          f"{device}")
@@ -223,9 +266,10 @@ def make_train_step(
         params = state.params
         if mesh is not None:
             params = _gather(params, state.placements, mesh,
-                             EXPERT_LEAVES if cfg.n_experts else ())
+                             EXPERT_LEAVES if cfg.n_experts else (),
+                             pipelined=pipeline_microbatches is not None)
         loss, metrics = lm_loss(params, tokens, cfg, mesh,
-                                return_metrics=True)
+                                return_metrics=True, **pipeline)
         loss.backward()
         grads = [p.grad for p in leaves(state.params)]
         metrics = {"loss": loss, **metrics}
@@ -243,32 +287,45 @@ def make_train_step(
     return init_fn, step_fn
 
 
-def _gather(params: dict, placements: dict, mesh, resident=()) -> dict:
+def _gather(params: dict, placements: dict, mesh, resident=(), *,
+            pipelined: bool = False) -> dict:
     """The parameters the forward takes: every split dimension of a leaf
-    all-gathered (its gradient is reduce-scattered back), but the tp blocks
-    and the ep dimension of the ``resident`` leaves (the expert FFN
-    weights)."""
+    all-gathered, but the tp blocks, the ep dimension of the ``resident``
+    leaves (the expert FFN weights), and under ``pipelined`` the pp blocks
+    of the layer stack (each rank runs its own stage). A dp block's
+    gradient is reduce-scattered back; a pp block's gathered for the
+    unpipelined trunk, which every pp rank runs whole on the same rows,
+    keeps its own slice of the whole gradient
+    (``all_gather_with_slice_grad``)."""
     out = {}
     for key, val in params.items():
         if isinstance(val, dict):
-            out[key] = _gather(val, placements[key], mesh, resident)
+            out[key] = _gather(val, placements[key], mesh, resident,
+                               pipelined=pipelined)
             continue
         for dim, entry in enumerate(placements[key].spec):
-            if entry is not None and entry != "tp" and not (
+            if entry is None or entry == "tp" or (
                     key in resident and entry == "ep"):
-                val = all_gather_with_scatter_grad(val, dim, entry, mesh=mesh)
+                continue
+            if entry == "pp":
+                if not pipelined:
+                    val = all_gather_with_slice_grad(val, dim, entry,
+                                                     mesh=mesh)
+                continue
+            val = all_gather_with_scatter_grad(val, dim, entry, mesh=mesh)
         out[key] = val
     return out
 
 
-def _split_axes(placement) -> tuple[tuple[str, ...], bool]:
-    """(the data axes, of DATA_AXES, a leaf is split over; whether tp
-    splits it)."""
+def _split_axes(placement) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(the data axes, of DATA_AXES, a leaf is split over; the model axes,
+    pp and tp, it is split over)."""
     names = set()
     for entry in placement.spec:
         if entry is not None:
             names.update((entry,) if isinstance(entry, str) else entry)
-    return tuple(a for a in DATA_AXES if a in names), "tp" in names
+    return (tuple(a for a in DATA_AXES if a in names),
+            tuple(a for a in MODEL_AXES if a in names))
 
 
 def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
@@ -287,10 +344,11 @@ def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
     mean over sp is the gradient of the mean loss. tp
     takes no part in the mean: a tp block's gradient is its block's, and a
     leaf replicated over tp gets the same gradient on every tp rank
-    (``copy_to_tp`` sums the cotangent over tp before the norms' backward).
+    (``copy_to_tp`` sums the cotangent over tp before the norms' backward);
+    pp takes no part either (see the module note).
     Then each split leaf's norm is the root of its blocks' squared norms
     summed over the axes it is split over (one all_reduce per set of data
-    axes, then one over tp), so each block counts once, and every rank
+    axes, then one over each of pp and tp), so each block counts once, and every rank
     clips its pieces by the same global norm."""
     by_axes: dict[tuple[tuple[str, ...], bool], list[int]] = {}
     for i, pl in enumerate(placements):
@@ -308,12 +366,12 @@ def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
         if n > 1:
             torch._foreach_div_(gs, n)
     norms = list(torch._foreach_norm(grads))
-    for (data, tp), idx in by_axes.items():
-        if not (data or tp):
+    for (data, model), idx in by_axes.items():
+        if not (data or model):
             continue
         blocks = torch.stack([norms[i] for i in idx])
         squares = blocks * blocks
-        for axes in (data, ("tp",) if tp else ()):
+        for axes in (data, *((a,) for a in model)):
             if axes:
                 dist.all_reduce(squares, op=dist.ReduceOp.SUM,
                                 group=axis_group(mesh, axes)[0])

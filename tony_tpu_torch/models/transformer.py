@@ -12,13 +12,16 @@ final norm and the logits. With ``n_experts`` every layer's MLP is the
 capacity-based top-k MoE layer (``_moe_mlp``), which returns the router's
 auxiliary losses beside its output.
 
-On a mesh (dp, ep, sp and tp; pp waits for a later slice of the port) the
-forward takes the parameters gathered over dp, except the expert FFN
-weights, of which each rank holds its E/ep experts, and the tp-split
-leaves, of which each rank holds its tp block. Over sp each rank holds a
-block of the sequence: RoPE takes the block's global positions, and the
-attention is the ring (``parallel.ring``), whose K/V blocks travel over the
-sp axis. The MoE layer then runs the
+On a mesh (dp, pp, ep, sp and tp) the forward takes the parameters
+gathered over dp and pp, except the expert FFN weights, of which each rank
+holds its E/ep experts, and the tp-split leaves, of which each rank holds
+its tp block. ``forward_pipeline`` is the pipelined trunk over pp
+(``parallel.pipeline``): each rank runs its own L/pp layers as a stage of a
+microbatch schedule (GPipe or interleaved virtual stages), the embedding
+before the pipeline and the logits after it on every pp rank. Over sp
+each rank holds a block of the sequence: RoPE takes the block's global
+positions, and the attention is the ring (``parallel.ring``), whose K/V
+blocks travel over the sp axis. The MoE layer then runs the
 JAX package's manual form (``_moe_mlp_manual``), routing the rank's own
 tokens with a local capacity and exchanging per-expert slabs over ep with
 one all_to_all each way. The dense trunk runs Megatron's split over tp,
@@ -51,6 +54,7 @@ from tony_tpu_torch.ops import (
 )
 from tony_tpu_torch.parallel.collectives import (
     copy_to_tp,
+    exchange_chunks,
     exchange_ep,
     pmean,
     reduce_from_tp,
@@ -60,6 +64,10 @@ from tony_tpu_torch.parallel.mesh import (
     axis_coordinate,
     axis_size,
     mesh_spec,
+)
+from tony_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    pipeline_apply_in_process,
 )
 from tony_tpu_torch.parallel.ring import ring_attention
 
@@ -394,30 +402,27 @@ def _remat_context(cfg: TransformerConfig):
     )
 
 
-def _layer_slices(layers: dict, n_layers: int) -> list[dict]:
-    """Per-layer views of the stacked weights. ``unbind`` hands autograd one
-    stack of the per-layer gradients instead of a full-size zero tensor
-    per layer."""
+def _layer_slices(layers: dict) -> list[dict]:
+    """Per-layer views of the stacked weights (their leading dimension).
+    ``unbind`` hands autograd one stack of the per-layer gradients instead
+    of a full-size zero tensor per layer."""
     names = list(layers)
     columns = [layers[name].unbind(0) for name in names]
-    return [dict(zip(names, (col[i] for col in columns)))
-            for i in range(n_layers)]
+    return [dict(zip(names, row)) for row in zip(*columns)]
 
 
 def check_mesh(mesh, cfg: TransformerConfig) -> None:
-    """Refuse a mesh whose pp axis is above 1 (dp, ep, sp and tp are
-    ported), tp or sp above 1 under an MoE config, a tp that does not
-    divide the heads, K/V heads, d_ff or vocab (the JAX GSPMD trunk would
-    replicate such a dimension; the manual split cannot), and an ep that
-    does not divide the config's experts. That sp divides the sequence is
-    checked where the sequence is known (``lm_loss``, ``forward``)."""
+    """Refuse pp, tp or sp above 1 under an MoE config (every axis is
+    ported for dense trunks), a tp that does not divide the heads, K/V
+    heads, d_ff or vocab (the JAX GSPMD trunk would replicate such a
+    dimension; the manual split cannot), and an ep that does not divide
+    the config's experts. That sp divides the sequence is checked where
+    the sequence is known (``lm_loss``, ``forward``)."""
     spec = mesh_spec(mesh)
-    if spec.pp > 1:
+    if cfg.n_experts and spec.pp > 1:
         raise NotImplementedError(
-            f"mesh axis pp {spec.pp} waits for the model-parallel slice "
-            f"(slice 4, ROADMAP item 13) of the port; only dp, ep, sp and "
-            f"tp may be above 1"
-        )
+            f"an MoE trunk over pp {spec.pp} waits for ROADMAP item 13b "
+            f"(MoE x pp, with 11b) of the port")
     if cfg.n_experts and spec.sp > 1:
         raise NotImplementedError(
             f"an MoE trunk over sp {spec.sp} waits for ROADMAP item 12b "
@@ -457,6 +462,57 @@ def _embed(embed, tokens, cfg, mesh=None):
     return reduce_from_tp(rows.to(dt), mesh)
 
 
+def _check_pieces(params: dict, tokens: torch.Tensor,
+                  cfg: TransformerConfig, mesh) -> None:
+    """The pieces ``forward(mesh=)`` and ``forward_pipeline`` take: the
+    sequence (sp x this rank's block) within max_seq, the leaves gathered
+    over dp, and this rank's n_heads/tp heads."""
+    seq = axis_size(mesh, "sp") * tokens.shape[1]
+    if seq > cfg.max_seq:
+        raise ValueError(
+            f"a sequence of {seq} positions (sp x {tokens.shape[1]}) "
+            f"exceeds max_seq {cfg.max_seq}")
+    d_in = params["layers"]["wq"].shape[1]
+    if d_in != cfg.d_model:
+        raise ValueError(
+            f"forward(mesh=) takes the gathered parameters: wq has "
+            f"{d_in} of d_model {cfg.d_model} rows"
+        )
+    tp = axis_size(mesh, "tp")
+    heads = params["layers"]["wq"].shape[2]
+    if heads * tp != cfg.n_heads:
+        raise ValueError(
+            f"forward(mesh=) takes n_heads/tp = {cfg.n_heads // tp} "
+            f"heads per rank, the params hold {heads}")
+
+
+def _run_layers(layers: dict, x, layer_fn, cfg: TransformerConfig):
+    """``x`` through the stacked ``layers`` (their leading dimension),
+    each under ``cfg.remat`` through ``torch.utils.checkpoint``: (x, the
+    layers' MoE aux dicts)."""
+    context_fn = _remat_context(cfg) if cfg.remat else None
+    aux_layers = []
+    for lp in _layer_slices(layers):
+        if cfg.remat:
+            x, aux = checkpoint.checkpoint(layer_fn, x, lp,
+                                           use_reentrant=False,
+                                           context_fn=context_fn)
+        else:
+            x, aux = layer_fn(x, lp)
+        if aux is not None:
+            aux_layers.append(aux)
+    return x, aux_layers
+
+
+def _logits(x, params: dict, cfg: TransformerConfig, mesh=None):
+    """The final norm and the unembedding: this rank's V/tp vocab columns
+    with a mesh."""
+    x = rms_norm(x, params["final_norm"]).to(cfg.compute_dtype)
+    if mesh is not None:
+        x = copy_to_tp(x, mesh)
+    return x @ params["unembed"].to(cfg.compute_dtype)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None, *, return_aux: bool = False):
     """tokens [B, T] int -> logits [B, T, V] in the compute dtype, on the
@@ -470,32 +526,23 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     (balance, z-loss, drop rate, entropy, each averaged over the layers),
     empty for a dense config.
 
-    With a ``mesh``, ``params`` are the parameters gathered over dp but
-    for the expert FFN weights, of which this rank holds its E/ep experts,
-    and the tp-split leaves, of which it holds its tp block
-    (``make_train_step`` gathers them so); ``tokens`` are this rank's slice
-    of the batch, the same on every tp rank, and over sp its block of the
-    sequence (rank i of sp holds positions [i * T, (i + 1) * T)); the
-    logits are this rank's V/tp vocab columns of those positions."""
+    With a ``mesh``, ``params`` are the parameters gathered over dp and
+    pp (every pp rank runs the whole trunk on the same rows: the JAX
+    package's GSPMD trunk with the layer stack stored over pp) but for the
+    expert FFN weights, of which this rank holds its E/ep experts, and the
+    tp-split leaves, of which it holds its tp block (``make_train_step``
+    gathers them so); ``tokens`` are this rank's slice of the batch, the
+    same on every tp and pp rank, and over sp its block of the sequence
+    (rank i of sp holds positions [i * T, (i + 1) * T)); the logits are
+    this rank's V/tp vocab columns of those positions."""
     if mesh is not None:
         check_mesh(mesh, cfg)
-        seq = axis_size(mesh, "sp") * tokens.shape[1]
-        if seq > cfg.max_seq:
+        _check_pieces(params, tokens, cfg, mesh)
+        held = params["layers"]["wq"].shape[0]
+        if held != cfg.n_layers:
             raise ValueError(
-                f"a sequence of {seq} positions (sp x {tokens.shape[1]}) "
-                f"exceeds max_seq {cfg.max_seq}")
-        d_in = params["layers"]["wq"].shape[1]
-        if d_in != cfg.d_model:
-            raise ValueError(
-                f"forward(mesh=) takes the gathered parameters: wq has "
-                f"{d_in} of d_model {cfg.d_model} rows"
-            )
-        tp = axis_size(mesh, "tp")
-        heads = params["layers"]["wq"].shape[2]
-        if heads * tp != cfg.n_heads:
-            raise ValueError(
-                f"forward(mesh=) takes n_heads/tp = {cfg.n_heads // tp} "
-                f"heads per rank, the params hold {heads}")
+                f"forward(mesh=) takes the layer stack gathered over pp: "
+                f"the params hold {held} of {cfg.n_layers} layers")
     if cfg.n_experts:
         ep = 1 if mesh is None else axis_size(mesh, "ep")
         held = params["layers"]["w_gate"].shape[1]
@@ -503,30 +550,110 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             raise ValueError(
                 f"forward takes E/ep = {cfg.n_experts // ep} experts per "
                 f"rank, the params hold {held}")
-    dt = cfg.compute_dtype
     device = params["embed"].device
     cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
                                        theta=cfg.rope_theta, device=device)
     x = _embed(params["embed"], tokens.to(device).long(), cfg, mesh)
     layer_fn = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin,
                                  mesh=mesh)
-    context_fn = _remat_context(cfg) if cfg.remat else None
-    aux_layers = []
-    for lp in _layer_slices(params["layers"], cfg.n_layers):
-        if cfg.remat:
-            x, aux = checkpoint.checkpoint(layer_fn, x, lp,
-                                           use_reentrant=False,
-                                           context_fn=context_fn)
-        else:
-            x, aux = layer_fn(x, lp)
-        if aux is not None:
-            aux_layers.append(aux)
-    x = rms_norm(x, params["final_norm"]).to(dt)
-    if mesh is not None:
-        x = copy_to_tp(x, mesh)
-    logits = x @ params["unembed"].to(dt)
+    x, aux_layers = _run_layers(params["layers"], x, layer_fn, cfg)
+    logits = _logits(x, params, cfg, mesh)
     if not return_aux:
         return logits
     aux = {k: torch.stack([a[k] for a in aux_layers]).mean()
            for k in (aux_layers[0] if aux_layers else ())}
     return logits, aux
+
+
+def check_pipeline(cfg: TransformerConfig, pp: int, tp: int, schedule: str,
+                   virtual_stages: int) -> None:
+    """The pipelined trunk's refusals, the JAX package's
+    (``forward_pipeline``): virtual stages without the interleaved
+    schedule, a layer count pp x virtual does not divide, and K/V heads tp
+    does not divide; and an MoE config (ROADMAP item 13b)."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "an MoE trunk through the pipeline waits for ROADMAP item 13b "
+            "(MoE x pp, with 11b) of the port")
+    if schedule != "interleaved" and virtual_stages != 1:
+        raise ValueError("virtual_stages > 1 requires schedule='interleaved'")
+    if cfg.n_layers % (pp * virtual_stages):
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"pp*virtual {pp * virtual_stages}")
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"pipeline trunk needs n_kv_heads ({cfg.kv_heads}) divisible by "
+            f"tp ({tp}); use the GSPMD trunk or fewer tp shards")
+
+
+def forward_pipeline(params: dict, tokens: torch.Tensor,
+                     cfg: TransformerConfig, mesh, *, num_microbatches: int,
+                     schedule: str = "gpipe", virtual_stages: int = 1,
+                     return_aux: bool = False, stages: int | None = None):
+    """The pipelined trunk (the JAX package's ``forward_pipeline``): the
+    embedding runs before the pipeline and the final norm, the
+    unembedding and the logits after it on every pp rank; the layer stack
+    runs as pp stages of ``parallel.pipeline_apply`` under ``schedule``
+    ("gpipe" or "interleaved" with ``virtual_stages`` round-robin chunks a
+    rank), each layer with tp's sums and sp's ring inside, under
+    ``cfg.remat`` as in ``forward``. Returns what ``forward`` returns (the
+    aux dict is empty: a dense trunk).
+
+    ``params``: as ``forward(mesh=)`` takes them, but for the layer leaves,
+    which hold this rank's L/pp layers, contiguous as the state keeps them
+    (``"layers"`` -> pp); the interleaved schedule exchanges them for its
+    round-robin chunks each call (``collectives.exchange_chunks``).
+
+    With ``mesh=None`` the pipeline of ``stages`` ranks runs in this
+    process (``pipeline_apply_in_process``) over the whole parameters."""
+    if mesh is None:
+        if stages is None:
+            raise ValueError("forward_pipeline(mesh=None) runs the pipeline "
+                             "in this process: pass stages=")
+        pp, tp = stages, 1
+    else:
+        pp, tp = axis_size(mesh, "pp"), axis_size(mesh, "tp")
+    v = virtual_stages
+    check_pipeline(cfg, pp, tp, schedule, v)
+    layers = params["layers"]
+    held = layers["wq"].shape[0]
+    if mesh is not None:
+        check_mesh(mesh, cfg)
+        _check_pieces(params, tokens, cfg, mesh)
+        if held * pp != cfg.n_layers:
+            raise ValueError(
+                f"forward_pipeline takes this rank's L/pp = "
+                f"{cfg.n_layers // pp} layers, the params hold {held}")
+    elif held != cfg.n_layers:
+        raise ValueError(f"forward_pipeline(mesh=None) takes all "
+                         f"{cfg.n_layers} layers, the params hold {held}")
+    device = params["embed"].device
+    cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
+                                       theta=cfg.rope_theta, device=device)
+    x = _embed(params["embed"], tokens.to(device).long(), cfg, mesh)
+    layer_fn = functools.partial(_decoder_layer, cfg=cfg, cos=cos, sin=sin,
+                                 mesh=mesh)
+
+    def stage_fn(stage_layers, xm):
+        return _run_layers(stage_layers, xm, layer_fn, cfg)[0]
+
+    kw = dict(num_microbatches=num_microbatches, schedule=schedule,
+              virtual=v)
+    if mesh is None:
+        lv = cfg.n_layers // (pp * v)
+        if schedule == "interleaved":
+            # [L, ...] -> [pp, v, L/(v*pp), ...]: [d, c] is global virtual
+            # stage c * pp + d.
+            stacked = {k: p.reshape(v, pp, lv, *p.shape[1:]).transpose(0, 1)
+                       for k, p in layers.items()}
+        else:
+            stacked = {k: p.reshape(pp, lv, *p.shape[1:])
+                       for k, p in layers.items()}
+        x = pipeline_apply_in_process(stage_fn, stacked, x, pp, **kw)
+    else:
+        if schedule == "interleaved":
+            layers = {k: exchange_chunks(p, mesh, v)
+                      for k, p in layers.items()}
+        x = pipeline_apply(stage_fn, layers, x, mesh=mesh, **kw)
+    logits = _logits(x, params, cfg, mesh)
+    return (logits, {}) if return_aux else logits

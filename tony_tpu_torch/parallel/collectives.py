@@ -25,6 +25,15 @@ tensors to the next rank of an axis and receives them from the previous
 one (``lax.ppermute`` with the permutation i -> i + 1); its gradient is
 the reverse rotation of the cotangents, the transpose JAX takes. It too is
 the identity at axis size 1.
+
+And what the pipeline over pp needs: ``copy_to`` and ``reduce_from``, the
+conjugate pair over any axis (the pipeline's input enters through the
+first, its masked output sum leaves through the second); ``anchor`` and
+``select``, which keep an unused received tensor in the backward graph at a
+zero gradient; ``all_gather_with_slice_grad``, the gather of the layer
+stack for work every pp rank does whole; and ``exchange_chunks``, the
+all_to_all that turns each rank's contiguous layers into its round-robin
+chunks of the interleaved schedule.
 """
 
 from __future__ import annotations
@@ -34,7 +43,13 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from tony_tpu_torch.parallel.mesh import AXES, DATA_AXES, axis_size, flat_name
+from tony_tpu_torch.parallel.mesh import (
+    AXES,
+    DATA_AXES,
+    axis_coordinate,
+    axis_size,
+    flat_name,
+)
 
 # Gradients are averaged in flat buckets of about this many bytes, one
 # collective per bucket rather than one per leaf.
@@ -305,7 +320,7 @@ def _sum_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return y
 
 
-class _CopyToTp(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
         ctx.args = (group, n)
@@ -316,7 +331,7 @@ class _CopyToTp(torch.autograd.Function):
         return _sum_over(grad, *ctx.args), None, None
 
 
-class _ReduceFromTp(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n):
         return _sum_over(x, group, n)
@@ -324,6 +339,23 @@ class _ReduceFromTp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """``x``, replicated over mesh axis ``axis_name``, into work that each
+    rank of the axis does on its own part: the identity, whose gradient is
+    summed over the axis (the transpose JAX takes of an input it
+    broadcasts over the axis). The identity both ways at axis size 1."""
+    return _CopyTo.apply(x, *axis_group(mesh, axis_name))
+
+
+def reduce_from(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of mesh axis ``axis_name``
+    (``lax.psum``), into work that every rank then does whole: its
+    gradient is the cotangent itself, which every rank of the axis holds
+    whole (a backward that summed over the axis would count it once a
+    rank). The identity at axis size 1."""
+    return _ReduceFrom.apply(x, *axis_group(mesh, axis_name))
 
 
 def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -334,7 +366,7 @@ def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     tensor, and the copies a one-rank sum would take (2 x 17 activations
     [b, t, d] a step) added 1.0 ms to bench_transformer's 105.7 ms step on
     an H100."""
-    return _CopyToTp.apply(x, *axis_group(mesh, "tp"))
+    return copy_to(x, mesh, "tp")
 
 
 def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -342,4 +374,123 @@ def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     row-parallel product (``lax.psum(x, "tp")``); its gradient is the
     cotangent itself, which every tp rank holds whole. The identity at
     tp = 1 (see ``copy_to_tp``)."""
-    return _ReduceFromTp.apply(x, *axis_group(mesh, "tp"))
+    return reduce_from(x, mesh, "tp")
+
+
+class _Anchor(torch.autograd.Function):
+    """``out`` as it is, with ``tensors`` as inputs whose gradient is
+    zeros. A received tensor that no later op uses would leave its
+    transfer out of the backward graph on this rank alone, and its peers
+    would wait for that transfer's reverse send; the anchor keeps it in."""
+
+    @staticmethod
+    def forward(ctx, out, *tensors):
+        ctx.likes = [(t.shape, t.dtype, t.device) for t in tensors]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad, *(torch.zeros(shape, dtype=dtype, device=device)
+                        for shape, dtype, device in ctx.likes))
+
+
+def anchor(out: torch.Tensor, *tensors: torch.Tensor) -> torch.Tensor:
+    """``out``, differentiable, with ``tensors`` kept in the backward graph
+    at a zero gradient (``_Anchor``)."""
+    return _Anchor.apply(out, *tensors)
+
+
+def select(first: bool, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` if ``first`` else ``b`` (``jnp.where`` on a rank's own
+    condition, without its elementwise pass): the gradient goes to the one
+    taken, zeros to the other, so both stay in the backward graph and
+    every rank builds the same graph whichever it takes."""
+    return _Anchor.apply(a, b) if first else _Anchor.apply(b, a)
+
+
+class _GatherSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, axis_name, mesh):
+        ctx.args = (axis, x.shape[axis], axis_coordinate(mesh, axis_name))
+        return all_gather_tp(x, axis, axis_name, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis, size, pos = ctx.args
+        return grad.narrow(axis, pos * size, size), None, None, None
+
+
+def all_gather_with_slice_grad(x: torch.Tensor, axis: int, axis_name: str,
+                               *, mesh) -> torch.Tensor:
+    """``all_gather_tp`` for work that every rank of the axis then does
+    whole on the same data (the pp ranks of the unpipelined trunk): each
+    rank's cotangent of the gathered tensor is the whole gradient, so the
+    gradient of its own block is its slice of it, with no communication (a
+    reduce-scatter would sum the axis's identical copies)."""
+    return _GatherSlice.apply(x, axis, axis_name, mesh)
+
+
+def chunk_plan(pp: int, virtual: int, rank: int
+               ) -> tuple[list[int], list[int], list[int]]:
+    """The exchange that turns contiguous layer blocks into round-robin
+    chunks: rank r holds blocks r * virtual + k (k < virtual) of the
+    virtual * pp equal blocks of a layer stack, and needs blocks c * pp + r
+    (chunk c < virtual). Block b goes to rank b % pp. Returns (this rank's
+    blocks in the order it sends them, grouped by destination rank; the
+    blocks it sends to each rank; the blocks it receives from each rank).
+    What arrives, in source order, is in chunk order: block c * pp + r
+    comes from rank (c * pp + r) // virtual, which grows with c."""
+    own = [rank * virtual + k for k in range(virtual)]
+    order = sorted(range(virtual), key=lambda k: (own[k] % pp, k))
+    send = [sum(1 for b in own if b % pp == q) for q in range(pp)]
+    recv = [sum(1 for c in range(virtual) if (c * pp + rank) // virtual == q)
+            for q in range(pp)]
+    return order, send, recv
+
+
+def _all_to_all_blocks(x, group, send, recv) -> torch.Tensor:
+    """all_to_all over dim 0 of ``x`` [blocks, ...]: ``send[q]`` blocks to
+    rank q, ``recv[q]`` from it, concatenated in rank order."""
+    x = x.contiguous()
+    out = x.new_empty((sum(recv), *x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    return out
+
+
+class _ExchangeChunks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, pp, virtual, rank):
+        order, send, recv = chunk_plan(pp, virtual, rank)
+        ctx.args = (group, order, send, recv, x.shape)
+        blocks = x.reshape(virtual, x.shape[0] // virtual, *x.shape[1:])
+        return _all_to_all_blocks(blocks[order], group, send, recv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # Chunk c's cotangent goes back to the rank that sent its block,
+        # which puts the blocks back in its own order.
+        group, order, send, recv, shape = ctx.args
+        back = _all_to_all_blocks(grad, group, recv, send)
+        local = torch.empty_like(back)
+        local[order] = back
+        return local.reshape(shape), None, None, None, None
+
+
+def exchange_chunks(x: torch.Tensor, mesh, virtual: int,
+                    axis_name: str = "pp") -> torch.Tensor:
+    """This rank's ``virtual`` round-robin chunks of a layer stack split
+    over ``axis_name`` in contiguous blocks: ``x`` [L/pp, ...] holds
+    layers [r * L/pp, (r + 1) * L/pp) on rank r; the result [virtual,
+    L/(virtual * pp), ...] holds in row c the layers of global virtual
+    stage c * pp + r (the interleaved schedule's placement, which JAX's
+    ``forward_pipeline`` gets by reshaping the pp-sharded stack). One
+    all_to_all over the axis (``chunk_plan``); differentiable, the
+    gradient going back the reverse way. Runs its all_to_all also at axis
+    size 1."""
+    group, n = axis_group(mesh, axis_name)
+    if x.shape[0] % virtual:
+        raise ValueError(f"{x.shape[0]} layers do not split into "
+                         f"{virtual} chunks")
+    return _ExchangeChunks.apply(x, group, n, virtual,
+                                 axis_coordinate(mesh, axis_name))

@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from tony_tpu_torch.ops.attention import NEG_INF, flash_attention_lse
-from tony_tpu_torch.parallel.collectives import ppermute
+from tony_tpu_torch.parallel.collectives import anchor, ppermute
 from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
 
 
@@ -104,23 +104,6 @@ def _chunk(q, k, v, offset: int, *, causal: bool, scale: float):
             torch.cat([p[1] for p in pieces], 2))
 
 
-class _Anchor(torch.autograd.Function):
-    """``out`` as it is, with ``tensors`` as inputs whose gradient is
-    zeros. A received block that no step used would leave its rotation out
-    of the backward graph on this rank alone, and its peers would wait for
-    that rotation's reverse send; the anchor keeps it in."""
-
-    @staticmethod
-    def forward(ctx, out, *tensors):
-        ctx.likes = [(t.shape, t.dtype, t.device) for t in tensors]
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (grad, *(torch.zeros(shape, dtype=dtype, device=device)
-                        for shape, dtype, device in ctx.likes))
-
-
 def ring_body(q, k, v, rotate, *, axis_size: int, axis_index: int,
               causal: bool, scale: float) -> torch.Tensor:
     """One rank's ring. q [B, Tq, H, D], k/v [B, Tk, Hkv, D]: this rank's
@@ -141,7 +124,7 @@ def ring_body(q, k, v, rotate, *, axis_size: int, axis_index: int,
             acc = part if acc is None else _merge_lse(*acc, *part)
     out = acc[0]
     if n > 1 and part is None:
-        out = _Anchor.apply(out, k_blk, v_blk)
+        out = anchor(out, k_blk, v_blk)
     return out.to(q.dtype)
 
 

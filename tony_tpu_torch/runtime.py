@@ -154,11 +154,10 @@ def build_job_mesh(spec=None, device="cuda", *, timeout_s: float = 300.0):
     ``TONY_SLICE_TOPOLOGY`` (1 without it): dp is the outer axis, so only
     the gradient mean crosses slices (on GPUs a slice is a node). With no
     ``spec`` the world is factored as the JAX package does (tp first, then
-    sp and pp): the port's train step and ``DecodeSession`` take dp, ep,
-    sp and tp, and refuse pp, which ``MeshSpec.auto`` gives from eight
-    processes up (four give tp 2 x sp 2), so a job of eight or more
-    processes passes its spec (the train CLI passes
-    ``MeshSpec(dp=processes)`` until pp lands). Returns None without a
+    sp and pp; two processes give tp 2, four tp 2 x sp 2, eight pp 2 x sp
+    2 x tp 2). The train CLI passes ``MeshSpec(dp=processes)``: under a
+    factored mesh the ranks of one data row must feed the same rows, and a
+    small model's K/V heads may not split over tp. Returns None without a
     process group (a job of one process)::
 
         ctx = rt.initialize()

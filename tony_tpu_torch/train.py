@@ -224,9 +224,9 @@ def main(argv=None) -> int:
 
 
 def _train(args, ctx) -> int:
-    # Data parallel over every process until pp lands: the JAX example's
-    # build_job_mesh() with no spec gives pp 2 from eight processes, which
-    # the port refuses.
+    # Data parallel over every process. The JAX example's build_job_mesh()
+    # with no spec factors tp first (tp 2 from two processes), whose ranks
+    # must feed the same rows, where each process reads its own shard.
     mesh = rt.build_job_mesh(MeshSpec(dp=ctx.num_processes),
                              device=ctx.device, timeout_s=args.dist_timeout)
     print(f"[{ctx.job_name}:{ctx.task_index}] process {ctx.process_id}/"
