@@ -137,6 +137,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
              top-2, capacity factor 1.25 (tokens drop): card vs CPU at each
              remat setting, then the expert-parallel path over a one-rank
              NCCL mesh: 3 steps bit-equal to mesh=None, its all_to_all run.
+12b. moe mesh — the MoE trunk over the model axes. The pipeline with
+             every stage in one process at bench_moe's full width and
+             depth over 4 microbatches of [4, 2049] (pp 2 GPipe, pp 4
+             interleaved with 2 virtual stages): loss, router values and
+             every gradient against the trunk run one microbatch at a time
+             (same rows, same capacity), in bf16 and, at moe parity's
+             widths with 8 layers and skewed weights (tokens drop), in
+             fp32; every B1 and B2/B3 launch held against its plain
+             version. Then MeshSpec(tp=1), (sp=1) and (pp=1, stack
+             gathered and through the pipeline) on a one-rank NCCL group,
+             fp32 with drops at remat "dots": parity against mesh=None.
 13. moe serve — DecodeSession.generate at bench_moe_decode's three points
              (E 4 routed, E 16 routed, E 16 dense; d 512, 4 layers, batch
              8, prompt 16; ms per step by differencing 256 and 896 new
@@ -150,7 +161,9 @@ serving path; phase 7, the training path; phase 9, the data-parallel
 path; phase 9b's mesh runs, the tp path; phase 9c's rings and mesh
 runs, the sp path; phase 9d's schedules and mesh runs, the pp path;
 phase 10's jobs and serving, the
-job path; phase 11, the MoE train path; phase 13's bf16 generate and
+job path; phase 11, the MoE train path; phase 12b's pipelines, the MoE
+pipeline path, and its mesh runs, the MoE mesh path; phase 13's bf16
+generate and
 engine, the MoE serving path) and read just after; every kernel of a path must have launched there. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}.
@@ -293,6 +306,13 @@ MOE_DECODE = dict(
     d_ff=1024, max_seq=1024, n_kv_heads=0, expert_top_k=2, remat=False,
 )
 MOE_DECODE_POINTS = [(4, "routed"), (16, "routed"), (16, "dense")]
+# MoE over the model axes: the pipeline in one process over
+# MOE_PP_MICROBATCHES microbatches under each (stages, schedule, virtual
+# stages) of MOE_PP_SCHEDULES, against the trunk run one microbatch at a
+# time; the router values held beside the loss.
+MOE_PP_MICROBATCHES = 4
+MOE_PP_SCHEDULES = ((2, "gpipe", 1), (4, "interleaved", 2))
+MOE_AUX = ("moe_balance", "moe_zloss", "moe_drop_rate", "moe_entropy")
 MOE_DECODE_BATCH, MOE_DECODE_PROMPT = 8, 16
 MOE_DECODE_LENGTHS = (256, 896)
 MOE_SERVE_REQUESTS = 4
@@ -1640,16 +1660,17 @@ def _parity_references(torch, rng, seed: int) -> dict:
 
 
 def _check_mesh_parity(torch, tag: str, refs: dict, mesh, seed: int,
-                       **trunk) -> dict:
-    """The runs of ``refs`` (``_parity_references``) again over ``mesh``
-    (make_train_step's ``trunk`` arguments): the losses within
+                       skew: float = 0.0, **trunk) -> dict:
+    """The runs of ``refs`` (``_parity_references``; weights from
+    ``parity_params`` with ``skew``) again over ``mesh`` (make_train_step's
+    ``trunk`` arguments): the losses within
     TRAIN_LOSS_RTOL and every first-step gradient within TRAIN_GRAD_TOL of
     its leaf's largest. Returns {setting: {"losses", "worst_grad_rel_err",
     "bit_equal"}}."""
     checked = {}
     for key, (pcfg, batches, (want_losses, want_grads)) in refs.items():
         losses, grads = _tp_parity_run(torch, pcfg, parity_params(
-            torch, pcfg, seed), batches, mesh, **trunk)
+            torch, pcfg, seed, skew), batches, mesh, **trunk)
         if not np.allclose(losses, want_losses, rtol=TRAIN_LOSS_RTOL,
                            atol=0):
             raise AssertionError(f"{tag} {key}: losses {losses} vs "
@@ -2828,6 +2849,213 @@ def moe_parity_phase(torch, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12b: the MoE trunk's model axes: the pipeline in one process, and
+# tp, sp and pp on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def _moe_run(torch, cfg, params: dict, tokens, **pipe) -> tuple:
+    """(loss, the four router values, every leaf's gradient in ``leaves``
+    order) of lm_loss without a mesh on fresh trainable copies of
+    ``params``: through the pipeline run in this process with ``pipe``
+    (lm_loss's pipeline arguments and ``pipeline_stages``); without it,
+    the trunk one microbatch of ``MOE_PP_MICROBATCHES`` rows at a time,
+    the losses and router values averaged over the microbatches and the
+    gradients taken of that mean (the pipeline's math: each microbatch
+    routed alone with a capacity counted from its rows)."""
+    from tony_tpu_torch.models import lm_loss
+    from tony_tpu_torch.models.train import leaves
+
+    def trainable(tree):
+        return {k: (trainable(v) if isinstance(v, dict) else
+                    v.detach().to("cuda", copy=True).requires_grad_())
+                for k, v in tree.items()}
+
+    params = trainable(params)
+    if pipe:
+        loss, metrics = lm_loss(params, tokens, cfg, None,
+                                return_metrics=True, **pipe)
+        loss.backward()
+        sums = {k: v.detach() for k, v in {"loss": loss, **metrics}.items()}
+        m = 1
+    else:
+        m = MOE_PP_MICROBATCHES
+        sums = {}
+        for part in tokens.chunk(m):
+            loss, metrics = lm_loss(params, part, cfg, None,
+                                    return_metrics=True)
+            (loss / m).backward()
+            for k, v in {"loss": loss, **metrics}.items():
+                sums[k] = sums.get(k, 0.0) + v.detach()
+    torch.cuda.synchronize()
+    values = {k: float(v) / m for k, v in sums.items()
+              if k in MOE_AUX or k == "loss"}
+    return values.pop("loss"), values, [p.grad for p in leaves(params)]
+
+
+def _check_moe_pipeline(tag: str, got: tuple, want: tuple, loss_rtol: float,
+                        grad_tol: float) -> dict:
+    """The pipeline's loss and router values within ``loss_rtol`` of the
+    microbatch-by-microbatch reference's, every gradient leaf within
+    ``grad_tol`` of its leaf's largest |value|."""
+    out = _compare_grads(f"moe {tag}", got[0], got[2], (want[0], want[2]),
+                         loss_rtol, grad_tol)
+    for k in MOE_AUX:
+        a, b = got[1][k], want[1][k]
+        if not abs(a - b) <= loss_rtol * abs(b):
+            raise AssertionError(f"moe pp {tag}: {k} {a} vs the reference "
+                                 f"{b} (rtol {loss_rtol})")
+    out["aux"], out["want_aux"] = got[1], want[1]
+    return out
+
+
+def moe_mesh_phase(torch, attention, norms, seed: int) -> dict:
+    """The MoE trunk over the model axes on one card, in two parts.
+
+    The pipeline (path "moe_pp"): ``forward_pipeline`` with every stage in
+    this process at bench_moe's full width and depth (BENCH_MOE: 8
+    layers, remat "dots", bf16) over MOE_PP_MICROBATCHES microbatches of
+    the [4, 2049] batch, under each of MOE_PP_SCHEDULES (pp 2 GPipe, pp 4
+    interleaved with 2 virtual stages): the loss, the four router values
+    and every gradient leaf against the same trunk run one microbatch at a
+    time (``_moe_run``), which routes the same rows with the same capacity,
+    in bf16 within PP_BF16_LOSS_RTOL and PP_BF16_GRAD_TOL, and every B1
+    and B2/B3 launch held against its plain version on the same inputs
+    (``_held_to_plain``); then the same at MOE_PARITY's widths and 8
+    layers in fp32 (TF32 off), with MOE_PARITY_SKEW's weights so that
+    tokens drop, within TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL.
+
+    The mesh paths (path "moe_mesh"): MeshSpec(tp=1), (sp=1) and (pp=1) on
+    a one-rank NCCL group under MOE_PARITY in fp32 with drops and remat
+    "dots": DP_PARITY_STEPS steps' losses and the first step's gradients
+    against mesh=None (``_check_mesh_parity``'s limits), the pp mesh both
+    with the layer stack gathered and through the pipeline over one
+    microbatch. At size 1 copy_to_tp and reduce_from_tp are the identity,
+    the statistics' pmean and the all_to_all one-rank collectives, and
+    the trunk reaches neither the ring's rotation nor the sends between
+    stages: dp_study.py --ep with --tp, --sp or --pp runs those.
+
+    The references run outside the counted windows; the launch counters
+    are set to 0 just before each path and read just after."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tony_tpu_torch.models import TransformerConfig, init_params
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh, schedule_info
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed + 15)
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_MOE)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 15)
+    params = init_params(cfg, gen, device="cuda")
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (MOE_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    pcfg = TransformerConfig(dtype="float32", remat=True, remat_policy="dots",
+                             **dict(MOE_PARITY, n_layers=cfg.n_layers))
+    pparams = parity_params(torch, pcfg, seed, MOE_PARITY_SKEW)
+    ptokens = torch.as_tensor(rng.integers(
+        0, pcfg.vocab_size, (MOE_PP_MICROBATCHES * 2, pcfg.max_seq + 1)),
+        device="cuda")
+    runs = {"bf16": (cfg, params, tokens, PP_BF16_LOSS_RTOL,
+                     PP_BF16_GRAD_TOL),
+            "fp32": (pcfg, pparams, ptokens, TRAIN_LOSS_RTOL,
+                     TRAIN_GRAD_TOL)}
+    refs = {dtype: _moe_run(torch, model, p, t)
+            for dtype, (model, p, t, _, _) in runs.items()}
+    if not refs["fp32"][1]["moe_drop_rate"] > 0:
+        raise AssertionError("moe pp fp32: no token dropped")
+    log(f"moe pp references (one microbatch at a time): drop rate bf16 "
+        f"{refs['bf16'][1]['moe_drop_rate']}, fp32 "
+        f"{refs['fp32'][1]['moe_drop_rate']}")
+
+    _reset_launches(attention, norms)
+    schedules = {}
+    for stages, schedule, virtual in MOE_PP_SCHEDULES:
+        tag = f"pp {stages} {schedule} v {virtual}"
+        pipe = dict(pipeline_microbatches=MOE_PP_MICROBATCHES,
+                    pipeline_schedule=schedule, pipeline_virtual=virtual,
+                    pipeline_stages=stages)
+        info = schedule_info(schedule, MOE_PP_MICROBATCHES, stages,
+                             cfg.n_layers, virtual)
+        computed = info.ticks - (schedule == "interleaved")
+        res = {"ticks": info.ticks, "bubble_fraction": info.bubble_fraction}
+        for dtype, (model, p, t, loss_rtol, grad_tol) in runs.items():
+            held = {}
+            dq, dkv = attention.launches_dq, attention.launches_dkv
+            t0 = time.perf_counter()
+            with _held_to_plain(torch, attention, f"moe {tag} {dtype}",
+                                held):
+                got = _moe_run(torch, model, p, t, **pipe)
+            wall = time.perf_counter() - t0
+            # B2 and B3 launch once a layer of every computed tick of every
+            # stage (the backward runs every tick, as across ranks).
+            n = computed * model.n_layers // virtual
+            if (attention.launches_dq - dq, attention.launches_dkv - dkv) \
+                    != (n, n):
+                raise AssertionError(f"moe {tag} {dtype}: B2/B3 launched "
+                                     f"{attention.launches_dq - dq} / "
+                                     f"{attention.launches_dkv - dkv} "
+                                     f"times, not {n} each")
+            res[dtype] = {"b2_launches": n, "launches_vs_plain": held,
+                          "wall_s_with_checks": wall,
+                          "vs_microbatches": _check_moe_pipeline(
+                              f"{tag} {dtype}", got, refs[dtype], loss_rtol,
+                              grad_tol)}
+            log(f"moe {tag} {dtype}: each launch against its plain "
+                f"version: {json.dumps(held)}: ok")
+            del got
+        schedules[tag] = res
+    torch.cuda.synchronize()
+    pp_launches = _launches(attention, norms)
+    del params, refs, runs
+    torch.cuda.empty_cache()
+
+    mesh_cfg = TransformerConfig(dtype="float32", remat=True,
+                                 remat_policy="dots", **MOE_PARITY)
+    batches = [torch.as_tensor(rng.integers(
+        0, mesh_cfg.vocab_size, (PARITY_TRAIN_BATCH, mesh_cfg.max_seq + 1)),
+        device="cuda") for _ in range(DP_PARITY_STEPS)]
+    mesh_refs = {"remat=True/dots": (mesh_cfg, batches, _tp_parity_run(
+        torch, mesh_cfg, parity_params(torch, mesh_cfg, seed,
+                                       MOE_PARITY_SKEW), batches, None))}
+    meshes = {"tp": (dict(tp=1), {}), "sp": (dict(sp=1), {}),
+              "pp": (dict(pp=1), {}),
+              "pp_pipeline": (dict(pp=1), dict(pipeline_microbatches=1))}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=timedelta(seconds=DP_TIMEOUT_S))
+    checked = {}
+    try:
+        built = {tag: build_mesh(MeshSpec(**axes), "cuda",
+                                 timeout_s=DP_TIMEOUT_S)
+                 for tag, (axes, _) in meshes.items()}
+        _reset_launches(attention, norms)
+        for tag, (_, trunk) in meshes.items():
+            checked[tag] = _check_mesh_parity(
+                torch, f"moe {tag}", mesh_refs, built[tag], seed,
+                skew=MOE_PARITY_SKEW, **trunk)
+        torch.cuda.synchronize()
+        mesh_launches = _launches(attention, norms)
+    finally:
+        dist.destroy_process_group()
+    for path, launches in (("moe_pp", pp_launches),
+                           ("moe_mesh", mesh_launches)):
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"{path} path")
+    res = {"schedules": schedules, "microbatches": MOE_PP_MICROBATCHES,
+           "mesh_parity": checked, "pp_launches": pp_launches,
+           "mesh_launches": mesh_launches,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    log("moe mesh: " + json.dumps(res))
+    return res
+
+
 def moe_decode_ms(torch, session, prompt) -> dict:
     """The ms per decode step of ``session.generate`` on ``prompt``: the
     wall difference of MOE_DECODE_LENGTHS new tokens over their
@@ -3063,6 +3291,11 @@ def main(argv=None) -> int:
     moe_train = moe_train_phase(torch, attention, norms, args.seed)
     torch.cuda.empty_cache()
     moe_parity_phase(torch, args.seed)
+    # Slice 4's MoE paths: the pipeline in one process at bench_moe's full
+    # width, and the MoE trunk over tp, sp and pp on a one-rank NCCL mesh
+    # (it resets the counters itself and reads them just after each).
+    moe_mesh = moe_mesh_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
     moe_serve = moe_serve_phase(torch, attention, norms, args.seed)
     rows = (rms_row, flash_row, dq_row, dkv_row)
     for row in rows:
@@ -3076,6 +3309,8 @@ def main(argv=None) -> int:
             "sp": sp["launches"][row["name"]],
             "pp": pp["launches"][row["name"]],
             "moe_train": moe_train["launches"][row["name"]],
+            "moe_pp": moe_mesh["pp_launches"][row["name"]],
+            "moe_mesh": moe_mesh["mesh_launches"][row["name"]],
             "moe_serve": moe_serve["launches"][row["name"]]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -15,6 +15,10 @@ tony_tpu_torch across the cards of one host.
     python3 dp_study.py --ranks 4 --pp 2 --tp 2        # pp 2 x tp 2
     python3 dp_study.py --ranks 4 --pp 2               # dp 2 x pp 2
     python3 dp_study.py --ranks 2 --pp 2 --microbatches 0  # stack over pp
+    python3 dp_study.py --ranks 4 --ep 2 --tp 2   # bench_moe over ep 2 x tp 2
+    python3 dp_study.py --ranks 4 --ep 2 --sp 2   # bench_moe over ep 2 x sp 2
+    python3 dp_study.py --ranks 4 --ep 2 --pp 2 --microbatches 2
+    python3 dp_study.py --ranks 2 --moe --tp 2    # bench_moe over tp 2 alone
 
 Builds the kernels once, then starts one process per card, each in its own
 session, on cuda:<rank>: they meet at a TCP store on a free localhost port,
@@ -28,8 +32,10 @@ the attention a ring over sp, or with ``--pp P`` dp = ranks / (P x T) x pp
 them as a stage of ``--schedule`` over ``--microbatches`` microbatches, or
 with ``--microbatches 0`` the trunk whole on every pp rank with the layer
 stack gathered over pp); the parent waits on one deadline and kills and
-reaps every rank still alive. The ranks of one data row (its pp, sp and
-tp ranks) feed the same rows. Each rank:
+reaps every rank still alive. ``--ep E`` (or ``--moe`` at ep 1) trains
+bench_moe's MoE trunk instead of the dense one and composes with ``--tp``,
+``--sp`` and ``--pp``: dp = ranks / (E x P x S x T). The ranks of one data
+row (its pp, sp and tp ranks) feed the same rows. Each rank:
 
 1. parity — fp32, TF32 off, chip_smoke's PARITY_TRAIN model (2 layers, d
    256, GQA 16/4, seq 256): 3 steps of make_train_step(cfg, mesh), each
@@ -45,7 +51,10 @@ tp ranks) feed the same rows. Each rank:
    one process's global, so with drops the two keep other tokens). With
    ``--pp``: PARITY_TRAIN's widths at 8 layers (which pp x virtual stages
    divide), 8 rows a data row, through the same trunk and schedule as the
-   step.
+   step; an MoE trunk through GPipe over one microbatch (a microbatch's
+   router statistics enter the balance loss, which is not linear in them,
+   so only one microbatch a data row gives mesh=None's loss; the CPU tests
+   and chip_smoke hold more microbatches against their references).
 2. step — bench_transformer (bf16, 199.8 M parameters) at chip_smoke's
    batch per rank, [8, 2049], so the global batch is 8 x ranks rows: the
    mesh step's median (10 after 2 warm-ups, CUDA events) beside the
@@ -54,7 +63,9 @@ tp ranks) feed the same rows. Each rank:
    launches of B1-B4 on the mesh path; then one more mesh step, profiled
    on rank 0: device ms of the NCCL kernels and of everything else. With
    ``--ep``: bench_moe (bf16, 502 M parameters, chip_smoke's BENCH_MOE)
-   at [4, 2049] per rank, each card holding E / ep of the experts. With
+   at [4, 2049] per data row, each card holding E / ep of the experts
+   (over tp their F / tp columns, over sp a block of the positions, over
+   pp its L / pp layers). With
    ``--tp``: [8, 2049] per data row, each card holding its tp block. With
    ``--sp``: bench.py's transformer_16k_hd128 (bench_transformer's widths
    with 8 heads of 128, no remat) at [1, seq + 1] per data row (``--seq``,
@@ -72,7 +83,9 @@ tp ranks) feed the same rows. Each rank:
    from which the SendRecv time spent waiting for the peer is the
    SendRecv ms less the sends times that.
 3. decode (``--tp`` above 1 without ``--pp`` only) — chip_smoke's
-   flagship serving model (d 1024, 8 layers, GQA 16/4) through
+   flagship serving model (d 1024, 8 layers, GQA 16/4), or with an MoE
+   trunk chip_smoke's MOE_DECODE trunk with 4 experts (routed decode;
+   over ep each card holds 2 of them), through
    DecodeSession(mesh=): fp32 greedy
    tokens of batch 8 (prompt 32, 16 new) equal to the session without a
    mesh on rank 0's card alone; then bf16 at bench.py's decode shape
@@ -167,6 +180,14 @@ def trunk(job: dict) -> dict:
                 pipeline_virtual=job["virtual"])
 
 
+def parity_trunk(job: dict) -> dict:
+    """The parity run's pipeline arguments: the step's, but GPipe over one
+    microbatch for an MoE trunk (see the module note)."""
+    if job["moe"] and trunk(job):
+        return dict(pipeline_microbatches=1)
+    return trunk(job)
+
+
 def parity_rows(job: dict) -> int:
     return PP_PARITY_ROWS if job["pp"] > 1 else PARITY_ROWS_PER_RANK
 
@@ -176,9 +197,9 @@ def _parity_setup(torch, rows: int, seed: int, job: dict):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = (chip_smoke.PARITY_TRAIN if job["ep"] == 1 else dict(
-        chip_smoke.MOE_PARITY,
-        capacity_factor=float(chip_smoke.MOE_PARITY["n_experts"])))
+    model = (dict(chip_smoke.MOE_PARITY,
+                  capacity_factor=float(chip_smoke.MOE_PARITY["n_experts"]))
+             if job["moe"] else chip_smoke.PARITY_TRAIN)
     if job["pp"] > 1:
         model = dict(model, n_layers=PP_PARITY_LAYERS)
     cfg = TransformerConfig(dtype="float32", remat=False, **model)
@@ -229,7 +250,7 @@ def parity(torch, mesh, row: int, rows: int, device, seed: int, job: dict,
     cfg, params, batches = _parity_setup(torch, rows, seed, job)
     n = parity_rows(job)
     init_fn, step_fn = make_train_step(cfg, mesh, device=device,
-                                       **trunk(job))
+                                       **parity_trunk(job))
     state, losses, grads = _run(
         torch, step_fn, init_fn(params=params),
         [t[row * n:(row + 1) * n] for t in batches])
@@ -256,7 +277,7 @@ def parity(torch, mesh, row: int, rows: int, device, seed: int, job: dict,
 def step_model(job: dict) -> tuple[dict, int, int]:
     """(model config fields, rows, sequence length) of the timed step of
     ``job`` (its ep, sp and seq)."""
-    if job["ep"] > 1:
+    if job["moe"]:
         return chip_smoke.BENCH_MOE, chip_smoke.MOE_BATCH, chip_smoke.TRAIN_SEQ
     if job["sp"] > 1:
         model = dict(SP_MODEL, max_seq=job["seq"])
@@ -387,12 +408,21 @@ def pipeline_reading(torch, mesh, cfg, tokens, job: dict, step_ms: float,
                                  if kernels else None)}
 
 
-def _decode_setup(torch, device, seed: int, dtype: str, shape: tuple):
-    """The flagship serving model in ``dtype`` from ``seed`` on ``device``
-    and a prompt of ``shape`` (the same on every rank)."""
+# The decode phase's MoE trunk: chip_smoke's MOE_DECODE (bench.py's
+# bench_moe_decode) at its E 4 point, routed.
+MOE_DECODE_MODEL = dict(chip_smoke.MOE_DECODE, n_experts=4,
+                        moe_decode_mode="routed")
+
+
+def _decode_setup(torch, device, seed: int, dtype: str, shape: tuple,
+                  moe: bool = False):
+    """The flagship serving model (``moe``: MOE_DECODE_MODEL) in ``dtype``
+    from ``seed`` on ``device`` and a prompt of ``shape`` (the same on
+    every rank)."""
     from tony_tpu_torch.models import TransformerConfig, init_params
 
-    cfg = TransformerConfig(dtype=dtype, **chip_smoke.FLAGSHIP)
+    cfg = TransformerConfig(dtype=dtype, **(
+        MOE_DECODE_MODEL if moe else chip_smoke.FLAGSHIP))
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 9)
     params = init_params(cfg, gen, device=device)
@@ -420,26 +450,27 @@ def decode_ms(torch, session, prompt) -> dict:
             / (long - short), "wall_s": walls}
 
 
-def decode_reference(torch, device, seed: int) -> dict:
+def decode_reference(torch, device, seed: int, moe: bool) -> dict:
     """Rank 0 alone, before it joins the group: the fp32 greedy tokens of
     the session without a mesh, and its bf16 ms per token."""
     from tony_tpu_torch.models import DecodeSession
 
     p = DECODE_PARITY
     cfg, params, prompt = _decode_setup(torch, device, seed, "float32",
-                                        (p["batch"], p["prompt"]))
+                                        (p["batch"], p["prompt"]), moe)
     tokens = DecodeSession(params, cfg, device=device).generate(
         prompt, p["new"]).cpu()
     del params
     cfg, params, prompt = _decode_setup(torch, device, seed, "bfloat16",
-                                        (DECODE_BATCH, DECODE_PROMPT))
+                                        (DECODE_BATCH, DECODE_PROMPT), moe)
     session = DecodeSession(params, cfg, device=device)
     timing = decode_ms(torch, session, prompt)
     return {"tokens": tokens, "bf16": timing,
             "anatomy": decode_anatomy(torch, session, prompt, 0)}
 
 
-def mesh_decode(torch, mesh, device, seed: int, ref: dict | None) -> dict:
+def mesh_decode(torch, mesh, device, seed: int, ref: dict | None,
+                moe: bool) -> dict:
     """DecodeSession(mesh=): fp32 greedy tokens (held against ``ref`` on
     rank 0), then the bf16 ms per token and the anatomy of one call."""
     import torch.distributed as dist
@@ -448,12 +479,12 @@ def mesh_decode(torch, mesh, device, seed: int, ref: dict | None) -> dict:
 
     p = DECODE_PARITY
     cfg, params, prompt = _decode_setup(torch, device, seed, "float32",
-                                        (p["batch"], p["prompt"]))
+                                        (p["batch"], p["prompt"]), moe)
     tokens = DecodeSession(params, cfg, device=device, mesh=mesh).generate(
         prompt, p["new"]).cpu()
     del params
     cfg, params, prompt = _decode_setup(torch, device, seed, "bfloat16",
-                                        (DECODE_BATCH, DECODE_PROMPT))
+                                        (DECODE_BATCH, DECODE_PROMPT), moe)
     session = DecodeSession(params, cfg, device=device, mesh=mesh)
     out = {"bf16": decode_ms(torch, session, prompt),
            "anatomy": decode_anatomy(torch, session, prompt,
@@ -562,10 +593,12 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
     ep, pp, sp, tp = job["ep"], job["pp"], job["sp"], job["tp"]
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
-    # Ranks lie in C order over (dp, pp, ep, sp, tp): the data row is
-    # rank // (pp x sp x tp). The last rank of the first row's sp axis runs
-    # the ring with the most chunks; over pp every stage is profiled.
-    row, rows = rank // (pp * sp * tp), world // (pp * sp * tp)
+    # Ranks lie in C order over (dp, pp, ep, sp, tp): the data row is the
+    # rank's (dp, ep) coordinate. The last rank of the first row's sp axis
+    # runs the ring with the most chunks; over pp every stage is profiled.
+    rows = world // (pp * sp * tp)
+    dp_c, _, ep_c, _, _ = np.unravel_index(rank, (rows // ep, pp, ep, sp, tp))
+    row = int(dp_c) * ep + int(ep_c)
     profiled = pp > 1 or rank in (0, (sp - 1) * tp)
     out = {"rank": rank, "world": world, "row": row,
            "card": torch.cuda.get_device_name(device)}
@@ -574,7 +607,7 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
            else None)
     # Decode is a tp reading: a pp mesh replicates the session over pp.
     decode = tp > 1 and pp == 1
-    dec_ref = (decode_reference(torch, device, seed)
+    dec_ref = (decode_reference(torch, device, seed, job["moe"])
                if rank == 0 and decode else None)
     out["plain_before"] = plain_step_ms(torch, row, device, seed, job)
     _log(rank, "mesh=None timed; joining the group")
@@ -593,7 +626,8 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
                                    job, profiled)
         _log(rank, "mesh step timed")
         if decode:
-            out["decode"] = mesh_decode(torch, mesh, device, seed, dec_ref)
+            out["decode"] = mesh_decode(torch, mesh, device, seed, dec_ref,
+                                        job["moe"])
             _log(rank, f"decode {out['decode']}")
     finally:
         dist.destroy_process_group()
@@ -620,7 +654,8 @@ def launch(world: int, seed: int, job: dict) -> list[dict]:
                      "--ranks", str(world),
                      "--store", f"tcp://127.0.0.1:{port}",
                      "--outdir", tmp, "--seed", str(seed),
-                     *(f"--{k}={v}" for k, v in job.items())],
+                     *(f"--{k}={v}" for k, v in job.items()
+                       if k != "moe"), *(["--moe"] if job["moe"] else [])],
                     # The ranks share this host: NCCL's bootstrap stays on
                     # the loopback interface.
                     env={**os.environ, "NCCL_SOCKET_IFNAME": "lo"},
@@ -646,9 +681,11 @@ def main(argv=None) -> int:
                     help="ranks, one per card (default: every card)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ep", type=int, default=1,
-                    help="expert-parallel ranks: train an MoE trunk over "
-                         "dp = ranks / ep x ep (default 1: the dense trunk "
-                         "over dp = ranks)")
+                    help="expert-parallel ranks: train bench_moe's MoE "
+                         "trunk over dp = ranks / ep x ep, with --tp, --sp "
+                         "and --pp too (default 1: the dense trunk)")
+    ap.add_argument("--moe", action="store_true",
+                    help="train bench_moe's MoE trunk also at --ep 1")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks: train the dense trunk over "
                          "dp = ranks / tp x tp and serve it over the same "
@@ -679,7 +716,8 @@ def main(argv=None) -> int:
     ap.add_argument("--store", default="", help=argparse.SUPPRESS)
     ap.add_argument("--outdir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    job = {"ep": args.ep, "sp": args.sp, "tp": args.tp, "seq": args.seq,
+    job = {"ep": args.ep, "moe": args.moe or args.ep > 1, "sp": args.sp,
+           "tp": args.tp, "seq": args.seq,
            "pp": args.pp, "microbatches": args.microbatches,
            "schedule": args.schedule, "virtual": args.virtual}
     if args.rank is not None:
@@ -703,27 +741,24 @@ def main(argv=None) -> int:
         print(f"dp_study: --ep must divide the ranks ({world}) and the "
               f"experts ({experts}); got {args.ep}", file=sys.stderr)
         return 1
-    heads = chip_smoke.BENCH_TRANSFORMER["n_heads"]
-    if args.tp < 1 or world % args.tp or heads % args.tp or (
-            args.tp > 1 and args.ep > 1):
+    model, _, seq = step_model(job)
+    heads = model["n_heads"]
+    if args.tp < 1 or world % args.tp or heads % args.tp:
         print(f"dp_study: --tp must divide the ranks ({world}) and the "
-              f"heads ({heads}), and takes no --ep (MoE x tp is not "
-              f"ported); got {args.tp}", file=sys.stderr)
+              f"heads ({heads}); got {args.tp}", file=sys.stderr)
         return 1
-    if args.sp < 1 or world % (args.sp * args.tp) or args.seq % args.sp or (
-            args.sp > 1 and args.ep > 1):
-        print(f"dp_study: --sp x --tp must divide the ranks ({world}), --sp "
-              f"the sequence ({args.seq}), and --sp takes no --ep (MoE x sp "
-              f"is not ported); got {args.sp}", file=sys.stderr)
-        return 1
-    layers = chip_smoke.BENCH_TRANSFORMER["n_layers"]
-    if args.pp < 1 or world % (args.pp * args.sp * args.tp) or (
-            args.pp > 1 and (args.ep > 1 or args.sp > 1 or layers % (
-                args.pp * args.virtual))):
-        print(f"dp_study: --pp x --tp must divide the ranks ({world}), --pp x "
-              f"--virtual the layers ({layers}), and --pp takes no --ep "
-              f"(MoE x pp is not ported) or --sp; got {args.pp}",
+    if args.sp < 1 or world % (args.ep * args.sp * args.tp) or seq % args.sp:
+        print(f"dp_study: --ep x --sp x --tp must divide the ranks "
+              f"({world}), --sp the sequence ({seq}); got {args.sp}",
               file=sys.stderr)
+        return 1
+    layers = model["n_layers"]
+    if args.pp < 1 or world % (args.ep * args.pp * args.sp * args.tp) or (
+            args.pp > 1 and (args.sp > 1 or layers % (
+                args.pp * args.virtual))):
+        print(f"dp_study: --ep x --pp x --tp must divide the ranks "
+              f"({world}), --pp x --virtual the layers ({layers}), and --pp "
+              f"takes no --sp; got {args.pp}", file=sys.stderr)
         return 1
     from tony_tpu_torch import kernels
 

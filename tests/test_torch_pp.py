@@ -248,9 +248,8 @@ def test_pp2_in_two_gloo_ranks_matches_jax(jparams, tmp_path):
 
     # 4. The refusals.
     refused = results[0]["refused"]
-    for key in ("moe_train", "moe_decode"):
-        assert refused[key].startswith("NotImplementedError") and \
-            "item 13b" in refused[key], key
+    for key in ("moe_train", "moe_decode"):  # an MoE trunk runs over pp
+        assert refused[key] == "", (key, refused[key])
     expected = {
         "layers": "n_layers 4 not divisible by pp*virtual 8",
         "batch": "batch 3 not divisible by 4 microbatches",

@@ -142,9 +142,8 @@ def test_sp2_in_two_gloo_ranks_matches_jax(jparams, tmp_path):
 
     # 4. The refusals.
     refused = results[0]["refused"]
-    for key in ("moe_train", "moe_decode"):
-        assert refused[key].startswith("NotImplementedError") and \
-            "item 12b" in refused[key], key
+    for key in ("moe_train", "moe_decode"):  # an MoE trunk runs over sp
+        assert refused[key] == "", (key, refused[key])
     assert refused["pp_train"].startswith("ValueError") and \
         "n_layers 3 not divisible by pp*virtual 2" in refused["pp_train"]
     assert refused["odd_sequence"].startswith("ValueError") and \

@@ -204,18 +204,20 @@ class TestForwardAndLoss:
             forward(tparams, toks, TransformerConfig(**{**TINY,
                                                         "n_experts": 3}),
                     mesh=_SpecMesh(ep=2))
-        # tp and sp are ported for dense trunks (tests/test_torch_tp.py,
-        # tests/test_torch_sp.py); MoE x sp, MoE x tp, an sp block longer
-        # than max_seq allows and a tp that does not divide the K/V heads
-        # are refused.
-        with pytest.raises(NotImplementedError, match="item 12b"):
+        # tp and sp are ported for both families (tests/test_torch_tp.py,
+        # tests/test_torch_sp.py, tests/test_torch_moe_tp.py,
+        # tests/test_torch_moe_sp.py): an MoE trunk passes the mesh checks
+        # and meets the dense trunk's refusals of its pieces (an sp block
+        # longer than max_seq allows, the whole heads over tp), and a tp
+        # that does not divide the K/V heads is refused.
+        with pytest.raises(ValueError, match="exceeds max_seq 32"):
             forward(tparams, toks, TransformerConfig(**{**TINY,
                                                         "n_experts": 4}),
                     mesh=_SpecMesh(dp=2, sp=2))
         with pytest.raises(ValueError, match="exceeds max_seq 32"):
             forward(tparams, toks, TransformerConfig(**TINY),
                     mesh=_SpecMesh(dp=2, sp=2))
-        with pytest.raises(NotImplementedError, match="item 11b"):
+        with pytest.raises(ValueError, match="n_heads/tp = 2 heads per rank"):
             forward(tparams, toks, TransformerConfig(**{**TINY,
                                                         "n_experts": 4}),
                     mesh=_SpecMesh(tp=2))
@@ -316,22 +318,31 @@ class TestTrainStep:
 
     def test_refuses_mesh_pipeline_plan(self):
         cfg = TransformerConfig(**TINY)
-        # sp and pp are ported for dense trunks (tests/test_torch_sp.py,
-        # tests/test_torch_pp.py); MoE x sp and MoE x pp are not.
+        # sp and pp are ported for both families (tests/test_torch_sp.py,
+        # tests/test_torch_pp.py, tests/test_torch_moe_sp.py,
+        # tests/test_torch_moe_pp.py), the pipeline too; an ep that does
+        # not divide the experts is refused through the pipeline as it is
+        # without it.
+        moe = TransformerConfig(**{**TINY, "n_experts": 4})
         for axes in ({"dp": 2, "sp": 2}, {"sp": 2, "tp": 2}):
             make_train_step(cfg, _SpecMesh(**axes), device="cpu")
-            with pytest.raises(NotImplementedError, match="item 12b"):
-                make_train_step(TransformerConfig(**{**TINY,
-                                                     "n_experts": 4}),
-                                _SpecMesh(**axes), device="cpu")
+            make_train_step(moe, _SpecMesh(**axes), device="cpu")
         make_train_step(cfg, _SpecMesh(pp=2), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            make_train_step(TransformerConfig(**{**TINY, "n_experts": 4}),
-                            _SpecMesh(pp=2), device="cpu")
-        # tp is ported for dense trunks whose heads, K/V heads, d_ff and
-        # vocab it divides (tests/test_torch_tp.py); MoE x tp is not.
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            make_train_step(TransformerConfig(**{**TINY, "n_experts": 4}),
+        make_train_step(moe, _SpecMesh(pp=2), device="cpu")
+        make_train_step(moe, _SpecMesh(pp=2, ep=2), device="cpu",
+                        pipeline_microbatches=2)
+        with pytest.raises(ValueError, match="n_experts 3 not divisible by "
+                                             "ep 2"):
+            make_train_step(TransformerConfig(**{**TINY, "n_experts": 3}),
+                            _SpecMesh(pp=2, ep=2), device="cpu",
+                            pipeline_microbatches=2)
+        # tp is ported for trunks whose heads, K/V heads, d_ff and vocab it
+        # divides (tests/test_torch_tp.py, tests/test_torch_moe_tp.py),
+        # an MoE trunk's experts included.
+        make_train_step(moe, _SpecMesh(ep=2, tp=2), device="cpu")
+        with pytest.raises(ValueError, match="must divide d_ff 63"):
+            make_train_step(TransformerConfig(**{**TINY, "n_experts": 4,
+                                                 "d_ff": 63}),
                             _SpecMesh(ep=2, tp=2), device="cpu")
         with pytest.raises(ValueError, match="must divide kv_heads 2"):
             make_train_step(cfg, _SpecMesh(dp=2, tp=4), device="cpu")
@@ -418,15 +429,14 @@ class TestTrainStep:
         refused = results[0]["refused"]
         assert refused["no_mesh"].startswith("ValueError") and \
             "build_job_mesh" in refused["no_mesh"]
-        # The dense trunk over sp is taken; MoE x sp, a sequence longer
-        # than max_seq over sp (2 x 17 positions) and MoE x pp are refused.
+        # The dense trunk over sp is taken, and an MoE trunk's step runs
+        # over sp and over pp; a sequence longer than max_seq over sp (2 x
+        # 17 positions) is refused.
         assert refused["sp_dense"] == ""
-        assert refused["sp_mesh"].startswith("NotImplementedError") and \
-            "item 12b" in refused["sp_mesh"]
+        assert refused["sp_mesh"] == ""
         assert refused["sp_forward"].startswith("ValueError") and \
             "exceeds max_seq 32" in refused["sp_forward"]
-        assert refused["pp_mesh"].startswith("NotImplementedError") and \
-            "item 13b" in refused["pp_mesh"]
+        assert refused["pp_mesh"] == ""
         assert "gathered parameters" in refused["pieces_forward"]
         assert "batch shard 0 of 2" in refused["wrong_shard"]
         for rank in range(2):

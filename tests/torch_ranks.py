@@ -167,6 +167,39 @@ def _refusal(fn) -> str:
     return ""
 
 
+def _moe(cfg):
+    """``cfg`` with 4 experts, top-2, and its weights from seed 0 (the same
+    on every rank)."""
+    import dataclasses
+
+    import torch
+
+    from tony_tpu_torch.models import init_params
+
+    moe = dataclasses.replace(cfg, n_experts=4, expert_top_k=2)
+    return moe, init_params(moe, torch.Generator().manual_seed(0), "cpu")
+
+
+def _moe_step(cfg, mesh, tokens, **trunk) -> None:
+    """One step of make_train_step(cfg, mesh, **trunk) on ``tokens`` from
+    the weights of seed 0; a non-finite loss raises."""
+    import math
+
+    from tony_tpu_torch.models import make_train_step
+
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu", **trunk)
+    _, metrics = step_fn(init_fn(0), tokens)
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise ValueError(f"non-finite metrics {metrics}")
+
+
+def _moe_decode(params, cfg, mesh, prompt) -> None:
+    """DecodeSession(mesh=) of ``cfg`` generating 2 greedy tokens."""
+    from tony_tpu_torch.models import DecodeSession
+
+    DecodeSession(params, cfg, "cpu", mesh=mesh).generate(prompt, 2)
+
+
 def prog_initialize(rank, world, store, outdir, args):
     """runtime.initialize joins the group (MASTER_* name the job; the
     rendezvous is the file store), build_job_mesh gives dp = world, and
@@ -228,10 +261,9 @@ def prog_train_dp(rank, world, store, outdir, args):
     """make_train_step over a dp=2 mesh from the weights of ``args[0]`` on
     the global batches of ``args[1]`` (this rank feeds its half): the
     losses and the gathered final state. Then the refusals (and that a
-    dense trunk over sp is taken), and sharded_batches(mesh=) over this
-    rank's shard of the token file ``args[2]``."""
-    import dataclasses
-
+    dense trunk over sp, and an MoE trunk's step over sp and over pp, are
+    taken), and sharded_batches(mesh=) over this rank's shard of the token
+    file ``args[2]``."""
     import numpy as np
 
     from tony_tpu_torch.interop import train_state_placements
@@ -254,13 +286,13 @@ def prog_train_dp(rank, world, store, outdir, args):
         assert set(metrics) == {"loss", "cross_entropy"}
         losses.append(float(metrics["loss"]))
     sp, pp = _mesh(sp=2), _mesh(pp=2)
-    moe = dataclasses.replace(cfg, n_experts=4)
+    moe, _ = _moe(cfg)
     refused = {
         "no_mesh": _refusal(lambda: make_train_step(cfg, device="cpu")),
-        "sp_mesh": _refusal(lambda: make_train_step(moe, sp, device="cpu")),
+        "sp_mesh": _refusal(lambda: _moe_step(moe, sp, batches[0])),
         "sp_dense": _refusal(lambda: make_train_step(cfg, sp, device="cpu")),
         "sp_forward": _refusal(lambda: forward(params, batches[0], cfg, sp)),
-        "pp_mesh": _refusal(lambda: make_train_step(moe, pp, device="cpu")),
+        "pp_mesh": _refusal(lambda: _moe_step(moe, pp, batches[0])),
         "pieces_forward": _refusal(lambda: forward(state.params, batches[0],
                                                    cfg, mesh)),
     }
@@ -484,7 +516,8 @@ def prog_train_tp(rank, world, store, outdir, args):
     tp=2 mesh and over a dp=2 mesh of the same ranks: greedy tokens, the
     pieces of qkv/gate_up and the cache shape; the session without a mesh;
     a temperature draw from a generator seeded by rank. (4) The
-    refusals (MoE over tp, over sp and over pp)."""
+    refusals (K/V heads tp does not divide), and that an MoE trunk trains
+    and decodes over tp, sp and pp (its forward over pp)."""
     import dataclasses
 
     import numpy as np
@@ -566,24 +599,24 @@ def prog_train_tp(rank, world, store, outdir, args):
         params, cfg, device="cpu", mesh=mesh).generate(
         prompt, new, temperature=1.0, generator=gen).numpy()
 
-    moe = TransformerConfig(**{**TINY, "n_experts": 4})
+    moe, moe_params = _moe(cfg)
     kv1 = TransformerConfig(**{**TINY, "n_kv_heads": 1})
     sp, pp = _mesh(sp=2), _mesh(pp=2)
     result["refused"] = {
-        "moe_train": _refusal(lambda: make_train_step(moe, mesh,
-                                                      device="cpu")),
-        "moe_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
-                                                     mesh=mesh)),
+        "moe_train": _refusal(lambda: _moe_step(moe, mesh, batches[0])),
+        "moe_decode": _refusal(lambda: _moe_decode(moe_params, moe, mesh,
+                                                   prompt)),
         "kv_train": _refusal(lambda: make_train_step(kv1, mesh,
                                                      device="cpu")),
         "kv_decode": _refusal(lambda: DecodeSession(params, kv1, "cpu",
                                                     mesh=mesh)),
-        "sp_train": _refusal(lambda: make_train_step(moe, sp, device="cpu")),
-        "pp_forward": _refusal(lambda: forward(params, batches[0], moe, pp)),
-        "sp_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
-                                                    mesh=sp)),
-        "pp_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
-                                                    mesh=pp)),
+        "sp_train": _refusal(lambda: _moe_step(moe, sp, batches[0])),
+        "pp_forward": _refusal(lambda: forward(
+            moe_params, torch.as_tensor(batches[0]), moe, pp)),
+        "sp_decode": _refusal(lambda: _moe_decode(moe_params, moe, sp,
+                                                  prompt)),
+        "pp_decode": _refusal(lambda: _moe_decode(moe_params, moe, pp,
+                                                  prompt)),
     }
     return result, arrays
 
@@ -713,9 +746,9 @@ def prog_train_sp(rank, world, store, outdir, args):
     ``restored/``), takes one step, saves under the port's dir (under
     ``saved/``) and restores that save into a fresh state bit for bit.
     (3) DecodeSession(mesh=) over the sp=2 mesh: greedy tokens. (4) The
-    refusals: MoE x sp (train and decode), a pipeline whose pp does not
-    divide the layers, an sp that does not divide
-    the sequence."""
+    refusals: a pipeline whose pp does not divide the layers, an sp that
+    does not divide the sequence; and that an MoE trunk trains and decodes
+    over sp."""
     import dataclasses
 
     import numpy as np
@@ -775,13 +808,12 @@ def prog_train_sp(rank, world, store, outdir, args):
                                         mesh=mesh).generate(
         np.load(args[5]), 6).numpy()
 
-    moe = dataclasses.replace(cfg, n_experts=4)
+    moe, moe_params = _moe(cfg)
     pp = _mesh(pp=2)
     result["refused"] = {
-        "moe_train": _refusal(lambda: make_train_step(moe, mesh,
-                                                      device="cpu")),
-        "moe_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
-                                                     mesh=mesh)),
+        "moe_train": _refusal(lambda: _moe_step(moe, mesh, batches[0])),
+        "moe_decode": _refusal(lambda: _moe_decode(moe_params, moe, mesh,
+                                                   np.load(args[5]))),
         "pp_train": _refusal(lambda: make_train_step(
             dataclasses.replace(cfg, n_layers=3), pp, device="cpu",
             pipeline_microbatches=2)),
@@ -926,9 +958,10 @@ def prog_train_pp(rank, world, store, outdir, args):
     one of GPipe's from it, each saved under ``<port dir>/<trunk>``
     (gathered under ``saved/<trunk>/``) and restored into a fresh state
     bit for bit. (3) DecodeSession(mesh=) over pp=2: greedy tokens. (4)
-    The refusals: MoE x pp, layers pp x virtual does not divide, a batch
-    the microbatches do not divide, interleaved microbatches pp does not
-    divide, K/V heads tp does not divide."""
+    The refusals: layers pp x virtual does not divide, a batch the
+    microbatches do not divide, interleaved microbatches pp does not
+    divide, K/V heads tp does not divide; and that an MoE trunk trains and
+    decodes over pp."""
     import dataclasses
 
     import numpy as np
@@ -1002,17 +1035,16 @@ def prog_train_pp(rank, world, store, outdir, args):
                                         mesh=mesh).generate(
         np.load(args[5]), 6).numpy()
 
-    moe = dataclasses.replace(cfg, n_experts=4)
+    moe, moe_params = _moe(cfg)
     kv1 = dataclasses.replace(cfg, n_kv_heads=1)
     tp = _mesh(tp=2)
     init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
                                        **PP_TRUNKS["gpipe"])
     state = init_fn(params=params)
     result["refused"] = {
-        "moe_train": _refusal(lambda: make_train_step(moe, mesh,
-                                                      device="cpu")),
-        "moe_decode": _refusal(lambda: DecodeSession(params, moe, "cpu",
-                                                     mesh=mesh)),
+        "moe_train": _refusal(lambda: _moe_step(moe, mesh, batches[0])),
+        "moe_decode": _refusal(lambda: _moe_decode(moe_params, moe, mesh,
+                                                   np.load(args[5]))),
         "layers": _refusal(lambda: make_train_step(
             cfg, mesh, device="cpu", pipeline_microbatches=4,
             pipeline_schedule="interleaved", pipeline_virtual=4)),
@@ -1055,6 +1087,264 @@ def prog_pp_mesh(rank, world, store, outdir, args):
         result["metrics"][tag] = run["metrics"]
         arrays.update({f"rep/{tag}/{k}": v for k, v in
                        _replicated(run["state"], "pp").items()})
+    return result, arrays
+
+
+# The MoE trunk of the model-axis tests: the JAX package's MoE test config
+# (vocab 128, d 32, 2 layers, E 4, top-2, fp32) with GQA 4/2 heads of 8,
+# which tp 2 divides, at capacity factor E (nothing drops).
+MOE_MESH = dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4,
+                n_kv_heads=2, head_dim=8, d_ff=64, max_seq=64,
+                dtype="float32", remat=False, n_experts=4, expert_top_k=2,
+                capacity_factor=4.0)
+# The sharded MoE decode test's trunk: the JAX package's sharded MoE decode
+# test config (vocab 64, d 32, 2 layers, GQA 4/2 heads of 8, E 4, top-2).
+MOE_DECODE = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
+                  n_kv_heads=2, head_dim=8, d_ff=64, max_seq=64,
+                  dtype="float32", remat=False, n_experts=4,
+                  expert_top_k=2)
+# The four-rank MoE train runs of the tp and sp tests: run -> mesh axes.
+MOE_TP_RUNS = {"dp_tp": dict(dp=2, tp=2), "ep_tp": dict(ep=2, tp=2)}
+MOE_SP_RUNS = {"dp_sp": dict(dp=2, sp=2), "ep_sp": dict(ep=2, sp=2)}
+# The pp test's runs over four ranks: run -> (mesh axes, trunk of
+# PP_TRUNKS), at 4 layers.
+MOE_PP_RUNS = {"pp_ep_plain": (dict(pp=2, ep=2), "plain"),
+               "pp_ep_gpipe1": (dict(pp=2, ep=2), "gpipe1"),
+               "pp_ep_gpipe": (dict(pp=2, ep=2), "gpipe2"),
+               "pp_ep_interleaved": (dict(pp=2, ep=2), "interleaved2"),
+               "pp_tp_gpipe": (dict(pp=2, tp=2), "gpipe2")}
+MOE_PP_TRUNKS = {"plain": {},
+                 "gpipe1": dict(pipeline_microbatches=1),
+                 "gpipe2": dict(pipeline_microbatches=2),
+                 "interleaved2": dict(pipeline_microbatches=2,
+                                      pipeline_schedule="interleaved",
+                                      pipeline_virtual=2)}
+
+
+def _data_rows(mesh, x):
+    """This rank's rows of ``x`` [B, ...], a global batch split over
+    dp x ep (the pp, sp and tp ranks of a data row take the same rows)."""
+    from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
+
+    n = axis_size(mesh, ("dp", "ep"))
+    per = x.shape[0] // n
+    row = axis_coordinate(mesh, ("dp", "ep"))
+    return x[row * per:(row + 1) * per]
+
+
+def _moe_layer_out(mesh, cfg, params, x) -> tuple:
+    """``_moe_mlp`` of layer 0 on this rank: its data rows of ``x`` [B, T,
+    d] (over sp its block of the T positions), its E/ep experts and their
+    F/tp columns. Returns (out, aux) as numpy and floats."""
+    import torch
+
+    from tony_tpu_torch.models.transformer import EXPERT_LEAVES, _moe_mlp
+    from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
+
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    ep, tp, sp = (axis_size(mesh, a) for a in ("ep", "tp", "sp"))
+    e, f = cfg.n_experts // ep, cfg.d_ff // tp
+    i, j = axis_coordinate(mesh, "ep"), axis_coordinate(mesh, "tp")
+    for k in EXPERT_LEAVES:
+        w = lp[k][i * e:(i + 1) * e]
+        lp[k] = (w[:, j * f:(j + 1) * f] if k == "w_down"
+                 else w[..., j * f:(j + 1) * f])
+    x = _data_rows(mesh, torch.as_tensor(x))
+    t = x.shape[1] // sp
+    x = x[:, axis_coordinate(mesh, "sp") * t:][:, :t]
+    with torch.no_grad():
+        out, aux = _moe_mlp(x, lp, cfg, mesh)
+    return out.numpy(), {k: float(v) for k, v in aux.items()}
+
+
+def _moe_steps(mesh, cfg, params, batches, clip, tag, arrays,
+               trunk=None) -> list:
+    """``_pp_steps`` on this rank's data rows of ``batches`` [steps, B,
+    T+1]: each step's metrics, its clipped gradients, gathered, under
+    ``<tag>/step<i>/``."""
+    import numpy as np
+
+    rows = [np.asarray(_data_rows(mesh, b)) for b in batches]
+    return _pp_steps(mesh, cfg, params, rows, clip, trunk or {}, tag,
+                     arrays)["metrics"]
+
+
+def _checkpoint_round(mesh, cfg, params, tokens, clip, jax_dir, port_dir,
+                      arrays, rank, world, trunk=None) -> dict:
+    """A fresh state on ``mesh`` restores the JAX checkpoint under
+    ``jax_dir`` (gathered under ``restored/``), takes one step on this
+    rank's rows of ``tokens``, saves under ``port_dir`` (gathered under
+    ``saved/``) and restores that save into a fresh state bit for bit."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.interop import train_state_to_numpy
+    from tony_tpu_torch.models import make_train_step
+
+    init_fn, step_fn = make_train_step(cfg, mesh, device="cpu",
+                                       learning_rate=1e-3, grad_clip=clip,
+                                       **(trunk or {}))
+    state = init_fn(params=params)
+    assert CheckpointManager(jax_dir, process_id=rank,
+                             num_processes=world).restore(state) is state
+    arrays.update({f"restored/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    state, _ = step_fn(state, np.asarray(_data_rows(mesh, tokens)))
+    mgr = CheckpointManager(port_dir, process_id=rank, num_processes=world)
+    mgr.save(int(state.step), state, blocking=True)
+    arrays.update({f"saved/{k}": v for k, v in
+                   _gathered(state, mesh).items()})
+    dist.barrier()
+    fresh = init_fn(0)
+    assert mgr.restore(fresh) is fresh
+    a, b = train_state_to_numpy(state), train_state_to_numpy(fresh)
+    return {"round_trip_equal": all(np.array_equal(a[k], b[k]) for k in a),
+            "step": int(state.step)}
+
+
+def prog_moe_tp(rank, world, store, outdir, args):
+    """The MoE trunk (MOE_MESH) over tp on four ranks. ``args``: the
+    weights npz, the global batches npy [2, B, T+1], grad_clip, the layer
+    input npz, the JAX checkpoint dir (its ep=2 x tp=2 state), the port's
+    checkpoint dir, the decode weights npz (the decode config), the
+    decode prompt npy.
+
+    (1) ``_moe_mlp`` of layer 0 at cf 1.25 (drops) over dp=2 x tp=2 and
+    ep=2 x tp=2: this rank's out and aux under ``layer/<run>/``. (2) 2
+    steps over each mesh of MOE_TP_RUNS at cf = E, each step's metrics and
+    clipped gradients gathered under ``<run>/step<i>/``; one step over
+    ep=2 x tp=2 at remat "dots" under ``dots/step0/``. (3) The checkpoint
+    round over ep=2 x tp=2 (``_checkpoint_round``). (4) DecodeSession(mesh=)
+    over ep=2 x tp=2 of the decode config, dense and routed: greedy tokens
+    under ``decode/<mode>``, the pieces of gate_up and w_down; the session
+    without a mesh under ``decode/plain``."""
+    import dataclasses
+
+    import numpy as np
+
+    from tony_tpu_torch.models import DecodeSession
+
+    _join(rank, world, store)
+    cfg, params = _params(args[0], **MOE_MESH)
+    batches, clip = np.load(args[1]), float(args[2])
+    with np.load(args[3]) as data:
+        x = data["x"]
+    meshes = {tag: _mesh(**axes) for tag, axes in MOE_TP_RUNS.items()}
+    drop = dataclasses.replace(cfg, capacity_factor=1.25)
+    result, arrays = {"metrics": {}, "layer_aux": {}}, {}
+    for tag, mesh in meshes.items():
+        arrays[f"layer/{tag}"], result["layer_aux"][tag] = _moe_layer_out(
+            mesh, drop, params, x)
+        result["metrics"][tag] = _moe_steps(mesh, cfg, params, batches,
+                                            clip, tag, arrays)
+    mesh = meshes["ep_tp"]
+    result["metrics"]["dots"] = _moe_steps(
+        mesh, dataclasses.replace(cfg, remat=True, remat_policy="dots"),
+        params, batches[:1], clip, "dots", arrays)
+    result["split"] = {
+        path: list(pl.spec) for path, pl in _split_paths(
+            mesh, cfg, params).items()}
+    result.update(_checkpoint_round(mesh, cfg, params, batches[1], clip,
+                                    args[4], args[5], arrays, rank, world))
+
+    dcfg, dparams = _params(args[6], **MOE_DECODE)
+    prompt = np.load(args[7])
+    arrays["decode/plain"] = DecodeSession(dparams, dcfg, "cpu").generate(
+        prompt, 5).numpy()
+    for mode in ("dense", "routed"):
+        mcfg = dataclasses.replace(dcfg, moe_decode_mode=mode)
+        session = DecodeSession(dparams, mcfg, "cpu", mesh=mesh)
+        arrays[f"decode/{mode}"] = session.generate(prompt, 5).numpy()
+    for part in ("gate_up", "w_down"):
+        arrays[f"decode/{part}"] = session.params["layers"][part].numpy()
+    return result, arrays
+
+
+def _split_paths(mesh, cfg, params) -> dict:
+    """{keystr path: Placement} of the split params leaves on ``mesh``."""
+    from tony_tpu_torch.interop import _param_paths
+    from tony_tpu_torch.models import param_roles
+    from tony_tpu_torch.parallel import shard_pytree
+
+    _, placements = shard_pytree(params, param_roles(cfg), mesh)
+    return {path: pl for path, pl in _param_paths(placements)
+            if pl.sharded}
+
+
+def prog_moe_sp(rank, world, store, outdir, args):
+    """The MoE trunk (MOE_MESH) over sp on four ranks. ``args``: the
+    weights npz, the global batches npy [2, B, T+1], grad_clip, the layer
+    input npz. (1) ``_moe_mlp`` of layer 0 at cf 1.25 (drops) over ep=2 x
+    sp=2, each rank routing its block of positions: out and aux under
+    ``layer/ep_sp``. (2) 2 steps over each mesh of MOE_SP_RUNS at cf = E,
+    each step's metrics and clipped gradients gathered under
+    ``<run>/step<i>/``; one step over ep=2 x sp=2 at remat "dots" under
+    ``dots/step0/``; this rank's own router gradient of the first step
+    under ``local/<run>``; the rank lists of each mesh's data-axes
+    group."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tony_tpu_torch.parallel.collectives import axis_group
+    from tony_tpu_torch.parallel.mesh import DATA_AXES
+
+    _join(rank, world, store)
+    cfg, params = _params(args[0], **MOE_MESH)
+    batches, clip = np.load(args[1]), float(args[2])
+    with np.load(args[3]) as data:
+        x = data["x"]
+    result = {"metrics": {}, "data_group": {}, "layer_aux": {}}
+    arrays = {}
+    for tag, axes in MOE_SP_RUNS.items():
+        mesh = _mesh(**axes)
+        result["data_group"][tag] = dist.get_process_group_ranks(
+            axis_group(mesh, DATA_AXES)[0])
+        result["metrics"][tag] = _moe_steps(mesh, cfg, params, batches,
+                                            clip, tag, arrays)
+    arrays["layer/ep_sp"], result["layer_aux"]["ep_sp"] = _moe_layer_out(
+        mesh, dataclasses.replace(cfg, capacity_factor=1.25), params, x)
+    result["metrics"]["dots"] = _moe_steps(
+        mesh, dataclasses.replace(cfg, remat=True, remat_policy="dots"),
+        params, batches[:1], clip, "dots", arrays)
+    return result, arrays
+
+
+def prog_moe_pp(rank, world, store, outdir, args):
+    """The MoE trunk (MOE_MESH at 4 layers) over pp on four ranks.
+    ``args``: the weights npz, the global batches npy [2, B, T+1],
+    grad_clip, the JAX checkpoint dir (its pp=2 x ep=2 state), the port's
+    checkpoint dir. (1) 2 steps of each run of MOE_PP_RUNS (the layer
+    stack gathered over pp, GPipe over 1 and 2 microbatches and
+    interleaved over 2 over pp=2 x ep=2, GPipe over 2 over pp=2 x tp=2)
+    at cf = E: each step's metrics and
+    clipped gradients gathered under ``<run>/step<i>/``, every leaf not
+    split over pp after the steps under ``rep/<run>/``. (2) The checkpoint
+    round (``_checkpoint_round``) over pp=2 x ep=2 through GPipe: the
+    state's layer stack staged over pp, its experts over ep."""
+    import numpy as np
+
+    _join(rank, world, store)
+    cfg, params = _params(args[0], **dict(MOE_MESH, n_layers=4))
+    batches, clip = np.load(args[1]), float(args[2])
+    result, arrays, meshes = {"metrics": {}}, {}, {}
+    for tag, (axes, trunk) in MOE_PP_RUNS.items():
+        key = tuple(sorted(axes.items()))
+        mesh = meshes.setdefault(key, _mesh(**axes))
+        rows = [np.asarray(_data_rows(mesh, b)) for b in batches]
+        run = _pp_steps(mesh, cfg, params, rows, clip, MOE_PP_TRUNKS[trunk],
+                        tag, arrays)
+        result["metrics"][tag] = run["metrics"]
+        arrays.update({f"rep/{tag}/{k}": v for k, v in
+                       _replicated(run["state"], "pp").items()})
+    mesh = meshes[(("ep", 2), ("pp", 2))]
+    result["split"] = {path: list(pl.spec) for path, pl in _split_paths(
+        mesh, cfg, params).items()}
+    result.update(_checkpoint_round(mesh, cfg, params, batches[1], clip,
+                                    args[3], args[4], arrays, rank, world,
+                                    MOE_PP_TRUNKS["gpipe2"]))
     return result, arrays
 
 

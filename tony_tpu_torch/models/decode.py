@@ -29,21 +29,23 @@ only those, on single-token steps (a prefill takes the dense mixture).
 Neither drops a token: capacity is a training trade, not a serving one.
 Both route with training's ``_route_tokens`` from an fp32 router.
 
-Sharded sessions (``DecodeSession(mesh=)``, dense trunks; an MoE trunk
-on a mesh whose tp, ep and sp are 1) serve one model from the ranks of a
-mesh, the port's counterpart of the JAX package's ``decode_param_specs`` and
-``_cache_spec``, with explicit collectives. Each rank keeps its tp block of
-every part of the fused layout (``shard_decode_weights``: its q, k and v
-heads of ``qkv``, its gate and up columns of ``gate_up``, its head rows of
-``wo``, ff rows of ``w_down`` and vocab columns of ``unembed``; the norms
-and ``embed`` whole) and a cache [L, B/dp, Tmax, Hkv/tp, Dh] of its batch
-rows over dp and its K/V heads. Each layer sums the ``wo`` and ``w_down``
-partial products over tp; the last position's logits are gathered over tp
-(vocab) and dp (batch rows), so every rank samples the whole batch from the
-same numbers and ``generate`` returns the whole batch on every rank. The
-session is replicated over sp (no spec of the JAX package's
-``decode_param_specs`` names it): the sp ranks of a dp row and tp block
-compute the same tokens.
+Sharded sessions (``DecodeSession(mesh=)``) serve one model from the
+ranks of a mesh, the port's counterpart of the JAX package's
+``decode_param_specs`` and ``_cache_spec``, with explicit collectives. Each
+rank keeps its tp block of every part of the fused layout
+(``shard_decode_weights``: its q, k and v heads of ``qkv``, its gate and up
+columns of ``gate_up``, its head rows of ``wo``, ff rows of ``w_down`` and
+vocab columns of ``unembed``; the norms, ``embed`` and an MoE router
+whole), of an MoE trunk only its E/ep experts, and a cache [L, B/dp, Tmax,
+Hkv/tp, Dh] of its batch rows over dp and its K/V heads. Each layer sums
+the ``wo`` and ``w_down`` partial products over tp, and an MoE layer's
+output, the resident experts' share of each token's mixture, over ep too;
+the last position's logits are gathered over tp (vocab) and dp (batch
+rows), so every rank samples the whole batch from the same numbers and
+``generate`` returns the whole batch on every rank. The ep and tp ranks of
+a dp row hold the same rows. The session is replicated over pp and sp (no
+spec of the JAX package's ``decode_param_specs`` names them): the pp and
+sp ranks of a dp row, ep and tp block compute the same tokens.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ from tony_tpu_torch.ops import (
     rms_norm,
 )
 from tony_tpu_torch.parallel.collectives import all_gather_tp, axis_group
-from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size, mesh_spec
+from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
 
 NEG_INF = -1e30
 
@@ -109,8 +111,10 @@ def shard_decode_weights(params: dict, cfg: TransformerConfig,
     heads of ``qkv`` (a block of the packed axis would give one rank all
     of q and another all of v), of the gate columns and of the up columns
     of ``gate_up``, of the head rows of ``wo``, the ff rows of ``w_down``
-    and the vocab columns of ``unembed``; norms, ``embed`` and an MoE
-    router whole. Contiguous copies."""
+    and the vocab columns of ``unembed``; of an MoE trunk's ``gate_up``
+    [L, E, d, 2F] and ``w_down`` [L, E, F, d] only its E/ep experts (the
+    JAX package's expert branch of ``decode_param_specs``); norms,
+    ``embed`` and an MoE router whole. Contiguous copies."""
     tp, i = axis_size(mesh, "tp"), axis_coordinate(mesh, "tp")
     h, hkv, f = cfg.n_heads, cfg.kv_heads, cfg.d_ff
 
@@ -119,11 +123,14 @@ def shard_decode_weights(params: dict, cfg: TransformerConfig,
         return slice(start + i * step, start + (i + 1) * step)
 
     lp = params["layers"]
-    qkv, gu = lp["qkv"], lp["gate_up"]
+    qkv, gu, down = lp["qkv"], lp["gate_up"], lp["w_down"]
     if qkv.shape[-2] != h + 2 * hkv:
         raise ValueError(f"shard_decode_weights takes the whole fused "
                          f"layout: {h + 2 * hkv} packed heads, got "
                          f"{qkv.shape[-2]}")
+    if cfg.n_experts:
+        experts = _resident_experts(cfg, mesh)
+        gu, down = gu[:, experts], down[:, experts]
     layers = {
         **lp,
         "qkv": torch.cat([qkv[:, :, block(h)], qkv[:, :, block(hkv, h)],
@@ -131,28 +138,31 @@ def shard_decode_weights(params: dict, cfg: TransformerConfig,
         "wo": lp["wo"][:, block(h)].contiguous(),
         "gate_up": torch.cat([gu[..., block(f)], gu[..., block(f, f)]],
                              dim=-1),
-        "w_down": lp["w_down"][..., block(f), :].contiguous(),
+        "w_down": down[..., block(f), :].contiguous(),
     }
     return {**params, "layers": layers,
             "unembed": params["unembed"][:, block(cfg.vocab_size)]
             .contiguous()}
 
 
+def _resident_experts(cfg: TransformerConfig, mesh) -> slice:
+    """The global indices of this rank's E/ep experts."""
+    n = cfg.n_experts // axis_size(mesh, "ep")
+    first = axis_coordinate(mesh, "ep") * n
+    return slice(first, first + n)
+
+
 def check_decode_mesh(mesh, cfg: TransformerConfig) -> None:
     """Refuse what a sharded session cannot serve: anything but a
-    ``DeviceMesh`` (``parallel.build_mesh``), the meshes training refuses
-    (``check_mesh``: MoE x pp, MoE x tp, MoE x sp, a tp that does not
-    divide the heads, K/V heads, d_ff or vocab), and an MoE trunk over ep.
-    A dense session replicates over pp and sp, as the JAX package's
+    ``DeviceMesh`` (``parallel.build_mesh``) and the meshes training
+    refuses (``check_mesh``: a tp that does not divide the heads, K/V
+    heads, d_ff or vocab, an ep that does not divide the experts). A
+    session replicates over pp and sp, as the JAX package's
     ``decode_param_specs`` has no entry for either."""
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"DecodeSession(mesh=) takes a DeviceMesh from "
                         f"parallel.build_mesh, got {type(mesh).__name__}")
     check_mesh(mesh, cfg)
-    if cfg.n_experts and mesh_spec(mesh).ep > 1:
-        raise NotImplementedError(
-            "MoE decode over ep waits for ROADMAP item 11b (MoE x tp, MoE "
-            "decode on ep x tp) of the port")
 
 
 def place(params: dict, device: torch.device) -> dict:
@@ -223,12 +233,13 @@ def _project(x, lp, cfg):
     return qkv[:, :, :n_h], qkv[:, :, n_h:n_h + h_kv], qkv[:, :, n_h + h_kv:]
 
 
-def _summed(partial, tp_group):
-    """A row-parallel product's partial sums, summed over tp in place (the
-    product is this call's own tensor); as they are without a group (one
-    tp rank)."""
-    if tp_group is not None:
-        dist.all_reduce(partial, op=dist.ReduceOp.SUM, group=tp_group)
+def _summed(partial, group):
+    """Partial sums (a row-parallel product's over tp, the resident
+    experts' share of an MoE mixture over ep) summed over ``group`` in
+    place (the tensor is this call's own); as they are without a group
+    (one rank)."""
+    if group is not None:
+        dist.all_reduce(partial, op=dist.ReduceOp.SUM, group=group)
     return partial
 
 
@@ -247,11 +258,13 @@ def _moe_decode_mode(cfg: TransformerConfig) -> str:
     return "routed" if mode == "routed" else "dense"
 
 
-def _moe_mlp_decode(x, lp, cfg):
+def _moe_mlp_decode(x, lp, cfg, first: int = 0):
     """The dense mixture: every expert runs on the new tokens and the
     outputs are combined with the normalized top-k router weights (the
     unselected experts get exactly 0). Training's dispatch and combine
-    without a capacity. x [B, S, d] -> [B, S, d]."""
+    without a capacity. x [B, S, d] -> [B, S, d]. On a mesh ``lp`` holds
+    the experts [first, first + E/ep), and the result is their share of
+    the mixture (over this rank's ff columns)."""
     dt = cfg.compute_dtype
     b, s, d = x.shape
     e = cfg.n_experts
@@ -259,6 +272,8 @@ def _moe_mlp_decode(x, lp, cfg):
     _, _, gvals, gidx = _route_tokens(hn, lp["router"], cfg.expert_top_k)
     weights = torch.zeros((b, s, e), dtype=torch.float32, device=x.device)
     weights = weights.scatter_add(-1, gidx, gvals)              # [B, S, E]
+    weights = weights[..., first:first + lp["gate_up"].shape[0]]
+    e = weights.shape[-1]
     gu = torch.matmul(hn.to(dt).reshape(1, b * s, d), lp["gate_up"])
     f = gu.shape[-1] // 2                                      # [E, BS, 2F]
     act = torch.nn.functional.silu(gu[..., :f].float()).to(dt) * gu[..., f:]
@@ -268,15 +283,24 @@ def _moe_mlp_decode(x, lp, cfg):
     return out.view(b, s, d)
 
 
-def _moe_mlp_decode_routed(x, lp, cfg):
+def _moe_mlp_decode_routed(x, lp, cfg, first: int = 0):
     """Top-k only: gather each token's k selected experts' weights and run
     just those (B * k expert products a step). The same router and gate
     weights as the dense mixture, no capacity; the terms the dense
     mixture adds for unselected experts are exact zeros, so both give the
-    same tokens. x [B, S, d] -> [B, S, d]."""
+    same tokens. x [B, S, d] -> [B, S, d]. On a mesh ``lp`` holds the
+    experts [first, first + E/ep): a choice of another rank's expert
+    gathers a resident one and weighs it by exactly 0, and the result is
+    the resident experts' share (over this rank's ff columns)."""
     dt = cfg.compute_dtype
     hn = rms_norm(x, lp["ln2"])
     _, _, gvals, gidx = _route_tokens(hn, lp["router"], cfg.expert_top_k)
+    n_local = lp["gate_up"].shape[0]
+    if n_local != cfg.n_experts:
+        local = gidx - first
+        mine = (local >= 0) & (local < n_local)
+        gidx = local.clamp(0, n_local - 1)
+        gvals = torch.where(mine, gvals, 0.0)
     w_gu = lp["gate_up"][gidx]                           # [B, S, k, d, 2F]
     w_dn = lp["w_down"][gidx]                            # [B, S, k, F, d]
     gu = torch.einsum("bsd,bskdf->bskf", hn.to(dt), w_gu)
@@ -286,14 +310,19 @@ def _moe_mlp_decode_routed(x, lp, cfg):
     return torch.einsum("bskd,bsk->bsd", per_slot, gvals.to(dt))
 
 
-def _mlp(x, lp, cfg, *, routed: bool = False, tp_group=None):
+def _mlp(x, lp, cfg, *, routed: bool = False, tp_group=None,
+         experts: tuple = (0, None)):
     """Residual SwiGLU over the fused gate|up projection: silu in fp32,
     cast to the compute dtype, times up; with ``tp_group``, over this
     rank's ff columns, summed over tp. An MoE layer (a router in ``lp``)
-    takes the dense mixture, or with ``routed`` the top-k gather."""
+    takes the dense mixture, or with ``routed`` the top-k gather, over
+    the resident experts of ``experts`` (the first one's global index,
+    the ep group to sum their share over or None)."""
     if "router" in lp:
         moe = _moe_mlp_decode_routed if routed else _moe_mlp_decode
-        return x + moe(x, lp, cfg)
+        first, ep_group = experts
+        return x + _summed(_summed(moe(x, lp, cfg, first), ep_group),
+                           tp_group)
     dt = cfg.compute_dtype
     hn = rms_norm(x, lp["ln2"]).to(dt)
     gu = hn @ lp["gate_up"]
@@ -321,13 +350,14 @@ def _attend_cache(q, k_cache, v_cache, mask, cfg):
 
 
 def _layer_decode(x, lp, k_all, v_all, layer, length, cfg, cos, sin,
-                  prefill=False, tp_group=None):
+                  prefill=False, tp_group=None, experts=(0, None)):
     """One decoder layer over S new tokens at positions [length, length+S).
     x: [B, S, d]; the new K/V rows are written into the stacked caches
     ``k_all``/``v_all`` [L, B, Tmax, Hkv, Dh] in place. ``prefill=True``
     promises an empty cache: attention then runs the flash kernel over the
     S new tokens only. With ``tp_group`` the layer runs on this rank's
-    heads and ff columns and sums its partial products over tp. Returns
+    heads and ff columns and sums its partial products over tp; an MoE
+    layer runs the resident experts of ``experts`` (see ``_mlp``). Returns
     the new x."""
     dt = cfg.compute_dtype
     s = x.shape[1]
@@ -349,7 +379,8 @@ def _layer_decode(x, lp, k_all, v_all, layer, length, cfg, cos, sin,
     # weight copy grows with S (a long prefill would hold S * k experts).
     routed = ("router" in lp and _moe_decode_mode(cfg) == "routed"
               and s == 1)
-    return _mlp(x, lp, cfg, routed=routed, tp_group=tp_group)
+    return _mlp(x, lp, cfg, routed=routed, tp_group=tp_group,
+                experts=experts)
 
 
 def advance(params: dict, cache: dict, tokens: torch.Tensor,
@@ -364,7 +395,8 @@ def advance(params: dict, cache: dict, tokens: torch.Tensor,
     With a ``mesh``, ``params`` are this rank's pieces
     (``shard_decode_weights``), ``cache`` its piece (``init_cache(...,
     mesh=)``) and ``tokens`` its batch rows; the logits of those rows come
-    back whole, gathered over the tp ranks' vocab columns."""
+    back whole, gathered over the tp ranks' vocab columns. An MoE layer
+    sums its resident experts' share over ep."""
     capacity = cache["k"].shape[2]
     s = tokens.shape[1]
     length = int(cache["length"])
@@ -385,9 +417,13 @@ def advance(params: dict, cache: dict, tokens: torch.Tensor,
     device = cache["k"].device
     if "qkv" not in params["layers"]:
         params = decode_weights(params, cfg)
-    tp_group = None
+    tp_group, experts = None, (0, None)
     if mesh is not None:
         tp_group, tp = axis_group(mesh, "tp")
+        if cfg.n_experts:
+            ep_group, ep = axis_group(mesh, "ep")
+            experts = (_resident_experts(cfg, mesh).start,
+                       ep_group if ep > 1 else None)
         want = (cfg.n_heads + 2 * cfg.kv_heads) // tp
         if params["layers"]["qkv"].shape[-2] != want:
             raise ValueError(
@@ -403,7 +439,8 @@ def advance(params: dict, cache: dict, tokens: torch.Tensor,
     for layer in range(cfg.n_layers):
         x = _layer_decode(x, layer_params(params, layer), cache["k"],
                           cache["v"], layer, length, cfg, cos, sin,
-                          prefill=prefill, tp_group=tp_group)
+                          prefill=prefill, tp_group=tp_group,
+                          experts=experts)
     # Only the last position is sampled: slice before the unembed.
     x = rms_norm(x[:, -1:], params["final_norm"]).to(dt)
     logits = (x @ params["unembed"])[:, 0].float()
@@ -597,11 +634,13 @@ class DecodeSession:
     ``refresh(params)`` re-fuses updated weights.
 
     **Sharded serving**: pass ``mesh=`` (a ``parallel.build_mesh`` result,
-    e.g. over ``MeshSpec(tp=4)``; every rank of it builds the session from
+    e.g. over ``MeshSpec(tp=4)``, or ``MeshSpec(ep=2, tp=2)`` for an MoE
+    trunk; every rank of it builds the session from
     the same whole weights and calls ``generate`` with the same prompt).
     Each rank keeps its pieces (``shard_decode_weights``) and a cache of
-    its batch rows over dp and its K/V heads over tp, and ``generate``
-    returns the whole batch on every rank. The mesh's device type must be
+    its batch rows over dp and its K/V heads over tp (an MoE trunk's
+    experts over ep), and ``generate`` returns the whole batch on every
+    rank. The mesh's device type must be
     the session's."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, device="cuda",

@@ -173,10 +173,10 @@ def _check_supported(cfg, mesh, plan, pipeline_microbatches,
             raise ValueError(
                 "pipeline training runs over a mesh's pp axis: pass "
                 "make_train_step(cfg, mesh, pipeline_microbatches=...)")
-        pp, tp = axis_size(mesh, "pp"), axis_size(mesh, "tp")
+        pp, tp, ep = (axis_size(mesh, a) for a in ("pp", "tp", "ep"))
         check_schedule_args(pipeline_microbatches, pp, pipeline_schedule,
                             pipeline_virtual)
-        check_pipeline(cfg, pp, tp, pipeline_schedule, pipeline_virtual)
+        check_pipeline(cfg, pp, tp, pipeline_schedule, pipeline_virtual, ep)
     if mesh is not None:
         check_mesh(mesh, cfg)
     if plan is not None:

@@ -23,8 +23,10 @@ each rank holds a block of the sequence: RoPE takes the block's global
 positions, and the attention is the ring (``parallel.ring``), whose K/V
 blocks travel over the sp axis. The MoE layer then runs the
 JAX package's manual form (``_moe_mlp_manual``), routing the rank's own
-tokens with a local capacity and exchanging per-expert slabs over ep with
-one all_to_all each way. The dense trunk runs Megatron's split over tp,
+tokens (its rows over dp x ep, its block of positions over sp) with a local
+capacity and exchanging per-expert slabs over ep with one all_to_all each
+way; over tp each rank holds its F/tp columns of every resident expert. The
+trunk runs Megatron's split over tp,
 the JAX package's manual trunk with explicit collectives: each rank holds
 its heads of wq/wk/wv and rows of wo, its mlp columns of w_gate/w_up and
 rows of w_down, its vocab rows of embed and columns of unembed; the
@@ -306,10 +308,16 @@ def _moe_mlp(x, lp, cfg, mesh=None):
     aux: the Switch balance loss E * sum_e f_e * P_e (f the fraction of
     (token, choice) slots routed to e, P the mean router probability), the
     router z-loss mean(logsumexp(logits)^2), the drop rate and the entropy
-    of f. With a mesh the statistics are averaged over the data axes
-    before they are combined (a differentiable pmean), and the slabs
-    [E, C, d] go to the ranks holding their experts and back with one
-    all_to_all over ep each way."""
+    of f. With a mesh the statistics are averaged over the data axes (dp,
+    ep, sp) before they are combined (a differentiable pmean), and the
+    slabs [E, C, d] go to the ranks holding their experts and back with one
+    all_to_all over ep each way. Over tp every rank routes the same tokens
+    the same way (the router, the slots and the statistics are replicated)
+    and runs its F/tp columns of w_gate/w_up and rows of w_down: the normed
+    input enters the experts through ``copy_to_tp``, the combine weights
+    through another (each rank's combine gives their cotangent from its own
+    columns only), and the combined output leaves through
+    ``reduce_from_tp``, the JAX package's ``lax.psum(out, "tp")``."""
     dt = cfg.compute_dtype
     b, t, d = x.shape
     e, kk = cfg.n_experts, cfg.expert_top_k
@@ -326,7 +334,6 @@ def _moe_mlp(x, lp, cfg, mesh=None):
             1.0 - keep.float().mean()[None],
         ])
         if mesh is not None:
-            # Over dp x ep: sp is 1 under an MoE config (check_mesh).
             stats = pmean(stats, mesh, DATA_AXES)
         frac, mean_probs = stats[:e], stats[e:2 * e]
         aux = {
@@ -338,7 +345,10 @@ def _moe_mlp(x, lp, cfg, mesh=None):
     with record_function("moe.dispatch"):
         # Dropped entries land in a spare last row, cut off after.
         slot = torch.where(keep, choice * cap + pos, e * cap)
-        src = hn.to(dt).reshape(1, n, d).expand(kk, n, d).reshape(kk * n, d)
+        h_in = hn.to(dt)
+        if mesh is not None:
+            h_in = copy_to_tp(h_in, mesh)
+        src = h_in.reshape(1, n, d).expand(kk, n, d).reshape(kk * n, d)
         xin = src.new_zeros(e * cap + 1, d).index_copy(0, slot, src)
         xin = xin[:-1].view(e, cap, d)
         if mesh is not None:
@@ -358,9 +368,12 @@ def _moe_mlp(x, lp, cfg, mesh=None):
             out_e = exchange_ep(out_e, mesh)
         rows = torch.cat([out_e.reshape(e * cap, d), out_e.new_zeros(1, d)])
         picked = rows.index_select(0, slot).view(kk, n, d)
+        if mesh is not None:
+            gvals = copy_to_tp(gvals, mesh)
         gate = gvals.reshape(n, kk).t().to(dt)                 # [k, n]
         out = (picked.float() * gate.float()[..., None]).sum(0)
-    return out.to(dt).view(b, t, d), aux
+        out = out.to(dt).view(b, t, d)
+    return (out if mesh is None else reduce_from_tp(out, mesh)), aux
 
 
 def _decoder_layer(x, lp, cfg, cos, sin, mesh=None):
@@ -412,26 +425,13 @@ def _layer_slices(layers: dict) -> list[dict]:
 
 
 def check_mesh(mesh, cfg: TransformerConfig) -> None:
-    """Refuse pp, tp or sp above 1 under an MoE config (every axis is
-    ported for dense trunks), a tp that does not divide the heads, K/V
-    heads, d_ff or vocab (the JAX GSPMD trunk would replicate such a
-    dimension; the manual split cannot), and an ep that does not divide
-    the config's experts. That sp divides the sequence is checked where
-    the sequence is known (``lm_loss``, ``forward``)."""
+    """Refuse a tp that does not divide the heads, K/V heads, d_ff or vocab
+    (the JAX GSPMD trunk would replicate such a dimension; the manual split
+    cannot), and an ep that does not divide the config's experts. Every
+    axis runs both model families. That sp divides the sequence is checked
+    where the sequence is known (``lm_loss``, ``forward``)."""
     spec = mesh_spec(mesh)
-    if cfg.n_experts and spec.pp > 1:
-        raise NotImplementedError(
-            f"an MoE trunk over pp {spec.pp} waits for ROADMAP item 13b "
-            f"(MoE x pp, with 11b) of the port")
-    if cfg.n_experts and spec.sp > 1:
-        raise NotImplementedError(
-            f"an MoE trunk over sp {spec.sp} waits for ROADMAP item 12b "
-            f"(MoE x sp) of the port")
     if spec.tp > 1:
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"an MoE trunk over tp {spec.tp} waits for ROADMAP item 11b "
-                f"(MoE x tp) of the port")
         for name, dim in (("n_heads", cfg.n_heads), ("kv_heads",
                                                      cfg.kv_heads),
                           ("d_ff", cfg.d_ff),
@@ -566,15 +566,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
 
 
 def check_pipeline(cfg: TransformerConfig, pp: int, tp: int, schedule: str,
-                   virtual_stages: int) -> None:
+                   virtual_stages: int, ep: int = 1) -> None:
     """The pipelined trunk's refusals, the JAX package's
-    (``forward_pipeline``): virtual stages without the interleaved
-    schedule, a layer count pp x virtual does not divide, and K/V heads tp
-    does not divide; and an MoE config (ROADMAP item 13b)."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "an MoE trunk through the pipeline waits for ROADMAP item 13b "
-            "(MoE x pp, with 11b) of the port")
+    (``forward_pipeline``): experts ep does not divide, virtual stages
+    without the interleaved schedule, a layer count pp x virtual does not
+    divide, and K/V heads tp does not divide."""
+    if cfg.n_experts and cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts {cfg.n_experts} not divisible by ep {ep}: "
+            f"resident-expert slabs must be equal")
     if schedule != "interleaved" and virtual_stages != 1:
         raise ValueError("virtual_stages > 1 requires schedule='interleaved'")
     if cfg.n_layers % (pp * virtual_stages):
@@ -596,8 +596,12 @@ def forward_pipeline(params: dict, tokens: torch.Tensor,
     runs as pp stages of ``parallel.pipeline_apply`` under ``schedule``
     ("gpipe" or "interleaved" with ``virtual_stages`` round-robin chunks a
     rank), each layer with tp's sums and sp's ring inside, under
-    ``cfg.remat`` as in ``forward``. Returns what ``forward`` returns (the
-    aux dict is empty: a dense trunk).
+    ``cfg.remat`` as in ``forward``. Returns what ``forward`` returns. An
+    MoE stage routes its microbatch (the capacity counted from its rows)
+    and returns its layers' four router values summed beside its output;
+    the schedule sums them over the valid ticks and the stages, and the
+    aux dict is that sum over ``n_layers x num_microbatches``, the mean
+    ``forward`` reports.
 
     ``params``: as ``forward(mesh=)`` takes them, but for the layer leaves,
     which hold this rank's L/pp layers, contiguous as the state keeps them
@@ -610,11 +614,11 @@ def forward_pipeline(params: dict, tokens: torch.Tensor,
         if stages is None:
             raise ValueError("forward_pipeline(mesh=None) runs the pipeline "
                              "in this process: pass stages=")
-        pp, tp = stages, 1
+        pp, tp, ep = stages, 1, 1
     else:
-        pp, tp = axis_size(mesh, "pp"), axis_size(mesh, "tp")
+        pp, tp, ep = (axis_size(mesh, a) for a in ("pp", "tp", "ep"))
     v = virtual_stages
-    check_pipeline(cfg, pp, tp, schedule, v)
+    check_pipeline(cfg, pp, tp, schedule, v, ep)
     layers = params["layers"]
     held = layers["wq"].shape[0]
     if mesh is not None:
@@ -635,10 +639,14 @@ def forward_pipeline(params: dict, tokens: torch.Tensor,
                                  mesh=mesh)
 
     def stage_fn(stage_layers, xm):
-        return _run_layers(stage_layers, xm, layer_fn, cfg)[0]
+        y, aux_layers = _run_layers(stage_layers, xm, layer_fn, cfg)
+        if not cfg.n_experts:
+            return y
+        return y, {k: torch.stack([a[k] for a in aux_layers]).sum()
+                   for k in aux_layers[0]}
 
     kw = dict(num_microbatches=num_microbatches, schedule=schedule,
-              virtual=v)
+              virtual=v, stage_aux=bool(cfg.n_experts))
     if mesh is None:
         lv = cfg.n_layers // (pp * v)
         if schedule == "interleaved":
@@ -655,5 +663,10 @@ def forward_pipeline(params: dict, tokens: torch.Tensor,
             layers = {k: exchange_chunks(p, mesh, v)
                       for k, p in layers.items()}
         x = pipeline_apply(stage_fn, layers, x, mesh=mesh, **kw)
+    aux = {}
+    if cfg.n_experts:
+        x, aux_sum = x
+        aux = {k: a / (cfg.n_layers * num_microbatches)
+               for k, a in aux_sum.items()}
     logits = _logits(x, params, cfg, mesh)
-    return (logits, {}) if return_aux else logits
+    return (logits, aux) if return_aux else logits

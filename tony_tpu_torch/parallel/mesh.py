@@ -20,8 +20,8 @@ each set of the data axes (dp, ep, sp) with two or more axes above 1,
 ``build_mesh`` flattens them into one more mesh dimension named by the
 axes joined with ``_`` (``"dp_ep"``, ``"dp_sp"``, ``"dp_ep_sp"``, ...;
 ``axis_group_ranks`` lists its groups' ranks from the ``MeshSpec`` alone).
-The gradient mean of the train step runs over the data axes, and the MoE
-layer's router statistics over dp x ep.
+The gradient mean of the train step and the MoE layer's router
+statistics run over the data axes.
 """
 
 from __future__ import annotations
