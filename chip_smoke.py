@@ -37,6 +37,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
              the engine (more live slots than a prefill batch, a reused
              slot, decode windows 1 and 3) each equal
              DecodeSession.generate token for token.
+6b. int8 serve — the int8 KV cache at the flagship's full width:
+             ServingEngine(kv_quant="int8"), 16 slots, max_len 2048, behind
+             the HTTP server, answering the serve phase's requests: tokens/s,
+             TTFT and inter-token p50/p95 beside the float engine's of this
+             run, the cache bytes of both modes, the peak device memory and
+             one profiled decode window's device ms in both modes. Then fp32
+             (TF32 off): the parity phase's requests through the int8 engine
+             at decode windows 1 and 3 give equal tokens; the float tokens
+             fed back teacher-forced through both caches give int8 logits
+             within INT8_LOGIT_TOL of the float ones, and where the int8
+             engine's tokens first leave the float ones the float top-2
+             margin is below the int8 perturbation there (JAX's bound, an
+             agreeing prefix of min(8, n) tokens and n // 2 equal, is
+             printed per request); _quantize on the card bit-equal to the
+             CPU's; a prefilled slot's exported rows against the float
+             engine's: layer 0 equal to the quantized float rows (the
+             deeper layers' drift printed); the float rows injected into
+             an int8 cache export as their round trip, within amax / 127
+             + 1e-6.
 7. train   — make_train_step on bench.py's bench_transformer configuration
              (vocab 32000, d 1024, 8 layers, 16 heads of 64, d_ff 4096,
              bf16, 199.8 M parameters) over a fixed batch of 8 x 2048
@@ -117,7 +136,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
              equal bit for bit in every leaf (params, AdamW moments, count,
              step). Then the serve CLI serves B's checkpoint (fp32, so the
              greedy tokens can be held exactly): 4 POSTs equal
-             DecodeSession.generate on the restored params. Then, on the
+             DecodeSession.generate on the restored params. Then the
+             generate CLI on B's checkpoint (fp32, greedy, 3 ragged rows
+             left-padded, 16 new tokens) prints, row by row, the serve
+             CLI's replies to the padded rows (posted with its 4) and
+             DecodeSession.generate's on the restored params. Then, on the
              train phase's in-memory state: the save() wall and the stall
              it adds to the next step, persist (save to commit), restore,
              the bytes, a plain pinned copy of the same bytes and the
@@ -157,11 +180,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
              E 16 and fp32 engine/generate parity on bench_moe's trunk.
 
 The launch counters are set to 0 just before each path (phases 3-4, the
-serving path; phase 7, the training path; phase 9, the data-parallel
+serving path; phase 6b's HTTP serving, the int8 serving path; phase 7, the
+training path; phase 9, the data-parallel
 path; phase 9b's mesh runs, the tp path; phase 9c's rings and mesh
 runs, the sp path; phase 9d's schedules and mesh runs, the pp path;
-phase 10's jobs and serving, the
-job path; phase 11, the MoE train path; phase 12b's pipelines, the MoE
+phase 10's jobs and serving, the job path, and its generate CLI, the
+generate path; phase 11, the MoE train path; phase 12b's pipelines, the MoE
 pipeline path, and its mesh runs, the MoE mesh path; phase 13's bf16
 generate and
 engine, the MoE serving path) and read just after; every kernel of a path must have launched there. The last three lines are the kernels
@@ -278,6 +302,10 @@ JOB_STEPS, JOB_HALF, JOB_EVERY = 8, 4, 2
 JOB_LR = 1e-3
 JOB_MIN_FREE_BYTES = 20e9
 JOB_SERVE_REQUESTS = 4
+# The job phase's generate.py run: ragged prompt rows (left-padded to the
+# longest) and the new tokens of each.
+GENERATE_LENGTHS = (24, 40, 32)
+GENERATE_NEW = 16
 # One PCIe Gen5 x16 direction, the D2H bound of a snapshot.
 PCIE_BYTES_PER_S = 64e9
 
@@ -325,6 +353,11 @@ MOE_SERVE_REQUESTS = 4
 PARITY_SLOTS = 6
 PARITY_REQUESTS = [(7, 6, 0), (45, 16, 0), (90, 12, 0), (20, 16, 0),
                    (33, 10, 0), (64, 16, 0), (12, 16, 2), (70, 12, 5)]
+# The int8 cache against the float cache on those requests, fp32
+# teacher-forced logits of the flagship's random weights (std ~1.0): the
+# largest |difference| at a position (0.025-0.039 measured on an H100;
+# rounding by truncation would double it).
+INT8_LOGIT_TOL = 0.06
 
 # Stated tolerances (max abs error against the plain version on the card).
 # fp32: both sides accumulate in fp32 in another order (~1e-6 here).
@@ -1110,13 +1143,15 @@ def make_requests(cfg, session, seed: int, n_requests: int) -> list[dict]:
     return bodies
 
 
-def serve_phase(cfg, session, seed: int, bodies: list[dict]) -> dict:
+def serve_phase(cfg, session, seed: int, bodies: list[dict],
+                kv_quant: str = "none") -> dict:
     from tony_tpu_torch.serving import ServingEngine
     from tony_tpu_torch.serving.http import ServingServer
 
     n_requests = len(bodies)
     engine = ServingEngine(session.params, cfg, device="cuda", slots=16,
-                           prefill_chunk=32, seed=seed).start()
+                           prefill_chunk=32, seed=seed,
+                           kv_quant=kv_quant).start()
     server = ServingServer(engine, port=0, host="127.0.0.1")
     port = server.start()
     try:
@@ -1175,7 +1210,7 @@ def serve_phase(cfg, session, seed: int, bodies: list[dict]) -> dict:
             np.percentile(engine.inter_token_ms_samples, 95)),
         "eos_retired_early": n_eos_hit,
     }
-    log("serve: " + json.dumps(out))
+    log(f"serve (kv_quant {kv_quant}): " + json.dumps(out))
     return out
 
 
@@ -1199,7 +1234,7 @@ def generate_phase(torch, cfg, session, seed: int) -> dict:
     return res
 
 
-def profile_phase(torch, cfg, session) -> dict:
+def profile_phase(torch, cfg, session, kv_quant: str = "none") -> dict:
     """Device time by kernel over 8 decode steps of a full 16-slot batch at
     position ~100 (cache contents are irrelevant to the timing). The busy
     share divides the profiled call's device time by that same call's wall
@@ -1207,7 +1242,8 @@ def profile_phase(torch, cfg, session) -> dict:
     an unprofiled call is reported beside it."""
     from tony_tpu_torch.serving import engine as eng
 
-    k_all, v_all = eng.init_slot_cache(cfg, 16, cfg.max_seq, device="cuda")
+    k_all, v_all = eng.init_slot_cache(cfg, 16, cfg.max_seq,
+                                       kv_quant=kv_quant, device="cuda")
     pos = np.full(16, 100, np.int32)
     toks = np.arange(16, dtype=np.int32)
     temp = np.zeros(16, np.float32)
@@ -1236,8 +1272,26 @@ def profile_phase(torch, cfg, session) -> dict:
         "top": [{"kernel": k[:90], "device_ms": us / 1e3, "count": c}
                 for us, k, c in rows[:12]],
     }
-    log("profile: " + json.dumps(res))
+    log(f"profile (kv_quant {kv_quant}): " + json.dumps(res))
     return res
+
+
+def _staggered(engine, prompts) -> tuple[list, int]:
+    """PARITY_REQUESTS' prompts submitted at their engine steps and the
+    engine stepped until all retire; closes it. Returns the requests and
+    the most slots live at once."""
+    reqs: list = [None] * len(prompts)
+    max_live = 0
+    for step in range(400):
+        for i, (p, (_, n, at)) in enumerate(zip(prompts, PARITY_REQUESTS)):
+            if at == step:
+                reqs[i] = engine.submit(p, n)
+        engine.step()
+        max_live = max(max_live, engine.stats()["active_slots"])
+        if all(r is not None and r.done() for r in reqs):
+            break
+    engine.close()
+    return reqs, max_live
 
 
 def parity_phase(torch, params, seed: int, cfg_kw: dict = FLAGSHIP,
@@ -1265,18 +1319,7 @@ def parity_phase(torch, params, seed: int, cfg_kw: dict = FLAGSHIP,
                                slots=PARITY_SLOTS, prefill_chunk=32,
                                prefill_batch=4, decode_window=window,
                                max_len=256, seed=seed)
-        reqs: list = [None] * len(prompts)
-        max_live = 0
-        for step in range(400):
-            for i, (p, (_, n, at)) in enumerate(zip(prompts,
-                                                    PARITY_REQUESTS)):
-                if at == step:
-                    reqs[i] = engine.submit(p, n)
-            engine.step()
-            max_live = max(max_live, engine.stats()["active_slots"])
-            if all(r is not None and r.done() for r in reqs):
-                break
-        engine.close()
+        reqs, max_live = _staggered(engine, prompts)
         for i, (req, want) in enumerate(zip(reqs, wants)):
             got = np.asarray(req.result(timeout=1)["tokens"])
             if not np.array_equal(got, want):
@@ -1291,6 +1334,219 @@ def parity_phase(torch, params, seed: int, cfg_kw: dict = FLAGSHIP,
             f"equal, up to {max_live} slots live at once, "
             f"{engine.stats()['retired']} retired")
     return {"requests": len(prompts), "tokens": n_tokens}
+
+
+def cache_bytes(k, v) -> int:
+    """Bytes of a slot cache pair, an int8 one's scale planes included."""
+    return sum(t.numel() * t.element_size() for buf in (k, v)
+               for t in (tuple(buf) if isinstance(buf, tuple) else (buf,)))
+
+
+def _teacher_forced(params, cfg, prompt, cont, kv_quant: str):
+    """fp32 logits [n, V] (float64 on the host) at each position of
+    ``prompt`` + ``cont``'s first n tokens (row j: the prompt and cont[:j])
+    through one prefill_chunks call on a cache of ``kv_quant``, a slot a
+    row."""
+    from tony_tpu_torch.serving import engine as eng
+
+    n = len(cont)
+    seq = np.concatenate([prompt, cont[:-1]]).astype(np.int32)
+    tokens = np.zeros((n, len(seq)), np.int32)
+    for j in range(n):
+        tokens[j, :len(prompt) + j] = seq[:len(prompt) + j]
+    k, v = eng.init_slot_cache(cfg, n, 256, kv_quant=kv_quant,
+                               device="cuda")
+    _, _, _, logits = eng.prefill_chunks(
+        params, k, v, tokens, np.arange(n, dtype=np.int32),
+        np.zeros(n, np.int32),
+        np.arange(len(prompt), len(prompt) + n, dtype=np.int32),
+        np.zeros(n, np.float32), 0, 0, cfg=cfg)
+    return logits.double().cpu()
+
+
+def int8_parity(torch, params, seed: int) -> dict:
+    """fp32, TF32 off, the flagship model: the int8 engine against itself
+    and against the float cache. PARITY_REQUESTS through the int8 engine
+    at decode windows 1 and 3 give equal tokens. Against the float
+    engine's tokens (DecodeSession.generate's, which parity_phase holds
+    equal to them), fed back teacher-forced through prefill_chunks on a
+    float and on an int8 cache: the float logits' argmax is the float
+    token at every position, the int8 logits lie within INT8_LOGIT_TOL of
+    the float logits, and where the int8 engine's free-running tokens
+    first leave the float ones, the float logits' top-2 margin there is
+    below the int8 perturbation (a near-tie the quantization may flip)
+    and the engine took the int8 logits' argmax. JAX's per-request bound
+    (an agreeing prefix of min(8, n), n // 2 equal) is printed as a
+    reading: on this random-weight model a near-tie can end a prefix
+    early. _quantize on the card is bit-equal to _quantize on the CPU for
+    the same fp32 rows. A slot's exported rows after a prefill, against
+    the float engine's for the same prompt: layer 0 equal to
+    _materialize(_quantize(.)) of the float rows (both engines store the
+    same rows there); past layer 0 they differ by what attention over the
+    int8 cache changed, which is printed in units of JAX's round-trip
+    bound. The float rows of every layer injected into an int8 cache
+    export as _materialize(_quantize(.)) of themselves, within JAX's
+    round-trip bound amax / 127 + 1e-6."""
+    from tony_tpu_torch.models import DecodeSession, TransformerConfig
+    from tony_tpu_torch.serving import ServingEngine
+    from tony_tpu_torch.serving import engine as eng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TransformerConfig(dtype="float32", **FLAGSHIP)
+    session = DecodeSession(params, cfg, device="cuda")
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n, _, _ in PARITY_REQUESTS]
+    wants = [session.generate(p[None], n)[0].cpu().numpy()
+             for p, (_, n, _) in zip(prompts, PARITY_REQUESTS)]
+    by_window = {}
+    for window in (1, 3):
+        engine = ServingEngine(session.params, cfg, device="cuda",
+                               slots=PARITY_SLOTS, prefill_chunk=32,
+                               prefill_batch=4, decode_window=window,
+                               max_len=256, seed=seed, kv_quant="int8")
+        reqs, max_live = _staggered(engine, prompts)
+        if max_live <= engine.prefill_batch:
+            raise AssertionError(f"only {max_live} slots were live at once")
+        by_window[window] = [req.result(timeout=1)["tokens"] for req in reqs]
+    if by_window[1] != by_window[3]:
+        raise AssertionError(f"int8 engine: decode windows 1 and 3 differ:"
+                             f"\n  {by_window[1]}\n  {by_window[3]}")
+    agreement = []
+    for i, (got, want, prompt) in enumerate(zip(by_window[1], wants,
+                                                prompts)):
+        lf, lq = (_teacher_forced(session.params, cfg, prompt, want, mode)
+                  for mode in ("none", "int8"))
+        top2 = lf.topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).numpy()
+        delta = (lq - lf).abs().amax(-1).numpy()
+        af, aq = lf.argmax(-1).numpy(), lq.argmax(-1).numpy()
+        want = want.tolist()
+        prefix = next((j for j, (a, b) in enumerate(zip(got, want))
+                       if a != b), len(want))
+        equal = sum(int(a == b) for a, b in zip(got, want))
+        flips = np.flatnonzero(af != aq).tolist()
+        agreement.append({
+            "n": len(want), "prefix": prefix, "equal": equal,
+            "jax_bound": (prefix >= min(8, len(want))
+                          and equal >= len(want) // 2),
+            "max_logit_delta": float(delta.max()),
+            "teacher_forced_flips": flips,
+            "margin_at_flips": [float(margin[j]) for j in flips]})
+        if af.tolist() != want:
+            raise AssertionError(f"request {i}: the float cache's prefill "
+                                 f"argmax {af.tolist()} != its greedy "
+                                 f"tokens {want}")
+        if delta.max() > INT8_LOGIT_TOL:
+            raise AssertionError(f"request {i}: int8 logits {delta.max()} "
+                                 f"from the float ones > {INT8_LOGIT_TOL}")
+        if len(got) != len(want):
+            raise AssertionError(f"request {i}: {len(got)} int8 tokens of "
+                                 f"{len(want)}")
+        if prefix < len(want) and not (margin[prefix] <= delta[prefix]
+                                       and aq[prefix] == got[prefix]):
+            raise AssertionError(
+                f"int8 engine: request {i} leaves the float tokens at "
+                f"{prefix} (float top-2 margin {margin[prefix]}, int8 "
+                f"perturbation {delta[prefix]}, int8 argmax {aq[prefix]}):"
+                f"\n  int8  {got}\n  float {want}")
+
+    gen = torch.Generator().manual_seed(seed)
+    rows = (torch.randn(16, 2048, cfg.kv_heads, cfg.head_dim, generator=gen)
+            * torch.rand(16, 2048, cfg.kv_heads, 1, generator=gen) * 8)
+    on_cpu, on_card = eng._quantize(rows), eng._quantize(rows.cuda())
+    if not (torch.equal(on_card.data.cpu(), on_cpu.data)
+            and torch.equal(on_card.scale.cpu(), on_cpu.scale)):
+        raise AssertionError("_quantize on the card differs from the CPU")
+
+    prompt = prompts[2]
+    exported = {}
+    for mode in ("none", "int8"):
+        engine = ServingEngine(session.params, cfg, device="cuda", slots=2,
+                               max_len=256, seed=seed, kv_quant=mode)
+        req = engine.prefill_only(prompt, 4)
+        for _ in range(100):
+            if req.done():
+                break
+            engine.step()
+        engine.close()
+        req.result(timeout=1)
+        exported[mode] = req.kv
+    drift = []
+    for i, name in enumerate(("k", "v")):
+        ref = torch.from_numpy(exported["none"][i])
+        got = torch.from_numpy(exported["int8"][i])
+        want = eng._materialize(eng._quantize(ref), torch.float32)
+        # Layer 0 quantizes the very rows the float engine stores.
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"int8 export of {name}, layer 0: not "
+                                 f"the quantized float rows")
+        # The exchange: the float rows injected into an int8 cache come
+        # back as their round trip, within amax / 127 + 1e-6 of them.
+        cache, _ = eng.init_slot_cache(cfg, 2, 256, kv_quant="int8",
+                                       device="cuda")
+        eng.cache_inject_rows(cache, 1, ref)
+        back = eng.cache_export_rows(cache, 1, ref.shape[1]).cpu()
+        bound = float(ref.abs().max()) / 127 + 1e-6
+        if not (torch.equal(back, want)
+                and float((back - ref).abs().max()) <= bound):
+            raise AssertionError(f"int8 exchange of {name}: the injected "
+                                 f"rows do not come back as their round "
+                                 f"trip within {bound}")
+        # Past layer 0 the prefilled rows differ by what attention over the
+        # int8 cache changed: a reading, in round-trip bounds.
+        drift += [float((got[layer] - ref[layer]).abs().max())
+                  / (float(ref[layer].abs().max()) / 127 + 1e-6)
+                  for layer in range(cfg.n_layers)]
+    res = {"requests": len(prompts), "agreement": agreement,
+           "quantize_card_equals_cpu": True,
+           "prefill_export_over_round_trip_bound": max(drift)}
+    log("int8 parity fp32: " + json.dumps(res))
+    return res
+
+
+def int8_serve_phase(torch, attention, norms, cfg, session, params,
+                     seed: int, bodies: list[dict], float_serve: dict,
+                     float_profile: dict) -> dict:
+    """The int8 KV cache at the flagship's full width: ServingEngine(
+    kv_quant="int8"), 16 slots, max_len cfg.max_seq, behind the HTTP
+    server, answering the serve phase's requests (launch counters from 0
+    around it: the serve_int8 path), beside the float engine's readings
+    of this run; the cache bytes of both modes, the peak device memory,
+    one profiled decode window in both modes; then int8_parity in fp32."""
+    from tony_tpu_torch.serving import engine as eng
+
+    sizes = {mode: cache_bytes(*eng.init_slot_cache(
+        cfg, 16, cfg.max_seq, kv_quant=mode, device="cuda"))
+        for mode in ("none", "int8")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(attention, norms)
+    served = serve_phase(cfg, session, seed, bodies, kv_quant="int8")
+    launches = _launches(attention, norms)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches["rms_norm"] <= 0:
+        raise AssertionError("kernel rms_norm never launched on the int8 "
+                             "serving path")
+    profile = profile_phase(torch, cfg, session, kv_quant="int8")
+    keys = ("tokens_per_s", "ttft_p50_ms", "ttft_p95_ms",
+            "inter_token_p50_ms", "inter_token_p95_ms")
+    res = {
+        "int8": {k: served[k] for k in keys}
+        | {"peak_memory_gb": peak,
+           "window_device_ms": profile["device_ms"],
+           "cache_mb": sizes["int8"] / 1e6},
+        "float": {k: float_serve[k] for k in keys}
+        | {"peak_memory_gb": float_serve["peak_memory_gb"],
+           "window_device_ms": float_profile["device_ms"],
+           "cache_mb": sizes["none"] / 1e6},
+        "cache_ratio": sizes["int8"] / sizes["none"],
+        "launches": launches,
+    }
+    log("int8 serve: " + json.dumps(res))
+    res["parity"] = int8_parity(torch, params, seed)
+    return res
 
 
 def _loss_list(torch, losses) -> list[float]:
@@ -2330,10 +2586,11 @@ def state_bits(torch, state) -> dict:
 
 
 def serve_checkpoint(torch, ckpt: Path, root: Path, cfg_kw: dict,
-                     params: dict, seed: int) -> dict:
+                     params: dict, seed: int, extra: list[dict]) -> dict:
     """serve.py --ckpt in a thread (fp32, TF32 off); JOB_SERVE_REQUESTS
     greedy POSTs must equal DecodeSession.generate on ``params`` (the
-    restored masters) token for token."""
+    restored masters) token for token. The ``extra`` request bodies are
+    posted too; their replies are returned ("extra_tokens")."""
     from tony_tpu_torch import serve as serve_cli
     from tony_tpu_torch.models import DecodeSession, TransformerConfig
 
@@ -2341,7 +2598,7 @@ def serve_checkpoint(torch, ckpt: Path, root: Path, cfg_kw: dict,
     addr = root / "serve.addr"
     argv = (["--device", "cuda", "--ckpt", str(ckpt), "--max-seq", "256",
              "--slots", "4", "--port", "0", "--addr-file", str(addr),
-             "--max-requests", str(JOB_SERVE_REQUESTS)]
+             "--max-requests", str(JOB_SERVE_REQUESTS + len(extra))]
             + model_args(cfg_kw, "float32"))
     result: dict = {}
 
@@ -2367,7 +2624,8 @@ def serve_checkpoint(torch, ckpt: Path, root: Path, cfg_kw: dict,
               for n in rng.integers(16, 65, JOB_SERVE_REQUESTS)]
     with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
         replies = list(pool.map(lambda b: _post(port, "/generate", b),
-                                bodies))
+                                bodies + extra))
+    replies, extra_replies = replies[:len(bodies)], replies[len(bodies):]
     thread.join(timeout=120)
     if thread.is_alive() or "exc" in result:
         raise AssertionError(f"serve.py did not exit cleanly: "
@@ -2384,7 +2642,44 @@ def serve_checkpoint(torch, ckpt: Path, root: Path, cfg_kw: dict,
     log(f"serve --ckpt: {len(replies)} greedy replies equal "
         f"DecodeSession.generate on the restored params")
     return {"requests": len(replies),
-            "tokens": sum(r["length"] for r in replies)}
+            "tokens": sum(r["length"] for r in replies),
+            "extra_tokens": [r["tokens"] for r in extra_replies]}
+
+
+def generate_checkpoint(torch, attention, norms, ckpt: Path, cfg_kw: dict,
+                        params: dict, prompt: str, served: list) -> dict:
+    """generate.py --ckpt (fp32, greedy, GENERATE_NEW tokens) with the
+    launch counters from 0 around it (the generate path): each printed row
+    equals serve.py's reply to the same padded prompt (``served``) and
+    DecodeSession.generate on ``params`` (the restored masters) over the
+    whole padded batch."""
+    from tony_tpu_torch import generate as gen_cli
+    from tony_tpu_torch.models import DecodeSession, TransformerConfig
+
+    _reset_launches(attention, norms)
+    out = run_cli(gen_cli.main,
+                  ["--device", "cuda", "--ckpt", str(ckpt), "--prompt",
+                   prompt, "--max-new", str(GENERATE_NEW), "--max-seq",
+                   "256"] + model_args(cfg_kw, "float32"))
+    launches = _launches(attention, norms)
+    if f"restored step {JOB_STEPS}" not in out:
+        raise AssertionError("generate.py did not restore the last step")
+    got = [[int(t) for t in line.split(": ")[1].split(",")]
+           for line in re.findall(r"^generated\[\d+\]: .*$", out, re.M)]
+    cfg = TransformerConfig(dtype="float32", **{**cfg_kw, "max_seq": 256})
+    rows = gen_cli.prompt_rows(prompt)
+    want = DecodeSession(params, cfg, device="cuda").generate(
+        rows, GENERATE_NEW).cpu().tolist()
+    if got != want or got != served:
+        raise AssertionError(f"generate.py printed {got}; serve.py replied "
+                             f"{served}; DecodeSession.generate {want}")
+    for name in ("rms_norm", "flash_fwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"generate path")
+    log(f"generate --ckpt: {len(got)} rows equal serve.py's replies and "
+        f"DecodeSession.generate; launches {launches}")
+    return {"rows": len(got), "launches": launches}
 
 
 def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
@@ -2444,19 +2739,30 @@ def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
     del states["a"], bits_a, bits_b
 
     params = states.pop("b").params
+    # The generate CLI's ragged rows, left-padded as it pads them, are
+    # served too, so both CLIs answer the same prompts.
+    from tony_tpu_torch.generate import prompt_rows
+
+    rng = np.random.default_rng(seed + 6)
+    prompt = ":".join(",".join(str(t) for t in rng.integers(
+        0, BENCH_TRANSFORMER["vocab_size"], n)) for n in GENERATE_LENGTHS)
+    extra = [{"prompt": row.tolist(), "max_new_tokens": GENERATE_NEW}
+             for row in prompt_rows(prompt)]
     served = serve_checkpoint(torch, dir_b, root, BENCH_TRANSFORMER,
-                              params, seed)
-    launches = {"rms_norm": norms.launches, "flash_fwd": attention.launches,
-                "flash_bwd_dq": attention.launches_dq,
-                "flash_bwd_dkv": attention.launches_dkv}
+                              params, seed, extra)
+    launches = _launches(attention, norms)
     log(f"launches on the job path: {launches}; job A {t_a:.2f} s, job B "
         f"(both runs) {t_b:.2f} s, serving {served}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the job "
                                  f"path")
+    generated = generate_checkpoint(torch, attention, norms, dir_b,
+                                    BENCH_TRANSFORMER, params, prompt,
+                                    served.pop("extra_tokens"))
     return {"launches": launches, "job_a_s": t_a, "job_b_s": t_b,
             "leaves_equal": n_leaves, "served": served,
+            "generate_launches": generated["launches"],
             "train_args": base}
 
 
@@ -2469,7 +2775,6 @@ def job_timing(torch, train_cli_args: list[str], train: tuple, root: Path,
     template; the bytes of one step; a plain pinned copy_ of the same
     leaves; and the step time with batches from the corpus through the
     sharded reader and device_prefetch."""
-    import tony_tpu_torch.runtime as rt
     from tony_tpu_torch import train as train_cli
     from tony_tpu_torch.checkpoint import CheckpointManager
     from tony_tpu_torch.interop import train_state_leaves
@@ -2537,7 +2842,8 @@ def job_timing(torch, train_cli_args: list[str], train: tuple, root: Path,
     del block, views
 
     args = train_cli.parse_args(train_cli_args)
-    with device_prefetch(train_cli.corpus_batches(args, rt.task_context()),
+    # One process: data row 0 of 1, the whole corpus.
+    with device_prefetch(train_cli.corpus_batches(args, 0, 1),
                          "cuda") as batches:
         timed_steps(2, batches)
         file_ms = timed_steps(10, batches)
@@ -3230,7 +3536,9 @@ def main(argv=None) -> int:
     bodies = make_requests(cfg, session, args.seed, N_REQUESTS)
     norms.launches = 0
     attention.launches = 0
-    serve_phase(cfg, session, args.seed, bodies)
+    torch.cuda.reset_peak_memory_stats()
+    float_serve = serve_phase(cfg, session, args.seed, bodies)
+    float_serve["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     serve_launches = {"rms_norm": norms.launches,
                       "flash_fwd": attention.launches}
     generate_phase(torch, cfg, session, args.seed)
@@ -3241,8 +3549,13 @@ def main(argv=None) -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"serving path")
-    profile_phase(torch, cfg, session)
+    float_profile = profile_phase(torch, cfg, session)
     parity_phase(torch, params, args.seed)
+    # Slice 5's int8 path: the same requests through the int8 KV cache (it
+    # resets the counters itself and reads them just after), then its fp32
+    # checks.
+    int8 = int8_serve_phase(torch, attention, norms, cfg, session, params,
+                            args.seed, bodies, float_serve, float_profile)
     del session, params
     torch.cuda.empty_cache()
 
@@ -3303,6 +3616,8 @@ def main(argv=None) -> int:
         row["launches_by_path"] = {
             "train": train["launches"][row["name"]],
             "serve_generate": serve_path.get(row["name"], 0),
+            "serve_int8": int8["launches"][row["name"]],
+            "generate": job["generate_launches"][row["name"]],
             "job": job["launches"][row["name"]],
             "dp": dp["launches"][row["name"]],
             "tp": tp["launches"][row["name"]],

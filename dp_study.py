@@ -19,6 +19,7 @@ tony_tpu_torch across the cards of one host.
     python3 dp_study.py --ranks 4 --ep 2 --sp 2   # bench_moe over ep 2 x sp 2
     python3 dp_study.py --ranks 4 --ep 2 --pp 2 --microbatches 2
     python3 dp_study.py --ranks 2 --moe --tp 2    # bench_moe over tp 2 alone
+    python3 dp_study.py --ranks 4 --cli   # the train CLI on the job mesh
 
 Builds the kernels once, then starts one process per card, each in its own
 session, on cuda:<rank>: they meet at a TCP store on a free localhost port,
@@ -100,6 +101,19 @@ Each rank logs its phases with the seconds since it started. Prints each
 rank's results as a JSON line, the cards' names and power limits, and a
 summary JSON line last. Exits non-zero if a rank fails or a check does not
 hold.
+
+``--cli`` runs none of that: it runs the train CLI (``python -m
+tony_tpu_torch.train``) as a job of ``--ranks`` processes, each with the
+environment the executor exports (``RANK``, ``WORLD_SIZE``, ``MASTER_*``,
+``CLUSTER_SPEC``), so the CLI builds the job mesh with no spec (four
+ranks: tp 2 x sp 2) and reads its corpus by data row, at
+bench_transformer's width on a corpus of CLI_RECORDS records of [2049]
+tokens from ``--seed``, batch 8 a data row. First fp32, CLI_PARITY_STEPS
+steps on the job and on one process: the first step's loss, as the CLI
+prints it (4 decimals), must agree within CLI_LOSS_ATOL. Then bf16,
+CLI_STEPS steps on the job and on one process: the ms of the steps the
+CLI times (steps 5, 10 and the last: one step's wall with its loss
+readback), every rank's. Each run's output is printed.
 """
 
 from __future__ import annotations
@@ -107,6 +121,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -122,6 +137,14 @@ import chip_smoke
 
 DP_TIMEOUT_S = 60.0
 DEADLINE_S = 600.0
+# --cli: the records of the corpus (12 batches of 8, one epoch), the timed
+# run's steps, the parity runs' steps (the CLI fails a run whose loss does
+# not fall, so one step is not enough) and the loss's tolerance (the CLI
+# prints 4 decimals).
+CLI_RECORDS = 96
+CLI_STEPS = 12
+CLI_PARITY_STEPS = 2
+CLI_LOSS_ATOL = 2e-4
 PARITY_STEPS = 3
 PARITY_ROWS_PER_RANK = 2
 # --pp: the parity model at the step's depth (pp x virtual stages divide
@@ -589,16 +612,17 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
 
     import tony_tpu_torch.runtime as rt
     from tony_tpu_torch.parallel import MeshSpec
+    from tony_tpu_torch.parallel.mesh import data_row
 
     ep, pp, sp, tp = job["ep"], job["pp"], job["sp"], job["tp"]
     device = torch.device("cuda", rank)
     torch.cuda.set_device(device)
-    # Ranks lie in C order over (dp, pp, ep, sp, tp): the data row is the
-    # rank's (dp, ep) coordinate. The last rank of the first row's sp axis
-    # runs the ring with the most chunks; over pp every stage is profiled.
-    rows = world // (pp * sp * tp)
-    dp_c, _, ep_c, _, _ = np.unravel_index(rank, (rows // ep, pp, ep, sp, tp))
-    row = int(dp_c) * ep + int(ep_c)
+    # The data row is the rank's (dp, ep) coordinate. The last rank of the
+    # first row's sp axis runs the ring with the most chunks; over pp every
+    # stage is profiled.
+    spec = MeshSpec(dp=world // (pp * ep * sp * tp), pp=pp, ep=ep, sp=sp,
+                    tp=tp)
+    row, rows = data_row(spec, rank)
     profiled = pp > 1 or rank in (0, (sp - 1) * tp)
     out = {"rank": rank, "world": world, "row": row,
            "card": torch.cuda.get_device_name(device)}
@@ -615,9 +639,8 @@ def run_rank(rank: int, world: int, store: str, outdir: str,
                             world_size=world,
                             timeout=timedelta(seconds=DP_TIMEOUT_S))
     try:
-        mesh = rt.build_job_mesh(MeshSpec(dp=rows // ep, pp=pp, ep=ep,
-                                          sp=sp, tp=tp),
-                                 device="cuda", timeout_s=DP_TIMEOUT_S)
+        mesh = rt.build_job_mesh(spec, device="cuda",
+                                 timeout_s=DP_TIMEOUT_S)
         _log(rank, "mesh built")
         out["parity"] = parity(torch, mesh, row, rows, device, seed, job,
                                ref)
@@ -675,6 +698,103 @@ def launch(world: int, seed: int, job: dict) -> list[dict]:
                 proc.wait()
 
 
+def run_cli(world: int, argv: list[str], outdir: Path, tag: str) -> list[str]:
+    """The train CLI as a job of ``world`` processes, each in its own
+    session with the environment the executor's PyTorch runtime exports
+    (all on this host, so rank r's card is cuda:r); one deadline, every
+    process still alive killed and reaped at the end. Returns each rank's
+    standard output."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cluster = json.dumps({"worker": [f"127.0.0.1:{port + 1 + r}"
+                                     for r in range(world)]})
+    env = {**os.environ, "NCCL_SOCKET_IFNAME": "lo",
+           "PYTHONPATH": str(Path(__file__).resolve().parent),
+           "WORLD_SIZE": str(world), "CLUSTER_SPEC": cluster}
+    if world > 1:
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            log = outdir / f"{tag}.{rank}.log"
+            logs.append(log)
+            with open(log, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "tony_tpu_torch.train", *argv],
+                    env={**env, "RANK": str(rank), "TASK_INDEX": str(rank)},
+                    stdout=out, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        deadline = time.monotonic() + DEADLINE_S
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 0.0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    outs = [log.read_text() for log in logs]
+    for rank, out in enumerate(outs):
+        print(f"--- {tag}, rank {rank} ---\n{out.rstrip()}", flush=True)
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"{tag}: ranks {failed} failed")
+    return outs
+
+
+def _cli_reading(out: str, tokens_per_step: int) -> dict:
+    """The mesh line, the first step's loss and the timed steps' ms from
+    one rank's train CLI output."""
+    done = re.search(r"done: loss (\S+) ->", out)
+    return {
+        "mesh": re.search(r"mesh (.*)$", out, re.M).group(1),
+        "first_loss": float(done.group(1)),
+        "step_ms": {int(step): tokens_per_step / float(rate) * 1e3
+                    for step, rate in re.findall(
+                        r"^step (\d+): loss \S+ \((\d+) tokens/s\)",
+                        out, re.M)},
+    }
+
+
+def cli_study(world: int, seed: int, *, device: str = "cuda",
+              model: dict = chip_smoke.BENCH_TRANSFORMER,
+              seq: int = chip_smoke.TRAIN_SEQ,
+              batch: int = chip_smoke.TRAIN_BATCH) -> dict:
+    """``--cli``: fp32 parity of the first step's loss, then the bf16
+    step ms, of the train CLI on ``world`` processes against one."""
+    with tempfile.TemporaryDirectory(prefix="tony-cli-") as tmp:
+        root = Path(tmp)
+        corpus = root / "corpus.tokens"
+        chip_smoke.write_corpus(corpus, seed, CLI_RECORDS, seq,
+                                model["vocab_size"])
+        base = ["--device", device, "--data", str(corpus), "--batch",
+                str(batch), "--seq", str(seq), "--lr", "1e-3", "--seed",
+                str(seed), "--checkpoint-every", "1000", "--dist-timeout",
+                str(DP_TIMEOUT_S)]
+        runs = {}
+        for dtype, steps in (("float32", CLI_PARITY_STEPS),
+                             ("bfloat16", CLI_STEPS)):
+            for n in (world, 1):
+                tag = f"{dtype}-{n}"
+                outs = run_cli(n, base + chip_smoke.model_args(model, dtype)
+                               + ["--steps", str(steps), "--ckpt-dir",
+                                  str(root / tag)], root, tag)
+                runs[tag] = [_cli_reading(out, batch * seq) for out in outs]
+    job, one = runs[f"float32-{world}"], runs["float32-1"][0]
+    worst = max(abs(r["first_loss"] - one["first_loss"]) for r in job)
+    return {
+        "world": world, "mesh": job[0]["mesh"],
+        "parity": {"first_loss_job": [r["first_loss"] for r in job],
+                   "first_loss_one_process": one["first_loss"],
+                   "worst_abs": worst, "atol": CLI_LOSS_ATOL,
+                   "ok": worst <= CLI_LOSS_ATOL},
+        "step_ms_by_rank": [r["step_ms"]
+                            for r in runs[f"bfloat16-{world}"]],
+        "step_ms_one_process": runs["bfloat16-1"][0]["step_ms"],
+        "tokens_per_step_a_data_row": batch * seq,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", type=int, default=0,
@@ -712,6 +832,9 @@ def main(argv=None) -> int:
     ap.add_argument("--virtual", type=int, default=1,
                     help="with --schedule interleaved: virtual stages a rank "
                          "(default 1)")
+    ap.add_argument("--cli", action="store_true",
+                    help="run the train CLI as a job of --ranks processes "
+                         "on the job mesh, beside one process")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--store", default="", help=argparse.SUPPRESS)
     ap.add_argument("--outdir", default="", help=argparse.SUPPRESS)
@@ -736,6 +859,18 @@ def main(argv=None) -> int:
         print(f"dp_study: needs 2 to {torch.cuda.device_count()} ranks, one "
               f"per card; got {world}", file=sys.stderr)
         return 1
+    if args.cli:
+        from tony_tpu_torch import kernels
+
+        kernels.build()
+        res = cli_study(world, args.seed)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip())
+        print(json.dumps(res), flush=True)
+        return 0 if res["parity"]["ok"] else 1
     experts = chip_smoke.BENCH_MOE["n_experts"]
     if args.ep < 1 or world % args.ep or experts % args.ep:
         print(f"dp_study: --ep must divide the ranks ({world}) and the "

@@ -107,11 +107,22 @@ class TestSubmitValidation:
             eng.submit([1, 2], 2)
 
     def test_rejects_oversized_max_len_and_int8(self, setup):
+        """An oversized max_len is refused; int8 is a KV mode the engine
+        takes now, and an unknown mode is refused."""
         _, _, cfg, params = setup
         with pytest.raises(ValueError, match="max_seq"):
             ServingEngine(params, cfg, device="cpu", max_len=cfg.max_seq + 1)
-        with pytest.raises(NotImplementedError, match="int8"):
-            t_engine.init_slot_cache(cfg, 2, 16, kv_quant="int8",
+        k, v = t_engine.init_slot_cache(cfg, 2, 16, kv_quant="int8",
+                                        device="cpu")
+        assert isinstance(k, t_engine.QuantizedKV)
+        assert k.data.dtype == torch.int8 and v.scale.dtype == torch.float32
+        eng = ServingEngine(params, cfg, device="cpu", slots=2, max_len=32,
+                            kv_quant="int8")
+        assert eng.stats()["kv_quant"] == "int8"
+        with pytest.raises(ValueError, match="kv_quant must be one of"):
+            ServingEngine(params, cfg, device="cpu", kv_quant="int4")
+        with pytest.raises(ValueError, match="unknown kv_quant"):
+            t_engine.init_slot_cache(cfg, 2, 16, kv_quant="int4",
                                      device="cpu")
 
 

@@ -57,6 +57,8 @@ from tony_tpu_torch.models import (
 )
 from tony_tpu_torch.models.train import clip_by_global_norm_, leaves
 from tony_tpu_torch.parallel import MeshSpec as TorchMeshSpec
+from tony_tpu_torch.parallel import axis_group_ranks
+from tony_tpu_torch.parallel.mesh import data_row, mesh_spec
 from tony_tpu_torch.io import ShardedRecordReader
 from torch_ranks import launch
 
@@ -528,10 +530,10 @@ def _motif_corpus(path, n_batches: int, fmt: str = "tokens") -> str:
     return str(path)
 
 
-def _restored(ckpt_dir, step: int) -> dict:
+def _restored(ckpt_dir, step: int, model=TINY_MODEL) -> dict:
     """{path: array} of the train state checkpointed at ``step``."""
     cfg = train_cli.model_config_from_args(
-        train_cli.parse_args(TINY_MODEL), max_seq=33)
+        train_cli.parse_args(model), max_seq=33)
     init_fn, _ = make_train_step(cfg, device="cpu")
     state = CheckpointManager(ckpt_dir).restore(init_fn(9), step=step)
     assert state is not None, f"no step {step} under {ckpt_dir}"
@@ -770,18 +772,27 @@ class TestTrainCli:
                                           err_msg=path)
 
     def test_two_workers_train_data_parallel(self, tmp_path):
-        """Two workers, --framework pytorch: each reads its own half of a
-        4-batch corpus (batch 4 per worker: 2 batches each), trains over
-        the job's dp=2 mesh and checkpoints its own process_<i> file. The
-        final state equals one process trained on the same global batches
-        (the two workers' batches side by side) to atol 1e-6."""
+        """Two workers, --framework pytorch, on the job mesh with no spec:
+        tp 2 (the model has 2 K/V heads, which tp 2 splits). Both ranks
+        read data row 0 of 1, so the whole 4-batch corpus at batch 4, and
+        each checkpoints its own process_<i> file of tp pieces. The final
+        state equals one process trained on the same batches to atol
+        1e-6. The learning rate is 1e-3: tp sums the partial products in
+        another order, and AdamW's first update (m / sqrt(v), sign-like)
+        turns that rounding in a gradient entry near zero into a weight
+        difference proportional to the learning rate, over 1e-6 at 3e-3.
+        (The dp path over processes is
+        TestTrainStep::test_dp_step_in_two_gloo_ranks_matches_jax.)"""
         data = _motif_corpus(tmp_path / "c.tokens", 4)
         ck = tmp_path / "ck"
+        model = [*TINY_MODEL[:-4], "--n-kv-heads", "2", *TINY_MODEL[-2:]]
+        assert model[model.index("--n-heads") + 1] == "2"
         env = dict(os.environ)
         env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
-        flags = ["--device", "cpu", "--data", data, "--lr", "3e-3",
+        flags = ["--device", "cpu", "--data", data, "--lr", "1e-3",
                  "--steps", "4", "--checkpoint-every", "2",
-                 "--dist-timeout", "60", "--ckpt-dir", str(ck), *TINY_MODEL]
+                 "--dist-timeout", "60", "--ckpt-dir", str(ck), *model,
+                 f"> {tmp_path}/train-$RANK.out"]
         proc = subprocess.run(
             [sys.executable, "-m", "tony_tpu.client.cli", "local",
              "--executes", str(REPO / "tony_tpu_torch" / "train.py"),
@@ -793,6 +804,10 @@ class TestTrainCli:
             cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
         )
         assert proc.returncode == 0, proc.stderr[-3000:]
+        for rank in range(2):
+            out = (tmp_path / f"train-{rank}.out").read_text()
+            assert (f"process {rank}/2 on cpu, mesh MeshSpec(dp=1, pp=1, "
+                    f"ep=1, sp=1, tp=2), data row 0 of 1") in out, out
         for step in (2, 4):
             names = {p.name for p in (ck / f"step_{step}").iterdir()}
             assert {"process_0.npz", "process_1.npz"} <= names, names
@@ -800,22 +815,55 @@ class TestTrainCli:
                               .read_text())
             assert meta["num_processes"] == 2
         cfg = train_cli.model_config_from_args(
-            train_cli.parse_args(TINY_MODEL), max_seq=33)
-        shards = []
-        for rank in range(2):
-            with ShardedRecordReader([data], rank, 2, fmt="tokens",
-                                     dtype=np.uint16, record_len=33,
-                                     batch_size=4) as reader:
-                shards.append([b.astype(np.int32) for b in reader])
-        assert [len(s) for s in shards] == [2, 2]
+            train_cli.parse_args(model), max_seq=33)
+        with ShardedRecordReader([data], 0, 1, fmt="tokens",
+                                 dtype=np.uint16, record_len=33,
+                                 batch_size=4) as reader:
+            batches = [b.astype(np.int32) for b in reader]
+        assert len(batches) == 4
         init_fn, step_fn = make_train_step(cfg, device="cpu",
-                                           learning_rate=3e-3)
+                                           learning_rate=1e-3)
         state = init_fn(0)
-        for k in range(4):
-            state, _ = step_fn(state, np.concatenate(
-                [shards[0][k % 2], shards[1][k % 2]]))
-        got, want = _restored(ck, 4), train_state_to_numpy(state)
+        for batch in batches:
+            state, _ = step_fn(state, batch)
+        got, want = _restored(ck, 4, model), train_state_to_numpy(state)
         assert set(got) == set(want)
         for path in want:
             np.testing.assert_allclose(got[path], want[path], atol=1e-6,
                                        err_msg=path)
+
+    @pytest.mark.parametrize("axes", [
+        dict(dp=2), dict(tp=2), dict(dp=2, tp=2), dict(sp=2, tp=2),
+        dict(ep=2, tp=2), dict(dp=2, ep=2), dict(pp=2, ep=2),
+        dict(dp=2, pp=2, ep=2, sp=2, tp=2)])
+    def test_data_row_of_each_rank(self, axes):
+        """The corpus shard of a rank is its (dp, ep) coordinate, dp major,
+        of dp x ep rows: the pp, sp and tp ranks of a data row read the
+        same shard, and every row is read by pp x sp x tp ranks."""
+        spec = mesh_spec(_SpecMesh(**axes))
+        grid = np.arange(spec.num_devices).reshape(spec.shape)
+        rows = spec.dp * spec.ep
+        for rank in range(spec.num_devices):
+            dp, _, ep, _, _ = (int(c[0]) for c in np.nonzero(grid == rank))
+            assert data_row(spec, rank) == (dp * spec.ep + ep, rows)
+        for group in axis_group_ranks(spec, ("pp", "sp", "tp")):
+            assert len({data_row(spec, r) for r in group}) == 1
+        counts = np.bincount([data_row(spec, r)[0]
+                              for r in range(spec.num_devices)])
+        assert counts.tolist() == [spec.pp * spec.sp * spec.tp] * rows
+
+    def test_refuses_a_model_tp_does_not_split(self, monkeypatch,
+                                               tmp_path):
+        """On the job mesh the CLI trains the model as the mesh splits it
+        or not at all: one K/V head over tp 2 raises, no fallback to dp."""
+        for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                    "CLUSTER_SPEC"):
+            monkeypatch.delenv(key, raising=False)
+        monkeypatch.setattr(rt, "build_job_mesh",
+                            lambda **kw: _SpecMesh(tp=2))
+        args = train_cli.parse_args(["--device", "cpu", "--ckpt-dir",
+                                     str(tmp_path), *TINY_CLI])
+        ctx = rt.initialize(device="cpu")
+        with pytest.raises(ValueError, match="tp 2 must divide kv_heads 1"):
+            train_cli._train(args, ctx)
+        assert not (tmp_path / "step_1").exists()

@@ -23,6 +23,9 @@ TONY_SERVING_PREFILL_CHUNK = "TONY_SERVING_PREFILL_CHUNK"
 TONY_SERVING_DECODE_WINDOW = "TONY_SERVING_DECODE_WINDOW"
 TONY_SERVING_MAX_QUEUE = "TONY_SERVING_MAX_QUEUE"
 TONY_SERVING_PORT = "TONY_SERVING_PORT"
+# The serving engine's KV storage mode (tony.tune.kv-quant): "none" or
+# "int8"; parallel/autotune.py reads it.
+TONY_TUNE_KV_QUANT = "TONY_TUNE_KV_QUANT"
 
 # Checkpoint-aware retry: the newest complete step the coordinator saw
 # before retrying the session, and the checkpoint dir it probes (exported

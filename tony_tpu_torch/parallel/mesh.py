@@ -249,6 +249,16 @@ def axis_coordinate(mesh, names) -> int:
     return pos
 
 
+def data_row(spec: MeshSpec, rank: int) -> tuple[int, int]:
+    """(index, count) of rank ``rank``'s data row on a mesh of ``spec``:
+    its (dp, ep) coordinate, dp major, of dp x ep rows. The pp, sp and tp
+    ranks of a data row feed the same rows of the batch. A pure function
+    of the spec (ranks lie in C order over ``AXES``), so it is known
+    before the process group is."""
+    dp, _, ep, _, _ = np.unravel_index(rank, spec.shape)
+    return int(dp) * spec.ep + int(ep), spec.dp * spec.ep
+
+
 def mesh_spec(mesh) -> MeshSpec:
     """The ``MeshSpec`` of a mesh ``build_mesh`` made."""
     return MeshSpec(*(mesh.size(i) for i in range(len(AXES))))

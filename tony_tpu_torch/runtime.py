@@ -7,8 +7,7 @@ a script needs one call before touching the card::
 
     import tony_tpu_torch.runtime as rt
     ctx = rt.initialize()       # ctx.device: this process's card
-    mesh = rt.build_job_mesh(MeshSpec(dp=ctx.num_processes),
-                             device=ctx.device)   # None alone
+    mesh = rt.build_job_mesh(device=ctx.device)   # None alone
 
 Outside a job, or in a job of one process, ``initialize`` only picks the
 device and ``build_job_mesh`` returns None (``make_train_step(cfg, None)``
@@ -122,7 +121,8 @@ def tensorboard_port() -> int | None:
     return int(raw) if raw else None
 
 
-def sharded_reader(paths: list[str], **kwargs):
+def sharded_reader(paths: list[str], *, task_index: int | None = None,
+                   num_tasks: int | None = None, **kwargs):
     """A ``ShardedRecordReader`` over ``paths`` sharded by this process's
     identity (``RANK`` of ``WORLD_SIZE``), so every record is read exactly
     once across the job::
@@ -130,12 +130,17 @@ def sharded_reader(paths: list[str], **kwargs):
         reader = rt.sharded_reader(files, fmt="tokens", record_len=2049)
         for batch in reader: ...
 
-    All ``ShardedRecordReader`` keyword arguments pass through."""
+    ``task_index`` of ``num_tasks`` reads another sharding, e.g. one shard
+    a data row of the job mesh (``parallel.mesh.data_row``), whose ranks
+    feed the same rows. All ``ShardedRecordReader`` keyword arguments pass
+    through."""
     from tony_tpu_torch.io.reader import ShardedRecordReader
 
     ctx = task_context()
     return ShardedRecordReader(
-        paths, task_index=ctx.process_id, num_tasks=ctx.num_processes,
+        paths,
+        task_index=ctx.process_id if task_index is None else task_index,
+        num_tasks=ctx.num_processes if num_tasks is None else num_tasks,
         **kwargs,
     )
 
@@ -155,14 +160,14 @@ def build_job_mesh(spec=None, device="cuda", *, timeout_s: float = 300.0):
     the gradient mean crosses slices (on GPUs a slice is a node). With no
     ``spec`` the world is factored as the JAX package does (tp first, then
     sp and pp; two processes give tp 2, four tp 2 x sp 2, eight pp 2 x sp
-    2 x tp 2). The train CLI passes ``MeshSpec(dp=processes)``: under a
-    factored mesh the ranks of one data row must feed the same rows, and a
-    small model's K/V heads may not split over tp. Returns None without a
-    process group (a job of one process)::
+    2 x tp 2), which is what the train and generate CLIs take. Under such
+    a mesh the ranks of one data row (``parallel.mesh.data_row``) must
+    feed the same rows, and the model must split over tp (its heads, K/V
+    heads, d_ff and vocab; ``make_train_step`` refuses it otherwise).
+    Returns None without a process group (a job of one process)::
 
         ctx = rt.initialize()
-        mesh = rt.build_job_mesh(MeshSpec(dp=ctx.num_processes),
-                                 device=ctx.device)
+        mesh = rt.build_job_mesh(device=ctx.device)
         init_fn, step_fn = make_train_step(cfg, mesh, device=ctx.device)
     """
     if not (torch.distributed.is_available()

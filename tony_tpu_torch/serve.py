@@ -17,7 +17,10 @@ name=ckpt_dir`` registers another checkpoint with the engine, restored on
 the first request routed to it (its ``model`` field). Engine knobs default
 from the ``TONY_SERVING_*`` env the executor exports from
 ``tony.serving.*`` conf, and the port from ``TB_PORT`` when a chief serving
-task reserved one.
+task reserved one. The KV cache is int8 when ``TONY_TUNE_KV_QUANT=int8``
+(``tony.tune.kv-quant``) asks for it, as for lm_serve.py::
+
+    TONY_TUNE_KV_QUANT=int8 python -m tony_tpu_torch.serve --device cuda ...
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from tony_tpu_torch.models import (
 )
 from tony_tpu_torch.serving import ServingEngine
 from tony_tpu_torch.serving.http import ServingServer
+from tony_tpu_torch.train import add_model_args, model_config_from_args
 
 
 def _env_int(name: str, default: int) -> int:
@@ -88,28 +92,8 @@ def parse_args(argv):
     p.add_argument("--role", choices=("both", "prefill", "decode"),
                    default="both",
                    help="disaggregated fleet role advertised on /healthz")
-    # Model flags with lm_train.py's names and defaults.
-    p.add_argument("--d-model", type=int, default=128)
-    p.add_argument("--n-layers", type=int, default=2)
-    p.add_argument("--n-heads", type=int, default=4)
-    p.add_argument("--n-kv-heads", type=int, default=2)
-    p.add_argument("--n-experts", type=int, default=0)
-    p.add_argument("--vocab", type=int, default=512)
-    p.add_argument("--dtype", default="float32",
-                   help="float32 or bfloat16")
+    add_model_args(p)
     return p.parse_args(argv)
-
-
-def model_config_from_args(args, *, max_seq: int) -> TransformerConfig:
-    """The arg -> config derivation of examples/lm_train.py."""
-    return TransformerConfig(
-        vocab_size=args.vocab, d_model=args.d_model,
-        n_layers=args.n_layers, n_heads=args.n_heads,
-        head_dim=max(8, args.d_model // args.n_heads),
-        d_ff=args.d_model * 4, max_seq=max_seq,
-        n_kv_heads=args.n_kv_heads, n_experts=args.n_experts,
-        dtype=args.dtype, remat=False,
-    )
 
 
 def restore_params(ckpt_dir: str, cfg: TransformerConfig,
@@ -207,7 +191,8 @@ def main(argv=None) -> int:
             f.write(f"127.0.0.1:{port}\n")
         os.replace(tmp, addr_file)
     print(f"serving on :{port} (device={device}, slots={args.slots}, "
-          f"chunk={args.prefill_chunk})", flush=True)
+          f"chunk={args.prefill_chunk}, kv_quant={engine.kv_quant})",
+          flush=True)
     try:
         while not server.wait_shutdown(timeout=0.2):
             if (args.max_requests

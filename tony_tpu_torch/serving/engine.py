@@ -24,10 +24,15 @@ An MoE trunk's layers take the dense mixture (``models.decode``'s
 ``_moe_mlp_decode``: every expert, the unselected weighted by 0), as the JAX
 engine does whatever ``moe_decode_mode`` says.
 
-The int8 KV cache (``kv_quant="int8"``) waits for a later slice of the port.
+A cache buffer is a plain tensor (``kv_quant="none"``) or a ``QuantizedKV``
+(``"int8"``): each new K/V row is quantized where it is written, and
+attention reads the visible rows dequantized to the compute dtype in plain
+PyTorch, as the JAX engine does in jnp outside its kernels.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,39 +50,102 @@ from tony_tpu_torch.models.transformer import TransformerConfig
 from tony_tpu_torch.ops import apply_rope, cached_rope_frequencies, rms_norm
 
 
+class QuantizedKV(NamedTuple):
+    """An int8 KV cache buffer (``kv_quant="int8"``): symmetric absmax
+    quantization per (position, K/V head) over the head dim, so ``data *
+    scale`` rebuilds the stored vectors. It reads half the bytes of a bf16
+    cache; the scale plane adds 4 / head_dim bytes an element."""
+
+    data: torch.Tensor   # int8 [..., Dh]
+    scale: torch.Tensor  # fp32 [..., 1]
+
+
+def _quantize(x: torch.Tensor) -> QuantizedKV:
+    """Rows [..., Dh] to int8 with an fp32 scale each: absmax / 127 (at
+    least 1e-8 / 127), rounded half to even and clipped to +-127."""
+    xf = x.float()
+    # Divided by a tensor, not a Python number: CUDA multiplies by the
+    # reciprocal of a number divisor, which rounds some scales otherwise
+    # than the division JAX does.
+    scale = (xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+             / xf.new_tensor(127.0))
+    data = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return QuantizedKV(data, scale)
+
+
+def _materialize(cache, dt):
+    """Cache rows in ``dt``: a plain buffer as it is, an int8 one
+    dequantized (in fp32, then cast)."""
+    if isinstance(cache, QuantizedKV):
+        return (cache.data.float() * cache.scale).to(dt)
+    return cache
+
+
+def _rows(cache, index):
+    """The rows at ``index`` of either kind of buffer (views where the
+    index is basic)."""
+    if isinstance(cache, QuantizedKV):
+        return QuantizedKV(cache.data[index], cache.scale[index])
+    return cache[index]
+
+
+def _store(cache, index, rows: torch.Tensor) -> None:
+    """Write ``rows`` at ``index`` in place, quantized for an int8 buffer,
+    cast to the buffer's dtype for a plain one."""
+    if isinstance(cache, QuantizedKV):
+        q = _quantize(rows)
+        cache.data[index] = q.data
+        cache.scale[index] = q.scale
+    else:
+        cache[index] = rows.to(cache.dtype)
+
+
+def _data(cache) -> torch.Tensor:
+    """The [L, S, Tmax, Hkv, Dh] tensor of either kind of buffer."""
+    return cache.data if isinstance(cache, QuantizedKV) else cache
+
+
 def init_slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
                     kv_quant: str = "none", device="cuda"):
     """Zeroed stacked KV cache pair [L, S, Tmax, Hkv, Dh], one row per
     slot, sized once for the engine's lifetime: 2 * L * S * Tmax * Hkv *
-    Dh * dtype bytes."""
-    if kv_quant == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache waits for a later slice of the port"
-        )
-    if kv_quant not in ("none", "", None):
-        raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
+    Dh * dtype bytes (``kv_quant="int8"``: a ``QuantizedKV`` each, 1 +
+    4 / Dh bytes an element)."""
     device = resolve_device(device)
     shape = (cfg.n_layers, slots, max_len, cfg.kv_heads, cfg.head_dim)
+    if kv_quant == "int8":
+        def one():
+            return QuantizedKV(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                            device=device),
+            )
+        return one(), one()
+    if kv_quant not in ("none", "", None):
+        raise ValueError(f"unknown kv_quant mode {kv_quant!r}")
     dt = cfg.compute_dtype
     return (torch.zeros(shape, dtype=dt, device=device),
             torch.zeros(shape, dtype=dt, device=device))
 
 
-def cache_inject_rows(cache: torch.Tensor, slot: int, rows) -> torch.Tensor:
+def cache_inject_rows(cache, slot: int, rows):
     """Write float rows [L, P, Hkv, Dh] into one slot's prefix, in place
-    (the inject half of prefill/decode disaggregation)."""
+    (the inject half of prefill/decode disaggregation). The exchange format
+    is always float: quantization is each engine's storage choice, so a
+    bf16 prefill replica can feed an int8 decode replica and the other way
+    round."""
     if not isinstance(rows, torch.Tensor):
         rows = torch.from_numpy(np.array(rows))
-    cache[:, slot, :rows.shape[1]] = rows.to(device=cache.device,
-                                             dtype=cache.dtype)
+    _store(cache, (slice(None), slot, slice(None, rows.shape[1])),
+           rows.to(_data(cache).device))
     return cache
 
 
-def cache_export_rows(cache: torch.Tensor, slot: int,
-                      length: int) -> torch.Tensor:
-    """One slot's KV prefix as float32 rows [L, length, Hkv, Dh] — the
-    exchange format is always float."""
-    return cache[:, slot, :length].float()
+def cache_export_rows(cache, slot: int, length: int) -> torch.Tensor:
+    """One slot's KV prefix as float32 rows [L, length, Hkv, Dh] (an int8
+    buffer dequantizes on the way out)."""
+    rows = _rows(cache, (slice(None), slot, slice(None, length)))
+    return _materialize(rows, torch.float32).float()
 
 
 def _draw_seed(base_seed: int, draw: int) -> int:
@@ -118,12 +186,15 @@ def decode_window(params, k_all, v_all, pos, wpos, tokens, temp, base_seed,
     mid-window its writes clamp at ``Tmax - 1`` too. Draw i of the window
     samples with the seed of (base_seed, draw0 + i).
 
+    An int8 cache quantizes each new row where it is written and
+    dequantizes the visible rows for attention.
+
     Returns (k_all, v_all, window_tokens [S, steps] int64 on the device).
     """
     dt = cfg.compute_dtype
-    device = k_all.device
-    t_max = k_all.shape[2]
-    n_slots = k_all.shape[1]
+    device = _data(k_all).device
+    t_max = _data(k_all).shape[2]
+    n_slots = _data(k_all).shape[1]
     cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
                                        theta=cfg.rope_theta, device=device)
     lanes = torch.arange(n_slots, device=device)
@@ -145,10 +216,12 @@ def decode_window(params, k_all, v_all, pos, wpos, tokens, temp, base_seed,
             q, k_new, v_new = _project(x, lp, cfg)
             q = apply_rope(q, cos, sin, positions=rp)
             k_new = apply_rope(k_new, cos, sin, positions=rp)
-            k_all[layer, lanes, wpos_t] = k_new[:, 0].to(k_all.dtype)
-            v_all[layer, lanes, wpos_t] = v_new[:, 0].to(v_all.dtype)
-            o = _attend_cache(q, k_all[layer, :, :t_vis],
-                              v_all[layer, :, :t_vis], mask[:, None, :], cfg)
+            _store(k_all, (layer, lanes, wpos_t), k_new[:, 0])
+            _store(v_all, (layer, lanes, wpos_t), v_new[:, 0])
+            visible = (layer, slice(None), slice(None, t_vis))
+            o = _attend_cache(q, _materialize(_rows(k_all, visible), dt),
+                              _materialize(_rows(v_all, visible), dt),
+                              mask[:, None, :], cfg)
             x = _mlp(_out_proj(x, o, lp, cfg), lp, cfg)
         x = rms_norm(x, params["final_norm"]).to(dt)
         logits = (x @ params["unembed"])[:, 0].float()
@@ -171,17 +244,17 @@ def prefill_chunks(params, k_all, v_all, tokens, slots, starts, n_valids,
     Tmax``; it pads short batches by duplicating row 0, so the writes go
     in order, row by row (a duplicate rewrites identical K/V). Padded
     tails past ``n_valids[i]`` write garbage the overwrite-before-read
-    invariant keeps unreadable.
+    invariant keeps unreadable. An int8 cache quantizes each chunk's rows.
 
     Returns (k_all, v_all, first_tokens [P], logits [P, V] fp32): row i
     samples from position ``n_valids[i] - 1``, which is meaningful only on
     a request's final chunk."""
     dt = cfg.compute_dtype
-    device = k_all.device
+    device = _data(k_all).device
     tokens = np.asarray(tokens)
     starts = np.asarray(starts)
     p, c = tokens.shape
-    t_max = k_all.shape[2]
+    t_max = _data(k_all).shape[2]
     if int(starts.max()) + c > t_max:
         raise ValueError(f"chunk at {int(starts.max())} + {c} overruns the "
                          f"{t_max}-position cache")
@@ -202,10 +275,11 @@ def prefill_chunks(params, k_all, v_all, tokens, slots, starts, n_valids,
         k_new = apply_rope(k_new, cos, sin, positions=rope_pos)
         for i in range(p):
             s, st = int(slots[i]), int(starts[i])
-            k_all[layer, s, st:st + c] = k_new[i].to(k_all.dtype)
-            v_all[layer, s, st:st + c] = v_new[i].to(v_all.dtype)
-        o = _attend_cache(q, k_all[layer, slot_idx, :t_vis],
-                          v_all[layer, slot_idx, :t_vis], mask, cfg)
+            _store(k_all, (layer, s, slice(st, st + c)), k_new[i])
+            _store(v_all, (layer, s, slice(st, st + c)), v_new[i])
+        visible = (layer, slot_idx, slice(None, t_vis))
+        o = _attend_cache(q, _materialize(_rows(k_all, visible), dt),
+                          _materialize(_rows(v_all, visible), dt), mask, cfg)
         x = _mlp(_out_proj(x, o, lp, cfg), lp, cfg)
     last_idx = torch.as_tensor(np.maximum(np.asarray(n_valids) - 1, 0),
                                device=device).long()

@@ -6,7 +6,8 @@ iteration:
 
 1. **admit** — pop queued requests into freed slots (a slot is a lane of
    the fixed slot batch plus its KV-cache row);
-2. **prefill** — one bounded chunk for every pending slot, batched
+2. **prefill** — one bounded chunk for every pending slot (at most
+   ``prefill_chunks_per_iter`` chunks when it is set), batched
    ``prefill_batch`` slots per call (chunking bounds how long a long prompt
    can stall the in-flight decode streams);
 3. **decode** — a ``decode_window`` for every slot; read the sampled tokens
@@ -17,8 +18,9 @@ Greedy parity contract: a request decoded through the slot engine yields
 token for token the same output as a single-request
 ``models.decode.generate(..., eos_id=)`` call.
 
-The metrics registry, trace spans, compile-plan and autotune hooks of the
-JAX package's engine wait for a later slice of the port; the engine keeps
+Of the JAX package's autotune hooks the engine takes the KV storage mode
+(``kv_quant``, int8 or not); the metrics registry, trace spans and
+compile-plan hooks wait for a later slice of the port, and the engine keeps
 its own tallies (``stats()``) and raw latency samples.
 """
 
@@ -37,6 +39,7 @@ import torch
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.decode import fused_on
 from tony_tpu_torch.models.transformer import TransformerConfig
+from tony_tpu_torch.parallel import autotune
 from tony_tpu_torch.serving import engine as _engine
 
 log = logging.getLogger(__name__)
@@ -127,6 +130,9 @@ class ServingEngine:
     layout (a ``DecodeSession.params``); fusion runs once here either way.
     ``max_len`` sizes each slot's KV row (default ``cfg.max_seq``);
     admission requires ``len(prompt) + max_new_tokens <= max_len``.
+    ``kv_quant`` ("none" or "int8") is the KV storage mode; None takes
+    ``TONY_TUNE_KV_QUANT`` (``tony.tune.kv-quant``), where an unknown
+    value degrades to "none".
     """
 
     def __init__(
@@ -138,15 +144,27 @@ class ServingEngine:
         slots: int = 8,
         max_len: int | None = None,
         prefill_chunk: int = 32,
+        prefill_chunks_per_iter: int | None = None,
         prefill_batch: int = 4,
         decode_window: int = 1,
         max_queue: int = 1024,
         max_resident_models: int = 4,
         seed: int = 0,
+        kv_quant: str | None = None,
     ) -> None:
         self.device = resolve_device(device)
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        # KV storage mode: an explicit argument wins, else
+        # tony.tune.kv-quant through the executor's env.
+        if kv_quant is None:
+            kv_quant = autotune.default_kv_quant()
+        if kv_quant not in autotune.KV_QUANT_MODES:
+            raise ValueError(
+                f"kv_quant must be one of {autotune.KV_QUANT_MODES}, "
+                f"got {kv_quant!r}"
+            )
+        self.kv_quant = kv_quant
         if decode_window < 1:
             raise ValueError(
                 f"decode_window must be >= 1, got {decode_window}"
@@ -164,11 +182,18 @@ class ServingEngine:
         self.slots = int(slots)
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        # None: one chunk per pending slot per iteration (prefill work
+        # exists only while slots sit free, so this budget limits itself).
+        self.prefill_chunks_per_iter = (
+            None if prefill_chunks_per_iter is None
+            else max(1, int(prefill_chunks_per_iter))
+        )
         self.decode_window = int(decode_window)
         self.prefill_batch = max(1, int(prefill_batch))
         self.max_queue = int(max_queue)
         self._k, self._v = _engine.init_slot_cache(
-            cfg, self.slots, max_len, device=self.device
+            cfg, self.slots, max_len, kv_quant=self.kv_quant,
+            device=self.device
         )
         self.params = fused_on(params, cfg, self.device)
         # Model multiplexing: named fused-weight sets share the engine;
@@ -387,7 +412,7 @@ class ServingEngine:
                 "requests": self._n_requests,
                 "retired": self._n_retired,
                 "draining": bool(self._draining),
-                "kv_quant": "none",
+                "kv_quant": self.kv_quant,
                 "model": self._model,
                 "models": sorted(set(self._resident)
                                  | set(self._model_loaders)),
@@ -570,13 +595,15 @@ class ServingEngine:
         self._active[slot] = True
 
     def _prefill_some(self) -> bool:
-        """Run one prefill ROUND: one chunk for every pending slot,
-        batched ``prefill_batch`` slots per call and padded by duplicating
-        entry 0 (an idempotent rewrite)."""
+        """Run one prefill ROUND: one chunk for every pending slot (or
+        ``prefill_chunks_per_iter`` of them), batched ``prefill_batch``
+        slots per call and padded by duplicating entry 0 (an idempotent
+        rewrite)."""
         with self._cond:
             if not self._pf:
                 return False
-            budget = len(self._pf)
+            budget = (len(self._pf) if self.prefill_chunks_per_iter is None
+                      else min(self.prefill_chunks_per_iter, len(self._pf)))
         while budget > 0:
             with self._cond:
                 n = min(self.prefill_batch, budget, len(self._pf))

@@ -12,17 +12,22 @@ Submitted through the orchestrator with ``--framework pytorch``::
         --task_params "--device cpu --steps 10 --d-model 64 --n-layers 2"
 
 The script calls ``runtime.initialize()`` and ``runtime.build_job_mesh()``
-first: with more than one process it trains data-parallel over the job's
-mesh (``--batch`` is per process, so the global batch is ``--batch`` times
-the process count), each process checkpointing its own pieces; alone it
-runs the single-device step. It trains on ``--data``
-(comma-separated paths: ``*.jblk`` block-compressed jsonl containers with a
-``tokens`` field per record, anything else fixed-width uint16 token records
-of length seq+1), read through ``runtime.sharded_reader`` (each process
-reads its own byte range; the reader reopens every epoch) and carried onto
-the device by ``io.device_prefetch``; without ``--data``, lm_train.py's
-synthetic motif corpus. Weights are fresh from ``--seed`` or read with
-``--weights-npz`` from a numpy dump of JAX params.
+with no spec first, as lm_train.py does: with more than one process it
+trains over the job's mesh as ``MeshSpec.auto`` factors the world (two
+processes tp 2, four tp 2 x sp 2), each process checkpointing its own
+pieces; alone it runs the single-device step. A model the mesh does not
+split (tp must divide the heads, K/V heads, d_ff and vocab) is refused.
+The corpus is read one shard a data row (the rank's dp x ep coordinate of
+dp x ep rows, ``parallel.mesh.data_row``): every tp, sp and pp rank of a
+row reads the same rows, and ``--batch`` is per data row. It trains on
+``--data`` (comma-separated paths: ``*.jblk`` block-compressed jsonl
+containers with a ``tokens`` field per record, anything else fixed-width
+uint16 token records of length seq+1), read through
+``runtime.sharded_reader`` (each data row reads its own byte range; the
+reader reopens every epoch) and carried onto the device by
+``io.device_prefetch``; without ``--data``, lm_train.py's synthetic motif
+corpus, sharded and seeded by data row. Weights are fresh from ``--seed``
+or read with ``--weights-npz`` from a numpy dump of JAX params.
 
 Checkpoints go to ``--ckpt-dir``, else ``$TONY_CHECKPOINT_DIR``, else
 ``$TONY_LOG_DIR/lm-checkpoints``, in the JAX package's format: every
@@ -51,7 +56,7 @@ from tony_tpu_torch.checkpoint import CheckpointManager
 from tony_tpu_torch.interop import params_from_npz
 from tony_tpu_torch.io import device_prefetch
 from tony_tpu_torch.models import TransformerConfig, make_train_step
-from tony_tpu_torch.parallel.mesh import MeshSpec, mesh_spec
+from tony_tpu_torch.parallel.mesh import data_row, mesh_spec
 
 
 def parse_args(argv):
@@ -59,7 +64,8 @@ def parse_args(argv):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     p.add_argument("--steps", type=int, default=20)
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=8,
+                   help="rows a step per data row of the job mesh")
     p.add_argument("--seq", type=int, default=128)
     p.add_argument("--lr", type=float, default=1e-2)
     p.add_argument("--seed", type=int, default=0)
@@ -79,7 +85,14 @@ def parse_args(argv):
     p.add_argument("--ckpt-dir", default="",
                    help="checkpoint dir (default: $TONY_CHECKPOINT_DIR, "
                         "else $TONY_LOG_DIR/lm-checkpoints)")
-    # Model flags with lm_train.py's names and defaults.
+    add_model_args(p)
+    return p.parse_args(argv)
+
+
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """Model flags with lm_train.py's names and defaults, shared by the
+    train, serve and generate CLIs, so a checkpoint trained with defaults
+    restores with defaults."""
     p.add_argument("--d-model", type=int, default=128)
     p.add_argument("--n-layers", type=int, default=2)
     p.add_argument("--n-heads", type=int, default=4)
@@ -88,11 +101,11 @@ def parse_args(argv):
     p.add_argument("--vocab", type=int, default=512)
     p.add_argument("--dtype", default="float32",
                    help="float32 or bfloat16")
-    return p.parse_args(argv)
 
 
 def model_config_from_args(args, *, max_seq: int) -> TransformerConfig:
-    """The arg -> config derivation of examples/lm_train.py."""
+    """The arg -> config derivation of examples/lm_train.py, shared by the
+    train, serve and generate CLIs."""
     return TransformerConfig(
         vocab_size=args.vocab, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads,
@@ -120,10 +133,10 @@ def synthetic_tokens(seed: int, n_docs: int, seq: int, vocab: int):
     return np.stack(docs).astype(np.int32)
 
 
-def _file_batches(args, ctx):
-    """Endless [batch, seq+1] int32 host batches from ``--data``, one
-    reader per epoch (the splits re-shard identically), with
-    examples/lm_train.py's validation."""
+def _file_batches(args, row: int, rows: int):
+    """Endless [batch, seq+1] int32 host batches of data row ``row``'s
+    shard (of ``rows``) of ``--data``, one reader per epoch (the splits
+    re-shard identically), with examples/lm_train.py's validation."""
     paths = [p for p in args.data.split(",") if p]
     if not paths:
         raise ValueError("--data given but no paths parsed from it")
@@ -140,7 +153,8 @@ def _file_batches(args, ctx):
         yielded = 0
         if all(jblk):
             with rt.sharded_reader(
-                paths, fmt="jsonl-blocks", batch_size=args.batch
+                paths, task_index=row, num_tasks=rows, fmt="jsonl-blocks",
+                batch_size=args.batch,
             ) as r:
                 for recs in r:
                     if not checked and recs:
@@ -173,33 +187,34 @@ def _file_batches(args, ctx):
                         )
         else:
             with rt.sharded_reader(
-                paths, fmt="tokens", dtype=np.uint16,
-                record_len=args.seq + 1, batch_size=args.batch,
+                paths, task_index=row, num_tasks=rows, fmt="tokens",
+                dtype=np.uint16, record_len=args.seq + 1,
+                batch_size=args.batch,
             ) as r:
                 for b in r:
                     if b.shape[0] == args.batch:
                         yielded += 1
                         yield b.astype(np.int32)
         if not yielded:
-            # This process's byte-range shard holds less than one full
+            # This data row's byte-range shard holds less than one full
             # batch: re-opening forever would hang training silently.
             raise RuntimeError(
-                f"--data {args.data}: process {ctx.process_id}'s shard "
-                f"yielded no full batch of {args.batch} (corpus too "
-                f"small for this process count / batch size)"
+                f"--data {args.data}: data row {row}'s shard yielded no "
+                f"full batch of {args.batch} (corpus too small for "
+                f"{rows} data rows / this batch size)"
             )
 
 
-def corpus_batches(args, ctx):
-    """Endless [batch, seq+1] int32 host batches: from ``--data`` through
-    the sharded reader, else from this process's shard of the synthetic
-    corpus."""
+def corpus_batches(args, row: int, rows: int):
+    """Endless [batch, seq+1] int32 host batches of data row ``row`` (of
+    ``rows``): from ``--data`` through the sharded reader, else from the
+    row's shard of the synthetic corpus, seeded by the row."""
     if args.data:
-        yield from _file_batches(args, ctx)
+        yield from _file_batches(args, row, rows)
         return
     corpus = synthetic_tokens(0, n_docs=64, seq=args.seq, vocab=args.vocab)
-    shard = corpus[ctx.process_id::max(ctx.num_processes, 1)]
-    rng = np.random.default_rng(ctx.process_id)
+    shard = corpus[row::rows]
+    rng = np.random.default_rng(row)
     while True:
         yield shard[rng.integers(0, len(shard), size=(args.batch,))]
 
@@ -224,17 +239,19 @@ def main(argv=None) -> int:
 
 
 def _train(args, ctx) -> int:
-    # Data parallel over every process. The JAX example's build_job_mesh()
-    # with no spec factors tp first (tp 2 from two processes), whose ranks
-    # must feed the same rows, where each process reads its own shard.
-    mesh = rt.build_job_mesh(MeshSpec(dp=ctx.num_processes),
-                             device=ctx.device, timeout_s=args.dist_timeout)
-    print(f"[{ctx.job_name}:{ctx.task_index}] process {ctx.process_id}/"
-          f"{ctx.num_processes} on {ctx.device}, mesh "
-          f"{mesh_spec(mesh) if mesh is not None else None}", flush=True)
+    # The job mesh as the JAX example takes it: no spec, so the world is
+    # factored tp first (tp 2 from two processes), and every rank of a data
+    # row reads that row's shard.
+    mesh = rt.build_job_mesh(device=ctx.device, timeout_s=args.dist_timeout)
     cfg = model_config_from_args(args, max_seq=args.seq + 1)
     init_fn, step_fn = make_train_step(cfg, mesh, device=ctx.device,
                                        learning_rate=args.lr)
+    row, rows = ((0, 1) if mesh is None else
+                 data_row(mesh_spec(mesh), torch.distributed.get_rank()))
+    print(f"[{ctx.job_name}:{ctx.task_index}] process {ctx.process_id}/"
+          f"{ctx.num_processes} on {ctx.device}, mesh "
+          f"{mesh_spec(mesh) if mesh is not None else None}, data row "
+          f"{row} of {rows}", flush=True)
     if args.weights_npz:
         state = init_fn(params=params_from_npz(args.weights_npz, cfg,
                                                ctx.device))
@@ -255,7 +272,8 @@ def _train(args, ctx) -> int:
               flush=True)
         return 0
     first = last = None
-    with device_prefetch(corpus_batches(args, ctx), ctx.device) as batches:
+    with device_prefetch(corpus_batches(args, row, rows),
+                         ctx.device) as batches:
         while step < args.steps:
             tokens = next(batches)
             t0 = time.perf_counter()
