@@ -10,12 +10,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
              report (no function may spill), and count the tensor-core
              instructions (HMMA/HGMMA) of each flash kernel in cuobjdump's
              SASS (forward and backward): every bf16 instance must have
-             some, the fp32 (FMA) instances none.
+             some (the backward's HGMMA: B2/B3 run on wgmma; the forward's
+             HMMA or HGMMA), the fp32 (FMA) instances none.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes and at edge shapes, in fp32 and bf16:
              B4 (RMSNorm), B1 (flash forward), B2 and B3 (flash backward,
              dq and dk/dv: causal and not, t_q =, < and > t_k, ragged T,
-             T at the edges of the bf16 tiles and their double buffers,
+             T at the edges of the bf16 tiles and of their TMA rings,
              rows before the first key, GQA groups 1/2/4/8, head_dim
              64/128, fused strided q/k/v views, an lse cotangent, a
              non-contiguous dO). Then time kernel, plain version and library
@@ -23,7 +24,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
              training shape, B1/B4 at the serving shapes too, and B1-B3
              against SDPA's forward and backward at the hd128 shape
              [8, 2048, 8, 128]; at those two shapes B1-B3 are also held row
-             by row (ROW_TOL). Each library reading (SDPA, F.rms_norm) is
+             by row (ROW_TOL), B2/B3 launched twice on the same inputs
+             must give bit-equal dq, dk and dv, and the whole backward
+             call (B2 with delta, then B3) is timed beside B2, B3 and
+             SDPA's backward. Each library reading (SDPA, F.rms_norm) is
              taken 3 times; one below half the median of its other
              readings is taken again, and refused (logged, not used) if it
              stays low; the library ms is the median of those kept.
@@ -537,33 +541,49 @@ def sass_listing(kernels, source: str) -> str:
                           text=True, timeout=300, check=True).stdout
 
 
+# The tensor-core instruction each library's bf16 kernels must hold: B2/B3
+# run on wgmma (HGMMA), B1 on mma.sync (HMMA) or wgmma.
+MMA_OPS = {"flash_fwd": ("HMMA or HGMMA", re.compile(r"\bH(G)?MMA\b")),
+           "flash_bwd": ("HGMMA", re.compile(r"\bHGMMA\b"))}
+
+
 def sass_mma_counts(listing: str,
                     instances: set[str] = BWD_INSTANCES) -> dict[str, int]:
-    """Tensor-core instructions (HMMA, HGMMA) in each flash kernel function
-    of a SASS listing that is one of ``instances`` (keyed
+    """Tensor-core instructions in each flash kernel function of a SASS
+    listing that is one of ``instances`` (keyed
     "flash_<fwd|bwd_dq|bwd_dkv>_kernel_<dtype><head_dim>"; by default the
-    8 backward ones). Raises unless the listing holds exactly those
-    instances, every bf16 instance has some and every fp32 instance none."""
+    8 backward ones): the count of its library's MMA_OPS instruction.
+    Raises unless the listing holds exactly those instances, every bf16
+    instance has some of that instruction and every fp32 instance no
+    tensor-core instruction at all."""
     kind = "flash_fwd" if instances <= FWD_INSTANCES else "flash_bwd"
+    op, op_re = MMA_OPS[kind]
     counts: dict[str, int] = {}
+    any_mma: dict[str, int] = {}
     name = None
     for line in listing.splitlines():
         if "Function :" in line:
             name = kernel_name(line)
             name = name if name in instances else None
             if name:
-                counts[name] = 0
+                counts[name] = any_mma[name] = 0
         elif name and re.search(r"\bH(G)?MMA\b", line):
-            counts[name] += 1
+            any_mma[name] += 1
+            counts[name] += bool(op_re.search(line))
     if not counts:
         raise AssertionError(f"cuobjdump listed no {kind} kernel")
     if set(counts) != instances:
         raise AssertionError(f"cuobjdump listed {sorted(counts)}, not the "
                              f"instances {sorted(instances)}")
     for name, n in counts.items():
-        if ("_bf16" in name) != (n > 0):
-            raise AssertionError(f"{name}: {n} tensor-core instructions "
-                                 f"(bf16 instances need some, fp32 none)")
+        if "_bf16" in name and n == 0:
+            raise AssertionError(f"{name}: no {op} instruction "
+                                 f"({any_mma[name]} tensor-core instructions "
+                                 f"in all; bf16 instances need some)")
+        if "_fp32" in name and any_mma[name]:
+            raise AssertionError(f"{name}: {any_mma[name]} tensor-core "
+                                 f"instructions (bf16 instances need some, "
+                                 f"fp32 none)")
     return counts
 
 
@@ -913,6 +933,16 @@ def _check_bwd(torch, tag, got, want, dtype, rows: bool = False,
                                           errs["dv"]["max_abs_err"])
 
 
+# The bf16 tiles of flash_bwd.cu that the edge cases straddle, in rows, by
+# head_dim: B2's blocks of query rows (DqBf16::kM, warpgroups of 64) and its
+# streamed key tiles (DqBf16::kN); B3's blocks of keys (DkvBf16::kN) and
+# its streamed query tiles (DkvBf16::kM). A CPU test holds these against
+# the source's constants.
+BWD_TILES = {
+    64: {"dq_rows": 192, "dq_keys": 64, "dkv_keys": 192, "dkv_rows": 64},
+    128: {"dq_rows": 192, "dq_keys": 64, "dkv_keys": 128, "dkv_rows": 64},
+}
+
 FLASH_BWD_CASES = [
     # the training shape's head layout at a shorter T, MHA
     dict(b=2, t_q=256, t_k=256, h=16, h_kv=16, d=64, causal=True),
@@ -933,29 +963,19 @@ FLASH_BWD_CASES = [
          g_lse=True),
     dict(b=2, t_q=129, t_k=129, h=8, h_kv=2, d=64, causal=True,
          strided_do=True),
-    # Edges of the bf16 tiles (B2: 64 query rows by key tiles of 16; B3: 64
-    # keys by query tiles of 32) and of their double buffers: one below, at
-    # and one above one and two tiles of each.
-    dict(b=1, t_q=15, t_k=15, h=4, h_kv=2, d=64, causal=True),
-    dict(b=1, t_q=17, t_k=17, h=4, h_kv=2, d=64, causal=False),
-    dict(b=1, t_q=31, t_k=31, h=4, h_kv=2, d=64, causal=True),
-    dict(b=1, t_q=33, t_k=33, h=4, h_kv=2, d=64, causal=True),
-    dict(b=1, t_q=63, t_k=63, h=4, h_kv=2, d=64, causal=True),
-    dict(b=1, t_q=64, t_k=64, h=4, h_kv=2, d=64, causal=True),
-    dict(b=1, t_q=65, t_k=65, h=4, h_kv=2, d=64, causal=False),
-    dict(b=1, t_q=127, t_k=127, h=4, h_kv=4, d=64, causal=True),
-    dict(b=1, t_q=128, t_k=128, h=4, h_kv=4, d=64, causal=False),
-    dict(b=1, t_q=129, t_k=129, h=4, h_kv=4, d=64, causal=True),
-    dict(b=1, t_q=31, t_k=31, h=4, h_kv=2, d=128, causal=True),
-    dict(b=1, t_q=32, t_k=32, h=4, h_kv=2, d=128, causal=False),
-    dict(b=1, t_q=33, t_k=33, h=4, h_kv=2, d=128, causal=True),
-    dict(b=1, t_q=63, t_k=63, h=4, h_kv=4, d=128, causal=False),
-    dict(b=1, t_q=64, t_k=64, h=4, h_kv=4, d=128, causal=True),
-    dict(b=1, t_q=65, t_k=65, h=4, h_kv=4, d=128, causal=True),
-    # t_q under one tile, t_k over three
-    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=64, causal=True),
-    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=128, causal=True),
-    dict(b=1, t_q=20, t_k=150, h=4, h_kv=2, d=64, causal=False),
+    # Edges of the bf16 tiles and of their TMA rings: one below, at and one
+    # above one and two tiles of each streamed and fixed tile (see
+    # BWD_TILES), at head_dim 64 and 128, with the GQA group and the mask
+    # varying along the list.
+    *[dict(b=1, t_q=t, t_k=t, h=4, h_kv=(2, 4, 1)[i % 3], d=d,
+           causal=i % 4 != 1)
+      for d, tiles in BWD_TILES.items() for i, t in enumerate(sorted(
+          {n * tile + step for tile in set(tiles.values())
+           for n in (1, 2) for step in (-1, 0, 1)}))],
+    # t_q under one tile, t_k over three streamed tiles
+    dict(b=1, t_q=20, t_k=200, h=4, h_kv=2, d=64, causal=True),
+    dict(b=1, t_q=20, t_k=200, h=4, h_kv=2, d=128, causal=True),
+    dict(b=1, t_q=20, t_k=200, h=4, h_kv=2, d=64, causal=False),
     # a single-tile sequence
     dict(b=2, t_q=16, t_k=16, h=4, h_kv=4, d=64, causal=True),
     dict(b=2, t_q=16, t_k=16, h=4, h_kv=1, d=128, causal=True),
@@ -997,6 +1017,29 @@ def time_bwd_kernels(torch, attention, q, k, v, out, lse, do):
     return dq_ms / iters / 1e3, dkv_ms / iters / 1e3
 
 
+def check_bwd_deterministic(torch, attention, tag, q, k, v, out, lse, do):
+    """B2 and B3 launched twice on the same inputs give bit-equal dq, dk
+    and dv: they use no atomics, which the dp phase's bit-equal steps and
+    the job phase's exact resume rely on."""
+    scale = q.shape[-1] ** -0.5
+    first, second = (attention._flash_bwd_cuda(q, k, v, out, lse, do,
+                                               causal=True, scale=scale)
+                     for _ in range(2))
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        if not torch.equal(x, y):
+            raise AssertionError(f"flash bwd {tag}: {name} differs between "
+                                 f"two launches on the same inputs")
+    log(f"flash bwd {tag}: two launches bit-equal: ok")
+
+
+def time_bwd_call(torch, attention, q, k, v, out, lse, do) -> float:
+    """Device ms of one whole ``_flash_bwd_cuda`` call: B2 with its delta
+    prologue, then B3 (every device event the call causes)."""
+    scale = q.shape[-1] ** -0.5
+    return device_ms(torch, lambda: attention._flash_bwd_cuda(
+        q, k, v, out, lse, do, causal=True, scale=scale), 5, warmup=1)
+
+
 def time_sdpa_bwd(torch, q, k, v, do) -> float:
     """Device ms of SDPA's causal backward (dq, dk, dv) on the same MHA
     inputs in its [B, H, T, D] layout: the library yardstick of B2 + B3."""
@@ -1031,8 +1074,9 @@ def time_attention_hd128(torch, attention, gen) -> dict:
     """B1, B2 and B3 at bench.py's transformer_hd128 attention shape, q/k/v
     [8, 2048, 8, 128] bf16 causal, where their accumulators and fragment
     loops are twice as large: held against the plain versions within TOL
-    and row by row within ROW_TOL, then timed beside SDPA's forward and
-    backward, with the bounds."""
+    and row by row within ROW_TOL, B2/B3's determinism, then timed (B2, B3
+    and the whole backward call) beside SDPA's forward and backward, with
+    the bounds."""
     b, t, h, d = 8, 2048, 8, 128
     dt = torch.bfloat16
     q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
@@ -1050,15 +1094,21 @@ def time_attention_hd128(torch, attention, gen) -> dict:
                                   scale=scale),
         attention._flash_bwd_plain(q, k, v, out, lse, do, causal=True,
                                    scale=scale), dt, rows=True)
+    check_bwd_deterministic(torch, attention, "at the hd128 shape", q, k, v,
+                            out, lse, do)
     dq_ms, dkv_ms = time_bwd_kernels(torch, attention, q, k, v, out, lse, do)
     dq_bound, dkv_bound = bwd_bounds(q, k)
+    sdpa_bwd_ms = time_sdpa_bwd(torch, q, k, v, do)
     res = {"flash_fwd": dict(max_abs_err=fwd_err,
                              **time_fwd(torch, attention, q, k, v, 10, 3)),
            "flash_bwd_dq": dict(max_abs_err=dq_err, ms=dq_ms,
                                 bound=dq_bound),
            "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms,
                                  bound=dkv_bound),
-           "sdpa_bwd_ms": time_sdpa_bwd(torch, q, k, v, do)}
+           "sdpa_bwd_ms": sdpa_bwd_ms,
+           "bwd_call_ms": time_bwd_call(torch, attention, q, k, v, out, lse,
+                                        do),
+           "pair_over_sdpa_bwd": (dq_ms + dkv_ms) / sdpa_bwd_ms}
     log("attention at the hd128 shape q/k/v [8, 2048, 8, 128] bf16 causal, "
         "device ms (flash_fwd's library_ms: SDPA's forward): "
         + json.dumps(res))
@@ -1069,9 +1119,10 @@ def time_attention(torch, attention, gen) -> dict:
     """B1, B2 and B3 at the training shape: first their outputs against the
     plain versions' on the same inputs (within TOL and row by row within
     ROW_TOL; the max abs errors are returned under "max_abs_err"), then
-    the device time of each kernel (B2 and B3 split by kernel name from
-    one profiled backward), their plain versions, SDPA forward and SDPA
-    backward as library yardsticks, and the bounds."""
+    B2/B3's determinism (check_bwd_deterministic), the device time of each
+    kernel (B2 and B3 split by kernel name from one profiled backward) and
+    of the whole backward call, their plain versions, SDPA forward and
+    SDPA backward as library yardsticks, and the bounds."""
     b, t, h, h_kv, d = (TRAIN_ATTN[k] for k in ("b", "t", "h", "h_kv", "d"))
     dt = torch.bfloat16
     q = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dt)
@@ -1091,9 +1142,12 @@ def time_attention(torch, attention, gen) -> dict:
                                   scale=scale),
         attention._flash_bwd_plain(q, k, v, out, lse, do, causal=True,
                                    scale=scale), dt, rows=True)
+    check_bwd_deterministic(torch, attention, "at the training shape", q, k,
+                            v, out, lse, do)
     fwd = time_fwd(torch, attention, q, k, v, 10, 3)
 
     dq_ms, dkv_ms = time_bwd_kernels(torch, attention, q, k, v, out, lse, do)
+    call_ms = time_bwd_call(torch, attention, q, k, v, out, lse, do)
     bwd_plain_ms = device_ms(torch, lambda: attention._flash_bwd_plain(
         q, k, v, out, lse, do, causal=True, scale=scale), 3, warmup=1)
     lib_bwd_ms = time_sdpa_bwd(torch, q, k, v, do)
@@ -1106,6 +1160,8 @@ def time_attention(torch, attention, gen) -> dict:
         "flash_bwd_dkv": dict(max_abs_err=dkv_err, ms=dkv_ms,
                               plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
                               bound=dkv_bound),
+        "bwd_call_ms": call_ms,
+        "pair_over_sdpa_bwd": (dq_ms + dkv_ms) / lib_bwd_ms,
     }
     log("attention at the training shape q/k/v [8, 2048, 16, 64] bf16 "
         "causal, device ms: " + json.dumps(res))
@@ -1558,8 +1614,9 @@ def train_phase(torch, attention, norms, seed: int) -> dict:
     batch of synthetic tokens [8, 2049] from ``seed`` (2048 positions per
     row). Step time is the median over TRAIN_STEPS steps after
     TRAIN_WARMUP warm-ups, between CUDA events recorded at the step
-    boundaries (no host sync inside the loop); then one profiled step.
-    The launch counters are set to 0 just before and read just after."""
+    boundaries (no host sync inside the loop); then one profiled step,
+    its device ms split into B1-B4 and the rest. The launch counters are
+    set to 0 just before and read just after."""
     from tony_tpu_torch.models import TransformerConfig, make_train_step
     from tony_tpu_torch.models.train import leaves
 
@@ -1616,8 +1673,12 @@ def train_phase(torch, attention, norms, seed: int) -> dict:
              + 6.0 * cfg.n_layers * TRAIN_BATCH * TRAIN_SEQ * TRAIN_SEQ
              * cfg.n_heads * cfg.head_dim)
     by_name: dict[str, list[float]] = {}
+    by_part: dict[str, float] = {}
     for name, us in events:
         by_name.setdefault(name, []).append(us)
+        part = next((c for pat, c in _KERNEL_CATEGORIES if pat in name),
+                    "rest")
+        by_part[part] = by_part.get(part, 0.0) + us / 1e3
     rows = sorted(((sum(v), k, len(v)) for k, v in by_name.items()),
                   reverse=True)
     device_total = sum(us for _, us in events) / 1e3
@@ -1634,6 +1695,7 @@ def train_phase(torch, attention, norms, seed: int) -> dict:
         "profiled_step": {
             "wall_ms": wall_ms, "device_ms": device_total,
             "device_busy_share": device_total / wall_ms,
+            "by_part_ms": by_part,
             "top": [{"kernel": k[:90], "device_ms": us / 1e3, "count": c}
                     for us, k, c in rows[:12]],
         },

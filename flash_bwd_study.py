@@ -3,7 +3,7 @@
 tony_tpu_torch on one NVIDIA card: the backward (B2 dq, B3 dk/dv) and the
 forward (B1).
 
-    python3 flash_bwd_study.py sweep         # B2/B3 streamed-tile sizes
+    python3 flash_bwd_study.py sweep         # B2/B3 tiles and ring depths
     python3 flash_bwd_study.py controls      # broken B2/B3 vs chip_smoke
     python3 flash_bwd_study.py fwd-sweep     # B1 query and key tile sizes
     python3 flash_bwd_study.py fwd-controls  # broken B1 vs chip_smoke
@@ -16,23 +16,26 @@ wrapper (``_flash_bwd_cuda`` or ``_flash_attention_cuda``) at
 chip_smoke.py's two timing shapes, q/k/v [8, 2048, 16, 64] and
 [8, 2048, 8, 128], bf16, causal.
 
-sweep: B2's streamed key tile (DqBf16::kN) and B3's streamed query tile
-(DkvBf16::kM) at 16, 32 and 64 rows. fwd-sweep: B1's query rows per block
+sweep: B2's and B3's consumer warpgroups (64 rows of the block's fixed
+operand each), streamed tile (B2's keys, B3's query rows: 64 or 128) and
+TMA ring depth (2, 3 or 4 stages), one choice at a time away from the
+shipped ones (see SWEEP). fwd-sweep: B1's query rows per block
 (FwdBf16::kM: 64 or 128, 16 or 32 rows per warp) and keys per streamed tile
 (FwdBf16::kN: 32, 64 or 128). For each variant: ptxas's registers and spill
-bytes of the bf16 kernels (fwd-sweep lists the instances that spill, which
-rejects the variant at that head_dim), chip_smoke's checks against the
-plain version, and the device ms of the kernels at both shapes. The
-shipped sizes run first and last, so the spread between them shows the
-drift.
+bytes of the bf16 kernels (the instances that spill, which rejects the
+variant at that head_dim), chip_smoke's checks against the plain version,
+and the device ms of the kernels at both shapes (a launch the card refuses,
+for too much shared memory, is recorded as such). The shipped sizes run
+first and last, so the spread between them shows the drift.
 
 controls / fwd-controls: copies that each drop the contribution of one
-streamed tile, a fault of the kind a broken double buffer or loop bound
-makes. For each, the readings of chip_smoke's checks at both shapes (B2/B3:
-max abs error against TOL times the largest |gradient|, row error against
-ROW_TOL; B1: max abs error of out and of lse against TOL, row error of out
-against ROW_TOL) and which one caught it. Exits non-zero if chip_smoke's
-checks pass a control, or if the shipped copy fails one.
+streamed tile, a fault of the kind a broken ring or loop bound makes, or
+(backward) read one stage of the TMA ring in place of another. For each,
+the readings of chip_smoke's checks at both shapes (B2/B3: max abs error
+against TOL times the largest |gradient|, row error against ROW_TOL; B1:
+max abs error of out and of lse against TOL, row error of out against
+ROW_TOL) and which one caught it. Exits non-zero if chip_smoke's checks
+pass a control, or if the shipped copy fails one.
 """
 
 from __future__ import annotations
@@ -40,44 +43,72 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
 
 import chip_smoke
 
-SHIPPED_TILES = {"kN": 16, "kM": 32}  # B2 keys, B3 query rows per tile
 # B1's shipped tiles: the right-hand sides in FwdBf16 (query rows per
 # block, keys per streamed tile).
 SHIPPED_FWD_TILES = {"kM": "D == 64 ? 128 : 64", "kN": "64"}
 SHAPES = {"train": (8, 2048, 16, 64), "hd128": (8, 2048, 8, 128)}
 BWD_ENTRY_POINTS = ("flash_bwd_dq", "flash_bwd_dkv")
 
+# The tile and ring constants of the bf16 B2 (DqBf16) and B3 (DkvBf16), each
+# found in flash_bwd.cu by its comment, and the values the sweep tries.
+TILE_COMMENTS = {
+    "dq_warpgroups": "B2 consumers",
+    "dq_keys": "keys per streamed tile",
+    "dq_stages": "K/V tiles in B2's ring",
+    "dkv_warpgroups": "B3 consumers",
+    "dkv_rows": "query rows per streamed tile",
+    "dkv_stages": "Q/dO tiles in B3's ring",
+}
+SWEEP = {"dq_warpgroups": (1, 2, 3), "dq_keys": (64, 128),
+         "dq_stages": (2, 3, 4), "dkv_warpgroups": (1, 2, 3),
+         "dkv_rows": (64, 128), "dkv_stages": (2, 3, 4)}
+
 # Each control: (old, new) substitutions in flash_bwd.cu. "tile" counts the
-# key tiles of one B2 block, "it" the (query head, query tile) steps of one
-# B3 block.
-_DQ_DS = "        s[n][e] = pv * (dp[n][e] - dlt[e >> 1]);"
-_DKV_DS = "        dpt[n][e] = pv * (dpt[n][e] - (j ? d2.y : d2.x));"
+# key tiles of one B2 block (whose rows start at q0; my_tiles of them are
+# live for a warpgroup), "it" the (query head, query tile) steps of one B3
+# block (whose keys start at k0). The p stores are where a dropped tile
+# leaves no trace in ds either.
+_DQ_P = "          s[i] = pv;"
+_DKV_P = "            st[4 * j + e] = pv;"
+_DQ_STAGE = ("        const unsigned char* kt = s_k + stage * Cfg::kStream;\n"
+             "        const unsigned char* vt = s_v + stage * Cfg::kStream;")
+_DKV_STAGE = ("        const unsigned char* qt = s_q + stage * Cfg::kStream;\n"
+              "        const unsigned char* dot = s_do + stage * "
+              "Cfg::kStream;")
 CONTROLS = {
-    # keys 32-47 missing from every query row past 31
-    "dq_drops_key_tile_2": [(_DQ_DS, _DQ_DS.replace(
+    # keys 128-191 missing from every query row that sees them
+    "dq_drops_key_tile_2": [(_DQ_P, _DQ_P.replace(
         "= pv", "= tile == 2 ? 0.f : pv"))],
-    # the keys nearest each query tile's diagonal missing
-    "dq_drops_last_key_tile": [(_DQ_DS, _DQ_DS.replace(
-        "= pv", "= tile == n_tiles - 1 ? 0.f : pv"))],
-    # one 32-row query tile missing from every key block's dk/dv
-    "dkv_drops_query_tile_2": [(_DKV_DS, "        if (it == 2) pv = 0.f;\n"
-                                + _DKV_DS)],
-    # the last 32 queries missing from every key block's dk/dv
-    "dkv_drops_last_query_tile": [(
-        _DKV_DS, "        if (it == total - 1) pv = 0.f;\n" + _DKV_DS)],
-    # Faults confined to late rows, whose gradients are small: 16 of 1024+
-    # keys missing from query rows past 1023, and 32 of 1024- queries from
+    # the keys nearest each warpgroup's diagonal missing
+    "dq_drops_last_key_tile": [(_DQ_P, _DQ_P.replace(
+        "= pv", "= tile == my_tiles - 1 ? 0.f : pv"))],
+    # one 64-row query tile missing from every key block's dk/dv
+    "dkv_drops_query_tile_2": [(_DKV_P, _DKV_P.replace(
+        "= pv", "= it == 2 ? 0.f : pv"))],
+    # the last 64 queries missing from every key block's dk/dv
+    "dkv_drops_last_query_tile": [(_DKV_P, _DKV_P.replace(
+        "= pv", "= it == total - 1 ? 0.f : pv"))],
+    # Faults confined to late rows, whose gradients are small: 64 of 1024+
+    # keys missing from query rows past 1023, and 64 of 1024- queries from
     # keys past 1023.
-    "dq_drops_key_tile_2_past_row_1023": [(_DQ_DS, _DQ_DS.replace(
+    "dq_drops_key_tile_2_past_row_1023": [(_DQ_P, _DQ_P.replace(
         "= pv", "= tile == 2 && q0 >= 1024 ? 0.f : pv"))],
-    "dkv_drops_query_tile_2_past_key_1023": [(
-        _DKV_DS, "        if (it == 2 && k0 >= 1024) pv = 0.f;\n" + _DKV_DS)],
+    "dkv_drops_query_tile_2_past_key_1023": [(_DKV_P, _DKV_P.replace(
+        "= pv", "= it == 2 && k0 >= 1024 ? 0.f : pv"))],
+    # The ring one stage short: the consumers read the K/V (B2) or Q/dO
+    # (B3) tiles of stage `stage % (S - 1)`, so tiles are read from a
+    # buffer the producer is refilling.
+    "dq_ring_loses_a_stage": [(_DQ_STAGE, _DQ_STAGE.replace(
+        "stage *", "(stage % (S - 1)) *"))],
+    "dkv_ring_loses_a_stage": [(_DKV_STAGE, _DKV_STAGE.replace(
+        "stage *", "(stage % (S - 1)) *"))],
 }
 
 
@@ -102,14 +133,44 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def sweep_variants() -> dict[str, list[tuple[str, str]]]:
-    """The shipped tiles, then both streamed tiles at 16, 32 and 64 rows."""
+def tile_line(text: str, key: str) -> tuple[str, str]:
+    """The line of flash_bwd.cu that sets the constant of TILE_COMMENTS'
+    ``key``, and its value."""
+    pattern = (rf"^ *static constexpr int k\w+ = ([^;]+);  // "
+               rf"{re.escape(TILE_COMMENTS[key])}$")
+    found = list(re.finditer(pattern, text, re.M))
+    if len(found) != 1:
+        raise ValueError(f"{key}: {len(found)} lines of flash_bwd.cu end in "
+                         f"// {TILE_COMMENTS[key]}")
+    return found[0].group(0), found[0].group(1)
+
+
+def shipped_tiles(text: str) -> dict[str, str]:
+    return {key: tile_line(text, key)[1] for key in TILE_COMMENTS}
+
+
+def tile_value(expr: str, head_dim: int) -> int:
+    """A tile constant's value at ``head_dim``: a number, or a choice
+    "D == <d> ? <a> : <b>" by head_dim."""
+    if expr.isdigit():
+        return int(expr)
+    m = re.fullmatch(r"D == (\d+) \? (\d+) : (\d+)", expr)
+    if m is None:
+        raise ValueError(f"tile constant {expr!r} is not a number or a "
+                         f"choice by head_dim")
+    return int(m.group(2) if head_dim == int(m.group(1)) else m.group(3))
+
+
+def sweep_variants(text: str) -> dict[str, list[tuple[str, str]]]:
+    """The shipped tiles, then each constant of SWEEP at each of its other
+    values (the rest as shipped)."""
     variants = {"shipped": []}
-    for n in (16, 32, 64):
-        variants[f"tiles{n}"] = [
-            (f"static constexpr int {k} = {v};",
-             f"static constexpr int {k} = {n};")
-            for k, v in SHIPPED_TILES.items()]
+    for key, values in SWEEP.items():
+        line, value = tile_line(text, key)
+        for v in values:
+            if str(v) != value:
+                variants[f"{key}{v}"] = [(line, line.replace(
+                    f"= {value};", f"= {v};", 1))]
     return variants
 
 
@@ -248,19 +309,27 @@ def verdict(errs: dict) -> dict[str, bool]:
 
 
 def sweep(torch, kernels, attention, shapes) -> bool:
-    variants = sweep_variants()
+    text = (kernels.CSRC / "flash_bwd.cu").read_text()
+    variants = sweep_variants(text)
     built = build_variants(kernels, variants)
     ok = True
     for name in [*variants, "shipped"]:
         lib, report = built[name]
         use_library(kernels, lib)
-        tiles = (dict(SHIPPED_TILES) if name == "shipped"
-                 else dict.fromkeys(SHIPPED_TILES, int(name[5:])))
-        row = {"variant": name, "tiles": tiles,
-               "ptxas": bf16_registers(report)}
+        ptxas = bf16_registers(report)
+        row = {"variant": name,
+               "tiles": shipped_tiles(substitute(text, name, variants[name])),
+               "ptxas": ptxas,
+               "rejected": sorted(n for n, f in ptxas.items()
+                                  if f["spill_bytes"])}
         for tag, s in shapes.items():
-            errs = s.errors(torch, attention)
-            ok &= all(verdict(errs).values())
+            try:
+                errs = s.errors(torch, attention)
+            except RuntimeError as e:  # a launch the card refuses
+                row[tag] = {"launch": str(e)}
+                ok &= name != "shipped"
+                continue
+            ok &= name != "shipped" or all(verdict(errs).values())
             dq_ms, dkv_ms = chip_smoke.time_bwd_kernels(torch, attention,
                                                         *s.args())
             row[tag] = {"dq_ms": dq_ms, "dkv_ms": dkv_ms,

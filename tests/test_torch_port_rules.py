@@ -284,37 +284,48 @@ def _repo_module(name: str):
         sys.path.remove(str(REPO))
 
 
-def _sass(mma: dict[str, int]) -> str:
+_HMMA = "HMMA.16816.F32.BF16 R24, R4, R20, R24 ;"
+_HGMMA = ("HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;")
+
+
+def _sass(mma: dict[str, int], op: str = _HMMA) -> str:
     """A cuobjdump listing with one function per (kernel, head_dim) key,
-    each holding that many HMMA lines among FMAs."""
+    each holding that many ``op`` lines (default HMMA) among FMAs."""
     out = ["\tcode for sm_90a"]
     for key, n in mma.items():
         kernel, d = re.fullmatch(r"(\w+_(?:bf16|fp32))(\d+)", key).groups()
         out.append(f"\t\tFunction : _ZN45_GLOBAL__N__0_12_flash_bwd_cu_0"
                    f"{len(kernel)}{kernel}ILi{d}EEEvNS_6ParamsE")
-        out += ["        /*0a70*/   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;"
-                ] * n
+        out += [f"        /*0a70*/   {op}"] * n
         out.append("        /*0100*/   FFMA R3, R4, R5, R3 ;")
     return "\n".join(out) + "\n"
 
 
 def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
     """chip_smoke.py reads the SASS of the flash backward: it must list
-    the 8 instances, bf16 ones with tensor-core instructions and fp32
-    (FMA) ones with none."""
+    the 8 instances, bf16 ones with wgmma instructions (HGMMA) and fp32
+    (FMA) ones with no tensor-core instruction; bf16 instances that hold
+    only mma.sync's HMMA are refused."""
     chip_smoke = _repo_module("chip_smoke")
     want = {f"flash_bwd_{k}_kernel_{dt}{d}": (2 if dt == "bf16" else 0)
             for k in ("dq", "dkv") for dt in ("bf16", "fp32")
             for d in (64, 128)}
     assert set(want) == chip_smoke.BWD_INSTANCES
-    assert chip_smoke.sass_mma_counts(_sass(want)) == want
-    no_mma = _sass(want).replace("HMMA.16816.F32.BF16", "FFMA")
+    assert chip_smoke.sass_mma_counts(_sass(want, _HGMMA)) == want
+    no_mma = _sass(want, _HGMMA).replace("HGMMA.64x64x16.F32.BF16", "FFMA")
     with pytest.raises(AssertionError, match="bf16 instances need some"):
         chip_smoke.sass_mma_counts(no_mma)
+    with pytest.raises(AssertionError,
+                       match=r"bf1664: no HGMMA instruction \(2 tensor-core"):
+        chip_smoke.sass_mma_counts(_sass(want))
+    fp32_mma = dict(want, flash_bwd_dkv_kernel_fp3264=1)
+    with pytest.raises(AssertionError,
+                       match="fp3264: 1 tensor-core instructions"):
+        chip_smoke.sass_mma_counts(_sass(fp32_mma, _HGMMA))
     missing = dict(want)
     del missing["flash_bwd_dkv_kernel_bf16128"]
     with pytest.raises(AssertionError, match="not the instances"):
-        chip_smoke.sass_mma_counts(_sass(missing))
+        chip_smoke.sass_mma_counts(_sass(missing, _HGMMA))
     with pytest.raises(AssertionError, match="listed no flash_bwd kernel"):
         chip_smoke.sass_mma_counts("")
 
@@ -477,11 +488,49 @@ def test_flash_bwd_study_variants_apply_to_the_source():
     from tony_tpu_torch import kernels
 
     text = (kernels.CSRC / "flash_bwd.cu").read_text()
-    variants = {**study.sweep_variants(), **study.CONTROLS}
+    variants = {**study.sweep_variants(text), **study.CONTROLS}
     for name, subs in variants.items():
         changed = study.substitute(text, name, subs)
         assert (changed == text) == (name == "shipped"), name
-    assert "static constexpr int kN = 64;" in study.substitute(
-        text, "tiles64", study.sweep_variants()["tiles64"])
+    shipped = study.shipped_tiles(text)
+    assert set(shipped) == set(study.SWEEP)
+    for key, values in study.SWEEP.items():
+        for v in values:
+            if str(v) == shipped[key]:
+                continue
+            name = f"{key}{v}"
+            changed = study.substitute(text, name,
+                                       study.sweep_variants(text)[name])
+            assert study.shipped_tiles(changed) == {**shipped, key: str(v)}
     with pytest.raises(ValueError, match="occurs 0 times"):
         study.substitute(text, "bad", [("no such line", "")])
+
+
+def test_chip_smoke_bwd_tiles_match_the_source():
+    """chip_smoke.py's BWD_TILES, which its tile-edge cases straddle, are
+    the bf16 B2/B3 tiles flash_bwd.cu compiles, and the edge cases sit one
+    below, at and one above one and two of each tile at both head_dims."""
+    chip_smoke = _repo_module("chip_smoke")
+    study = _repo_module("flash_bwd_study")
+    from tony_tpu_torch import kernels
+
+    shipped = study.shipped_tiles(
+        (kernels.CSRC / "flash_bwd.cu").read_text())
+    assert set(chip_smoke.BWD_TILES) == {64, 128}
+    square = {(c["t_q"], c["d"]) for c in chip_smoke.FLASH_BWD_CASES
+              if c["t_q"] == c["t_k"]}
+    for d, want in chip_smoke.BWD_TILES.items():
+        tiles = {k: study.tile_value(v, d) for k, v in shipped.items()}
+        assert want == {
+            "dq_rows": 64 * tiles["dq_warpgroups"],
+            "dq_keys": tiles["dq_keys"],
+            "dkv_keys": 64 * tiles["dkv_warpgroups"],
+            "dkv_rows": tiles["dkv_rows"]}, d
+        for tile in want.values():
+            for n in (1, 2):
+                for step in (-1, 0, 1):
+                    assert (n * tile + step, d) in square, (n, tile, d)
+    assert study.tile_value("D == 64 ? 3 : 2", 64) == 3
+    assert study.tile_value("D == 64 ? 3 : 2", 128) == 2
+    with pytest.raises(ValueError, match="not a number"):
+        study.tile_value("kWgRows * 2", 64)

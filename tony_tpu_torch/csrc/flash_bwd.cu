@@ -1,21 +1,24 @@
-// FlashAttention-2 backward for Hopper (sm_90a): two passes from the saved
+// FlashAttention backward for Hopper (sm_90a): two passes from the saved
 // per-row log-sum-exp, one for dq (B2) and one for dk/dv (B3), with no
-// atomics, so the gradients are deterministic.
+// atomics, so the gradients are bit-identical from run to run.
 //
 // Replaces: tony_tpu/ops/attention.py::_flash_bwd_dq_kernel and
 // ::_flash_bwd_dkv_kernel (launched by _flash_attention_pallas_bwd). Same
 // contract: s = (Q K^T) * scale in fp32 (the scale applied after the
 // product); p = exp(s - lse) rebuilt from the forward's lse; dp = dO V^T;
-// ds = p * (dp - delta), where delta = rowsum(dO * O) - g_lse comes in
-// precomputed in fp32 [B, H, t_q]. B2 rounds ds to K's dtype before ds.K;
+// ds = p * (dp - delta), where delta = rowsum(dO * O) - g_lse in fp32
+// [B, H, t_q]. B2 computes delta for its rows and writes it for B3, which
+// runs after it on the same stream (with lse in log2 units, in rows padded
+// to 4 values). B2 rounds ds to K's dtype before ds.K;
 // B3 rounds p to dO's dtype before p^T.dO and ds to Q's dtype before
 // ds^T.Q. All sums are fp32; dq and dk carry the scale; outputs are in the
 // input dtype. Key/query tile pairs wholly above the causal diagonal are
 // skipped, and only pairs that straddle it or hold tail rows or tail keys
-// pay for masking. Query rows sit at the end of the keys (row i has position
-// t_k - t_q + i), so a fully masked row (causal, t_q > t_k) gets p = 0 and
-// zero gradients. Inputs are read through batch/seq/head strides with a
-// contiguous last dimension.
+// pay for masking (tail rows and keys are zero-filled, so they score 0,
+// not -inf, and are masked explicitly). Query rows sit at the end of the
+// keys (row i has position t_k - t_q + i), so a fully masked row (causal,
+// t_q > t_k) gets p = 0 and zero gradients. Inputs are read through
+// batch/seq/head strides with a contiguous last dimension.
 //
 // Bound on this card: at the training shape (B = 8, H = 16, T = 2048,
 // D = 64, bf16, causal) B2 does three products over the T(T+1)/2 visible
@@ -23,46 +26,67 @@
 // ~70 MB of traffic each, so both are bound by operations: ~0.10 and
 // ~0.14 ms at the tensor cores' 989 TFLOP/s.
 //
-// bf16 (the training path): FA2's backward on the tensor cores through
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulators; helpers in mma_sync.cuh).
-// Each warp owns 16 rows of the block's fixed operand and streams the other
-// operand's tiles through shared memory:
-// - B2: one block of 4 warps per (batch*head, 64-row query tile). The
-//   warp's Q and dO A-fragments stay in registers across the key loop;
-//   S = Q K^T and dP = dO V^T land in accumulator registers, ds is formed
-//   there, packed to bf16 and fed straight back as the A operand of
-//   dQ += dS K (K read as the B operand with ldmatrix.trans).
-// - B3: one block of 4 warps per (batch*KV head, 64-key tile), looping over
-//   the H / H_kv query heads of the KV head and over their query tiles.
-//   It computes S^T = K Q^T and dP^T = V dO^T, so p^T and ds^T come out
-//   with key rows as M and feed dV += P^T dO and dK += dS^T Q as A
-//   operands (dO and Q read with ldmatrix.trans). dK/dV stay in registers
-//   across both loops: summing the group inside the block is what autodiff
-//   of the JAX route's repeated K/V computes, without atomics.
-// What bounds this design, and what it does about it:
-// - mma.sync is not wgmma: Hopper's full tensor-core rate needs warpgroup
-//   products; mma.sync reaches a fraction of it. wgmma + TMA is later work.
-// - Shared-memory bandwidth: every warp reads the streamed tile's B
-//   fragments itself, ~16 FLOP per byte read, against 128 bytes per clock
-//   per SM. So tiles are bf16 (half the bytes of fp32), rows are padded by
-//   16 bytes so each ldmatrix phase touches 8 distinct bank groups, and p/ds
-//   never go through shared memory.
-// - Load latency: streamed tiles (K/V in B2; Q/dO with their lse/delta
-//   rows in B3) are copied with cp.async, 16 bytes a thread, rows past T
-//   zero-filled, double-buffered so the next tile lands during this one.
-// - Registers, which bound the blocks per SM: the streamed tiles are
-//   small (16 keys in B2, 32 query rows in B3), so the fp32 score tiles of
-//   a warp take 8 (B2) or 16 (B3) registers each; B3 re-reads its K/V
-//   A-fragments from shared memory rather than holding them. The sizes
-//   come from flash_bwd_study.py's sweep on an H100: B2 is fastest with
-//   16-key tiles at both head_dims (32 keys ~6 % slower; 64 slower still,
-//   and they spill at D 128). B3 is fastest with 32-row query tiles at
-//   D 64; at D 128, 64-row tiles were ~14 % faster but spill (255
-//   registers), so B3 keeps 32 rows there too; 16-row tiles were slower
-//   at both.
-// - Causal imbalance: work per block differs by up to 32x; B2 issues its
-//   last (heaviest) query tiles first, and B3's first key tiles, the
-//   heaviest, are already issued first.
+// bf16 (the training path): every product is a warpgroup wgmma.mma_async
+// (m64nNk16, N = 64 or 128, bf16 in, fp32 accumulators; helpers in
+// hopper.cuh), fed by TMA through shared memory. Each block has consumer
+// warpgroups of 64 rows of its fixed operand and one producer warpgroup:
+// - B2: one block per (batch*head, query tile of kM = 192 rows), heaviest
+//   causal tiles first. Q, dO and O are loaded once; K and V stream through
+//   a ring of kStages tiles of kN keys. S = Q K^T and dP = dO V^T read both
+//   operands from shared memory; ds, packed to bf16 in registers, is the A
+//   operand of dQ += dS K (N = D), K read with the transpose bit. The
+//   prologue computes delta from the O and dO tiles and writes it, with
+//   lse in log2 units, into rows padded to 4 values for B3.
+// - B3: one block per (batch*KV head, key tile of kN keys: 192 at D 64,
+//   128 at D 128), looping over the H / H_kv query heads of the KV head and
+//   their live query tiles; Q and dO tiles of kM rows stream through the
+//   ring with their lse and delta rows. S^T = K Q^T and dP^T = V dO^T put
+//   keys on the rows, so p^T and ds^T are the register A operands of
+//   dV += P^T dO and dK += dS^T Q (dO and Q read with the transpose bit).
+//   dK/dV stay in registers across the whole loop: summing the group inside
+//   the block is what autodiff of the JAX route's repeated K/V computes,
+//   without atomics.
+// What bounds this design, and what each choice does about it:
+// - Tensor-core rate: only wgmma reaches it; a warpgroup's product reads
+//   its B operand once per 64 rows from shared memory (mma.sync re-read it
+//   per 16-row warp, which bound the old design by shared-memory
+//   bandwidth), and p and ds never touch shared memory. At D 128 the
+//   gradient products are m64n128k16, one instruction per 16 keys/rows.
+// - Load latency and issue slots: one producer thread keeps the ring full
+//   with TMA (cp.async.bulk.tensor, full/empty mbarriers), so the consumers
+//   spend no instructions or registers on copies. Tiles land 128-byte
+//   swizzled, the layout the wgmma descriptors read, and rows past the
+//   sequence are zero-filled by the copy itself. A D = 128 row is two
+//   64-column boxes; the descriptors step across both. A 1-D TMA box must
+//   start 16-byte aligned, hence B3's padded lse/delta rows (which also
+//   spare it a multiply and let it read them in pairs).
+// - The softmax's instruction count, which at D 64 costs as much as the
+//   products: exponentials on ex2.approx.ftz (exp2f chains every call
+//   through one predicate register for its denormal guard), and masks as
+//   one compare per element against per-row limits, in a pass of their own
+//   that only tiles straddling the diagonal or holding tail rows or keys
+//   run (per-element visible() tests were hoisted ahead of the products on
+//   every tile).
+// - Registers: the producer warpgroup gives its registers to the consumers
+//   (setmaxnreg: 24 against 240 with two consumer warpgroups, 160 with
+//   three). At D 128 a B3 consumer holds dK and dV (128 floats) beside S^T
+//   and dP^T (64), so only two fit; three warpgroups hide more latency
+//   where they fit.
+// - Latency within a warpgroup: p is computed while dP's product is in
+//   flight, and the other warpgroups' products run during one's softmax.
+//   Keeping a tile's gradient products in flight across the next tile's
+//   score products, or making the warpgroups take turns on the tensor
+//   cores, measured slower (PERF.md).
+// - Per-block cost (~25 % of the time at T = 2048: the fixed tiles'
+//   latency, B2's delta prologue, the gap before the next block): B2 reads
+//   its lse rows before the fixed tiles land. A persistent grid with a
+//   static work split measured slower than the hardware's scheduling.
+// - Causal imbalance: work per block differs by up to 11x at T = 2048; B2
+//   issues its last (heaviest) query tiles first, B3's first key tiles are
+//   the heaviest and go first, and a warpgroup whose 64 rows lie wholly
+//   above the diagonal of a tile skips its products.
+// The tile sizes and ring depths are flash_bwd_study.py's sweep's choice on
+// an H100 (PERF.md has the table).
 //
 // fp32: the tensor cores have no exact fp32 product (TF32 keeps 10 mantissa
 // bits), so fp32 keeps the FMA design: 256 threads per block, 64-row tiles
@@ -75,14 +99,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sync.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kBlockM = 64;  // query rows per B2 block (both dtypes)
-constexpr int kBlockN = 64;  // keys per B3 block (both dtypes)
+constexpr int kBlockM = 64;  // query rows per fp32 B2 block
+constexpr int kBlockN = 64;  // keys per fp32 B3 block
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -90,13 +112,21 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
+  const void* out;     // B2: O, for delta
+  const float* g_lse;  // B2: the cotangent of lse [B, H, t_q], or null
   const float* lse;    // [B, H, t_q]
-  const float* delta;  // [B, H, t_q]
+  // B2 writes and B3 reads rows of t_pad values (t_q rounded up to 4, so
+  // every head's row starts 16-byte aligned for B3's TMA): delta
+  // [B * H, t_pad], then (bf16) lse * log2(e) [B * H, t_pad]; 0 past t_q.
+  float* delta;
+  float* lse2;
+  int t_pad;
   void* dq;
   void* dk;
   void* dv;
-  // element strides (batch, sequence, head) of q, k, v, dO and the outputs
-  int64_t q_s[3], k_s[3], v_s[3], do_s[3], dq_s[3], dk_s[3], dv_s[3];
+  // element strides (batch, sequence, head) of q, k, v, dO, O and the
+  // outputs
+  int64_t q_s[3], k_s[3], v_s[3], do_s[3], o_s[3], dq_s[3], dk_s[3], dv_s[3];
   int n_heads;
   int n_kv_heads;
   int group;  // query heads per KV head
@@ -122,15 +152,17 @@ __device__ __forceinline__ bool tile_needs_mask(const Params& p, int q0,
          (p.causal && k0 + BN - 1 > p.t_k - p.t_q + q0);
 }
 
-// Key tiles of BN keys that query rows [q0, q0 + BM) see.
-template <int BM, int BN>
-__device__ __forceinline__ int live_key_tiles(const Params& p, int q0) {
-  const int n = (p.t_k + BN - 1) / BN;
-  if (!p.causal) return n;
-  // A key tile is live while its first key is at or before the position
-  // of this query tile's last row.
-  const int last = p.t_k - p.t_q + q0 + BM - 1;
-  return min(n, last < 0 ? 0 : last / BN + 1);
+// Query rows [first, first + n) clipped to t_q: the key tiles of BN keys
+// they see (0 when the rows lie past t_q). A key tile is live while its
+// first key is at or before the position of the last row.
+template <int BN>
+__device__ __forceinline__ int key_tiles_for(const Params& p, int first,
+                                             int n) {
+  if (first >= p.t_q) return 0;
+  const int tiles = (p.t_k + BN - 1) / BN;
+  if (!p.causal) return tiles;
+  const int last = p.t_k - p.t_q + min(first + n, p.t_q) - 1;
+  return min(tiles, last < 0 ? 0 : last / BN + 1);
 }
 
 // The first query tile of BM rows that sees keys from k0 on.
@@ -143,342 +175,524 @@ __device__ __forceinline__ int first_query_tile(const Params& p, int k0) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: warpgroup products fed by TMA
 // ---------------------------------------------------------------------------
 
-using tc::load_tile_async;
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int kWgRows = 64;    // rows of one warpgroup's wgmma tile
+constexpr int kBoxBytes = 128; // one 64-column swizzled row of bf16
+
+// Byte offset of element (row, col) in a swizzled tile of `rows` rows
+// (see hopper.cuh: column boxes of 64 one after another).
+__device__ __forceinline__ int swz(int row, int col, int rows) {
+  return (col >> 6) * rows * kBoxBytes + row * kBoxBytes +
+         ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// The register budgets of a block with `wgs` consumer warpgroups and one
+// producer warpgroup: the producer gives its registers to the consumers.
+template <int WGS>
+struct Regs {
+  static_assert(WGS >= 1 && WGS <= 3, "one to three consumer warpgroups");
+  static constexpr int kThreads = 128 * (WGS + 1);
+  static constexpr int kMinBlocks = WGS == 1 ? 2 : 1;
+  static constexpr int kProducer = 24;
+  static constexpr int kConsumer = WGS == 1 ? 232 : WGS == 2 ? 240 : 160;
+};
 
 template <int D>
 struct DqBf16 {
-  static constexpr int kThreads = 128;  // 4 warps x 16 query rows
-  static constexpr int kN = 16;         // keys per streamed tile
-  static constexpr int kLd = D + 8;     // padded row stride
-  // Q, dO [64][kLd]; K, V [2][kN][kLd]
-  static constexpr size_t kSmem =
-      sizeof(bf16) * (size_t)(2 * kBlockM + 4 * kN) * kLd;
+  static constexpr int kWarpGroups = 3;  // B2 consumers
+  static constexpr int kN = 64;  // keys per streamed tile
+  static_assert(kN == 64 || kN == 128, "one m64n64 or m64n128 product");
+  static constexpr int kStages = D == 64 ? 4 : 2;  // K/V tiles in B2's ring
+  static constexpr int kM = kWgRows * kWarpGroups;  // query rows per block
+  static constexpr int kThreads = Regs<kWarpGroups>::kThreads;
+  static constexpr int kFixed = kM * D * 2;    // bytes of Q, dO or O
+  static constexpr int kStream = kN * D * 2;   // bytes of a K or V tile
+  // Q, dO, O; K and V per stage; full/empty barriers per stage and one for
+  // the fixed tiles; delta of the block's rows; 1024 bytes of alignment.
+  static constexpr size_t kSmem = 1024 + 3 * (size_t)kFixed +
+                                  2 * (size_t)kStages * kStream +
+                                  8 * (2 * kStages + 1) + 4 * kM;
 };
 
 template <int D>
 struct DkvBf16 {
-  static constexpr int kThreads = 128;  // 4 warps x 16 keys
-  static constexpr int kM = 32;         // query rows per streamed tile
-  static constexpr int kLd = D + 8;
-  // K, V [64][kLd]; Q, dO [2][kM][kLd]; lse, delta [2][kM] f32
-  static constexpr size_t kSmem =
-      sizeof(bf16) * (size_t)(2 * kBlockN + 4 * kM) * kLd +
-      sizeof(float) * 4 * kM;
+  static constexpr int kWarpGroups = D == 64 ? 3 : 2;  // B3 consumers
+  static constexpr int kM = 64;  // query rows per streamed tile
+  static_assert(kM == 64 || kM == 128, "one m64n64 or m64n128 product");
+  static constexpr int kStages = 4;  // Q/dO tiles in B3's ring
+  static constexpr int kN = kWgRows * kWarpGroups;  // keys per block
+  static constexpr int kThreads = Regs<kWarpGroups>::kThreads;
+  static constexpr int kFixed = kN * D * 2;    // bytes of K or V
+  static constexpr int kStream = kM * D * 2;   // bytes of a Q or dO tile
+  static constexpr int kRowPitch = kM * 4;  // bytes of lse or delta rows
+  // K, V; Q and dO per stage; lse and delta rows per stage; barriers.
+  static constexpr size_t kSmem = 1024 + 2 * (size_t)kFixed +
+                                  2 * (size_t)kStages * kStream +
+                                  2 * (size_t)kStages * kRowPitch +
+                                  8 * (2 * kStages + 1);
+};
+
+struct DqMaps {
+  CUtensorMap q, k, v, dout, out;
+};
+
+struct DkvMaps {
+  CUtensorMap q, k, v, dout, lse2, delta;
 };
 
 template <int D>
-__global__ void __launch_bounds__(DqBf16<D>::kThreads)
-    flash_bwd_dq_kernel_bf16(const Params p) {
+__global__ void __launch_bounds__(DqBf16<D>::kThreads,
+                                  Regs<DqBf16<D>::kWarpGroups>::kMinBlocks)
+    flash_bwd_dq_kernel_bf16(const Params p, const __grid_constant__ DqMaps m) {
   using Cfg = DqBf16<D>;
-  constexpr int BM = kBlockM, BN = Cfg::kN, LD = Cfg::kLd, KS = D / 16;
-  constexpr int NT = Cfg::kThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);  // [BM][LD]
-  bf16* s_do = s_q + BM * LD;                 // [BM][LD]
-  bf16* s_k = s_do + BM * LD;                 // [2][BN][LD]
-  bf16* s_v = s_k + 2 * BN * LD;              // [2][BN][LD]
+  using R = Regs<Cfg::kWarpGroups>;
+  constexpr int BM = Cfg::kM, BN = Cfg::kN, S = Cfg::kStages, H2 = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* s_q = smem;
+  unsigned char* s_do = s_q + Cfg::kFixed;
+  unsigned char* s_o = s_do + Cfg::kFixed;
+  unsigned char* s_k = s_o + Cfg::kFixed;    // [S] K tiles
+  unsigned char* s_v = s_k + S * Cfg::kStream;  // [S] V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_v + S * Cfg::kStream);
+  uint64_t* empty = full + S;
+  uint64_t* fixed = empty + S;
+  float* s_delta = reinterpret_cast<float*>(fixed + 1);  // [BM]
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int bh = blockIdx.x;
   const int b = bh / p.n_heads;
   const int h = bh % p.n_heads;
   const int hk = h / p.group;
   // Causal work grows with the query tile: issue the last tiles first.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int n_tiles = key_tiles_for<BN>(p, q0, BM);
 
-  const bf16* q_base = static_cast<const bf16*>(p.q) + b * p.q_s[0] +
-                       h * p.q_s[2];
-  const bf16* do_base = static_cast<const bf16*>(p.dout) + b * p.do_s[0] +
-                        h * p.do_s[2];
-  const bf16* k_base = static_cast<const bf16*>(p.k) + b * p.k_s[0] +
-                       hk * p.k_s[2];
-  const bf16* v_base = static_cast<const bf16*>(p.v) + b * p.v_s[0] +
-                       hk * p.v_s[2];
-  const int n_tiles = live_key_tiles<BM, BN>(p, q0);
-
-  auto load_kv = [&](int tile) {
-    const int buf = (tile & 1) * BN * LD;
-    load_tile_async<BN, D, NT>(s_k + buf, k_base, p.k_s[1], tile * BN, p.t_k);
-    load_tile_async<BN, D, NT>(s_v + buf, v_base, p.v_s[1], tile * BN, p.t_k);
-  };
-  load_tile_async<BM, D, NT>(s_q, q_base, p.q_s[1], q0, p.t_q);
-  load_tile_async<BM, D, NT>(s_do, do_base, p.do_s[1], q0, p.t_q);
-  if (n_tiles > 0) load_kv(0);
-  tc::cp_async_commit();
-
-  // This lane's rows row_lo and row_lo + 8: lse (in log2 units) and delta.
-  const int row_lo = q0 + warp * 16 + g;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row_lo + 8 * i;
-    const bool in = row < p.t_q;
-    const int64_t at = (int64_t)bh * p.t_q + row;
-    lse2[i] = in ? p.lse[at] * kLog2e : 0.f;
-    dlt[i] = in ? p.delta[at] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * Cfg::kWarpGroups);  // one arrival a warp
+    }
+    mbar_init(fixed, 1);
+    fence_barrier_init();
   }
-  const float scale_log2 = p.scale * kLog2e;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  tc::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[KS][4], doa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    tc::ldmatrix_x4(qa[ks], s_q + tc::a_frag(lane, warp * 16, ks * 16, LD));
-    tc::ldmatrix_x4(doa[ks], s_do + tc::a_frag(lane, warp * 16, ks * 16, LD));
-  }
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) {
-      load_kv(tile + 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile's copies from every thread have landed
-    const bf16* kt = s_k + (tile & 1) * BN * LD;
-    const bf16* vt = s_v + (tile & 1) * BN * LD;
-    const int k0 = tile * BN;
-
-    float s[BN / 8][4], dp[BN / 8][4];
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (wg == Cfg::kWarpGroups) {
+    // Producer: one thread issues every TMA load.
+    reg_dealloc<R::kProducer>();
+    if (tid == 0) {
+      mbar_expect_tx(fixed, 3 * Cfg::kFixed);
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int np = 0; np < BN / 16; ++np)
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t kb[4], vb[4];
-        tc::ldmatrix_x4(kb, kt + tc::b_frag(lane, np * 16, ks * 16, LD));
-        tc::ldmatrix_x4(vb, vt + tc::b_frag(lane, np * 16, ks * 16, LD));
-        tc::mma_bf16(s[2 * np], qa[ks], kb[0], kb[1]);
-        tc::mma_bf16(s[2 * np + 1], qa[ks], kb[2], kb[3]);
-        tc::mma_bf16(dp[2 * np], doa[ks], vb[0], vb[1]);
-        tc::mma_bf16(dp[2 * np + 1], doa[ks], vb[2], vb[3]);
+      for (int c = 0; c < H2; ++c) {
+        tma_load_4d(s_q + c * BM * kBoxBytes, &m.q, fixed, 64 * c, h, q0, b);
+        tma_load_4d(s_do + c * BM * kBoxBytes, &m.dout, fixed, 64 * c, h, q0,
+                    b);
+        tma_load_4d(s_o + c * BM * kBoxBytes, &m.out, fixed, 64 * c, h, q0,
+                    b);
       }
-
-    // p and ds in the accumulator layout: element e of n-tile n is row
-    // row_lo + 8 (e / 2), key k0 + 8 n + 2 t + e % 2. ds overwrites s.
-    const bool needs_mask = tile_needs_mask<BM, BN>(p, q0, k0);
+      for (int tile = 0; tile < n_tiles; ++tile) {
+        const int stage = tile % S;
+        if (tile >= S) mbar_wait(&empty[stage], ((tile / S) - 1) & 1);
+        mbar_expect_tx(&full[stage], 2 * Cfg::kStream);
+        unsigned char* kt = s_k + stage * Cfg::kStream;
+        unsigned char* vt = s_v + stage * Cfg::kStream;
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pv = exp2f(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
-        if (needs_mask &&
-            !visible(p, row_lo + 8 * (e >> 1), k0 + 8 * n + 2 * t + (e & 1)))
-          pv = 0.f;
-        s[n][e] = pv * (dp[n][e] - dlt[e >> 1]);
-      }
-
-    // dQ += dS K: ds rounded to bf16 as the A operand, K as B via .trans.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t dsa[4];
-      tc::c_to_a(dsa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        const int at = tc::b_frag_trans(lane, kk * 16, dn * 16, LD);
-        uint32_t kb[4];
-        tc::ldmatrix_x4_trans(kb, kt + at);
-        tc::mma_bf16(acc[2 * dn], dsa, kb[0], kb[1]);
-        tc::mma_bf16(acc[2 * dn + 1], dsa, kb[2], kb[3]);
+        for (int c = 0; c < H2; ++c) {
+          tma_load_4d(kt + c * BN * kBoxBytes, &m.k, &full[stage], 64 * c, hk,
+                      tile * BN, b);
+          tma_load_4d(vt + c * BN * kBoxBytes, &m.v, &full[stage], 64 * c, hk,
+                      tile * BN, b);
+        }
       }
     }
-    __syncthreads();  // reads of this buffer are done before it is refilled
-  }
+  } else {
+    reg_alloc<R::kConsumer>();
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int rw = wg * kWgRows;  // this warpgroup's first row in the block
+    const int qw = q0 + rw;
+    // Global reads before Q, dO and O land: the lse (and lse cotangent) of
+    // the row this thread sums for delta (r), and the lse of its rows
+    // row_lo and row_lo + 8 (log2 units).
+    const int r = rw + (tid >> 1);
+    const int64_t at_r = (int64_t)bh * p.t_q + q0 + r;
+    const bool in_r = q0 + r < p.t_q;
+    const float lse_r = in_r ? p.lse[at_r] : 0.f;
+    const float g_lse_r = in_r && p.g_lse ? p.g_lse[at_r] : 0.f;
+    const int row_lo = qw + warp * 16 + g;
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + 8 * i;
+      lse2[i] = row < p.t_q ? p.lse[(int64_t)bh * p.t_q + row] * kLog2e : 0.f;
+    }
+    mbar_wait(fixed, 0);
+
+    // delta = rowsum(dO * O) - g_lse in fp32 for this warpgroup's rows, two
+    // threads a row, each over half of it; written for B3 and kept here.
+    {
+      const int half = tid & 1;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const int off = swz(r, half * (D / 2) + 8 * c, BM);
+        const uint4 a = *reinterpret_cast<const uint4*>(s_do + off);
+        const uint4 o = *reinterpret_cast<const uint4*>(s_o + off);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(a2[i]);
+          const float2 y = __bfloat1622float2(o2[i]);
+          sum = fmaf(x.x, y.x, sum);
+          sum = fmaf(x.y, y.y, sum);
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      const int row = q0 + r;
+      const float dl = in_r ? sum - g_lse_r : 0.f;
+      const float l2 = lse_r * kLog2e;
+      if (half == 0) {
+        s_delta[r] = dl;
+        if (row < p.t_pad) {
+          p.delta[(int64_t)bh * p.t_pad + row] = dl;
+          p.lse2[(int64_t)bh * p.t_pad + row] = l2;
+        }
+      }
+    }
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) dlt[i] = s_delta[row_lo + 8 * i - q0];
+    const float scale_log2 = p.scale * kLog2e;
+    const int my_tiles = key_tiles_for<BN>(p, qw, kWgRows);
+
+    float acc[D / 2];  // dQ, 64 rows x D
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int stage = tile % S;
+      mbar_wait(&full[stage], (tile / S) & 1);
+      if (tile < my_tiles) {
+        const int k0 = tile * BN;
+        const unsigned char* kt = s_k + stage * Cfg::kStream;
+        const unsigned char* vt = s_v + stage * Cfg::kStream;
+        // S = Q K^T and dP = dO V^T, both operands K-major in shared memory;
+        // element i of s (and dp) is row row_lo + 8 ((i & 3) / 2), key
+        // k0 + 8 (i / 4) + 2 t + i % 2.
+        const uint64_t q_d = desc_k_major(s_q + rw * kBoxBytes);
+        const uint64_t do_d = desc_k_major(s_do + rw * kBoxBytes);
+        const uint64_t k_d = desc_k_major(kt);
+        const uint64_t v_d = desc_k_major(vt);
+        float s[BN / 2], dp[BN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss<BN>(s, desc_add(q_d, (ks >> 2) * BM * kBoxBytes +
+                                            (ks & 3) * 32),
+                       desc_add(k_d, (ks >> 2) * BN * kBoxBytes +
+                                         (ks & 3) * 32),
+                       ks > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss<BN>(dp, desc_add(do_d, (ks >> 2) * BM * kBoxBytes +
+                                              (ks & 3) * 32),
+                       desc_add(v_d, (ks >> 2) * BN * kBoxBytes +
+                                         (ks & 3) * 32),
+                       ks > 0);
+        wgmma_commit();
+        // p while dP is still in flight.
+        wgmma_wait<1>();
+        fence_acc<BN / 2>(s);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const float pv = ex2(fmaf(s[i], scale_log2, -lse2[(i & 3) >> 1]));
+          s[i] = pv;
+        }
+        // Only tiles that straddle the diagonal or hold tail rows or keys
+        // pay for the mask: p is zeroed past each row's last visible key,
+        // `lim` columns from this thread's first one.
+        if (tile_needs_mask<kWgRows, BN>(p, qw, k0)) {
+          int lim[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = row_lo + 8 * r;
+            const int last = row >= p.t_q ? -1
+                             : p.causal   ? min(p.t_k - 1, p.t_k - p.t_q + row)
+                                          : p.t_k - 1;
+            lim[r] = last - k0 - 2 * t;
+          }
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            if (8 * (i >> 2) + (i & 1) > lim[(i & 3) >> 1]) s[i] = 0.f;
+        }
+        wgmma_wait<0>();
+        fence_acc<BN / 2>(dp);
+        // ds = p (dp - delta), rounded to bf16 as the A operand of dQ += dS K.
+        uint32_t dsa[BN / 16][4];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          s[i] = s[i] * (dp[i] - dlt[(i & 3) >> 1]);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) pack_a(dsa[kk], &s[8 * kk]);
+        wgmma_fence();
+        const uint64_t kt_d = desc_mn_major(kt, BN * kBoxBytes);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs_tb<D>(acc, dsa[kk], desc_add(kt_d, kk * 16 * kBoxBytes));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc<D / 2>(acc);
+      }
+      // This warp's reads of the stage are done (its products waited for).
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row_lo + 8 * i;
-    if (row >= p.t_q) continue;
-    bf16* dq_row = static_cast<bf16*>(p.dq) + b * p.dq_s[0] +
-                   h * p.dq_s[2] + (int64_t)row * p.dq_s[1];
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + 8 * i;
+      if (row >= p.t_q) continue;
+      bf16* dq_row = static_cast<bf16*>(p.dq) + b * p.dq_s[0] +
+                     h * p.dq_s[2] + (int64_t)row * p.dq_s[1];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dq_row + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * i] * p.scale,
-                                acc[n][2 * i + 1] * p.scale);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dq_row + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * p.scale,
+                                  acc[4 * j + 2 * i + 1] * p.scale);
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(DkvBf16<D>::kThreads)
-    flash_bwd_dkv_kernel_bf16(const Params p) {
+__global__ void __launch_bounds__(DkvBf16<D>::kThreads,
+                                  Regs<DkvBf16<D>::kWarpGroups>::kMinBlocks)
+    flash_bwd_dkv_kernel_bf16(const Params p,
+                              const __grid_constant__ DkvMaps m) {
   using Cfg = DkvBf16<D>;
-  constexpr int BN = kBlockN, BM = Cfg::kM, LD = Cfg::kLd, KS = D / 16;
-  constexpr int NT = Cfg::kThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem);  // [BN][LD]
-  bf16* s_v = s_k + BN * LD;                  // [BN][LD]
-  bf16* s_q = s_v + BN * LD;                  // [2][BM][LD]
-  bf16* s_do = s_q + 2 * BM * LD;             // [2][BM][LD]
-  float* s_lse = reinterpret_cast<float*>(s_do + 2 * BM * LD);  // [2][BM]
-  float* s_delta = s_lse + 2 * BM;                              // [2][BM]
+  using R = Regs<Cfg::kWarpGroups>;
+  constexpr int BN = Cfg::kN, BM = Cfg::kM, S = Cfg::kStages, H2 = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* s_k = smem;
+  unsigned char* s_v = s_k + Cfg::kFixed;
+  unsigned char* s_q = s_v + Cfg::kFixed;       // [S] Q tiles
+  unsigned char* s_do = s_q + S * Cfg::kStream;  // [S] dO tiles
+  // [S] lse rows, then [S] delta rows, kRowPitch bytes each
+  unsigned char* s_lse = s_do + S * Cfg::kStream;
+  unsigned char* s_dl = s_lse + S * Cfg::kRowPitch;
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_dl + S * Cfg::kRowPitch);
+  uint64_t* empty = full + S;
+  uint64_t* fixed = empty + S;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   const int b = blockIdx.x / p.n_kv_heads;
   const int hk = blockIdx.x % p.n_kv_heads;
   // The first key tiles, the heaviest under a causal mask, are issued first.
   const int k0 = blockIdx.y * BN;
-
-  load_tile_async<BN, D, NT>(
-      s_k, static_cast<const bf16*>(p.k) + b * p.k_s[0] + hk * p.k_s[2],
-      p.k_s[1], k0, p.t_k);
-  load_tile_async<BN, D, NT>(
-      s_v, static_cast<const bf16*>(p.v) + b * p.v_s[0] + hk * p.v_s[2],
-      p.v_s[1], k0, p.t_k);
-
   // One flat loop over (query head of the group, live query tile).
   const int first = first_query_tile<BM>(p, k0);
   const int n_q = max((p.t_q + BM - 1) / BM - first, 0);
   const int total = p.group * n_q;
 
-  auto load_q = [&](int it) {
-    const int buf = it & 1;
-    const int h = hk * p.group + it / n_q;
-    const int q0 = (first + it % n_q) * BM;
-    const int64_t rows = (int64_t)(b * p.n_heads + h) * p.t_q;
-    load_tile_async<BM, D, NT>(
-        s_q + buf * BM * LD,
-        static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[2],
-        p.q_s[1], q0, p.t_q);
-    load_tile_async<BM, D, NT>(
-        s_do + buf * BM * LD,
-        static_cast<const bf16*>(p.dout) + b * p.do_s[0] + h * p.do_s[2],
-        p.do_s[1], q0, p.t_q);
-    for (int i = threadIdx.x; i < BM; i += NT) {
-      const bool valid = q0 + i < p.t_q;
-      const int64_t at = rows + (valid ? q0 + i : 0);
-      tc::cp_async_4(s_lse + buf * BM + i, p.lse + at, valid);
-      tc::cp_async_4(s_delta + buf * BM + i, p.delta + at, valid);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * Cfg::kWarpGroups);  // one arrival a warp
     }
-  };
-  if (total > 0) load_q(0);
-  tc::cp_async_commit();
-
-  const int key_lo = k0 + warp * 16 + g;  // this lane's keys: +0 and +8
-  const float scale_log2 = p.scale * kLog2e;
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    if (it + 1 < total) {
-      load_q(it + 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile's copies from every thread have landed
-    const int buf = it & 1;
-    const int q0 = (first + it % n_q) * BM;
-    const bf16* qt = s_q + buf * BM * LD;
-    const bf16* dot = s_do + buf * BM * LD;
-    const float* lse = s_lse + buf * BM;
-    const float* dl = s_delta + buf * BM;
-
-    // S^T = K Q^T and dP^T = V dO^T: keys as rows, this tile's queries as
-    // columns.
-    float st[BM / 8][4], dpt[BM / 8][4];
-#pragma unroll
-    for (int n = 0; n < BM / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ka[4], va[4];
-      tc::ldmatrix_x4(ka, s_k + tc::a_frag(lane, warp * 16, ks * 16, LD));
-      tc::ldmatrix_x4(va, s_v + tc::a_frag(lane, warp * 16, ks * 16, LD));
-#pragma unroll
-      for (int np = 0; np < BM / 16; ++np) {
-        uint32_t qb[4], ob[4];
-        tc::ldmatrix_x4(qb, qt + tc::b_frag(lane, np * 16, ks * 16, LD));
-        tc::ldmatrix_x4(ob, dot + tc::b_frag(lane, np * 16, ks * 16, LD));
-        tc::mma_bf16(st[2 * np], ka, qb[0], qb[1]);
-        tc::mma_bf16(st[2 * np + 1], ka, qb[2], qb[3]);
-        tc::mma_bf16(dpt[2 * np], va, ob[0], ob[1]);
-        tc::mma_bf16(dpt[2 * np + 1], va, ob[2], ob[3]);
-      }
-    }
-
-    // p^T into st, ds^T into dpt: element e of n-tile n is key
-    // key_lo + 8 (e / 2), query q0 + 8 n + 2 t + e % 2.
-    const bool needs_mask = tile_needs_mask<BM, BN>(p, q0, k0);
-#pragma unroll
-    for (int n = 0; n < BM / 8; ++n) {
-      const int col = 8 * n + 2 * t;
-      const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
-      const float2 d2 = *reinterpret_cast<const float2*>(dl + col);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = e & 1;
-        float pv = exp2f(fmaf(st[n][e], scale_log2,
-                              -(j ? l2.y : l2.x) * kLog2e));
-        if (needs_mask && !visible(p, q0 + col + j, key_lo + 8 * (e >> 1)))
-          pv = 0.f;
-        dpt[n][e] = pv * (dpt[n][e] - (j ? d2.y : d2.x));
-        st[n][e] = pv;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q, p and ds rounded to bf16 as A
-    // operands, dO and Q as B via .trans.
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t pa[4], dsa[4];
-      tc::c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-      tc::c_to_a(dsa, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        const int at = tc::b_frag_trans(lane, kk * 16, dn * 16, LD);
-        uint32_t ob[4], qb[4];
-        tc::ldmatrix_x4_trans(ob, dot + at);
-        tc::ldmatrix_x4_trans(qb, qt + at);
-        tc::mma_bf16(acc_dv[2 * dn], pa, ob[0], ob[1]);
-        tc::mma_bf16(acc_dv[2 * dn + 1], pa, ob[2], ob[3]);
-        tc::mma_bf16(acc_dk[2 * dn], dsa, qb[0], qb[1]);
-        tc::mma_bf16(acc_dk[2 * dn + 1], dsa, qb[2], qb[3]);
-      }
-    }
-    __syncthreads();  // reads of this buffer are done before it is refilled
+    mbar_init(fixed, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (wg == Cfg::kWarpGroups) {
+    reg_dealloc<R::kProducer>();
+    if (tid == 0) {
+      mbar_expect_tx(fixed, 2 * Cfg::kFixed);
+#pragma unroll
+      for (int c = 0; c < H2; ++c) {
+        tma_load_4d(s_k + c * BN * kBoxBytes, &m.k, fixed, 64 * c, hk, k0, b);
+        tma_load_4d(s_v + c * BN * kBoxBytes, &m.v, fixed, 64 * c, hk, k0, b);
+      }
+      for (int it = 0; it < total; ++it) {
+        const int stage = it % S;
+        const int h = hk * p.group + it / n_q;
+        const int q0 = (first + it % n_q) * BM;
+        if (it >= S) mbar_wait(&empty[stage], ((it / S) - 1) & 1);
+        mbar_expect_tx(&full[stage],
+                       2 * Cfg::kStream + 2 * Cfg::kRowPitch);
+        unsigned char* qt = s_q + stage * Cfg::kStream;
+        unsigned char* dot = s_do + stage * Cfg::kStream;
+#pragma unroll
+        for (int c = 0; c < H2; ++c) {
+          tma_load_4d(qt + c * BM * kBoxBytes, &m.q, &full[stage], 64 * c, h,
+                      q0, b);
+          tma_load_4d(dot + c * BM * kBoxBytes, &m.dout, &full[stage], 64 * c,
+                      h, q0, b);
+        }
+        // lse (log2 units) and delta of rows [q0, q0 + BM) of head (b, h);
+        // rows past t_pad read the next head's values (or zeros at the
+        // end), which the mask never lets through.
+        const int at = (b * p.n_heads + h) * p.t_pad + q0;
+        tma_load_1d(s_lse + stage * Cfg::kRowPitch, &m.lse2, &full[stage],
+                    at);
+        tma_load_1d(s_dl + stage * Cfg::kRowPitch, &m.delta, &full[stage],
+                    at);
+      }
+    }
+  } else {
+    reg_alloc<R::kConsumer>();
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int rw = wg * kWgRows;  // this warpgroup's first key in the block
+    const int kw = k0 + rw;
+    const int key_lo = kw + warp * 16 + g;  // this thread's keys: +0 and +8
+    const float scale_log2 = p.scale * kLog2e;
+    float acc_dk[D / 2], acc_dv[D / 2];  // dK, dV: 64 keys x D
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+    mbar_wait(fixed, 0);
+
+    for (int it = 0; it < total; ++it) {
+      const int stage = it % S;
+      const int q0 = (first + it % n_q) * BM;
+      mbar_wait(&full[stage], (it / S) & 1);
+      // Key tiles past t_k, or wholly after the last row's position, see
+      // nothing of this query tile.
+      const bool dead = kw >= p.t_k ||
+                        (p.causal && kw > p.t_k - p.t_q + q0 + BM - 1);
+      if (!dead) {
+        const unsigned char* qt = s_q + stage * Cfg::kStream;
+        const unsigned char* dot = s_do + stage * Cfg::kStream;
+        const float* lse2 =
+            reinterpret_cast<const float*>(s_lse + stage * Cfg::kRowPitch);
+        const float* dl =
+            reinterpret_cast<const float*>(s_dl + stage * Cfg::kRowPitch);
+        // S^T = K Q^T and dP^T = V dO^T: keys as rows, queries as columns;
+        // element i of st (and dpt) is key key_lo + 8 ((i & 3) / 2), query
+        // q0 + 8 (i / 4) + 2 t + i % 2.
+        const uint64_t k_d = desc_k_major(s_k + rw * kBoxBytes);
+        const uint64_t v_d = desc_k_major(s_v + rw * kBoxBytes);
+        const uint64_t q_d = desc_k_major(qt);
+        const uint64_t do_d = desc_k_major(dot);
+        float st[BM / 2], dpt[BM / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss<BM>(st, desc_add(k_d, (ks >> 2) * BN * kBoxBytes +
+                                             (ks & 3) * 32),
+                       desc_add(q_d, (ks >> 2) * BM * kBoxBytes +
+                                         (ks & 3) * 32),
+                       ks > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks)
+          wgmma_ss<BM>(dpt, desc_add(v_d, (ks >> 2) * BN * kBoxBytes +
+                                              (ks & 3) * 32),
+                       desc_add(do_d, (ks >> 2) * BM * kBoxBytes +
+                                          (ks & 3) * 32),
+                       ks > 0);
+        wgmma_commit();
+        // p^T while dP^T is still in flight.
+        wgmma_wait<1>();
+        fence_acc<BM / 2>(st);
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pv =
+                ex2(fmaf(st[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+            st[4 * j + e] = pv;
+          }
+        }
+        // Only tiles that straddle the diagonal or hold tail rows or keys
+        // pay for the mask: each key row sees the queries [lo, hi], in
+        // columns from this thread's first one (none past t_k).
+        if (tile_needs_mask<BM, kWgRows>(p, q0, kw)) {
+          const int hi = p.t_q - 1 - q0 - 2 * t;
+          int lo[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int key = key_lo + 8 * r;
+            lo[r] = key >= p.t_k ? (1 << 30)
+                    : p.causal   ? key - (p.t_k - p.t_q) - q0 - 2 * t
+                                 : -(1 << 30);
+          }
+#pragma unroll
+          for (int i = 0; i < BM / 2; ++i) {
+            const int c = 8 * (i >> 2) + (i & 1);
+            if (c < lo[(i & 3) >> 1] || c > hi) st[i] = 0.f;
+          }
+        }
+        wgmma_wait<0>();
+        fence_acc<BM / 2>(dpt);
+        // ds^T = p^T (dp^T - delta); p^T rounded to dO's dtype and ds^T to
+        // Q's, as the A operands of dV += P^T dO and dK += dS^T Q.
+        uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * j + e] =
+                st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+        }
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) {
+          pack_a(pa[kk], &st[8 * kk]);
+          pack_a(dsa[kk], &dpt[8 * kk]);
+        }
+        wgmma_fence();
+        const uint64_t dot_d = desc_mn_major(dot, BM * kBoxBytes);
+        const uint64_t qt_d = desc_mn_major(qt, BM * kBoxBytes);
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) {
+          wgmma_rs_tb<D>(acc_dv, pa[kk], desc_add(dot_d, kk * 16 * kBoxBytes));
+          wgmma_rs_tb<D>(acc_dk, dsa[kk], desc_add(qt_d, kk * 16 * kBoxBytes));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc<D / 2>(acc_dv);
+        fence_acc<D / 2>(acc_dk);
+      }
+      // This warp's reads of the stage are done (its products waited for).
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key_lo + 8 * i;
-    if (key >= p.t_k) continue;
-    bf16* dk_row = static_cast<bf16*>(p.dk) + b * p.dk_s[0] +
-                   hk * p.dk_s[2] + (int64_t)key * p.dk_s[1];
-    bf16* dv_row = static_cast<bf16*>(p.dv) + b * p.dv_s[0] +
-                   hk * p.dv_s[2] + (int64_t)key * p.dv_s[1];
+    for (int i = 0; i < 2; ++i) {
+      const int key = key_lo + 8 * i;
+      if (key >= p.t_k) continue;
+      bf16* dk_row = static_cast<bf16*>(p.dk) + b * p.dk_s[0] +
+                     hk * p.dk_s[2] + (int64_t)key * p.dk_s[1];
+      bf16* dv_row = static_cast<bf16*>(p.dv) + b * p.dv_s[0] +
+                     hk * p.dv_s[2] + (int64_t)key * p.dv_s[1];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc_dk[n][2 * i] * p.scale,
-                                acc_dk[n][2 * i + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc_dv[n][2 * i], acc_dv[n][2 * i + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_row + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(acc_dk[4 * j + 2 * i] * p.scale,
+                                  acc_dk[4 * j + 2 * i + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv_row + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(acc_dv[4 * j + 2 * i],
+                                  acc_dv[4 * j + 2 * i + 1]);
+      }
     }
   }
 }
@@ -520,9 +734,43 @@ __device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
   if (threadIdx.x < kBlockM) {
     const int row = q0 + threadIdx.x;
     const bool in = row < p.t_q;
+    s_lse[threadIdx.x] = in ? p.lse[(int64_t)bh * p.t_q + row] : 0.f;
+    s_delta[threadIdx.x] = in ? p.delta[(int64_t)bh * p.t_pad + row] : 0.f;
+  }
+}
+
+// B2's rows [q0, q0 + 64) of head (b, h): their lse, and delta =
+// rowsum(dO * O) - g_lse in fp32, four lanes a row; delta is written for B3
+// too. Zero past t_q.
+template <int D>
+__device__ __forceinline__ void delta_rows(float* s_lse, float* s_delta,
+                                           const Params& p, int b, int h,
+                                           int bh, int q0) {
+  const int r = threadIdx.x >> 2;
+  const int c4 = threadIdx.x & 3;
+  const int row = q0 + r;
+  const bool in = row < p.t_q;
+  float sum = 0.f;
+  if (in) {
+    const float* o_row = static_cast<const float*>(p.out) + b * p.o_s[0] +
+                         h * p.o_s[2] + (int64_t)row * p.o_s[1];
+    const float* do_row = static_cast<const float*>(p.dout) + b * p.do_s[0] +
+                          h * p.do_s[2] + (int64_t)row * p.do_s[1];
+#pragma unroll 4
+    for (int k = 0; k < D / 4; ++k)
+      sum = fmaf(do_row[c4 + 4 * k], o_row[c4 + 4 * k], sum);
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (c4 == 0) {
     const int64_t at = (int64_t)bh * p.t_q + row;
-    s_lse[threadIdx.x] = in ? p.lse[at] : 0.f;
-    s_delta[threadIdx.x] = in ? p.delta[at] : 0.f;
+    float dl = 0.f;
+    if (in) {
+      dl = p.g_lse ? sum - p.g_lse[at] : sum;
+      p.delta[(int64_t)bh * p.t_pad + row] = dl;
+    }
+    s_lse[r] = in ? p.lse[at] : 0.f;
+    s_delta[r] = dl;
   }
 }
 
@@ -621,7 +869,7 @@ __global__ void __launch_bounds__(kThreads32)
 
   load_tile<D>(s_q, q_base, p.q_s[1], q0, p.t_q);
   load_tile<D>(s_do, do_base, p.do_s[1], q0, p.t_q);
-  load_rows(s_lse, s_delta, p, bh, q0);
+  delta_rows<D>(s_lse, s_delta, p, b, h, bh, q0);
 
   const int ty = tid >> 4;  // score layout
   const int tx = tid & 15;
@@ -632,7 +880,7 @@ __global__ void __launch_bounds__(kThreads32)
 #pragma unroll
   for (int k = 0; k < kCols; ++k) acc[k] = 0.f;
 
-  const int n_tiles = live_key_tiles<kBlockM, kBlockN>(p, q0);
+  const int n_tiles = key_tiles_for<kBlockN>(p, q0, kBlockM);
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kBlockN;
     __syncthreads();  // the previous tile's reads of K and ds are done
@@ -786,18 +1034,63 @@ __global__ void __launch_bounds__(kThreads32)
 
 // The shared-memory attribute belongs to the current device, so it is set on
 // every launch (a cheap host call) rather than once per process.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int threads, const Params& p,
-                   dim3 grid, cudaStream_t stream) {
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, size_t smem, int threads, dim3 grid,
+                   cudaStream_t stream, const Args&... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// Tensor maps are built on every launch from the tensors' pointers, sizes
+// and strides (a host call of a few microseconds) and passed by value.
+template <int D>
+cudaError_t launch_dq_bf16(const Params& p, int batch, cudaStream_t s) {
+  using Cfg = DqBf16<D>;
+  DqMaps m;
+  const bool ok =
+      hopper::map_bthd(&m.q, p.q, D, p.n_heads, p.t_q, batch, p.q_s,
+                       Cfg::kM) &&
+      hopper::map_bthd(&m.dout, p.dout, D, p.n_heads, p.t_q, batch, p.do_s,
+                       Cfg::kM) &&
+      hopper::map_bthd(&m.out, p.out, D, p.n_heads, p.t_q, batch, p.o_s,
+                       Cfg::kM) &&
+      hopper::map_bthd(&m.k, p.k, D, p.n_kv_heads, p.t_k, batch, p.k_s,
+                       Cfg::kN) &&
+      hopper::map_bthd(&m.v, p.v, D, p.n_kv_heads, p.t_k, batch, p.v_s,
+                       Cfg::kN);
+  if (!ok) return cudaErrorInvalidValue;
+  const dim3 grid(batch * p.n_heads, (p.t_q + Cfg::kM - 1) / Cfg::kM);
+  return launch(flash_bwd_dq_kernel_bf16<D>, Cfg::kSmem, Cfg::kThreads, grid,
+                s, p, m);
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const Params& p, int batch, cudaStream_t s) {
+  using Cfg = DkvBf16<D>;
+  DkvMaps m;
+  const uint64_t rows = (uint64_t)batch * p.n_heads * p.t_pad;
+  const bool ok =
+      hopper::map_bthd(&m.k, p.k, D, p.n_kv_heads, p.t_k, batch, p.k_s,
+                       Cfg::kN) &&
+      hopper::map_bthd(&m.v, p.v, D, p.n_kv_heads, p.t_k, batch, p.v_s,
+                       Cfg::kN) &&
+      hopper::map_bthd(&m.q, p.q, D, p.n_heads, p.t_q, batch, p.q_s,
+                       Cfg::kM) &&
+      hopper::map_bthd(&m.dout, p.dout, D, p.n_heads, p.t_q, batch, p.do_s,
+                       Cfg::kM) &&
+      hopper::map_f32(&m.lse2, p.lse2, rows, Cfg::kM) &&
+      hopper::map_f32(&m.delta, p.delta, rows, Cfg::kM);
+  if (!ok) return cudaErrorInvalidValue;
+  const dim3 grid(batch * p.n_kv_heads, (p.t_k + Cfg::kN - 1) / Cfg::kN);
+  return launch(flash_bwd_dkv_kernel_bf16<D>, Cfg::kSmem, Cfg::kThreads, grid,
+                s, p, m);
+}
+
 Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
+                   const void* dout, const void* lse, void* delta, int batch,
                    int n_heads, int n_kv_heads, int t_q, int t_k, float scale,
                    int causal) {
   Params p = {};
@@ -806,7 +1099,9 @@ Params make_params(const void* q, const void* k, const void* v,
   p.v = v;
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.t_pad = (t_q + 3) & ~3;
+  p.delta = static_cast<float*>(delta);
+  p.lse2 = p.delta + (int64_t)batch * n_heads * p.t_pad;
   p.n_heads = n_heads;
   p.n_kv_heads = n_kv_heads;
   p.group = n_heads / n_kv_heads;
@@ -825,55 +1120,59 @@ void copy3(int64_t* dst, const int64_t* src) {
 
 }  // namespace
 
-// Shapes: q/dO/dq [B, t_q, H, D], k/v [B, t_k, H_kv, D]; lse and delta
-// [B, H, t_q] f32, contiguous. `strides` holds the (batch, seq, head)
-// element strides of q, k, v, dO, dq in that order (15 values); the last
-// dimension is contiguous. dtype codes: 0 = float32, 1 = bfloat16; head_dim
-// 64 or 128. Returns a cudaError_t value (0 on success); asynchronous on
-// `stream`.
+// Shapes: q/dO/O/dq [B, t_q, H, D], k/v [B, t_k, H_kv, D]; lse and g_lse
+// [B, H, t_q] f32, contiguous (g_lse may be null: no lse cotangent);
+// `delta` is fp32 scratch of 2 x B x H x t_pad values (t_pad = t_q rounded
+// up to 4), 16-byte aligned. Writes dq, and into the scratch delta =
+// rowsum(dO * O) - g_lse and lse * log2(e) for tony_flash_bwd_dkv.
+// `strides` holds the (batch, seq, head) element strides of q, k, v, dO, dq
+// and O in that order (18 values); the last dimension is contiguous, and
+// for bf16 the bases and every stride are 16-byte aligned (TMA). dtype
+// codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128. Returns a
+// cudaError_t value (0 on success); asynchronous on `stream`.
 extern "C" int tony_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dq,
-                                 const int64_t* strides, int batch,
-                                 int n_heads, int n_kv_heads, int t_q, int t_k,
-                                 int head_dim, float scale, int causal,
-                                 int dtype, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, n_heads, n_kv_heads, t_q,
-                         t_k, scale, causal);
+                                 void* delta, void* dq, const void* out,
+                                 const void* g_lse, const int64_t* strides,
+                                 int batch, int n_heads, int n_kv_heads,
+                                 int t_q, int t_k, int head_dim, float scale,
+                                 int causal, int dtype, void* stream) {
+  Params p = make_params(q, k, v, dout, lse, delta, batch, n_heads,
+                         n_kv_heads, t_q, t_k, scale, causal);
   p.dq = dq;
+  p.out = out;
+  p.g_lse = static_cast<const float*>(g_lse);
   copy3(p.q_s, strides);
   copy3(p.k_s, strides + 3);
   copy3(p.v_s, strides + 6);
   copy3(p.do_s, strides + 9);
   copy3(p.dq_s, strides + 12);
+  copy3(p.o_s, strides + 15);
   const dim3 grid(batch * n_heads, (t_q + kBlockM - 1) / kBlockM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
     return launch(flash_bwd_dq_kernel_fp32<64>, dq_smem_fp32<64>(),
-                  kThreads32, p, grid, s);
+                  kThreads32, grid, s, p);
   if (dtype == 0 && head_dim == 128)
     return launch(flash_bwd_dq_kernel_fp32<128>, dq_smem_fp32<128>(),
-                  kThreads32, p, grid, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch(flash_bwd_dq_kernel_bf16<64>, DqBf16<64>::kSmem,
-                  DqBf16<64>::kThreads, p, grid, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch(flash_bwd_dq_kernel_bf16<128>, DqBf16<128>::kSmem,
-                  DqBf16<128>::kThreads, p, grid, s);
+                  kThreads32, grid, s, p);
+  if (dtype == 1 && head_dim == 64) return launch_dq_bf16<64>(p, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_dq_bf16<128>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As tony_flash_bwd_dq, writing dk and dv [B, t_k, H_kv, D]; `strides`
-// holds those of q, k, v, dO, dk, dv (18 values).
+// As tony_flash_bwd_dq, reading delta and writing dk and dv
+// [B, t_k, H_kv, D]; `strides` holds those of q, k, v, dO, dk, dv (18
+// values).
 extern "C" int tony_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
-                                  const void* delta, void* dk, void* dv,
+                                  void* delta, void* dk, void* dv,
                                   const int64_t* strides, int batch,
                                   int n_heads, int n_kv_heads, int t_q,
                                   int t_k, int head_dim, float scale,
                                   int causal, int dtype, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, n_heads, n_kv_heads, t_q,
-                         t_k, scale, causal);
+  Params p = make_params(q, k, v, dout, lse, delta, batch, n_heads,
+                         n_kv_heads, t_q, t_k, scale, causal);
   p.dk = dk;
   p.dv = dv;
   copy3(p.q_s, strides);
@@ -886,15 +1185,11 @@ extern "C" int tony_flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64)
     return launch(flash_bwd_dkv_kernel_fp32<64>, dkv_smem_fp32<64>(),
-                  kThreads32, p, grid, s);
+                  kThreads32, grid, s, p);
   if (dtype == 0 && head_dim == 128)
     return launch(flash_bwd_dkv_kernel_fp32<128>, dkv_smem_fp32<128>(),
-                  kThreads32, p, grid, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch(flash_bwd_dkv_kernel_bf16<64>, DkvBf16<64>::kSmem,
-                  DkvBf16<64>::kThreads, p, grid, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch(flash_bwd_dkv_kernel_bf16<128>, DkvBf16<128>::kSmem,
-                  DkvBf16<128>::kThreads, p, grid, s);
+                  kThreads32, grid, s, p);
+  if (dtype == 1 && head_dim == 64) return launch_dkv_bf16<64>(p, batch, s);
+  if (dtype == 1 && head_dim == 128) return launch_dkv_bf16<128>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

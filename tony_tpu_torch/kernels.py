@@ -50,7 +50,7 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     ),
     "flash_bwd_dq": (
         "flash_bwd.cu", "tony_flash_bwd_dq",
-        [_P] * 7 + [_LP] + [_I] * 6 + [_F, _I, _I, _P],
+        [_P] * 9 + [_LP] + [_I] * 6 + [_F, _I, _I, _P],
     ),
     "flash_bwd_dkv": (
         "flash_bwd.cu", "tony_flash_bwd_dkv",

@@ -159,8 +159,8 @@ def _flash_plain_bthd(q, k, v, *, causal, scale):
 
 
 def _bwd_delta(out, do, g_lse):
-    """delta = rowsum(dO * O) - g_lse in fp32, [B, H, Tq] (the JAX package
-    computes it outside its kernels too)."""
+    """delta = rowsum(dO * O) - g_lse in fp32, [B, H, Tq], for the plain
+    backward (on the card B2 computes it in its prologue)."""
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
     if g_lse is not None:
         delta = delta - g_lse.float()
@@ -220,20 +220,30 @@ def _flash_bwd_plain(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
 def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
     """Launch B2 and B3: the gradients of ``_flash_attention_cuda``'s
     (out, lse) for cotangents ``do`` (and ``g_lse``, default none).
-    Same inputs and checks as the forward; ``do`` is made contiguous when
-    the kernels cannot read it as it is. Returns (dq [B, Tq, H, D],
+    Same inputs and checks as the forward; ``do`` and ``out`` are made
+    contiguous when the kernels cannot read them as they are. B2 computes
+    delta = rowsum(dO * O) - g_lse for its rows and writes it for B3, which
+    runs after it on the same stream. Returns (dq [B, Tq, H, D],
     dk, dv [B, Tk, Hkv, D]) in the input dtype."""
     global launches_dq, launches_dkv
     code = _check_kernel_inputs(q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"flash backward needs dO like q, got "
-                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    for name, x in (("dO", do), ("out", out)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash backward needs {name} like q, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
     if not _kernel_readable(do):
         do = do.contiguous()
+    if not _kernel_readable(out):
+        out = out.contiguous()
     b, t_q, h, d = q.shape
     _, t_k, h_kv, _ = k.shape
     lse = lse.float().contiguous()
-    delta = _bwd_delta(out, do, g_lse)
+    if g_lse is not None:
+        g_lse = g_lse.float().contiguous()
+    # B2 writes delta and lse * log2(e) here for B3, in rows of t_q rounded
+    # up to 4 values (each row 16-byte aligned for B3's TMA).
+    rows = torch.empty(2 * b * h * (-(-t_q // 4) * 4), dtype=torch.float32,
+                       device=q.device)
     dq = torch.empty(b, t_q, h, d, dtype=q.dtype, device=q.device)
     dk = torch.empty(b, t_k, h_kv, d, dtype=k.dtype, device=q.device)
     dv = torch.empty(b, t_k, h_kv, d, dtype=v.dtype, device=q.device)
@@ -242,14 +252,16 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sizes = (b, h, h_kv, t_q, t_k, d, float(scale), int(bool(causal)), code,
              stream)
-    inputs = [x.data_ptr() for x in (q, k, v, do, lse, delta)]
+    inputs = [x.data_ptr() for x in (q, k, v, do, lse, rows)]
 
     def strides(*xs):
         flat = [st for x in xs for st in x.stride()[:3]]
         return (ctypes.c_int64 * len(flat))(*flat)
 
     err = kernels.function("flash_bwd_dq")(
-        *inputs, dq.data_ptr(), strides(q, k, v, do, dq), *sizes)
+        *inputs, dq.data_ptr(), out.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(),
+        strides(q, k, v, do, dq, out), *sizes)
     kernels.check_launch("flash_bwd_dq", err)
     launches_dq += 1
     err = kernels.function("flash_bwd_dkv")(
