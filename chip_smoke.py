@@ -9,9 +9,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
              (one process per source, started together), print ptxas's
              report (no function may spill), and count the tensor-core
              instructions (HMMA/HGMMA) of each flash kernel in cuobjdump's
-             SASS (forward and backward): every bf16 instance must have
-             some (the backward's HGMMA: B2/B3 run on wgmma; the forward's
-             HMMA or HGMMA), the fp32 (FMA) instances none.
+             SASS (forward and backward): every bf16 instance must hold
+             HGMMA (B1-B3 run on wgmma; a listing with only mma.sync's
+             HMMA is refused), the fp32 (FMA) instances none.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the main paths' shapes and at edge shapes, in fp32 and bf16:
              B4 (RMSNorm), B1 (flash forward), B2 and B3 (flash backward,
@@ -541,9 +541,9 @@ def sass_listing(kernels, source: str) -> str:
                           text=True, timeout=300, check=True).stdout
 
 
-# The tensor-core instruction each library's bf16 kernels must hold: B2/B3
-# run on wgmma (HGMMA), B1 on mma.sync (HMMA) or wgmma.
-MMA_OPS = {"flash_fwd": ("HMMA or HGMMA", re.compile(r"\bH(G)?MMA\b")),
+# The tensor-core instruction each library's bf16 kernels must hold: B1-B3
+# run on wgmma (HGMMA).
+MMA_OPS = {"flash_fwd": ("HGMMA", re.compile(r"\bHGMMA\b")),
            "flash_bwd": ("HGMMA", re.compile(r"\bHGMMA\b"))}
 
 
@@ -748,6 +748,15 @@ def _flash_case(torch, attention, gen, *, b, t_q, t_k, h, h_kv, d, causal,
     return err
 
 
+# The bf16 tiles of flash_fwd.cu that the edge cases straddle, in rows, by
+# head_dim: B1's work items of query rows (FwdBf16::kM, warpgroups of 64),
+# its streamed key tiles (FwdBf16::kN) and the keys its TMA ring holds
+# (kStages x kN). A CPU test holds these against the source's constants.
+FWD_TILES = {
+    64: {"rows": 192, "keys": 128, "ring_keys": 512},
+    128: {"rows": 128, "keys": 128, "ring_keys": 384},
+}
+
 FLASH_FWD_CASES = [
     # main path: DecodeSession.generate prefill, B*H = 8*16, T 128
     dict(b=8, t_q=128, t_k=128, h=16, h_kv=4, d=64, causal=True, fused=True),
@@ -793,6 +802,17 @@ FLASH_FWD_CASES = [
     # a fused projection's strided views at ragged T and head_dim 128
     dict(b=2, t_q=100, t_k=100, h=8, h_kv=2, d=128, causal=True, fused=True),
     dict(b=1, t_q=65, t_k=65, h=4, h_kv=4, d=64, causal=False, fused=True),
+    # Edges of the bf16 tiles and of the TMA ring (see FWD_TILES): one
+    # below, at and one above one and two query tiles, one key tile and the
+    # ring's depth in keys, at head_dim 64 and 128, causal and not, with
+    # the GQA group varying along the list.
+    *[dict(b=1, t_q=t, t_k=t, h=4, h_kv=(2, 4, 1)[i % 3], d=d,
+           causal=causal)
+      for d, tiles in FWD_TILES.items() for i, t in enumerate(sorted(
+          {n * tiles["rows"] + step for n in (1, 2) for step in (-1, 0, 1)}
+          | {tiles[k] + step for k in ("keys", "ring_keys")
+             for step in (-1, 0, 1)}))
+      for causal in (True, False)],
 ]
 
 

@@ -5,7 +5,7 @@ forward (B1).
 
     python3 flash_bwd_study.py sweep         # B2/B3 tiles and ring depths
     python3 flash_bwd_study.py controls      # broken B2/B3 vs chip_smoke
-    python3 flash_bwd_study.py fwd-sweep     # B1 query and key tile sizes
+    python3 flash_bwd_study.py fwd-sweep     # B1 tiles, ring, schedule
     python3 flash_bwd_study.py fwd-controls  # broken B1 vs chip_smoke
 
 Each compiles variants of tony_tpu_torch/csrc/flash_bwd.cu (or, for the
@@ -14,23 +14,31 @@ tony_tpu_torch/_build/study/ (the source itself is never edited), loads
 each in place of the built library and drives it through the port's
 wrapper (``_flash_bwd_cuda`` or ``_flash_attention_cuda``) at
 chip_smoke.py's two timing shapes, q/k/v [8, 2048, 16, 64] and
-[8, 2048, 8, 128], bf16, causal.
+[8, 2048, 8, 128], bf16, causal (fwd-sweep also at the generate
+prefill's, q [8, 128, 16, 64] with k/v [8, 128, 4, 64]).
 
 sweep: B2's and B3's consumer warpgroups (64 rows of the block's fixed
 operand each), streamed tile (B2's keys, B3's query rows: 64 or 128) and
 TMA ring depth (2, 3 or 4 stages), one choice at a time away from the
-shipped ones (see SWEEP). fwd-sweep: B1's query rows per block
-(FwdBf16::kM: 64 or 128, 16 or 32 rows per warp) and keys per streamed tile
-(FwdBf16::kN: 32, 64 or 128). For each variant: ptxas's registers and spill
-bytes of the bf16 kernels (the instances that spill, which rejects the
-variant at that head_dim), chip_smoke's checks against the plain version,
-and the device ms of the kernels at both shapes (a launch the card refuses,
-for too much shared memory, is recorded as such). The shipped sizes run
-first and last, so the spread between them shows the drift.
+shipped ones (see SWEEP). fwd-sweep: the same for B1 (FWD_SWEEP): its
+consumer warpgroups (64 query rows each), keys per streamed tile (64 or
+128), TMA ring depth (2, 3 or 4 stages), whether the softmax runs while
+the previous tile's P V product is in flight, the MB of K/V a band of
+heads reads (the order of the work items), the Q tiles a block holds
+(2: the next item's Q loads during this one's last tiles), whether one
+block an SM walks the items or each item is a block of its own, and
+whether the consumer warpgroups issue their products in turns. For each
+variant: ptxas's registers and spill bytes of the bf16 kernels (the
+instances that spill, which rejects the variant at that head_dim) and any
+ptxas warning that it serialized the wgmma products, chip_smoke's checks
+against the plain version, and the device ms of the kernels at each shape
+(a launch the card refuses, for too much shared memory, is recorded as
+such). The shipped sizes run first and last, so the spread between them
+shows the drift.
 
 controls / fwd-controls: copies that each drop the contribution of one
 streamed tile, a fault of the kind a broken ring or loop bound makes, or
-(backward) read one stage of the TMA ring in place of another. For each,
+read one stage of the TMA ring in place of another. For each,
 the readings of chip_smoke's checks at both shapes (B2/B3: max abs error
 against TOL times the largest |gradient|, row error against ROW_TOL; B1:
 max abs error of out and of lse against TOL, row error of out against
@@ -50,10 +58,11 @@ import sys
 
 import chip_smoke
 
-# B1's shipped tiles: the right-hand sides in FwdBf16 (query rows per
-# block, keys per streamed tile).
-SHIPPED_FWD_TILES = {"kM": "D == 64 ? 128 : 64", "kN": "64"}
 SHAPES = {"train": (8, 2048, 16, 64), "hd128": (8, 2048, 8, 128)}
+# B1's shapes (b, t, h, d, h_kv): SHAPES, and for the sweep the generate
+# prefill.
+FWD_SHAPES = {tag: (*dims, dims[2]) for tag, dims in SHAPES.items()}
+PREFILL = (8, 128, 16, 64, 4)
 BWD_ENTRY_POINTS = ("flash_bwd_dq", "flash_bwd_dkv")
 
 # The tile and ring constants of the bf16 B2 (DqBf16) and B3 (DkvBf16), each
@@ -69,6 +78,23 @@ TILE_COMMENTS = {
 SWEEP = {"dq_warpgroups": (1, 2, 3), "dq_keys": (64, 128),
          "dq_stages": (2, 3, 4), "dkv_warpgroups": (1, 2, 3),
          "dkv_rows": (64, 128), "dkv_stages": (2, 3, 4)}
+
+# The same for the bf16 B1 (FwdBf16 in flash_fwd.cu).
+FWD_TILE_COMMENTS = {
+    "fwd_warpgroups": "B1 consumers",
+    "fwd_keys": "keys per streamed tile",
+    "fwd_stages": "K/V tiles in B1's ring",
+    "fwd_overlap": "next S during this tile's P V",
+    "fwd_band_mb": "MB of K/V a band of heads reads",
+    "fwd_q_tiles": "Q tiles of the items",
+    "fwd_persistent": "a block an SM walks the items",
+    "fwd_take_turns": "warpgroups issue in turns",
+}
+FWD_SWEEP = {"fwd_warpgroups": (1, 2, 3), "fwd_keys": (64, 128),
+             "fwd_stages": (2, 3, 4), "fwd_overlap": ("true", "false"),
+             "fwd_band_mb": (4, 16, 1024), "fwd_q_tiles": (1, 2),
+             "fwd_persistent": ("true", "false"),
+             "fwd_take_turns": ("true", "false")}
 
 # Each control: (old, new) substitutions in flash_bwd.cu. "tile" counts the
 # key tiles of one B2 block (whose rows start at q0; my_tiles of them are
@@ -112,20 +138,27 @@ CONTROLS = {
 }
 
 
-# Each forward control: (old, new) substitutions in flash_fwd.cu, dropping
-# p (so from both l and O) for the keys of one streamed tile; "tile" counts
-# the key tiles of one B1 block, whose query rows start at q0.
-_FWD_P = ("          const float pv = exp2f(fmaf(s[mt][n][e], scale_log2, "
-          "neg[e >> 1]));")
+# Each forward control: (old, new) substitutions in flash_fwd.cu. The
+# first three drop p (so from both l and O) for the keys of one streamed
+# tile: online_softmax runs on the tile whose first key is k0, for the
+# warpgroup whose 64 query rows start at qw.
+_FWD_P = "    s[i] = ex2(fmaf(s[i], scale_log2, neg[(i & 3) >> 1]));"
+_FWD_STAGE = "  return base + (tile % S) * bytes;"
 FWD_CONTROLS = {
     "fwd_drops_key_tile_2": [(_FWD_P, _FWD_P.replace(
-        "= exp2f", "= tile == 2 ? 0.f : exp2f"))],
-    # the keys nearest each query tile's diagonal missing
+        "= ex2", "= k0 == 2 * BN ? 0.f : ex2"))],
+    # the keys nearest each warpgroup's diagonal missing
     "fwd_drops_last_key_tile": [(_FWD_P, _FWD_P.replace(
-        "= exp2f", "= tile == n_tiles - 1 ? 0.f : exp2f"))],
+        "= ex2",
+        "= k0 / BN == live_key_tiles<BN>(p, qw, kWgRows) - 1 ? 0.f : ex2"))],
     # a fault confined to late rows, whose outputs are small
     "fwd_drops_key_tile_2_past_row_1023": [(_FWD_P, _FWD_P.replace(
-        "= exp2f", "= tile == 2 && q0 >= 1024 ? 0.f : exp2f"))],
+        "= ex2", "= k0 == 2 * BN && qw >= 1024 ? 0.f : ex2"))],
+    # The ring one stage short: the consumers read the K and V tiles of
+    # ring stage `tile % S % (S - 1)`, so tiles are read from a buffer the
+    # producer is refilling.
+    "fwd_ring_loses_a_stage": [(_FWD_STAGE, _FWD_STAGE.replace(
+        "(tile % S)", "(tile % S % (S - 1))"))],
 }
 
 
@@ -133,20 +166,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def tile_line(text: str, key: str) -> tuple[str, str]:
-    """The line of flash_bwd.cu that sets the constant of TILE_COMMENTS'
-    ``key``, and its value."""
-    pattern = (rf"^ *static constexpr int k\w+ = ([^;]+);  // "
-               rf"{re.escape(TILE_COMMENTS[key])}$")
+def tile_line(text: str, key: str, comments: dict = TILE_COMMENTS
+              ) -> tuple[str, str]:
+    """The line of the source ``text`` (flash_bwd.cu for TILE_COMMENTS,
+    flash_fwd.cu for FWD_TILE_COMMENTS) that sets the constant of
+    ``comments``' ``key``, and its value."""
+    pattern = (rf"^ *static constexpr (?:int|bool) k\w+ = ([^;]+);  // "
+               rf"{re.escape(comments[key])}$")
     found = list(re.finditer(pattern, text, re.M))
     if len(found) != 1:
-        raise ValueError(f"{key}: {len(found)} lines of flash_bwd.cu end in "
-                         f"// {TILE_COMMENTS[key]}")
+        raise ValueError(f"{key}: {len(found)} lines of the source end in "
+                         f"// {comments[key]}")
     return found[0].group(0), found[0].group(1)
 
 
-def shipped_tiles(text: str) -> dict[str, str]:
-    return {key: tile_line(text, key)[1] for key in TILE_COMMENTS}
+def shipped_tiles(text: str, comments: dict = TILE_COMMENTS
+                  ) -> dict[str, str]:
+    return {key: tile_line(text, key, comments)[1] for key in comments}
 
 
 def tile_value(expr: str, head_dim: int) -> int:
@@ -161,12 +197,14 @@ def tile_value(expr: str, head_dim: int) -> int:
     return int(m.group(2) if head_dim == int(m.group(1)) else m.group(3))
 
 
-def sweep_variants(text: str) -> dict[str, list[tuple[str, str]]]:
-    """The shipped tiles, then each constant of SWEEP at each of its other
-    values (the rest as shipped)."""
+def sweep_variants(text: str, sweep: dict = SWEEP,
+                   comments: dict = TILE_COMMENTS
+                   ) -> dict[str, list[tuple[str, str]]]:
+    """The shipped tiles, then each constant of ``sweep`` at each of its
+    other values (the rest as shipped)."""
     variants = {"shipped": []}
-    for key, values in SWEEP.items():
-        line, value = tile_line(text, key)
+    for key, values in sweep.items():
+        line, value = tile_line(text, key, comments)
         for v in values:
             if str(v) != value:
                 variants[f"{key}{v}"] = [(line, line.replace(
@@ -174,17 +212,9 @@ def sweep_variants(text: str) -> dict[str, list[tuple[str, str]]]:
     return variants
 
 
-def fwd_sweep_variants() -> dict[str, list[tuple[str, str]]]:
-    """The shipped tiles, then B1's query rows per block (64, 128) by keys
-    per streamed tile (32, 64, 128), both head_dims alike."""
-    variants = {"shipped": []}
-    for m in (64, 128):
-        for n in (32, 64, 128):
-            variants[f"m{m}_n{n}"] = [
-                (f"static constexpr int {k} = {SHIPPED_FWD_TILES[k]};",
-                 f"static constexpr int {k} = {v};")
-                for k, v in (("kM", m), ("kN", n))]
-    return variants
+def fwd_sweep_variants(text: str) -> dict[str, list[tuple[str, str]]]:
+    """sweep_variants of flash_fwd.cu's ``text`` over FWD_SWEEP."""
+    return sweep_variants(text, FWD_SWEEP, FWD_TILE_COMMENTS)
 
 
 def substitute(text: str, name: str, subs,
@@ -246,6 +276,12 @@ def bf16_registers(report: str, instances=chip_smoke.BWD_INSTANCES
             if n in instances and "_bf16" in n}
 
 
+def serialized(report: str) -> list[str]:
+    """ptxas's warnings that it serialized a function's wgmma products."""
+    return [line.strip() for line in report.splitlines()
+            if "wgmma" in line and "serialized" in line]
+
+
 class Shape:
     """One timing shape's inputs from ``gen``, B1's out/lse, and the plain
     version's gradients (computed once)."""
@@ -270,13 +306,13 @@ class Shape:
 
 
 class FwdShape:
-    """One timing shape's q/k/v from ``gen`` and the plain version's
-    (out, lse), computed once."""
+    """One timing shape's q/k/v from ``gen`` (``h_kv`` K/V heads) and the
+    plain version's (out, lse), computed once."""
 
-    def __init__(self, torch, attention, gen, b, t, h, d):
+    def __init__(self, torch, attention, gen, b, t, h, d, h_kv):
         self.q, self.k, self.v = (
-            torch.randn(b, t, h, d, generator=gen, device="cuda")
-            .to(torch.bfloat16) for _ in range(3))
+            torch.randn(b, t, heads, d, generator=gen, device="cuda")
+            .to(torch.bfloat16) for heads in (h, h_kv, h_kv))
         self.scale = d ** -0.5
         self.want = attention._flash_plain_bthd(self.q, self.k, self.v,
                                                 causal=True,
@@ -357,7 +393,8 @@ def controls(torch, kernels, attention, shapes) -> bool:
 
 
 def fwd_sweep(torch, kernels, attention, shapes) -> bool:
-    variants = fwd_sweep_variants()
+    text = (kernels.CSRC / "flash_fwd.cu").read_text()
+    variants = fwd_sweep_variants(text)
     built = build_variants(kernels, variants, "flash_fwd.cu")
     ok = True
     for name in [*variants, "shipped"]:
@@ -365,12 +402,21 @@ def fwd_sweep(torch, kernels, attention, shapes) -> bool:
         use_library(kernels, lib, ("flash_fwd",))
         ptxas = bf16_registers(report, chip_smoke.FWD_INSTANCES)
         # A variant is rejected at a head_dim where its instance spills.
-        row = {"variant": name, "ptxas": ptxas,
+        row = {"variant": name,
+               "tiles": shipped_tiles(substitute(text, name, variants[name],
+                                                 "flash_fwd.cu"),
+                                      FWD_TILE_COMMENTS),
+               "ptxas": ptxas, "serialized": serialized(report),
                "rejected": sorted(n for n, f in ptxas.items()
                                   if f["spill_bytes"])}
         for tag, s in shapes.items():
-            checks = s.checks(s.errors(attention))
-            ok &= all(checks.values())
+            try:
+                checks = s.checks(s.errors(attention))
+            except RuntimeError as e:  # a launch the card refuses
+                row[tag] = {"launch": str(e)}
+                ok &= name != "shipped"
+                continue
+            ok &= name != "shipped" or all(checks.values())
             row[tag] = {"ms": s.ms(torch, attention), "checks": checks}
         log("fwd-sweep: " + json.dumps(row))
     return ok
@@ -417,9 +463,14 @@ def main(argv=None) -> int:
         f"{chip_smoke.card_line()}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    shape = FwdShape if args.study.startswith("fwd-") else Shape
-    shapes = {tag: shape(torch, attention, gen, *dims)
-              for tag, dims in SHAPES.items()}
+    if args.study.startswith("fwd-"):
+        dims = dict(FWD_SHAPES, **({"prefill": PREFILL}
+                                   if args.study == "fwd-sweep" else {}))
+        shapes = {tag: FwdShape(torch, attention, gen, *d)
+                  for tag, d in dims.items()}
+    else:
+        shapes = {tag: Shape(torch, attention, gen, *dims)
+                  for tag, dims in SHAPES.items()}
     ok = STUDIES[args.study](torch, kernels, attention, shapes)
     log(json.dumps({"ok": ok}))
     return 0 if ok else 1

@@ -241,8 +241,8 @@ def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
 
 def test_every_local_include_is_a_digested_header():
     """A source's quoted includes are ``csrc/*.cuh`` files, the headers
-    ``library_path`` hashes; flash_bwd.cu takes its tensor-core helpers
-    from one."""
+    ``library_path`` hashes; the flash kernels take their tensor-core
+    helpers from one."""
 
     from tony_tpu_torch import kernels
 
@@ -252,7 +252,7 @@ def test_every_local_include_is_a_digested_header():
         local = re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)
         assert set(local) <= headers, f"{path.name} includes {local}"
         included |= set(local)
-    assert "mma_sync.cuh" in included
+    assert "hopper.cuh" in included
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
@@ -332,29 +332,33 @@ def test_chip_smoke_counts_tensor_core_instructions_per_kernel():
 
 def test_chip_smoke_counts_tensor_core_instructions_in_the_forward():
     """The same SASS check on the flash forward's library: exactly the 4
-    instances, the bf16 ones with tensor-core instructions and the fp32
-    (FMA) ones with none; the backward's instances do not count there."""
+    instances, the bf16 ones with wgmma instructions (HGMMA) and the fp32
+    (FMA) ones with none; bf16 instances that hold only mma.sync's HMMA
+    are refused; the backward's instances do not count there."""
     chip_smoke = _repo_module("chip_smoke")
     want = {f"flash_fwd_kernel_{dt}{d}": (3 if dt == "bf16" else 0)
             for dt in ("bf16", "fp32") for d in (64, 128)}
     assert set(want) == chip_smoke.FWD_INSTANCES
     fwd = chip_smoke.FWD_INSTANCES
-    both = _sass({**want, "flash_bwd_dq_kernel_bf1664": 2})
+    both = _sass({**want, "flash_bwd_dq_kernel_bf1664": 2}, _HGMMA)
     assert chip_smoke.sass_mma_counts(both, fwd) == want
+    with pytest.raises(AssertionError,
+                       match=r"bf1664: no HGMMA instruction \(3 tensor-core"):
+        chip_smoke.sass_mma_counts(_sass(want), fwd)
     missing = dict(want)
     del missing["flash_fwd_kernel_bf16128"]
     with pytest.raises(AssertionError, match="not the instances"):
-        chip_smoke.sass_mma_counts(_sass(missing), fwd)
+        chip_smoke.sass_mma_counts(_sass(missing, _HGMMA), fwd)
     no_mma = dict(want, flash_fwd_kernel_bf1664=0)
     with pytest.raises(AssertionError, match="bf16 instances need some"):
-        chip_smoke.sass_mma_counts(_sass(no_mma), fwd)
+        chip_smoke.sass_mma_counts(_sass(no_mma, _HGMMA), fwd)
     fp32_mma = dict(want, flash_fwd_kernel_fp32128=1)
     with pytest.raises(AssertionError,
                        match="fp32128: 1 tensor-core instructions"):
-        chip_smoke.sass_mma_counts(_sass(fp32_mma), fwd)
+        chip_smoke.sass_mma_counts(_sass(fp32_mma, _HGMMA), fwd)
     with pytest.raises(AssertionError, match="listed no flash_fwd kernel"):
-        chip_smoke.sass_mma_counts(_sass({"flash_bwd_dq_kernel_bf1664": 2}),
-                                   fwd)
+        chip_smoke.sass_mma_counts(
+            _sass({"flash_bwd_dq_kernel_bf1664": 2}, _HGMMA), fwd)
     assert chip_smoke.kernel_name(
         "_ZN45_GLOBAL__N__0_12_flash_fwd_cu_021flash_fwd_kernel_bf16ILi128E"
         "EEvNS_6ParamsE") == "flash_fwd_kernel_bf16128"
@@ -461,21 +465,30 @@ def test_fwd_row_error_sees_a_fault_in_small_late_rows():
 
 def test_flash_fwd_study_variants_apply_to_the_source():
     """Every substitution of the study's forward sweep and controls
-    matches flash_fwd.cu exactly once, and each control changes it."""
+    matches flash_fwd.cu exactly once, each variant but the shipped one
+    changes it, and each sweep variant moves just its own constant."""
     study = _repo_module("flash_bwd_study")
     from tony_tpu_torch import kernels
 
     text = (kernels.CSRC / "flash_fwd.cu").read_text()
-    for name, subs in {**study.fwd_sweep_variants(),
-                       **study.FWD_CONTROLS}.items():
+    variants = study.fwd_sweep_variants(text)
+    for name, subs in {**variants, **study.FWD_CONTROLS}.items():
         changed = study.substitute(text, name, subs, "flash_fwd.cu")
-        if name in study.FWD_CONTROLS:
-            assert changed != text, name
-    m128 = study.substitute(text, "m128_n32",
-                            study.fwd_sweep_variants()["m128_n32"],
-                            "flash_fwd.cu")
-    assert "static constexpr int kM = 128;" in m128
-    assert "static constexpr int kN = 32;" in m128
+        assert (changed == text) == (name == "shipped"), name
+    comments = study.FWD_TILE_COMMENTS
+    shipped = study.shipped_tiles(text, comments)
+    assert set(shipped) == set(study.FWD_SWEEP) == set(comments)
+    for key, values in study.FWD_SWEEP.items():
+        for v in values:
+            if str(v) == shipped[key]:
+                continue
+            changed = study.substitute(text, f"{key}{v}",
+                                       variants[f"{key}{v}"], "flash_fwd.cu")
+            assert study.shipped_tiles(changed, comments) == {
+                **shipped, key: str(v)}
+    ring = study.substitute(text, "ring", study.FWD_CONTROLS[
+        "fwd_ring_loses_a_stage"], "flash_fwd.cu")
+    assert ring.count("% S % (S - 1))") == 1
     with pytest.raises(ValueError, match="occurs 0 times in flash_fwd.cu"):
         study.substitute(text, "bad", [("no such line", "")], "flash_fwd.cu")
 
@@ -504,6 +517,35 @@ def test_flash_bwd_study_variants_apply_to_the_source():
             assert study.shipped_tiles(changed) == {**shipped, key: str(v)}
     with pytest.raises(ValueError, match="occurs 0 times"):
         study.substitute(text, "bad", [("no such line", "")])
+
+
+def test_chip_smoke_fwd_tiles_match_the_source():
+    """chip_smoke.py's FWD_TILES, which its B1 tile-edge cases straddle,
+    are the bf16 B1 tiles flash_fwd.cu compiles, and the edge cases sit one
+    below, at and one above one and two query tiles, one key tile and the
+    ring's keys, at both head_dims and both mask modes."""
+    chip_smoke = _repo_module("chip_smoke")
+    study = _repo_module("flash_bwd_study")
+    from tony_tpu_torch import kernels
+
+    shipped = study.shipped_tiles(
+        (kernels.CSRC / "flash_fwd.cu").read_text(), study.FWD_TILE_COMMENTS)
+    assert set(chip_smoke.FWD_TILES) == {64, 128}
+    square = {(c["t_q"], c["d"], c["causal"])
+              for c in chip_smoke.FLASH_FWD_CASES if c["t_q"] == c["t_k"]}
+    for d, want in chip_smoke.FWD_TILES.items():
+        tiles = {k: study.tile_value(shipped[k], d)
+                 for k in ("fwd_warpgroups", "fwd_keys", "fwd_stages")}
+        assert want == {
+            "rows": 64 * tiles["fwd_warpgroups"],
+            "keys": tiles["fwd_keys"],
+            "ring_keys": tiles["fwd_stages"] * tiles["fwd_keys"]}, d
+        edges = [n * want["rows"] for n in (1, 2)] + [want["keys"],
+                                                     want["ring_keys"]]
+        for edge in edges:
+            for step in (-1, 0, 1):
+                for causal in (True, False):
+                    assert (edge + step, d, causal) in square, (edge, d)
 
 
 def test_chip_smoke_bwd_tiles_match_the_source():

@@ -181,26 +181,12 @@ __device__ __forceinline__ int first_query_tile(const Params& p, int k0) {
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
-constexpr int kWgRows = 64;    // rows of one warpgroup's wgmma tile
-constexpr int kBoxBytes = 128; // one 64-column swizzled row of bf16
-
 // Byte offset of element (row, col) in a swizzled tile of `rows` rows
 // (see hopper.cuh: column boxes of 64 one after another).
 __device__ __forceinline__ int swz(int row, int col, int rows) {
   return (col >> 6) * rows * kBoxBytes + row * kBoxBytes +
          ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
-
-// The register budgets of a block with `wgs` consumer warpgroups and one
-// producer warpgroup: the producer gives its registers to the consumers.
-template <int WGS>
-struct Regs {
-  static_assert(WGS >= 1 && WGS <= 3, "one to three consumer warpgroups");
-  static constexpr int kThreads = 128 * (WGS + 1);
-  static constexpr int kMinBlocks = WGS == 1 ? 2 : 1;
-  static constexpr int kProducer = 24;
-  static constexpr int kConsumer = WGS == 1 ? 232 : WGS == 2 ? 240 : 160;
-};
 
 template <int D>
 struct DqBf16 {
@@ -1031,18 +1017,6 @@ __global__ void __launch_bounds__(kThreads32)
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-
-// The shared-memory attribute belongs to the current device, so it is set on
-// every launch (a cheap host call) rather than once per process.
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, size_t smem, int threads, dim3 grid,
-                   cudaStream_t stream, const Args&... args) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
 
 // Tensor maps are built on every launch from the tensors' pointers, sizes
 // and strides (a host call of a few microseconds) and passed by value.

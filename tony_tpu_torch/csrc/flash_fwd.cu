@@ -21,41 +21,90 @@
 // is bound by operations: ~0.0695 ms at the tensor cores' 989 TFLOP/s. At
 // the generate prefill (B*H = 8*16, T = 128) it is bound by bytes.
 //
-// bf16 (the training and serving path): FA2's forward on the tensor cores
-// through mma.sync.m16n8k16 (bf16 in, fp32 accumulators; helpers in
-// mma_sync.cuh). One block of 4 warps per (batch*head, query tile of 128
-// rows at D 64, 64 at D 128); each warp owns 32 or 16 of its rows, and its
-// Q A-fragments stay in registers across the key loop. S = Q K^T lands in
-// accumulator registers (K read as the B operand with ldmatrix), the online
-// softmax runs there (row max and sum over the 4 lanes of a row by
-// shuffles; the sum is kept per lane and reduced once at the end), p is
-// packed to bf16 straight into the A operand of O += P V (V read with
-// ldmatrix.trans), and O stays in registers. What bounds this design, and
-// what it does about it:
-// - mma.sync is not wgmma: Hopper's full tensor-core rate needs warpgroup
-//   products; mma.sync reaches a fraction of it. wgmma + TMA is later work.
-// - Shared-memory bandwidth: every warp reads the streamed K/V B-fragments
-//   itself, ~16 FLOP per byte read per 16 rows it owns, against 128 bytes
-//   per clock per SM. So tiles are bf16, rows are padded by 16 bytes so each
-//   ldmatrix phase touches 8 distinct bank groups, the score tile never
-//   goes through shared memory, and a warp may own 32 rows (two m-tiles
-//   sharing each B-fragment) where registers allow it.
-// - Load latency: K/V tiles are copied with cp.async, 16 bytes a thread,
-//   rows past t_k zero-filled (they score 0, not -inf, so tiles holding
-//   tail keys mask them explicitly), double-buffered so the next tile lands
-//   during this one.
-// - Registers, which bound the blocks per SM: a thread holds BN/2 (S),
-//   D/2 (O) and D/4 (Q) floats per 16 rows its warp owns, so 32-row warps
-//   fit only at D 64 (254 registers, 2 blocks per SM).
-// - Causal imbalance: work per block differs by up to 32x at T = 2048, so
-//   the last (heaviest) query tiles are issued first.
-// The tile sizes (kM rows per block, kN keys per streamed tile) come from
-// flash_bwd_study.py's fwd-sweep on an H100 at the training shape (D 64)
-// and at [8, 2048, 8, 128]: at D 64, 128-row blocks with 64-key tiles ran
-// 0.305 ms against 0.352-0.356 for 64-row blocks (32-key tiles 0.325;
-// 128-key tiles slower, and they spill at 128 rows); at D 128 every
-// 128-row block spills, and 64-row blocks ran 0.320 ms with 64-key tiles,
-// 0.322 with 32 and 0.521 with 128 (which spill). PERF.md has the table.
+// bf16 (the training and serving path): both products are warpgroup
+// wgmma.mma_async (m64nNk16, bf16 in, fp32 accumulators; helpers in
+// hopper.cuh), fed by TMA through shared memory. A work item is (batch*head,
+// query tile of kM = 64 x kWarpGroups rows); a persistent grid of one block
+// per SM walks the items, each block taking the next one from an atomic
+// counter. A block has kWarpGroups consumer warpgroups of 64 query rows and
+// one producer warpgroup, whose one thread fetches the items, loads each
+// item's Q tile (kQTiles buffers) and streams its live K and V tiles of kN
+// keys through a ring of kStages slots (full/empty mbarriers; 128-byte
+// swizzled tiles, a D 128 row as two 64-column boxes; rows past t_q and t_k
+// zero-filled by the copy). The ring runs on across items, so the next
+// item's tiles land during this one's last products and epilogue. A
+// consumer computes S = Q K^T with both operands K-major in shared memory,
+// runs the online softmax in the accumulator layout (row max and sum over
+// the 4 lanes of a quad; the sum is kept per lane and reduced once at the
+// end), packs p to bf16 in registers as the A operand of O += P V (V read
+// with the transpose bit), and keeps O in registers, rescaled by alpha
+// there. Each step issues the S product of one tile and the P V product of
+// the tile before it; with kOverlap the softmax of the new S runs while P V
+// is still in flight, and with kTakeTurns the consumer warpgroups issue
+// their products in turns, so one warpgroup's products run during the
+// others' softmax (FA3's intra-warpgroup overlap and its scheduler
+// barrier; the sweep measures each).
+// What bounds this design, and what each choice does about it:
+// - Tensor-core rate: only wgmma reaches it. A warpgroup reads each K/V
+//   tile from shared memory once per 64 rows (the mma.sync design it
+//   replaces re-read it with ldmatrix per 16-row warp, which bound it by
+//   shared-memory bandwidth), and p never touches shared memory.
+// - Load latency and issue slots: one producer thread keeps the ring full
+//   with TMA, so the consumers spend no instructions or registers on
+//   copies (the design it replaces copied 16 bytes a thread with cp.async);
+//   a deeper ring (kStages) hid more of it than anything else in the sweep.
+// - The softmax's instruction count, which at D 64 may cost as much as the
+//   products (ex2 runs on the special-function unit, 16 a clock per SM):
+//   exponentials on ex2.approx.ftz with scale * log2(e) folded into
+//   one fma, masks as one compare per element against each row's last
+//   visible key, in a pass of their own that only tiles straddling the
+//   diagonal or holding tail keys run (tail keys are zero-filled, so they
+//   score 0, not -inf, and must be masked).
+// - ptxas serializes every wgmma of a function when a product sits in a
+//   branch it cannot prove warp-uniform, or when the wait that frees an
+//   accumulator depends on the path taken: the warpgroup index is read
+//   through a shuffle (hopper::warpgroup_idx), and tile 0's scores and the
+//   last tile's P V are peeled off the loop, whose body holds no branch
+//   around a product.
+// - Per-item cost (a large share of a block's time when each item was a
+//   block of its own: the first tiles' latency, the epilogue, the gap
+//   before the next block): the persistent grid loads the next item during
+//   this one's epilogue; dynamic fetching keeps the causal imbalance in
+//   check (a static split of heaviest-first items loads the SMs unevenly).
+// - Registers: the producer warpgroup gives its registers to the consumers
+//   (setmaxnreg). A consumer holds O (D / 2 floats), S (kN / 2) and p as
+//   bf16 (kN / 4), so D 128 fits two consumer warpgroups and D 64 three.
+// - L2: items walk bands of heads whose K/V fit kBandMB, each band's query
+//   tiles heaviest (last) first, so the query tiles of one head read its
+//   K/V from L2 rather than from memory, and the lightest close each band.
+// The tile sizes, ring depth, overlap, turns, band, Q tiles and the
+// persistent grid come from flash_bwd_study.py's fwd-sweep on an H100
+// (PERF.md has the table).
+//
+// Where trouble was expected, and what the design does:
+// - Sliced and strided inputs (the ring's key slices with t_q != t_k, the
+//   prefill's views of one fused projection): the tensor maps are built on
+//   every launch from the views' own pointers, sizes and (batch, seq,
+//   head) strides (hopper::map_bthd), which _kernel_readable already holds
+//   to a 16-byte aligned base and 16-byte strides; a map that fails to
+//   encode returns an error, which the wrapper raises.
+// - Hangs: the producer and every consumer count an item's live key tiles
+//   with the one live_key_tiles(); a warpgroup whose rows see fewer tiles
+//   still waits for and releases the rest, and an item whose rows see no
+//   key (causal, t_q > t_k) loads nothing. The producer pushes an item's
+//   first kStages tiles before its Q tile waits for a free buffer: those
+//   slots only wait on earlier items, while later ones would wait on
+//   consumers that wait on the Q tile. A wait that never completes traps
+//   after ~10 s (hopper::mbar_wait) instead of hanging the card.
+// - Fully masked rows: m stays at -1e30, and the shift is then 0, so ex2 of
+//   a masked score is exactly 0 (never NaN or 1) and alpha 0; such a row
+//   ends with l = 0, written as O = 0 and lse = log(1e-30).
+// - The generate prefill (T = 128: one key tile an item): the producer
+//   loads only the live tiles, so a ring deeper than the tile count waits
+//   for nothing.
+// - The work counter: each launch takes its own slot (launches in flight
+//   at once on other streams do not share one), and the last block of the
+//   launch to finish sets it back to zero.
 //
 // fp32: the tensor cores have no exact fp32 product (TF32 keeps 10 mantissa
 // bits), so fp32 keeps the FMA design: one block of 256 threads per
@@ -72,12 +121,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sync.cuh"
+#include <atomic>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using tc::load_tile_async;
+using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kMaskedBelow = kNegInf * 0.5f;
@@ -99,242 +150,427 @@ struct Params {
   int t_k;
   float scale;
   int causal;
+  // bf16: n_items = n_bh x n_qt work items, in bands of `band`
+  // (batch*head)s, each band's n_qt query tiles a head heaviest first; the
+  // launch's work counters are g_work[slot].
+  int n_bh;
+  int band;
+  int n_qt;
+  int n_items;
+  int slot;
 };
 
-// Key tiles of BN keys that query rows [q0, q0 + BM) see: a tile is live
-// while its first key is at or before the position of the last row.
-template <int BM, int BN>
-__device__ __forceinline__ int live_key_tiles(const Params& p, int q0) {
-  const int n = (p.t_k + BN - 1) / BN;
-  if (!p.causal) return n;
-  const int last = p.t_k - p.t_q + q0 + BM - 1;
-  return min(n, last < 0 ? 0 : last / BN + 1);
+// Key tiles of BN keys that query rows [first, first + n), clipped to t_q,
+// see (0 when the rows lie past t_q): a tile is live while its first key is
+// at or before the position of the last row. A bf16 block's producer and
+// consumers both count with it, so they agree on the tiles the ring carries.
+template <int BN>
+__device__ __forceinline__ int live_key_tiles(const Params& p, int first,
+                                              int n) {
+  if (first >= p.t_q) return 0;
+  const int tiles = (p.t_k + BN - 1) / BN;
+  if (!p.causal) return tiles;
+  const int last = p.t_k - p.t_q + min(first + n, p.t_q) - 1;
+  return min(tiles, last < 0 ? 0 : last / BN + 1);
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: warpgroup products fed by TMA
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct FwdBf16 {
-  static constexpr int kThreads = 128;  // 4 warps
-  static constexpr int kM = D == 64 ? 128 : 64;  // query rows per block
-  static constexpr int kN = 64;  // keys per streamed tile
-  static constexpr int kLd = D + 8;     // padded row stride
-  // Q [kM][kLd]; K, V [2][kN][kLd]
-  static constexpr size_t kSmem = sizeof(bf16) * (size_t)(kM + 4 * kN) * kLd;
+  static constexpr int kWarpGroups = D == 64 ? 3 : 2;  // B1 consumers
+  static constexpr int kN = 128;  // keys per streamed tile
+  static_assert(kN == 64 || kN == 128, "one m64n64 or m64n128 product");
+  static constexpr int kStages = D == 64 ? 4 : 3;  // K/V tiles in B1's ring
+  static_assert(kStages >= 2, "a step reads the K of one tile, V of another");
+  static constexpr bool kOverlap = true;  // next S during this tile's P V
+  static constexpr bool kTakeTurns = true;  // warpgroups issue in turns
+  static constexpr int kQTiles = D == 64 ? 2 : 1;  // Q tiles of the items
+  static constexpr int kBandMB = 16;  // MB of K/V a band of heads reads
+  static constexpr bool kPersistent = true;  // a block an SM walks the items
+  static constexpr int kM = kWgRows * kWarpGroups;  // query rows per block
+  static constexpr int kThreads = Regs<kWarpGroups>::kThreads;
+  // The producer's registers: its item loop needs more than 24, and beside
+  // three consumer warpgroups of 160 the block has 32 a producer thread.
+  static constexpr int kProducerRegs =
+      kWarpGroups == 3 ? 32 : Regs<kWarpGroups>::kProducer;
+  static constexpr int kFixed = kM * D * 2;    // bytes of the Q tile
+  static constexpr int kStream = kN * D * 2;   // bytes of a K or V tile
+  // kQTiles Q tiles; K and V per stage; full/empty barriers per stage and
+  // per Q tile, turn barriers per consumer warpgroup; the Q tiles' item
+  // indices; 1024 bytes of alignment.
+  static constexpr size_t kSmem =
+      1024 + (size_t)kQTiles * kFixed + 2 * (size_t)kStages * kStream +
+      8 * (2 * kStages + 2 * kQTiles + kWarpGroups) + 4 * kQTiles;
 };
 
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+
+// The tile of ring stage `tile % S` among tiles of `bytes` from base (the
+// K or the V tiles).
+template <int S>
+__device__ __forceinline__ const unsigned char* ring_tile(
+    const unsigned char* base, int tile, int bytes) {
+  return base + (tile % S) * bytes;
+}
+
+// Issues S = Q K^T (64 rows x BN keys) into s, both operands K-major in
+// shared memory: q_d the warpgroup's rows of the Q tile (BM rows), kt a K
+// tile. Element i of s is row 16 warp + g + 8 ((i & 3) / 2), key
+// 8 (i / 4) + 2 t + i % 2 (hopper.cuh's layout).
+template <int D, int BM, int BN>
+__device__ __forceinline__ void issue_scores(float (&s)[BN / 2],
+                                             uint64_t q_d,
+                                             const unsigned char* kt) {
+  const uint64_t k_d = desc_k_major(kt);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_ss<BN>(s, desc_add(q_d, (ks >> 2) * BM * kBoxBytes + (ks & 3) * 32),
+                 desc_add(k_d, (ks >> 2) * BN * kBoxBytes + (ks & 3) * 32),
+                 ks > 0);
+  wgmma_commit();
+}
+
+// Issues O += P V: p from registers (pa), the V tile vt read with the
+// transpose bit.
+template <int D, int BN>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[BN / 16][4],
+                                         const unsigned char* vt) {
+  const uint64_t v_d = desc_mn_major(vt, BN * kBoxBytes);
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs_tb<D>(acc, pa[kk], desc_add(v_d, kk * 16 * kBoxBytes));
+  wgmma_commit();
+}
+
+// The online softmax of the key tile at k0 for the warpgroup whose rows
+// start at qw, its scores landed in s: p into s, the running max m and this
+// lane's part of the sum l updated, and alpha, the factor O's rows are
+// rescaled by. `last` holds each of the thread's rows' last visible key
+// less its first column.
+template <int BN>
+__device__ __forceinline__ void online_softmax(
+    const Params& p, int qw, int k0, const int (&last)[2], float scale_log2,
+    float (&s)[BN / 2], float (&m_i)[2], float (&l_i)[2],
+    float (&alpha)[2]) {
+  // Only tiles that straddle the diagonal or hold tail keys are masked.
+  if (k0 + BN > p.t_k || (p.causal && k0 + BN - 1 > p.t_k - p.t_q + qw)) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      if (8 * (i >> 2) + (i & 1) > last[(i & 3) >> 1] - k0) s[i] = kNegInf;
+  }
+  float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i)
+    mx[(i & 3) >> 1] = fmaxf(mx[(i & 3) >> 1], s[i]);
+  float neg[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // Fully masked so far: shift by 0 so the exponentials stay finite
+    // (masked scores then give exactly 0).
+    const float m_safe = mx[r] <= kMaskedBelow ? 0.f : mx[r];
+    alpha[r] =
+        m_i[r] <= kMaskedBelow ? 0.f : ex2((m_i[r] - m_safe) * scale_log2);
+    neg[r] = -m_safe * scale_log2;
+    m_i[r] = mx[r];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], scale_log2, neg[(i & 3) >> 1]));
+    sum[(i & 3) >> 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * alpha[r] + sum[r];
+}
+
+// A work item (batch*head, query tile) of the bf16 grid: bands of p.band
+// heads one after another, within a band the last (heaviest) query tiles
+// of every head first.
+struct Item {
+  int bh, b, h, hk, q0;
+};
+
+template <int BM>
+__device__ __forceinline__ Item work_item(const Params& p, int i) {
+  const int band0 = i / (p.band * p.n_qt) * p.band;
+  const int heads = min(p.band, p.n_bh - band0);
+  const int in_band = i - band0 * p.n_qt;
+  Item w;
+  w.bh = band0 + in_band % heads;
+  w.b = w.bh / p.n_heads;
+  w.h = w.bh % p.n_heads;
+  w.hk = w.h / p.group;
+  w.q0 = (p.n_qt - 1 - in_band / heads) * BM;
+  return w;
+}
+
+// Work counters of the persistent bf16 grid, one slot per launch in flight
+// (the host cycles through them): [next item, blocks done]. The last block
+// of a launch to finish sets its slot back to zero.
+constexpr int kWorkSlots = 64;
+__device__ unsigned int g_work[kWorkSlots][2];
+
 template <int D>
-__global__ void __launch_bounds__(FwdBf16<D>::kThreads)
-    flash_fwd_kernel_bf16(const Params p) {
+__global__ void __launch_bounds__(FwdBf16<D>::kThreads,
+                                  Regs<FwdBf16<D>::kWarpGroups>::kMinBlocks)
+    flash_fwd_kernel_bf16(const Params p, const __grid_constant__ FwdMaps m) {
   using Cfg = FwdBf16<D>;
-  constexpr int BM = Cfg::kM, BN = Cfg::kN, LD = Cfg::kLd, KS = D / 16;
-  constexpr int NT = Cfg::kThreads;
-  constexpr int MT = BM / 64;  // 16-row m-tiles per warp
-  static_assert(BM % 64 == 0 && BN % 16 == 0, "tile sizes");
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);  // [BM][LD]
-  bf16* s_k = s_q + BM * LD;                  // [2][BN][LD]
-  bf16* s_v = s_k + 2 * BN * LD;              // [2][BN][LD]
+  using R = Regs<Cfg::kWarpGroups>;
+  constexpr int BM = Cfg::kM, BN = Cfg::kN, S = Cfg::kStages, H2 = D / 64;
+  constexpr int QT = Cfg::kQTiles;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* s_q = smem;                     // [QT] Q tiles
+  unsigned char* s_k = s_q + QT * Cfg::kFixed;   // [S] K tiles
+  unsigned char* s_v = s_k + S * Cfg::kStream;   // [S] V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_v + S * Cfg::kStream);
+  uint64_t* empty = full + S;
+  uint64_t* q_full = empty + S;     // [QT]
+  uint64_t* q_empty = q_full + QT;  // [QT]
+  uint64_t* turn_bar = q_empty + QT;  // [kWarpGroups]
+  int* s_item = reinterpret_cast<int*>(turn_bar + Cfg::kWarpGroups);  // [QT]
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.n_heads;
-  const int h = bh % p.n_heads;
-  const int hk = h / p.group;
-  // Causal work grows with the query tile: issue the last tiles first.
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const int q_off = p.t_k - p.t_q;
-
-  const bf16* q_base = static_cast<const bf16*>(p.q) + b * p.q_sb +
-                       h * p.q_sh;
-  const bf16* k_base = static_cast<const bf16*>(p.k) + b * p.k_sb +
-                       hk * p.k_sh;
-  const bf16* v_base = static_cast<const bf16*>(p.v) + b * p.v_sb +
-                       hk * p.v_sh;
-  const int n_tiles = live_key_tiles<BM, BN>(p, q0);
-
-  auto load_kv = [&](int tile) {
-    const int buf = (tile & 1) * BN * LD;
-    load_tile_async<BN, D, NT>(s_k + buf, k_base, p.k_st, tile * BN, p.t_k);
-    load_tile_async<BN, D, NT>(s_v + buf, v_base, p.v_st, tile * BN, p.t_k);
-  };
-  load_tile_async<BM, D, NT>(s_q, q_base, p.q_st, q0, p.t_q);
-  if (n_tiles > 0) load_kv(0);
-  tc::cp_async_commit();
-
-  // This warp's query rows: m-tile mt holds rows row0 + 16 mt + g and + 8.
-  const int row0 = q0 + warp * 16 * MT;
-  const float scale_log2 = p.scale * kLog2e;
-
-  float acc[MT][D / 8][4];
-  float m_i[MT][2], l_i[MT][2];  // running max (raw scores), lane's sum
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_i[mt][i] = kNegInf;
-      l_i[mt][i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * Cfg::kWarpGroups);  // one arrival a warp
     }
+    for (int j = 0; j < QT; ++j) {
+      mbar_init(&q_full[j], 1);
+      mbar_init(&q_empty[j], 4 * Cfg::kWarpGroups);
+    }
+    for (int w = 0; w < Cfg::kWarpGroups; ++w) mbar_init(&turn_bar[w], 4);
+    fence_barrier_init();
   }
-
-  tc::cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[MT][KS][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-      tc::ldmatrix_x4(qa[mt][ks],
-                      s_q + tc::a_frag(lane, row0 - q0 + 16 * mt, ks * 16,
-                                       LD));
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) {
-      load_kv(tile + 1);
-      tc::cp_async_commit();
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile's copies from every thread have landed
-    const bf16* kt = s_k + (tile & 1) * BN * LD;
-    const bf16* vt = s_v + (tile & 1) * BN * LD;
-    const int k0 = tile * BN;
-
-    // S = Q K^T: element e of n-tile n is row +8 (e / 2), key
-    // k0 + 8 n + 2 t + e % 2.
-    float s[MT][BN / 8][4];
+  // The block walks work items: its first is blockIdx.x, every later one
+  // comes from the launch's counter. The producer hands each item's index
+  // to the consumers with its Q tile, and the K/V ring runs on across
+  // items, so the next item's tiles load during this one's last products
+  // and epilogue.
+  const int wg = warpgroup_idx();
+  const int tid = threadIdx.x % 128;
+  if (wg == Cfg::kWarpGroups) {
+    // Producer: one thread fetches the items and issues every TMA load.
+    reg_dealloc<Cfg::kProducerRegs>();
+    if (tid == 0) {
+      unsigned int* work = g_work[p.slot];
+      int pos = 0;  // K/V tiles pushed into the ring so far
+      int j = 0;
+      for (int i = blockIdx.x; i < p.n_items; ++j) {
+        const int buf = j % QT;
+        const Item w = work_item<BM>(p, i);
+        const int n_tiles = live_key_tiles<BN>(p, w.q0, BM);
+        // With one Q tile, its buffer waits for the previous item's
+        // products: the item's first S tiles (ring slots that only earlier
+        // items hold) go in before it, the rest after it. With more, the
+        // buffer waits on an older item, and Q goes first.
+        auto push = [&](int tile) {
+          const int stage = pos % S;
+          if (pos >= S) mbar_wait(&empty[stage], ((pos / S) - 1) & 1);
+          mbar_expect_tx(&full[stage], 2 * Cfg::kStream);
+          unsigned char* kt = s_k + stage * Cfg::kStream;
+          unsigned char* vt = s_v + stage * Cfg::kStream;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
-#pragma unroll
-    for (int np = 0; np < BN / 16; ++np)
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t kb[4];
-        tc::ldmatrix_x4(kb, kt + tc::b_frag(lane, np * 16, ks * 16, LD));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          tc::mma_bf16(s[mt][2 * np], qa[mt][ks], kb[0], kb[1]);
-          tc::mma_bf16(s[mt][2 * np + 1], qa[mt][ks], kb[2], kb[3]);
-        }
-      }
-
-    // Only tiles holding tail keys or straddling the diagonal are masked.
-    const bool needs_mask = (k0 + BN > p.t_k) ||
-                            (p.causal && k0 + BN - 1 > q_off + q0);
-    if (needs_mask) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int q_pos = q_off + row0 + 16 * mt + g + 8 * (e >> 1);
-            const int k_pos = k0 + 8 * n + 2 * t + (e & 1);
-            if (k_pos >= p.t_k || (p.causal && q_pos < k_pos))
-              s[mt][n][e] = kNegInf;
+          for (int c = 0; c < H2; ++c) {
+            tma_load_4d(kt + c * BN * kBoxBytes, &m.k, &full[stage], 64 * c,
+                        w.hk, tile * BN, w.b);
+            tma_load_4d(vt + c * BN * kBoxBytes, &m.v, &full[stage], 64 * c,
+                        w.hk, tile * BN, w.b);
           }
-    }
-
-    // Online softmax on rows g and g + 8 of each m-tile; the four lanes of
-    // a row agree on m.
+          ++pos;
+        };
+        const int ahead = QT > 1 ? 0 : min(n_tiles, S);
+        for (int tile = 0; tile < ahead; ++tile) push(tile);
+        if (j >= QT) mbar_wait(&q_empty[buf], ((j / QT) - 1) & 1);
+        s_item[buf] = i;
+        if (n_tiles > 0) {
+          mbar_expect_tx(&q_full[buf], Cfg::kFixed);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float m_new[2], neg[2], alpha[2];
+          for (int c = 0; c < H2; ++c)
+            tma_load_4d(s_q + buf * Cfg::kFixed + c * BM * kBoxBytes, &m.q,
+                        &q_full[buf], 64 * c, w.h, w.q0, w.b);
+        } else {
+          mbar_arrive(&q_full[buf]);  // rows that see no key: no load
+        }
+        for (int tile = ahead; tile < n_tiles; ++tile) push(tile);
+        i = (int)atomicAdd(&work[0], 1u) + (int)gridDim.x;
+      }
+      // No item left: the consumers stop at index -1.
+      const int buf = j % QT;
+      if (j >= QT) mbar_wait(&q_empty[buf], ((j / QT) - 1) & 1);
+      s_item[buf] = -1;
+      mbar_arrive(&q_full[buf]);
+      __threadfence();
+      if (atomicAdd(&work[1], 1u) == gridDim.x - 1) {
+        __threadfence();
+        atomicExch(&work[0], 0u);
+        atomicExch(&work[1], 0u);
+      }
+    }
+  } else {
+    reg_alloc<R::kConsumer>();
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const float scale_log2 = p.scale * kLog2e;
+    int pos = 0;  // K/V tiles taken from the ring so far
+    // With kTakeTurns the warpgroups issue their products in turns, 0, 1,
+    // ...: a turn waits for the previous warpgroup's and passes to the
+    // next (one arrival a warp). Every warpgroup takes n_tiles + 1 turns
+    // an item (one a product issue; the warpgroups whose rows see fewer
+    // tiles take the rest empty, one with each tile they release), so the
+    // turns never wait on a warpgroup that has none left.
+    int turns = 0;
+    auto wait_turn = [&] {
+      if (Cfg::kTakeTurns) mbar_wait(&turn_bar[wg], turns & 1);
+    };
+    auto pass_turn = [&] {
+      if (Cfg::kTakeTurns && lane == 0)
+        mbar_arrive(&turn_bar[(wg + 1) % Cfg::kWarpGroups]);
+      ++turns;
+    };
+    // The last warpgroup passes first, so warpgroup 0 starts.
+    if (Cfg::kTakeTurns && wg == Cfg::kWarpGroups - 1 && lane == 0)
+      mbar_arrive(&turn_bar[0]);
+    for (int j = 0;; ++j) {
+      const int buf = j % QT;
+      mbar_wait(&q_full[buf], (j / QT) & 1);
+      const int item = s_item[buf];
+      if (item < 0) break;
+      const Item w = work_item<BM>(p, item);
+      const int n_tiles = live_key_tiles<BN>(p, w.q0, BM);
+      const int qw = w.q0 + wg * kWgRows;  // this warpgroup's first row
+      const int row_lo = qw + warp * 16 + g;  // this thread's rows: +0, +8
+      const int my_tiles = live_key_tiles<BN>(p, qw, kWgRows);
+      // Each of this thread's rows' last visible key, less its first
+      // column.
+      int last[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        last[r] = (p.causal ? min(p.t_k - 1, p.t_k - p.t_q + row_lo + 8 * r)
+                            : p.t_k - 1) -
+                  2 * t;
+
+      float acc[D / 2];  // O: 64 rows x D
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m_i[2] = {kNegInf, kNegInf};  // running max of the raw scores
+      float l_i[2] = {0.f, 0.f};  // this lane's part of the running sum
+      float s[BN / 2];            // one tile's S, then its p
+      uint32_t pa[BN / 16][4];    // p rounded to bf16: the A operand of P V
+      const uint64_t q_d =
+          desc_k_major(s_q + buf * Cfg::kFixed + wg * kWgRows * kBoxBytes);
+
+      // Tile 0's scores and softmax; then each step issues the S product of
+      // tile `tile` and the P V product of tile - 1, runs tile `tile`'s
+      // softmax (with kOverlap while P V is still in flight), then rescales
+      // O and packs p for the next step; then the last tile's P V. The loop
+      // body holds no branch around a product, so ptxas keeps the products
+      // asynchronous.
+      if (my_tiles > 0) {
+        float alpha[2];
+        mbar_wait(&full[pos % S], (pos / S) & 1);
+        wait_turn();
+        wgmma_fence();
+        issue_scores<D, BM, BN>(s, q_d, ring_tile<S>(s_k, pos, Cfg::kStream));
+        pass_turn();
+        wgmma_wait<0>();
+        fence_acc<BN / 2>(s);
+        online_softmax<BN>(p, qw, 0, last, scale_log2, s, m_i, l_i, alpha);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) pack_a(pa[kk], &s[8 * kk]);
+        for (int tile = 1; tile < my_tiles; ++tile) {
+          const int at = pos + tile;
+          mbar_wait(&full[at % S], (at / S) & 1);
+          wait_turn();
+          wgmma_fence();
+          issue_scores<D, BM, BN>(s, q_d,
+                                  ring_tile<S>(s_k, at, Cfg::kStream));
+          issue_pv<D, BN>(acc, pa, ring_tile<S>(s_v, at - 1, Cfg::kStream));
+          pass_turn();
+          if (Cfg::kOverlap) {
+            wgmma_wait<1>();
+          } else {
+            wgmma_wait<0>();
+          }
+          fence_acc<BN / 2>(s);
+          online_softmax<BN>(p, qw, tile * BN, last, scale_log2, s, m_i, l_i,
+                             alpha);
+          wgmma_wait<0>();
+          fence_acc<D / 2>(acc);
+          // This warp's reads of the stage are done (its products waited
+          // for).
+          if (lane == 0) mbar_arrive(&empty[(at - 1) % S]);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i & 3) >> 1];
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk) pack_a(pa[kk], &s[8 * kk]);
+        }
+        wait_turn();
+        wgmma_fence();
+        issue_pv<D, BN>(acc, pa,
+                        ring_tile<S>(s_v, pos + my_tiles - 1, Cfg::kStream));
+        pass_turn();
+        wgmma_wait<0>();
+        fence_acc<D / 2>(acc);
+        if (lane == 0) mbar_arrive(&empty[(pos + my_tiles - 1) % S]);
+      }
+      // This warp is done with the item's Q tile.
+      if (lane == 0) mbar_arrive(&q_empty[buf]);
+      // The item's tiles past this warpgroup's rows (which see none of
+      // their keys): waited for and released, so the ring's counts stay
+      // whole, each with the empty turn of the step that would have summed
+      // it (a turn taken before the release would wait on warpgroups that
+      // wait for the slot).
+      if (my_tiles == 0 && n_tiles > 0) {
+        wait_turn();
+        pass_turn();
+      }
+      for (int tile = my_tiles; tile < n_tiles; ++tile) {
+        const int at = pos + tile;
+        mbar_wait(&full[at % S], (at / S) & 1);
+        wait_turn();
+        pass_turn();
+        if (lane == 0) mbar_arrive(&empty[at % S]);
+      }
+      pos += n_tiles;
+
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        float mx = m_i[mt][i];
+        float l = l_i[i];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int row = row_lo + 8 * i;
+        if (row >= p.t_q) continue;
+        l = fmaxf(l, 1e-30f);
+        const float inv_l = 1.f / l;
+        bf16* o_row = static_cast<bf16*>(p.o) + w.b * p.o_sb + w.h * p.o_sh +
+                      (int64_t)row * p.o_st;
 #pragma unroll
-        for (int n = 0; n < BN / 8; ++n)
-          mx = fmaxf(mx, fmaxf(s[mt][n][2 * i], s[mt][n][2 * i + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        m_new[i] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        // Fully masked so far: shift by 0 so the exponentials stay finite
-        // (masked scores then give exactly 0).
-        const float m_safe = m_new[i] <= kMaskedBelow ? 0.f : m_new[i];
-        alpha[i] = m_i[mt][i] <= kMaskedBelow
-                       ? 0.f
-                       : exp2f((m_i[mt][i] - m_safe) * scale_log2);
-        neg[i] = -m_safe * scale_log2;
-      }
-      float p_sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pv = exp2f(fmaf(s[mt][n][e], scale_log2, neg[e >> 1]));
-          p_sum[e >> 1] += pv;
-          s[mt][n][e] = pv;
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        l_i[mt][i] = l_i[mt][i] * alpha[i] + p_sum[i];
-        m_i[mt][i] = m_new[i];
-      }
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][n][e] *= alpha[e >> 1];
-    }
-
-    // O += P V: p rounded to bf16 as the A operand, V as B via .trans.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        tc::c_to_a(pa[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        const int at = tc::b_frag_trans(lane, kk * 16, dn * 16, LD);
-        uint32_t vb[4];
-        tc::ldmatrix_x4_trans(vb, vt + at);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          tc::mma_bf16(acc[mt][2 * dn], pa[mt], vb[0], vb[1]);
-          tc::mma_bf16(acc[mt][2 * dn + 1], pa[mt], vb[2], vb[3]);
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * c + 2 * t) =
+              __floats2bfloat162_rn(acc[4 * c + 2 * i] * inv_l,
+                                    acc[4 * c + 2 * i + 1] * inv_l);
+        if (t == 0) {
+          const float mr = m_i[i];
+          p.lse[(int64_t)w.bh * p.t_q + row] =
+              (mr <= kMaskedBelow ? 0.f : mr * p.scale) + logf(l);
         }
       }
     }
-    __syncthreads();  // reads of this buffer are done before it is refilled
   }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float l = l_i[mt][i];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const int row = row0 + 16 * mt + g + 8 * i;
-      if (row >= p.t_q) continue;
-      l = fmaxf(l, 1e-30f);
-      bf16* o_row = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh +
-                    (int64_t)row * p.o_st;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * n + 2 * t) =
-            __floats2bfloat162_rn(acc[mt][n][2 * i] / l,
-                                  acc[mt][n][2 * i + 1] / l);
-      if (t == 0) {
-        const float m = m_i[mt][i];
-        p.lse[(int64_t)bh * p.t_q + row] =
-            (m <= kMaskedBelow ? 0.f : m * p.scale) + logf(l);
-      }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -419,7 +655,7 @@ __global__ void __launch_bounds__(kThreads32)
   float m_i = kNegInf;
   float l_i = 0.f;
 
-  const int n_tiles = live_key_tiles<kBlockM32, kBlockN32>(p, q0);
+  const int n_tiles = live_key_tiles<kBlockN32>(p, q0, kBlockM32);
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kBlockN32;
     __syncthreads();  // the previous tile's K/V/P reads are done
@@ -521,38 +757,66 @@ __global__ void __launch_bounds__(kThreads32)
 // Host side
 // ---------------------------------------------------------------------------
 
-// The shared-memory attribute belongs to the current device, so it is set on
-// every launch (a cheap host call) rather than once per process.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int threads, const Params& p,
-                   dim3 grid, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+// The work-counter slot of the next bf16 launch: launches in flight at once
+// (on other streams) take different slots.
+int next_work_slot() {
+  static std::atomic<unsigned int> launches{0};
+  return (int)(launches.fetch_add(1) % kWorkSlots);
 }
 
+// Tensor maps are built on every launch from the tensors' pointers, sizes
+// and strides (a host call of a few microseconds) and passed by value.
 template <int D>
-cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t stream) {
+cudaError_t launch_bf16(Params p, int batch, int n_kv_heads,
+                        cudaStream_t stream) {
   using Cfg = FwdBf16<D>;
-  const dim3 grid(bh, (p.t_q + Cfg::kM - 1) / Cfg::kM);
-  return launch(flash_fwd_kernel_bf16<D>, Cfg::kSmem, Cfg::kThreads, p, grid,
-                stream);
+  const int64_t q_s[3] = {p.q_sb, p.q_st, p.q_sh};
+  const int64_t k_s[3] = {p.k_sb, p.k_st, p.k_sh};
+  const int64_t v_s[3] = {p.v_sb, p.v_st, p.v_sh};
+  FwdMaps m;
+  const bool ok =
+      map_bthd(&m.q, p.q, D, p.n_heads, p.t_q, batch, q_s, Cfg::kM) &&
+      map_bthd(&m.k, p.k, D, n_kv_heads, p.t_k, batch, k_s, Cfg::kN) &&
+      map_bthd(&m.v, p.v, D, n_kv_heads, p.t_k, batch, v_s, Cfg::kN);
+  if (!ok) return cudaErrorInvalidValue;
+  p.n_bh = batch * p.n_heads;
+  p.n_qt = (p.t_q + Cfg::kM - 1) / Cfg::kM;
+  p.n_items = p.n_bh * p.n_qt;
+  // A band holds the query heads of as many KV heads as kBandMB of K/V.
+  const int64_t kv_bytes = (int64_t)p.t_k * D * 2 * sizeof(bf16);
+  const int64_t kv_heads = ((int64_t)Cfg::kBandMB << 20) / kv_bytes;
+  p.band = (int)(kv_heads < 1 ? p.group
+                              : (kv_heads * p.group < p.n_bh
+                                     ? kv_heads * p.group
+                                     : p.n_bh));
+  // One block per SM (a block takes most of an SM's registers and shared
+  // memory), each walking items until none is left; without kPersistent a
+  // block per item (each block's first fetch then finds none left).
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  p.slot = next_work_slot();
+  const dim3 grid(Cfg::kPersistent && sms < p.n_items ? sms : p.n_items);
+  return launch(flash_fwd_kernel_bf16<D>, Cfg::kSmem, Cfg::kThreads, grid,
+                stream, p, m);
 }
 
 template <int D>
 cudaError_t launch_fp32(const Params& p, int bh, cudaStream_t stream) {
   const dim3 grid(bh, (p.t_q + kBlockM32 - 1) / kBlockM32);
-  return launch(flash_fwd_kernel_fp32<D>, smem_fp32<D>(), kThreads32, p, grid,
-                stream);
+  return launch(flash_fwd_kernel_fp32<D>, smem_fp32<D>(), kThreads32, grid,
+                stream, p);
 }
 
 }  // namespace
 
 // q [B, t_q, H, D], k/v [B, t_k, H_kv, D], o [B, t_q, H, D], lse [B, H, t_q]
 // (f32, contiguous). Strides are in elements; the last dimension is
-// contiguous. dtype codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128.
+// contiguous, and for bf16 the bases and every stride are 16-byte aligned
+// (TMA). dtype codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128.
 // Returns a cudaError_t value (0 on success); asynchronous on `stream`.
 extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int64_t q_sb, int64_t q_st,
@@ -563,7 +827,7 @@ extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v,
                               int n_kv_heads, int t_q, int t_k, int head_dim,
                               float scale, int causal, int dtype,
                               void* stream) {
-  Params p;
+  Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -591,7 +855,9 @@ extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) return launch_fp32<64>(p, bh, s);
   if (dtype == 0 && head_dim == 128) return launch_fp32<128>(p, bh, s);
-  if (dtype == 1 && head_dim == 64) return launch_bf16<64>(p, bh, s);
-  if (dtype == 1 && head_dim == 128) return launch_bf16<128>(p, bh, s);
+  if (dtype == 1 && head_dim == 64)
+    return launch_bf16<64>(p, batch, n_kv_heads, s);
+  if (dtype == 1 && head_dim == 128)
+    return launch_bf16<128>(p, batch, n_kv_heads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

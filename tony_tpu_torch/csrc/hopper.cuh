@@ -2,7 +2,9 @@
 // (cp.async.bulk.tensor) from tensor maps built on the host, warpgroup
 // products (wgmma.mma_async m64n64k16 and m64n128k16, bf16 in, fp32
 // accumulators) with their shared-memory descriptors, register hand-over
-// between warpgroups (setmaxnreg), named barriers and ex2.approx.
+// between warpgroups (setmaxnreg, Regs), a warp-uniform warpgroup index,
+// named barriers, bf16 packing and ex2.approx. Both flash kernels
+// (flash_fwd.cu, flash_bwd.cu) are built from them.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunk c of row r stored
@@ -31,12 +33,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_sync.cuh"
-
 namespace hopper {
 
-using tc::pack_bf16;
-using tc::smem_addr;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Two floats rounded to nearest bf16, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+constexpr int kWgRows = 64;     // rows of one warpgroup's wgmma tile
+constexpr int kBoxBytes = 128;  // one 64-column swizzled row of bf16
 
 // --- mbarriers -------------------------------------------------------------
 
@@ -289,6 +299,17 @@ __device__ __forceinline__ float ex2(float x) {
 
 // --- warp specialisation ---------------------------------------------------
 
+// The register budgets of a block with `WGS` consumer warpgroups and one
+// producer warpgroup: the producer gives its registers to the consumers.
+template <int WGS>
+struct Regs {
+  static_assert(WGS >= 1 && WGS <= 3, "one to three consumer warpgroups");
+  static constexpr int kThreads = 128 * (WGS + 1);
+  static constexpr int kMinBlocks = WGS == 1 ? 2 : 1;
+  static constexpr int kProducer = 24;
+  static constexpr int kConsumer = WGS == 1 ? 232 : WGS == 2 ? 240 : 160;
+};
+
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -299,12 +320,35 @@ __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// This thread's warpgroup, read from lane 0 so that the compiler knows it
+// is one value across the warp. Branches on it (and on what is computed
+// from it) are then uniform; a wgmma in a branch ptxas cannot prove uniform
+// makes it serialize the function's wgmma products.
+__device__ __forceinline__ int warpgroup_idx() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
 // Barrier `id` (1-15; 0 is __syncthreads) over `n` threads.
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// --- host: tensor maps -----------------------------------------------------
+// --- host -------------------------------------------------------------------
+
+// The shared-memory attribute belongs to the current device, so it is set on
+// every launch (a cheap host call) rather than once per process.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, size_t smem, int threads, dim3 grid,
+                   cudaStream_t stream, const Args&... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// Tensor maps.
+
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
