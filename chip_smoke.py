@@ -183,6 +183,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
              counted window, routed == dense tokens in fp32 at E 4 and
              E 16 and fp32 engine/generate parity on bench_moe's trunk.
 
+14. classifier — the image classifiers at bench.py's widths: the MNIST
+             CNN (bf16, batch 512, 50 steps a call on distinct batches,
+             lr 1e-3): steps/s; ResNet-50 (depth 50, width 64, 1000
+             classes, bf16, batch 32 x 224 x 224 x 3) from float and from
+             uint8 images: images/s, step ms, peak memory, one profiled
+             step's device busy share. These run none of B1-B4: their
+             launch counts must all be 0. Then, fp32 (TF32 off): ResNet-50
+             logits from uint8 images equal those from prescaled float
+             images within 1e-4; the MNIST CNN and a ResNet-18 train 5
+             steps on the card equal to the CPU's plain path (losses,
+             first-step gradients) and learn.
+15. mnist job — tony_tpu_torch/mnist_distributed.py as one --framework
+             pytorch worker through the orchestrator's local submitter:
+             30 steps with a checkpoint dir, then a rerun to 50 that
+             resumes from step 30; the chief's mnist_metrics.json holds a
+             finite loss.
+16. anatomy — the LM step at bench_transformer's width through the
+             instrumented make_train_step: its five tony_step_phase_ms
+             gauges sum to its step wall, tony_mfu against the card's
+             PEAK_FLOPS entry, the host phase's share, and its wall beside
+             the uninstrumented step's (no synchronize added); the
+             classifier step's phases and no tony_mfu.
+
 The launch counters are set to 0 just before each path (phases 3-4, the
 serving path; phase 6b's HTTP serving, the int8 serving path; phase 7, the
 training path; phase 9, the data-parallel
@@ -192,7 +215,10 @@ phase 10's jobs and serving, the job path, and its generate CLI, the
 generate path; phase 11, the MoE train path; phase 12b's pipelines, the MoE
 pipeline path, and its mesh runs, the MoE mesh path; phase 13's bf16
 generate and
-engine, the MoE serving path) and read just after; every kernel of a path must have launched there. The last three lines are the kernels
+engine, the MoE serving path; phase 14's timed runs, the classifier path;
+phase 16's windows, the anatomy path) and read just after; every kernel of
+a path must have launched there, but on the classifier path, which runs
+none of them by design and must read 0 for each. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
 {"ok": true, "device": {...}}.
 """
@@ -3537,6 +3563,468 @@ def moe_serve_phase(torch, attention, norms, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Slice 6's paths: the image classifiers, the MNIST job, and the step anatomy
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_mnist: the CNN in bf16, batch 512, 50 steps a call, lr
+# 1e-3, a distinct batch every step.
+MNIST_BATCH = 512
+MNIST_PER_CALL = 50
+MNIST_WINDOWS = 3
+# bench.py's bench_resnet50: depth 50, width 64, 1000 classes, bf16, batch
+# 32 of 224 x 224 x 3; warm-ups, then the best of RESNET_WINDOWS windows of
+# RESNET_STEPS steps.
+RESNET50 = dict(depth=50, width=64, n_classes=1000, dtype="bfloat16")
+RESNET_BATCH = 32
+RESNET_SIZE = 224
+RESNET_WARMUP = 3
+RESNET_STEPS = 10
+RESNET_WINDOWS = 2
+# fp32 (TF32 off) card against the CPU on the same converted weights:
+# CLASSIFIER_PARITY_STEPS steps on one batch. Losses within
+# CLASSIFIER_LOSS_RTOL, the first step's gradients within
+# CLASSIFIER_GRAD_TOL of each leaf's largest (cuDNN and the CPU's
+# convolutions sum in other orders).
+CLASSIFIER_PARITY = {
+    "mnist_cnn": ("mnist", dict(arch="cnn", dtype="float32"), (16, 28, 28, 1)),
+    "resnet18_w16": ("resnet", dict(depth=18, width=16, n_classes=10,
+                                    dtype="float32"), (8, 64, 64, 3)),
+}
+CLASSIFIER_PARITY_STEPS = 5
+CLASSIFIER_LOSS_RTOL = 1e-4
+CLASSIFIER_GRAD_TOL = 1e-4
+# The uint8 decode against prescaled float images: ResNet-50 in fp32 at
+# batch 2, logits within rtol and atol 1e-4 (the JAX package's bound).
+UINT8_TOL = 1e-4
+# The MNIST job: one --framework pytorch worker through the orchestrator.
+MNIST_JOB_STEPS = (30, 50)
+MNIST_JOB_TIMEOUT_S = 300
+# The anatomy phase: ANATOMY_STEPS fenced steps a window, windows in turns
+# plain, instrumented, instrumented, plain; the instrumented wall must be
+# within ANATOMY_NOISE of the plain one (or twice the windows' spread).
+ANATOMY_WARMUP = 2
+ANATOMY_STEPS = 10
+ANATOMY_NOISE = 0.01
+ANATOMY_CLASSIFIER_STEPS = 4
+
+
+def _fresh_registry():
+    """A new process-wide metrics registry, so a phase reads only the
+    gauges of the steps it builds next."""
+    from tony_tpu_torch.observability import metrics
+
+    metrics._default_registry = metrics.MetricsRegistry()
+    return metrics._default_registry
+
+
+def _best_window(torch, fn, windows: int, calls: int) -> float:
+    """The best wall seconds of ``windows`` windows of ``calls`` calls of
+    fn(), each window fenced by a synchronize."""
+    best = float("inf")
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _classifier_grads(torch, apply_fn, params, images, labels) -> list:
+    from tony_tpu_torch.models.train import leaves
+    from tony_tpu_torch.ops import softmax_cross_entropy
+
+    lv = [t.detach().clone().requires_grad_() for t in leaves(params)]
+    it = iter(lv)
+
+    def rebuild(tree):
+        if isinstance(tree, dict):
+            return {k: rebuild(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, list):
+            return [rebuild(v) for v in tree]
+        return next(it)
+
+    p = rebuild(params)
+    loss = softmax_cross_entropy(apply_fn(p, images), labels)
+    return [g.cpu() for g in torch.autograd.grad(loss, lv)]
+
+
+def classifier_parity(torch, seed: int) -> dict:
+    """fp32, TF32 off: the MNIST CNN and a ResNet-18 (width 16, 64 x 64)
+    from the same CPU-made weights, CLASSIFIER_PARITY_STEPS steps on one
+    batch on the card and on the CPU (the plain path the CPU tests pin to
+    the JAX package): the losses agree within CLASSIFIER_LOSS_RTOL and
+    fall, the first step's gradients within CLASSIFIER_GRAD_TOL of each
+    leaf's largest."""
+    from tony_tpu_torch.models import (MnistConfig, ResNetConfig,
+                                       make_image_classifier_step,
+                                       mnist_apply, mnist_init, resnet_apply,
+                                       resnet_init)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, (kind, kw, shape) in CLASSIFIER_PARITY.items():
+        if kind == "mnist":
+            cfg = MnistConfig(**kw)
+            params = mnist_init(cfg, torch.Generator().manual_seed(seed),
+                                "cpu")
+            apply_fn = lambda p, x, cfg=cfg: mnist_apply(p, x, cfg)
+        else:
+            cfg = ResNetConfig(**kw)
+            params = resnet_init(cfg, torch.Generator().manual_seed(seed),
+                                 "cpu")
+            apply_fn = lambda p, x, cfg=cfg: resnet_apply(p, x, cfg)
+        rng = np.random.default_rng(seed + 11)
+        images = torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+        labels = torch.as_tensor(rng.integers(0, 10, shape[:1]))
+        losses, grads = {}, {}
+        for dev in ("cuda", "cpu"):
+            init_fn, step_fn = make_image_classifier_step(
+                None, apply_fn, device=dev, learning_rate=1e-3)
+            state = init_fn(params=params)
+            x, y = images.to(dev), labels.to(dev)
+            grads[dev] = _classifier_grads(torch, apply_fn, state.params, x,
+                                           y)
+            run = []
+            for _ in range(CLASSIFIER_PARITY_STEPS):
+                state, metrics = step_fn(state, x, y)
+                run.append(metrics["loss"])
+            losses[dev] = _loss_list(torch, run)
+        if not np.allclose(losses["cuda"], losses["cpu"],
+                           rtol=CLASSIFIER_LOSS_RTOL, atol=0):
+            raise AssertionError(f"classifier parity {name}: losses card "
+                                 f"{losses['cuda']} vs cpu {losses['cpu']}")
+        for dev in ("cuda", "cpu"):
+            if not losses[dev][-1] < losses[dev][0]:
+                raise AssertionError(f"classifier parity {name}: the {dev} "
+                                     f"loss did not fall {losses[dev]}")
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(grads["cuda"], grads["cpu"])):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            if not err <= CLASSIFIER_GRAD_TOL * scale:
+                raise AssertionError(
+                    f"classifier parity {name}: gradient leaf {i} err {err} "
+                    f"> {CLASSIFIER_GRAD_TOL} * {scale}")
+            worst = max(worst, err / scale if scale else err)
+        out[name] = {"losses_cuda": losses["cuda"],
+                     "losses_cpu": losses["cpu"],
+                     "worst_grad_rel_err": worst}
+        log(f"classifier parity fp32 {name}: losses card {losses['cuda']} / "
+            f"cpu {losses['cpu']}, worst gradient err {worst:.3g} of the "
+            f"leaf max: ok")
+    return out
+
+
+def classifier_phase(torch, attention, norms, seed: int) -> dict:
+    """The image classifiers at bench.py's widths, on the card. The launch
+    counters are set to 0 just before the timed MNIST and ResNet-50 runs
+    and read just after: this path runs none of B1-B4 (convolutions are
+    cuDNN's, GroupNorm and the rest plain PyTorch, as the JAX package
+    runs them outside any Pallas kernel), so every count must be 0.
+
+    MNIST: the CNN in bf16 through make_classifier_step(steps_per_call=50)
+    on 50 distinct batches of 512 a call, steps/s from the best of
+    MNIST_WINDOWS one-call windows after a warm-up call. ResNet-50: batch
+    32 x 224 x 224 x 3, bf16, from float images and from uint8 images
+    (decoded in the step), images/s and step ms from the best of
+    RESNET_WINDOWS windows of RESNET_STEPS steps after RESNET_WARMUP,
+    peak memory, one profiled step's device time and busy share. Then the
+    uint8 decode against prescaled float images in fp32 (UINT8_TOL), and
+    classifier_parity."""
+    from tony_tpu_torch.models import (MnistConfig, ResNetConfig,
+                                       make_classifier_step,
+                                       make_image_classifier_step,
+                                       resnet_apply, resnet_init)
+
+    rng = np.random.default_rng(seed + 7)
+    _reset_launches(attention, norms)
+    init_fn, step_fn = make_classifier_step(
+        MnistConfig(arch="cnn", dtype="bfloat16"), device="cuda",
+        learning_rate=1e-3, steps_per_call=MNIST_PER_CALL)
+    state = init_fn(seed)
+    images = torch.as_tensor(rng.normal(
+        size=(MNIST_PER_CALL, MNIST_BATCH, 28, 28, 1)).astype(np.float32),
+        device="cuda")
+    labels = torch.as_tensor(rng.integers(
+        0, 10, (MNIST_PER_CALL, MNIST_BATCH)), device="cuda")
+    losses = []
+
+    def mnist_call():
+        nonlocal state
+        state, metrics = step_fn(state, images, labels)
+        losses.append(metrics["loss"])
+
+    mnist_call()
+    dt = _best_window(torch, mnist_call, MNIST_WINDOWS, 1)
+    mnist = {"batch": MNIST_BATCH, "steps_per_call": MNIST_PER_CALL,
+             "steps_per_s": MNIST_PER_CALL / dt,
+             "losses": _loss_list(torch, losses)}
+    if not all(np.isfinite(mnist["losses"])):
+        raise AssertionError(f"mnist: non-finite loss {mnist['losses']}")
+    log("classifier mnist: " + json.dumps(mnist))
+    del state, images, labels
+
+    cfg = ResNetConfig(**RESNET50)
+    init_fn, step_fn = make_image_classifier_step(
+        lambda gen: resnet_init(cfg, gen, "cuda"),
+        lambda p, x: resnet_apply(p, x, cfg), device="cuda",
+        learning_rate=1e-3, config=cfg)
+    shape = (RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3)
+    inputs = {
+        "float": torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                 device="cuda"),
+        "uint8": torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8),
+                                 device="cuda")}
+    labels = torch.as_tensor(rng.integers(0, 1000, (RESNET_BATCH,)),
+                             device="cuda")
+    resnet = {"batch": RESNET_BATCH, "image_size": RESNET_SIZE}
+    for kind, x in inputs.items():
+        state = init_fn(seed)
+        losses = []
+
+        def resnet_step():
+            nonlocal state
+            state, metrics = step_fn(state, x, labels)
+            losses.append(metrics["loss"])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(RESNET_WARMUP):
+            resnet_step()
+        dt = _best_window(torch, resnet_step, RESNET_WINDOWS, RESNET_STEPS)
+        events, wall_ms = device_events(torch, resnet_step)
+        device_total = sum(us for _, us in events) / 1e3
+        run = {"images_per_s": RESNET_BATCH * RESNET_STEPS / dt,
+               "step_ms": dt / RESNET_STEPS * 1e3,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "profiled_step": {"wall_ms": wall_ms,
+                                 "device_ms": device_total,
+                                 "device_busy_share": device_total / wall_ms},
+               "losses": _loss_list(torch, losses)}
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"resnet50 {kind}: non-finite loss "
+                                 f"{run['losses']}")
+        resnet[kind] = run
+        log(f"classifier resnet50 from {kind} images: " + json.dumps(run))
+        del state
+    launches = _launches(attention, norms)
+    log(f"launches on the classifier path: {launches}")
+    check_path_launches({"classifier": launches})
+    del inputs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fp32 = ResNetConfig(**dict(RESNET50, dtype="float32"))
+    params = resnet_init(fp32, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda")
+    raw = torch.as_tensor(rng.integers(0, 256, (2, RESNET_SIZE, RESNET_SIZE,
+                                                3), dtype=np.uint8),
+                          device="cuda")
+    with torch.no_grad():
+        u8 = resnet_apply(params, raw, fp32)
+        f32 = resnet_apply(params, raw.float() / 255.0, fp32)
+    err = (u8 - f32).abs().max().item()
+    if not torch.allclose(u8, f32, rtol=UINT8_TOL, atol=UINT8_TOL):
+        raise AssertionError(f"uint8 decode: logits differ from prescaled "
+                             f"float images by {err}")
+    log(f"classifier uint8 decode (ResNet-50 fp32): max |logit diff| "
+        f"{err:.3g} <= {UINT8_TOL} + {UINT8_TOL} |logit|: ok")
+    del params
+    return {"mnist": mnist, "resnet50": resnet, "uint8_max_abs_err": err,
+            "parity": classifier_parity(torch, seed), "launches": launches}
+
+
+def mnist_job_phase(root: Path) -> dict:
+    """tony_tpu_torch/mnist_distributed.py as one --framework pytorch
+    worker on the card, submitted through the orchestrator's local
+    submitter (in its own process group, killed with its children if it
+    overruns): MNIST_JOB_STEPS[0] steps with a checkpoint dir, then a
+    rerun to MNIST_JOB_STEPS[1] that resumes from the first run's last
+    step. The chief's mnist_metrics.json must hold a finite loss."""
+    import os
+    import signal
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(repo), *filter(None, [env.get("PYTHONPATH")])])
+    ck = root / "mnist-ck"
+    runs = {}
+    for i, steps in enumerate(MNIST_JOB_STEPS):
+        out = root / f"mnist-{i}.out"
+        flags = ["--device", "cuda", "--steps", str(steps),
+                 "--checkpoint_dir", str(ck), "--working_dir", str(root),
+                 f"> {out} 2>&1"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tony_tpu.client.cli", "local",
+             "--executes", str(repo / "tony_tpu_torch" /
+                               "mnist_distributed.py"),
+             "--framework", "pytorch", "--python_binary_path",
+             sys.executable, "--conf", "tony.worker.instances=1",
+             "--conf", "tony.ps.instances=0",
+             "--task_params", " ".join(flags)],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        try:
+            log_text, _ = proc.communicate(timeout=MNIST_JOB_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        script_out = out.read_text() if out.exists() else ""
+        log(f"mnist job {i} (--steps {steps}):\n{script_out.rstrip()}")
+        if proc.returncode != 0:
+            raise AssertionError(f"mnist job {i} exited {proc.returncode}:\n"
+                                 f"{log_text[-3000:]}")
+        metrics = json.loads((root / "mnist_metrics.json").read_text())
+        if metrics["steps"] != steps or not np.isfinite(
+                metrics["final_loss"]):
+            raise AssertionError(f"mnist job {i}: metrics {metrics}")
+        if i and f"resumed from checkpoint step {MNIST_JOB_STEPS[0]}" \
+                not in script_out:
+            raise AssertionError("mnist job 1 did not resume from job 0's "
+                                 "checkpoint")
+        runs[f"run{i}"] = {"metrics": metrics,
+                           "command_s": time.perf_counter() - t0}
+    log("mnist job: " + json.dumps(runs))
+    return runs
+
+
+def _anatomy(gauges: dict) -> dict:
+    from tony_tpu_torch.observability import stepstats
+
+    phases = {p: gauges[f'{stepstats.STEP_PHASE_GAUGE}{{phase="{p}"}}']
+              for p in stepstats.PHASES}
+    wall = gauges["step_time_ms"]
+    if abs(sum(phases.values()) - wall) > 5e-3 * len(phases):
+        raise AssertionError(f"anatomy: phases {phases} do not sum to the "
+                             f"step wall {wall} ms")
+    return {"phases_ms": phases, "wall_ms": wall,
+            "host_share": phases["host"] / wall}
+
+
+def anatomy_phase(torch, attention, norms, seed: int) -> dict:
+    """The step anatomy on the card. The LM step at bench_transformer's
+    widths (bf16, batch [8, 2049]) through make_train_step, whose step is
+    instrumented: after ANATOMY_WARMUP steps, windows of ANATOMY_STEPS
+    steps, each fenced by its loss readback as a train loop is, in turns:
+    the plain step (step_fn.__wrapped__), the instrumented, the
+    instrumented, the plain. The instrumented step's gauges: the five
+    tony_step_phase_ms phases sum to its step_time_ms, which is the
+    window's wall per step within 5 %; tony_mfu is published against the
+    card's PEAK_FLOPS entry (989e12 for the H100 SXM); and the
+    instrumented wall is within ANATOMY_NOISE (or twice the spread of the
+    windows) of the plain one: the hook adds no synchronize. The launch
+    counters are set to 0 before the windows and read after: B1-B4 must
+    each launch. Then the MNIST CNN's step (bf16, batch 512) publishes its
+    phases and no tony_mfu."""
+    from tony_tpu_torch.models import (MnistConfig, TransformerConfig,
+                                       make_classifier_step, make_train_step)
+    from tony_tpu_torch.observability import stepstats
+
+    registry = _fresh_registry()
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    init_fn, step_fn = make_train_step(cfg, device="cuda")
+    state = init_fn(seed)
+    rng = np.random.default_rng(seed + 3)
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device="cuda")
+    plain = step_fn.__wrapped__
+
+    def window(fn) -> float:
+        nonlocal state
+        t0 = time.perf_counter()
+        for _ in range(ANATOMY_STEPS):
+            state, metrics = fn(state, tokens)
+            float(metrics["loss"])
+        return (time.perf_counter() - t0) / ANATOMY_STEPS * 1e3
+
+    for _ in range(ANATOMY_WARMUP):
+        state, metrics = step_fn(state, tokens)
+        float(metrics["loss"])
+    _reset_launches(attention, norms)
+    walls = {"plain": [window(plain)]}
+    walls["instrumented"] = [window(step_fn), window(step_fn)]
+    gauges = registry.snapshot()["gauges"]
+    walls["plain"].append(window(plain))
+    launches = _launches(attention, norms)
+    check_path_launches({"anatomy": launches})
+    lm = _anatomy(gauges)
+    stats = step_fn.stepstats
+    name = torch.cuda.get_device_name(0)
+    peak = stepstats.PEAK_FLOPS.get(name, 0.0)
+    if not peak or stats._peak_flops != peak:
+        raise AssertionError(f"anatomy: no peak for {name!r} (the step took "
+                             f"{stats._peak_flops})")
+    flops = gauges[stepstats.MODEL_FLOPS_GAUGE]
+    mfu = gauges.get(stepstats.MFU_GAUGE)
+    want = flops / (lm["wall_ms"] / 1e3 * peak)
+    if mfu is None or abs(mfu - want) > 1e-5 + 1e-3 * want:
+        raise AssertionError(f"anatomy: tony_mfu {mfu}, want {want}")
+    per_step = walls["instrumented"][-1]
+    if abs(lm["wall_ms"] - per_step) > 0.05 * per_step:
+        raise AssertionError(f"anatomy: step_time_ms {lm['wall_ms']} is not "
+                             f"the window's {per_step} ms a step")
+    plain_ms = float(np.mean(walls["plain"]))
+    inst_ms = float(np.mean(walls["instrumented"]))
+    spread = max(np.ptp(walls["plain"]), np.ptp(walls["instrumented"]))
+    allowed = max(ANATOMY_NOISE * plain_ms, 2 * spread)
+    if abs(inst_ms - plain_ms) > allowed:
+        raise AssertionError(f"anatomy: instrumented {walls['instrumented']}"
+                             f" vs plain {walls['plain']} ms a step "
+                             f"(allowed {allowed:.3f})")
+    lm.update(mfu=mfu, model_flops_per_step=flops, peak_flops=peak,
+              window_ms=walls, launches=launches,
+              launches_per_step={k: v / (4 * ANATOMY_STEPS)
+                                 for k, v in launches.items()})
+    log("anatomy lm: " + json.dumps(lm))
+    del state, init_fn, step_fn, plain
+
+    registry = _fresh_registry()
+    init_fn, step_fn = make_classifier_step(
+        MnistConfig(arch="cnn", dtype="bfloat16"), device="cuda")
+    state = init_fn(seed)
+    x = torch.as_tensor(rng.normal(size=(MNIST_BATCH, 28, 28, 1)).astype(
+        np.float32), device="cuda")
+    y = torch.as_tensor(rng.integers(0, 10, (MNIST_BATCH,)), device="cuda")
+    for _ in range(ANATOMY_CLASSIFIER_STEPS):
+        state, metrics = step_fn(state, x, y)
+        float(metrics["loss"])
+    gauges = registry.snapshot()["gauges"]
+    if stepstats.MFU_GAUGE in gauges or \
+            stepstats.MODEL_FLOPS_GAUGE in gauges:
+        raise AssertionError(f"anatomy: the classifier step published an "
+                             f"MFU: {gauges}")
+    classifier = _anatomy(gauges)
+    log("anatomy classifier: " + json.dumps(classifier))
+    _fresh_registry()
+    return {"lm": lm, "classifier": classifier}
+
+
+def check_path_launches(launches_by_path: dict) -> None:
+    """Every kernel launched on every path of the run, but on
+    ZERO_LAUNCH_PATHS, the paths that run none of B1-B4 by design, where
+    every count must be 0."""
+    for path, counts in launches_by_path.items():
+        for name, n in counts.items():
+            if path in ZERO_LAUNCH_PATHS and n:
+                raise AssertionError(f"kernel {name} launched {n} times on "
+                                     f"the {path} path, which runs none")
+            if path not in ZERO_LAUNCH_PATHS and n <= 0:
+                raise AssertionError(f"kernel {name} never launched on the "
+                                     f"{path} path")
+
+
+# The paths that run no kernel of B1-B4: the image classifiers.
+ZERO_LAUNCH_PATHS = ("classifier",)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3692,6 +4180,17 @@ def main(argv=None) -> int:
     moe_mesh = moe_mesh_phase(torch, attention, norms, args.seed)
     torch.cuda.empty_cache()
     moe_serve = moe_serve_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
+
+    # Slice 6's paths: the image classifiers (which launch none of B1-B4;
+    # the counters are reset and read inside), the MNIST job through the
+    # orchestrator, and the step anatomy of the LM and classifier steps (it
+    # resets the counters itself and reads them just after).
+    classifier = classifier_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tony-mnist-") as tmp:
+        mnist_job_phase(Path(tmp))
+    anatomy = anatomy_phase(torch, attention, norms, args.seed)
     rows = (rms_row, flash_row, dq_row, dkv_row)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
@@ -3708,7 +4207,9 @@ def main(argv=None) -> int:
             "moe_train": moe_train["launches"][row["name"]],
             "moe_pp": moe_mesh["pp_launches"][row["name"]],
             "moe_mesh": moe_mesh["mesh_launches"][row["name"]],
-            "moe_serve": moe_serve["launches"][row["name"]]}
+            "moe_serve": moe_serve["launches"][row["name"]],
+            "classifier": classifier["launches"][row["name"]],
+            "anatomy": anatomy["lm"]["launches"][row["name"]]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

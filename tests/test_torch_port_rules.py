@@ -576,3 +576,67 @@ def test_chip_smoke_bwd_tiles_match_the_source():
     assert study.tile_value("D == 64 ? 3 : 2", 128) == 2
     with pytest.raises(ValueError, match="not a number"):
         study.tile_value("kWgRows * 2", 64)
+
+
+def test_the_slice_s_modules_fall_under_the_import_scan():
+    for rel in ("tony_tpu_torch/observability/metrics.py",
+                "tony_tpu_torch/observability/stepstats.py",
+                "tony_tpu_torch/parallel/plan.py",
+                "tony_tpu_torch/models/mnist.py",
+                "tony_tpu_torch/models/resnet.py",
+                "tony_tpu_torch/mnist_distributed.py"):
+        assert REPO / rel in PORT_FILES, rel
+
+
+def test_classifier_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    from tony_tpu_torch.models import (MnistConfig, ResNetConfig,
+                                       make_classifier_step,
+                                       make_image_classifier_step,
+                                       mnist_init, resnet_init)
+
+    cfg = MnistConfig(dtype="float32")
+    for call in (lambda: mnist_init(cfg),
+                 lambda: resnet_init(ResNetConfig(depth=18, width=8)),
+                 lambda: make_classifier_step(cfg),
+                 lambda: make_image_classifier_step(None, None)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    init_fn, step_fn = make_classifier_step(cfg, device="cpu")
+    _, metrics = step_fn(init_fn(0), np.zeros((2, 28, 28, 1), np.float32),
+                         np.zeros((2,), np.int64))
+    assert metrics["loss"].device.type == "cpu"
+
+
+def test_mnist_distributed_defaults_to_cuda():
+    _no_cuda()
+    from tony_tpu_torch import mnist_distributed
+
+    assert mnist_distributed.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mnist_distributed.main(["--steps", "1"])
+
+
+def test_chip_smoke_holds_the_classifier_path_to_zero_launches():
+    """The classifier path runs none of B1-B4 by design: chip_smoke.py
+    checks that each of its counts is 0 (any launch fails the run), and
+    every other path it checks must launch every kernel it counts."""
+    import inspect
+
+    chip_smoke = _repo_module("chip_smoke")
+    assert chip_smoke.ZERO_LAUNCH_PATHS == ("classifier",)
+    zeros = {"rms_norm": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+             "flash_bwd_dkv": 0}
+    chip_smoke.check_path_launches({"classifier": zeros})
+    with pytest.raises(AssertionError, match="launched 2 times on the "
+                                             "classifier path"):
+        chip_smoke.check_path_launches({"classifier": {**zeros,
+                                                       "flash_fwd": 2}})
+    with pytest.raises(AssertionError, match="never launched on the "
+                                             "anatomy path"):
+        chip_smoke.check_path_launches({"anatomy": {**zeros, "rms_norm": 5}})
+    src = inspect.getsource(chip_smoke.classifier_phase)
+    assert 'check_path_launches({"classifier": launches})' in src
+    assert "_reset_launches(attention, norms)" in src
+    main = inspect.getsource(chip_smoke.main)
+    assert '"classifier": classifier["launches"][row["name"]]' in main

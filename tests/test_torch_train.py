@@ -366,8 +366,13 @@ class TestTrainStep:
             make_train_step(cfg, device="cpu", pipeline_microbatches=2)
         with pytest.raises(ValueError, match="unknown schedule '1f1b'"):
             make_train_step(cfg, device="cpu", pipeline_schedule="1f1b")
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            make_train_step(cfg, device="cpu", plan=object())
+        # make_train_step(plan=) is ported (tests/test_torch_stepstats.py),
+        # but for a plan of more than one slice (slices are TPU pods).
+        from tony_tpu_torch.parallel.plan import Plan
+
+        with pytest.raises(ValueError, match="a plan of 2 slices"):
+            make_train_step(cfg, device="cpu",
+                            plan=Plan(TorchMeshSpec(dp=2), num_slices=2))
 
     def test_dp_step_in_two_gloo_ranks_matches_jax_and_one_process(
             self, models, tmp_path):

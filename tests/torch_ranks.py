@@ -1348,6 +1348,56 @@ def prog_moe_pp(rank, world, store, outdir, args):
     return result, arrays
 
 
+def prog_classifier_dp(rank, world, store, outdir, args):
+    """make_classifier_step (the MNIST CNN, fp32) over a dp mesh of every
+    rank from the port's init at seed 0, each rank fed its block of rows
+    of every batch in the npz ``args[0]`` (images [steps, B, 28, 28, 1],
+    labels [steps, B]): each step's metrics and the final state."""
+    import numpy as np
+
+    from tony_tpu_torch.interop import train_state_to_numpy
+    from tony_tpu_torch.models import MnistConfig, make_classifier_step
+
+    _join(rank, world, store)
+    mesh = _mesh(dp=world)
+    init_fn, step_fn = make_classifier_step(
+        MnistConfig(arch="cnn", dtype="float32"), mesh, device="cpu")
+    state = init_fn(0)
+    data = np.load(args[0])
+    rows = data["labels"].shape[1] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    metrics = []
+    for images, labels in zip(data["images"], data["labels"]):
+        state, m = step_fn(state, images[mine], labels[mine])
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics}, train_state_to_numpy(state)
+
+
+def prog_lm_stepstats(rank, world, store, outdir, args):
+    """make_train_step (TINY) over a dp mesh of every rank, each rank fed
+    its own [2, 17] tokens for 4 steps: how the step's anatomy sized the
+    workload, and the anatomy gauges of this rank's registry."""
+    import numpy as np
+
+    from tony_tpu_torch import observability
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+
+    _join(rank, world, store)
+    mesh = _mesh(dp=world)
+    init_fn, step_fn = make_train_step(TransformerConfig(**TINY), mesh,
+                                       device="cpu")
+    state = init_fn(0)
+    rng = np.random.default_rng(rank)
+    for _ in range(4):
+        state, metrics = step_fn(state, rng.integers(0, 64, (2, 17)))
+        float(metrics["loss"])
+    stats = step_fn.stepstats
+    snap = observability.default_registry().snapshot()
+    return {"global_batch": stats.global_batch, "seq": stats.seq,
+            "plan": stats.plan.key(), "steps_observed": stats.steps_observed,
+            "gauges": snap["gauges"], "counters": snap["counters"]}, {}
+
+
 PROGRAMS = {name[len("prog_"):]: fn for name, fn in globals().items()
             if name.startswith("prog_")}
 

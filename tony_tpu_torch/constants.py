@@ -52,3 +52,10 @@ TONY_CKPT_FLUSH_FILE = "TONY_CKPT_FLUSH_FILE"
 TONY_IO_PREFETCH_DEPTH = "TONY_IO_PREFETCH_DEPTH"
 TONY_IO_READ_WORKERS = "TONY_IO_READ_WORKERS"
 TONY_IO_CHUNK_RECORDS = "TONY_IO_CHUNK_RECORDS"
+
+# Telemetry: the file the executor reads the user process's metrics
+# snapshot from (piggybacked on its heartbeat), and the tony.stepstats.*
+# conf (step anatomy on or off, calibration).
+TONY_METRICS_FILE = "TONY_METRICS_FILE"
+TONY_STEPSTATS_ENABLED = "TONY_STEPSTATS_ENABLED"
+TONY_STEPSTATS_CALIBRATE = "TONY_STEPSTATS_CALIBRATE"

@@ -13,14 +13,22 @@ the tree paths joined by ``/`` (``embed``, ``layers/wq``, ...).
 ``params_to_numpy`` goes the other way, so trained weights can be compared
 with the JAX package's.
 
+The image classifiers' trees (MNIST MLP and CNN, ResNet: dicts and lists
+of numpy arrays, HWIO kernels) carry over as they are:
+``image_params_from_numpy`` checks every leaf's shape against the config
+and ``params_to_numpy`` takes them back.
+
 A whole ``TrainState`` maps onto the JAX package's by path:
 ``train_state_leaves`` names every leaf of the port's state (step, params,
-and AdamW's per-parameter ``step``/``exp_avg``/``exp_avg_sq``) with the
-``jax.tree_util.keystr`` path of the matching leaf of the JAX ``TrainState``
-(optax's ``chain(clip_by_global_norm, adamw)`` state: one int32 ``count``
-and the ``mu``/``nu`` trees). ``train_state_to_numpy`` and
-``train_state_from_numpy`` move a state to and from ``{path: array}``;
-the checkpoint manager writes and reads the same paths.
+and the Adam moments' per-parameter ``step``/``exp_avg``/``exp_avg_sq``)
+with the ``jax.tree_util.keystr`` path of the matching leaf of the JAX
+``TrainState``: for the LM's ``torch.optim.AdamW``, optax's
+``chain(clip_by_global_norm, adamw)`` state (one int32 ``count`` and the
+``mu``/``nu`` trees under ``.opt_state[1][0]``); for the classifiers'
+``torch.optim.Adam``, optax's ``adam`` state (the same under
+``.opt_state[0]``). ``train_state_to_numpy`` and ``train_state_from_numpy``
+move a state to and from ``{path: array}``; the checkpoint manager writes
+and reads the same paths.
 """
 
 from __future__ import annotations
@@ -31,14 +39,21 @@ import numpy as np
 import torch
 
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.models.mnist import MnistConfig, mnist_param_shapes
+from tony_tpu_torch.models.resnet import ResNetConfig, resnet_param_shapes
 from tony_tpu_torch.models.train import TrainState
 from tony_tpu_torch.models.transformer import TransformerConfig
 
-# keystr paths of optax.chain(clip_by_global_norm, adamw)'s state: the clip
-# keeps EmptyState, adamw's chain holds ScaleByAdamState first.
 STEP_PATH = ".step"
-COUNT_PATH = ".opt_state[1][0].count"
-_MU, _NU = ".opt_state[1][0].mu", ".opt_state[1][0].nu"
+# keystr path of the ScaleByAdamState in the JAX state, by the port's
+# optimizer: optax.chain(clip_by_global_norm, adamw) keeps the clip's
+# EmptyState first and adamw's chain holds ScaleByAdamState first;
+# optax.adam's chain holds it first. AdamW subclasses Adam: the exact type
+# decides.
+ADAM_STATE_PATHS = {
+    torch.optim.AdamW: ".opt_state[1][0]",
+    torch.optim.Adam: ".opt_state[0]",
+}
 
 
 def _expected_shapes(cfg: TransformerConfig, fused: bool) -> dict:
@@ -116,30 +131,70 @@ def params_from_npz(path, cfg: TransformerConfig, device="cuda") -> dict:
     return params_from_numpy(tree, cfg, device)
 
 
-def params_to_numpy(params: dict) -> dict:
-    """The port's params tree -> the same tree of numpy arrays on the host
-    (the reverse of ``params_from_numpy``). bf16 tensors come back as
-    float32, which holds them exactly."""
-    def convert(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.numpy()
+def image_params_from_numpy(tree: dict,
+                            cfg: MnistConfig | ResNetConfig,
+                            device="cuda") -> dict:
+    """A JAX MNIST or ResNet params tree of numpy arrays (dicts and lists)
+    -> the port's same tree of tensors on ``device``. Raises on a missing
+    key, a wrong length or a wrong shape for ``cfg``."""
+    device = resolve_device(device)
+    want = (mnist_param_shapes(cfg) if isinstance(cfg, MnistConfig)
+            else resnet_param_shapes(cfg))
 
-    return {key: (params_to_numpy(val) if isinstance(val, dict)
-                  else convert(val))
-            for key, val in params.items()}
+    def convert(path, node, shape):
+        if isinstance(shape, dict):
+            if not isinstance(node, dict) or set(node) != set(shape):
+                raise ValueError(f"{path or 'params'}: keys "
+                                 f"{sorted(node) if isinstance(node, dict) else node!r}"
+                                 f" != {sorted(shape)} for this config")
+            return {k: convert(f"{path}/{k}", node[k], shape[k])
+                    for k in shape}
+        if isinstance(shape, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(shape):
+                raise ValueError(f"{path}: not a list of {len(shape)} for "
+                                 f"this config")
+            return [convert(f"{path}/{i}", n, s)
+                    for i, (n, s) in enumerate(zip(node, shape))]
+        t = _to_tensor(node, device)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != {shape} "
+                             f"for this config")
+        return t
+
+    return convert("", tree, want)
 
 
-def _param_paths(params: dict, prefix: str = "") -> list[tuple[str, Any]]:
-    """(keystr path, tensor) of a params dict, keys sorted as JAX flattens
-    dicts (the order of ``leaves``)."""
-    out = []
-    for key in sorted(params):
-        val, path = params[key], f"{prefix}[{key!r}]"
-        out.extend(_param_paths(val, path) if isinstance(val, dict)
-                   else [(path, val)])
-    return out
+def params_to_numpy(params):
+    """The port's params tree (dicts and lists) -> the same tree of numpy
+    arrays on the host (the reverse of ``params_from_numpy`` and
+    ``image_params_from_numpy``). bf16 tensors come back as float32, which
+    holds them exactly."""
+    if isinstance(params, dict):
+        return {key: params_to_numpy(val) for key, val in params.items()}
+    if isinstance(params, list):
+        return [params_to_numpy(val) for val in params]
+    t = params.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _param_paths(params, prefix: str = "") -> list[tuple[str, Any]]:
+    """(keystr path, tensor) of a params tree, dict keys sorted and lists
+    in order as JAX flattens them (the order of ``leaves``)."""
+    if isinstance(params, dict):
+        return [pt for key in sorted(params)
+                for pt in _param_paths(params[key], f"{prefix}[{key!r}]")]
+    if isinstance(params, list):
+        return [pt for i, val in enumerate(params)
+                for pt in _param_paths(val, f"{prefix}[{i}]")]
+    return [(prefix, params)]
+
+
+def _adam_state_path(opt: torch.optim.Optimizer) -> str:
+    try:
+        return ADAM_STATE_PATHS[type(opt)]
+    except KeyError:
+        raise ValueError(f"no JAX state layout for {type(opt).__name__}: "
+                         f"AdamW or Adam") from None
 
 
 def _adam_count(opt: torch.optim.Optimizer, params: list) -> int:
@@ -171,6 +226,7 @@ def train_state_leaves(state: TrainState) -> list[tuple[str, Any]]:
         raise ValueError("the optimizer's parameters are not the state's "
                          "params (in leaves() order)")
     count = _adam_count(opt, tensors)
+    adam = _adam_state_path(opt)
 
     def moment(p, key):
         st = opt.state.get(p)
@@ -178,9 +234,10 @@ def train_state_leaves(state: TrainState) -> list[tuple[str, Any]]:
 
     out = [(STEP_PATH, state.step)]
     out += [(".params" + path, p) for path, p in params]
-    out.append((COUNT_PATH, np.asarray(count, np.int32)))
-    out += [(_MU + path, moment(p, "exp_avg")) for path, p in params]
-    out += [(_NU + path, moment(p, "exp_avg_sq")) for path, p in params]
+    out.append((adam + ".count", np.asarray(count, np.int32)))
+    out += [(adam + ".mu" + path, moment(p, "exp_avg")) for path, p in params]
+    out += [(adam + ".nu" + path, moment(p, "exp_avg_sq"))
+            for path, p in params]
     return out
 
 
@@ -191,9 +248,10 @@ def train_state_placements(state: TrainState) -> dict[str, Any]:
     state; the step and the count are always whole."""
     if state.placements is None:
         return {}
+    adam = _adam_state_path(state.opt_state)
     out = {}
     for path, placement in _param_paths(state.placements):
-        for prefix in (".params", _MU, _NU):
+        for prefix in (".params", adam + ".mu", adam + ".nu"):
             out[prefix + path] = placement
     return out
 
@@ -220,6 +278,8 @@ def load_train_state(state: TrainState,
     a shape or dtype that differs from the state's."""
     opt = state.opt_state
     params = _param_paths(state.params)
+    adam = _adam_state_path(opt)
+    count_path = adam + ".count"
 
     def value(path, like: torch.Tensor) -> torch.Tensor:
         if path not in values:
@@ -231,9 +291,9 @@ def load_train_state(state: TrainState,
                 f"the state's {tuple(like.shape)} {like.dtype}")
         return v
 
-    if COUNT_PATH not in values:
-        raise ValueError(f"no value for leaf {COUNT_PATH!r}")
-    count = int(values[COUNT_PATH])
+    if count_path not in values:
+        raise ValueError(f"no value for leaf {count_path!r}")
+    count = int(values[count_path])
     group = opt.param_groups[0]
     with torch.no_grad():
         state.step.copy_(value(STEP_PATH, state.step))
@@ -248,8 +308,8 @@ def load_train_state(state: TrainState,
                 st["exp_avg"] = torch.zeros_like(p)
                 st["exp_avg_sq"] = torch.zeros_like(p)
             st["step"].fill_(count)
-            st["exp_avg"].copy_(value(_MU + path, p))
-            st["exp_avg_sq"].copy_(value(_NU + path, p))
+            st["exp_avg"].copy_(value(adam + ".mu" + path, p))
+            st["exp_avg_sq"].copy_(value(adam + ".nu" + path, p))
     return state
 
 

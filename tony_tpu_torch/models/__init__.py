@@ -1,5 +1,7 @@
-"""The flagship LM in PyTorch: config, parameters, the training forward and
-train step, and KV-cache decoding."""
+"""The models of the port: the flagship LM (config, parameters, the
+training forward and train step, KV-cache decoding) and the image
+classifiers (MNIST MLP and CNN, the ResNet family) with their supervised
+step."""
 
 from tony_tpu_torch.models.decode import (
     DecodeSession,
@@ -9,7 +11,20 @@ from tony_tpu_torch.models.decode import (
     generate,
     init_cache,
 )
-from tony_tpu_torch.models.train import TrainState, lm_loss, make_train_step
+from tony_tpu_torch.models.mnist import MnistConfig, mnist_apply, mnist_init
+from tony_tpu_torch.models.resnet import (
+    ResNetConfig,
+    resnet_apply,
+    resnet_init,
+)
+from tony_tpu_torch.models.train import (
+    TrainState,
+    lm_loss,
+    make_classifier_step,
+    make_image_classifier_step,
+    make_train_step,
+    uint8_image_normalizer,
+)
 from tony_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
@@ -21,6 +36,8 @@ from tony_tpu_torch.models.transformer import (
 __all__ = [
     "DecodeSession",
     "GenerateResult",
+    "MnistConfig",
+    "ResNetConfig",
     "TrainState",
     "TransformerConfig",
     "advance",
@@ -31,6 +48,13 @@ __all__ = [
     "init_cache",
     "init_params",
     "lm_loss",
+    "make_classifier_step",
+    "make_image_classifier_step",
     "make_train_step",
+    "mnist_apply",
+    "mnist_init",
     "param_roles",
+    "resnet_apply",
+    "resnet_init",
+    "uint8_image_normalizer",
 ]

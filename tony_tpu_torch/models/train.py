@@ -1,4 +1,9 @@
-"""The LM train step: forward, next-token cross-entropy, backward,
+"""The train steps: the LM's and the image classifiers'
+(``make_image_classifier_step``, see its docstring). Both return an
+instrumented step (``_instrumented``) whose ``stepstats`` publishes the
+step's anatomy (``observability.stepstats``).
+
+The LM train step: forward, next-token cross-entropy, backward,
 global-norm clipping and AdamW, as the JAX package's ``make_train_step``
 composes them (``optax.chain(clip_by_global_norm, adamw)``), on one device
 or over a mesh of processes.
@@ -47,12 +52,15 @@ value.
 
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
 
+from tony_tpu_torch import observability
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.models.mnist import MnistConfig, mnist_apply, mnist_init
 from tony_tpu_torch.models.transformer import (
     EXPERT_LEAVES,
     TransformerConfig,
@@ -73,8 +81,10 @@ from tony_tpu_torch.parallel.collectives import (
     axis_group,
     pmean_gradients,
 )
+from tony_tpu_torch.observability.stepstats import StepStats
 from tony_tpu_torch.parallel.mesh import DATA_AXES, axis_coordinate, axis_size
 from tony_tpu_torch.parallel.pipeline import SCHEDULES, check_schedule_args
+from tony_tpu_torch.parallel.plan import Plan
 from tony_tpu_torch.parallel.sharding import shard_pytree
 
 # The axes that split a model's leaves without splitting its tokens: a
@@ -135,14 +145,47 @@ def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
     return total, {"cross_entropy": ce, **aux}
 
 
-def leaves(params: dict) -> list[torch.Tensor]:
-    """The params tree's tensors in a fixed order (sorted keys, depth
-    first)."""
-    out = []
-    for key in sorted(params):
-        val = params[key]
-        out.extend(leaves(val) if isinstance(val, dict) else [val])
-    return out
+def leaves(params) -> list[torch.Tensor]:
+    """The params tree's tensors in JAX's flattening order (dicts by sorted
+    key, lists in order, depth first)."""
+    if isinstance(params, dict):
+        return [t for key in sorted(params) for t in leaves(params[key])]
+    if isinstance(params, list):
+        return [t for val in params for t in leaves(val)]
+    return [params]
+
+
+def _instrumented(step_fn, stats: StepStats | None = None):
+    """Count dispatches and host-side dispatch time into the process
+    registry (``train_step_dispatches_total``,
+    ``train_step_dispatch_seconds``), and drive ``stats`` (the step
+    anatomy: the interval between consecutive dispatches is the completed
+    step's wall, the dispatch time is its ``host`` phase). Nothing is
+    synchronized and nothing read back: the caller's readback fence is
+    where the wall closes. The recorder rides the returned step as
+    ``step.stepstats`` so train loops can wire their batch iterator in
+    (``stats.wrap_batches``); ``step.__wrapped__`` is ``step_fn``."""
+    registry = observability.default_registry()
+    dispatches = registry.counter("train_step_dispatches_total")
+    dispatch_s = registry.histogram("train_step_dispatch_seconds")
+
+    def step(*args, **kwargs):
+        if stats is not None:
+            stats.step_begin(
+                getattr(args[1], "shape", None) if len(args) > 1 else None
+            )
+        t0 = time.perf_counter()
+        out = step_fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        dispatches.inc()
+        dispatch_s.observe(dt)
+        if stats is not None:
+            stats.step_end(dt)
+        return out
+
+    step.stepstats = stats
+    step.__wrapped__ = step_fn
+    return step
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, *,
@@ -164,7 +207,7 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, *,
     return norm
 
 
-def _check_supported(cfg, mesh, plan, pipeline_microbatches,
+def _check_supported(cfg, mesh, pipeline_microbatches,
                      pipeline_schedule, pipeline_virtual) -> None:
     if pipeline_schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {pipeline_schedule!r}")
@@ -179,17 +222,16 @@ def _check_supported(cfg, mesh, plan, pipeline_microbatches,
         check_pipeline(cfg, pp, tp, pipeline_schedule, pipeline_virtual, ep)
     if mesh is not None:
         check_mesh(mesh, cfg)
-    if plan is not None:
-        raise NotImplementedError(
-            "make_train_step(plan=) waits for the measurement-plane slice "
-            "(slice 7) of the port"
-        )
+    _check_world(mesh)
+
+
+def _check_world(mesh) -> None:
     if mesh is None and dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         raise ValueError(
             f"a torch.distributed world of {dist.get_world_size()} "
             f"processes trains data-parallel over a mesh: pass "
-            f"make_train_step(cfg, runtime.build_job_mesh())"
+            f"runtime.build_job_mesh() as the mesh"
         )
 
 
@@ -204,7 +246,7 @@ def make_train_step(
     pipeline_microbatches: int | None = None,
     pipeline_schedule: str = "gpipe",
     pipeline_virtual: int = 1,
-    plan=None,
+    plan: Plan | None = None,
 ):
     """Returns ``(init_fn, step_fn)`` for one device, or for this rank of
     a ``mesh`` (see the module note).
@@ -230,10 +272,34 @@ def make_train_step(
     global-norm clipping at ``grad_clip``, then AdamW with b1 0.9, b2
     0.999, eps 1e-8, decoupled weight decay on every parameter
     (``torch.optim.AdamW`` computes that update).
+
+    ``plan`` (``parallel.plan.Plan``) supplies the mesh (built from its
+    spec when ``mesh`` is None) and the pipeline kwargs in one object, as
+    the JAX package's does; explicit pipeline kwargs win over the plan's.
+    A plan of more than one slice is refused (slices are TPU pods).
+
+    The returned ``step_fn`` is instrumented (``_instrumented``): its
+    ``step_fn.stepstats`` publishes the step's phases and ``tony_mfu``,
+    sized with the global batch (this rank's rows times the mesh's data
+    rows, dp x ep).
     """
-    _check_supported(cfg, mesh, plan, pipeline_microbatches,
-                     pipeline_schedule, pipeline_virtual)
     device = resolve_device(device)
+    if plan is not None:
+        if plan.num_slices > 1:
+            raise ValueError(
+                f"a plan of {plan.num_slices} slices: slices are TPU pods; "
+                f"a GPU job is one slice")
+        if mesh is None:
+            mesh = plan.build_mesh(device)
+        if pipeline_microbatches is None:
+            pipeline_microbatches = plan.microbatches
+            # Explicit schedule/virtual kwargs still win over the plan's:
+            # only defaults are replaced.
+            if pipeline_schedule == "gpipe" and pipeline_virtual == 1:
+                pipeline_schedule = plan.pipeline_schedule
+                pipeline_virtual = plan.pipeline_virtual
+    _check_supported(cfg, mesh, pipeline_microbatches, pipeline_schedule,
+                     pipeline_virtual)
     pipeline = dict(pipeline_microbatches=pipeline_microbatches,
                     pipeline_schedule=pipeline_schedule,
                     pipeline_virtual=pipeline_virtual)
@@ -284,7 +350,19 @@ def make_train_step(
         return (TrainState(state.step + 1, state.params, opt,
                            state.placements), metrics)
 
-    return init_fn, step_fn
+    # Step anatomy, sized from the global batch: the hook sees only this
+    # rank's rows, which would understate MFU by the data-row count.
+    stats = StepStats(cfg=cfg, plan=plan, mesh=mesh,
+                      microbatches=pipeline_microbatches,
+                      size_from_shapes=False, device=device)
+    rows = 1 if mesh is None else axis_size(mesh, ("dp", "ep"))
+
+    def step(state: TrainState, tokens):
+        stats.set_workload(tokens.shape[0] * rows,
+                           max(tokens.shape[1] - 1, 1))
+        return step_fn(state, tokens)
+
+    return init_fn, _instrumented(step, stats)
 
 
 def _gather(params: dict, placements: dict, mesh, resident=(), *,
@@ -380,12 +458,134 @@ def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
     clip_by_global_norm_(grads, grad_clip, leaf_norms=norms)
 
 
-def _masters(params: dict, device: torch.device) -> dict:
-    """fp32 leaf tensors on ``device`` that require grad (copies: the
-    caller's tensors are never updated by the optimizer)."""
-    return {
-        key: (_masters(val, device) if isinstance(val, dict)
-              else val.detach().to(device=device, dtype=torch.float32,
-                                   copy=True).requires_grad_())
-        for key, val in params.items()
-    }
+def _masters(params, device: torch.device):
+    """The params tree (dicts and lists) as fp32 leaf tensors on
+    ``device`` that require grad (copies: the caller's tensors are never
+    updated by the optimizer)."""
+    if isinstance(params, dict):
+        return {key: _masters(val, device) for key, val in params.items()}
+    if isinstance(params, list):
+        return [_masters(val, device) for val in params]
+    return torch.as_tensor(params).detach().to(
+        device=device, dtype=torch.float32, copy=True).requires_grad_()
+
+
+# ---------------------------------------------------------------------------
+# Image classifiers
+# ---------------------------------------------------------------------------
+
+def make_classifier_step(cfg: MnistConfig, mesh=None, *, device="cuda",
+                         learning_rate: float = 1e-3,
+                         steps_per_call: int = 1):
+    """The supervised step of the MNIST models (see
+    ``make_image_classifier_step``)."""
+    device = resolve_device(device)
+    return make_image_classifier_step(
+        lambda gen: mnist_init(cfg, gen, device),
+        lambda params, images: mnist_apply(params, images, cfg),
+        mesh,
+        device=device,
+        learning_rate=learning_rate,
+        steps_per_call=steps_per_call,
+        config=cfg,
+    )
+
+
+def uint8_image_normalizer(mean: float = 0.0, std: float = 255.0):
+    """The decode for byte-transferred images, run inside the step: uint8
+    -> fp32 ``(x - mean) / std``. Pass it as
+    ``make_image_classifier_step(preprocess=...)``."""
+    scale = 1.0 / std
+
+    def pre(images):
+        return (images.float() - mean) * scale
+
+    return pre
+
+
+def make_image_classifier_step(
+    init_params_fn,
+    apply_fn,
+    mesh=None,
+    *,
+    device="cuda",
+    learning_rate: float = 1e-3,
+    steps_per_call: int = 1,
+    preprocess=None,
+    config=None,
+):
+    """Supervised step for any image classifier ``apply_fn(params,
+    images) -> logits``: softmax cross-entropy, and optax's ``adam``
+    (b1 0.9, b2 0.999, eps 1e-8, no weight decay; ``torch.optim.Adam``
+    computes that update). Returns ``(init_fn, step_fn)``.
+
+    ``init_fn(seed_or_generator=0, *, params=None) -> TrainState``:
+    ``init_params_fn(generator)`` with a ``torch.Generator`` on ``device``
+    (from an int seed, or the one given), or the given ``params`` (e.g.
+    ``interop.image_params_from_numpy`` of JAX weights), copied to
+    ``device`` as fp32 masters.
+
+    ``step_fn(state, images, labels) -> (state', {"loss", "accuracy"})``:
+    one optimizer step, updating ``state`` in place. ``steps_per_call =
+    n > 1`` runs n steps a call on stacked batches ``[n, B, ...]`` and
+    returns the last step's metrics. ``preprocess`` runs on the images
+    inside the step, before ``apply_fn`` (``uint8_image_normalizer``).
+
+    With a ``mesh`` every rank holds the whole (replicated) params and
+    feeds its own rows of the global batch (split over dp x ep; the other
+    axes' ranks of a data row feed the same rows); the gradients and the
+    metrics are averaged over the data axes, so each rank steps with the
+    global batch's mean. ``step_fn.stepstats`` publishes the step's
+    phases (per optimizer step) and no MFU.
+    """
+    device = resolve_device(device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                         f"{device}")
+    _check_world(mesh)
+    n = steps_per_call
+
+    def init_fn(seed_or_generator=0, *, params=None) -> TrainState:
+        if params is None:
+            gen = seed_or_generator
+            if not isinstance(gen, torch.Generator):
+                gen = torch.Generator(device=device)
+                gen.manual_seed(int(seed_or_generator))
+            params = init_params_fn(gen)
+        params = _masters(params, device)
+        opt = torch.optim.Adam(leaves(params), lr=learning_rate,
+                               betas=(0.9, 0.999), eps=1e-8)
+        step = torch.zeros((), dtype=torch.int32, device=device)
+        return TrainState(step, params, opt)
+
+    def one_step(state: TrainState, images, labels):
+        if preprocess is not None:
+            images = preprocess(images)
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        logits = apply_fn(state.params, images)
+        loss = softmax_cross_entropy(logits, labels)
+        loss.backward()
+        metrics = [loss.detach().clone(),
+                   (logits.detach().argmax(-1) == labels).float().mean()]
+        if mesh is not None:
+            pmean_gradients([p.grad for p in leaves(state.params)], mesh,
+                            DATA_AXES)
+            pmean_gradients(metrics, mesh, DATA_AXES)
+        opt.step()
+        return (TrainState(state.step + 1, state.params, opt),
+                dict(zip(("loss", "accuracy"), metrics)))
+
+    def step_fn(state: TrainState, images, labels):
+        images = torch.as_tensor(images).to(device)
+        labels = torch.as_tensor(labels).to(device)
+        if n == 1:
+            return one_step(state, images, labels)
+        for i in range(n):
+            state, metrics = one_step(state, images[i], labels[i])
+        return state, metrics
+
+    # Phases only: image shapes carry no flops model.
+    stats = StepStats(cfg=config, mesh=mesh, steps_per_call=n,
+                      tokens_workload=False, device=device)
+    return init_fn, _instrumented(step_fn, stats)

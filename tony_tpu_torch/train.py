@@ -29,6 +29,12 @@ reader reopens every epoch) and carried onto the device by
 corpus, sharded and seeded by data row. Weights are fresh from ``--seed``
 or read with ``--weights-npz`` from a numpy dump of JAX params.
 
+Each step is reported through ``observability.report`` (step, loss,
+tokens/s) and the step's anatomy (``make_train_step``'s ``stepstats``, fed
+the batch iterator's waits) publishes its phases, ``step_time_ms`` and
+``tony_mfu``: under the orchestrator the snapshot reaches the
+coordinator's ``/metrics`` on the executor's heartbeat.
+
 Checkpoints go to ``--ckpt-dir``, else ``$TONY_CHECKPOINT_DIR``, else
 ``$TONY_LOG_DIR/lm-checkpoints``, in the JAX package's format: every
 ``--checkpoint-every`` steps, when the coordinator's flush order asks, and
@@ -51,7 +57,7 @@ import numpy as np
 import torch
 
 import tony_tpu_torch.runtime as rt
-from tony_tpu_torch import constants
+from tony_tpu_torch import constants, observability
 from tony_tpu_torch.checkpoint import CheckpointManager
 from tony_tpu_torch.interop import params_from_npz
 from tony_tpu_torch.io import device_prefetch
@@ -272,8 +278,12 @@ def _train(args, ctx) -> int:
               flush=True)
         return 0
     first = last = None
+    # The step's anatomy recorder wraps the batch iterator, so host time
+    # blocked on input reads as the data_wait phase.
+    stats = step_fn.stepstats
     with device_prefetch(corpus_batches(args, row, rows),
-                         ctx.device) as batches:
+                         ctx.device) as prefetched:
+        batches = stats.wrap_batches(prefetched)
         while step < args.steps:
             tokens = next(batches)
             t0 = time.perf_counter()
@@ -283,6 +293,17 @@ def _train(args, ctx) -> int:
             step += 1
             first = loss if first is None else first
             last = loss
+            # report() publishes the snapshot to TONY_METRICS_FILE (when
+            # tony launched us), which the executor piggybacks on its
+            # heartbeat.
+            report = {"step": step, "loss": loss,
+                      "tokens_per_sec": args.batch * args.seq / dt}
+            if not stats.enabled or not stats.steps_observed:
+                # Once the anatomy has observed a step it owns
+                # step_time_ms (the dispatch-to-dispatch wall its phases
+                # sum to); until then this fenced wall feeds the gauge.
+                report["step_time_ms"] = dt * 1000.0
+            observability.report(**report)
             if step % 5 == 0 or step == args.steps:
                 print(f"step {step}: loss {loss:.4f} "
                       f"({args.batch * args.seq / dt:.0f} tokens/s)",
