@@ -205,6 +205,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
              PEAK_FLOPS entry, the host phase's share, and its wall beside
              the uninstrumented step's (no synchronize added); the
              classifier step's phases and no tony_mfu.
+17. tune   — the compile, plan and tune plane, under a temporary compile
+             cache: tune_flash_blocks at the training, hd128 and
+             generate-prefill shapes (every candidate warmed before the
+             first is timed; a point other than Knobs() must beat it by
+             more than the spread of their windows); tune_train_step on
+             bench_transformer's step over the train knobs and the tile
+             points; make_train_step from that record (a lookup hit, the
+             winner's blocks pinned) for 10 steps under StepStats'
+             calibration, which write the measurement table's entry and
+             tony_plan_residual. Then the jit sanitizer armed strict over
+             the 12 requests through a ServingEngine on the flagship model
+             and 5 bench_transformer steps: no guarded transfer, no
+             retrace; an .item() inside a step region must raise (the
+             control). Then two processes on one empty
+             TONY_COMPILE_CACHE_DIR, each the first init and step of
+             bench_transformer: the cold one builds the kernels there and
+             misses twice, the warm one hits twice; tony_compile_ms of
+             both.
 
 The launch counters are set to 0 just before each path (phases 3-4, the
 serving path; phase 6b's HTTP serving, the int8 serving path; phase 7, the
@@ -216,7 +234,8 @@ generate path; phase 11, the MoE train path; phase 12b's pipelines, the MoE
 pipeline path, and its mesh runs, the MoE mesh path; phase 13's bf16
 generate and
 engine, the MoE serving path; phase 14's timed runs, the classifier path;
-phase 16's windows, the anatomy path) and read just after; every kernel of
+phase 16's windows, the anatomy path; phase 17's tuning and the step
+built from its record, the tune path) and read just after; every kernel of
 a path must have launched there, but on the classifier path, which runs
 none of them by design and must read 0 for each. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
@@ -229,6 +248,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import re
@@ -2192,8 +2212,8 @@ def _held_to_plain(torch, attention, tag: str, worst: dict):
     def count(key):
         worst[key] = worst.get(key, 0) + 1
 
-    def held_fwd(q, k, v, *, causal, scale):
-        got = fwd(q, k, v, causal=causal, scale=scale)
+    def held_fwd(q, k, v, *, causal, scale, block_q=None):
+        got = fwd(q, k, v, causal=causal, scale=scale, block_q=block_q)
         want = attention._flash_plain_bthd(q, k, v, causal=causal,
                                            scale=scale)
         errs = fwd_errors(got, want)
@@ -2205,9 +2225,10 @@ def _held_to_plain(torch, attention, tag: str, worst: dict):
         note("b1_lse_err", errs["lse_err"])
         return got
 
-    def held_bwd(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
+    def held_bwd(q, k, v, out, lse, do, *, causal, scale, g_lse=None,
+                 block_q=None, block_k=None):
         got = bwd(q, k, v, out, lse, do, causal=causal, scale=scale,
-                  g_lse=g_lse)
+                  g_lse=g_lse, block_q=block_q, block_k=block_k)
         want = attention._flash_bwd_plain(q, k, v, out, lse, do,
                                           causal=causal, scale=scale,
                                           g_lse=g_lse)
@@ -3919,7 +3940,9 @@ def anatomy_phase(torch, attention, norms, seed: int) -> dict:
     window's wall per step within 5 %; tony_mfu is published against the
     card's PEAK_FLOPS entry (989e12 for the H100 SXM); and the
     instrumented wall is within ANATOMY_NOISE (or twice the spread of the
-    windows) of the plain one: the hook adds no synchronize. The launch
+    windows) of the plain one: the hook adds no synchronize. The heap is
+    collected before the windows; each step's wall, the collector's
+    pauses and the calibration record's time are logged. The launch
     counters are set to 0 before the windows and read after: B1-B4 must
     each launch. Then the MNIST CNN's step (bf16, batch 512) publishes its
     phases and no tony_mfu."""
@@ -3936,27 +3959,72 @@ def anatomy_phase(torch, attention, norms, seed: int) -> dict:
         rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
         device="cuda")
     plain = step_fn.__wrapped__
+    stats = step_fn.stepstats
+    # Diagnostics, logged: every step's wall, the collector's pauses and
+    # the calibration record's time, each by the step it fell in.
+    steps: dict[str, list[float]] = {}
+    pauses: list[list] = []
+    records: list[list] = []
+    where = {"step": "warm-up", "gc_t0": 0.0}
 
-    def window(fn) -> float:
-        nonlocal state
+    def on_gc(phase, info):
+        if phase == "start":
+            where["gc_t0"] = time.perf_counter()
+        else:
+            ms = (time.perf_counter() - where["gc_t0"]) * 1e3
+            if ms > 0.5:
+                pauses.append([where["step"], info["generation"],
+                               round(ms, 3)])
+
+    maybe_record = stats._maybe_record
+
+    def timed_record():
         t0 = time.perf_counter()
-        for _ in range(ANATOMY_STEPS):
+        maybe_record()
+        records.append([where["step"], round(
+            (time.perf_counter() - t0) * 1e3, 3)])
+
+    stats._maybe_record = timed_record
+
+    def window(fn, name: str) -> float:
+        nonlocal state
+        walls_ms = steps.setdefault(name, [])
+        t0 = time.perf_counter()
+        for i in range(ANATOMY_STEPS):
+            where["step"] = f"{name}[{i}]"
+            t1 = time.perf_counter()
             state, metrics = fn(state, tokens)
             float(metrics["loss"])
+            walls_ms.append(round((time.perf_counter() - t1) * 1e3, 3))
         return (time.perf_counter() - t0) / ANATOMY_STEPS * 1e3
 
     for _ in range(ANATOMY_WARMUP):
         state, metrics = step_fn(state, tokens)
         float(metrics["loss"])
+    # The earlier phases leave a large heap: a full collection of it (370
+    # ms in one run) must not land in a window, where it is no cost of the
+    # hook. Collected here, no full collection falls due in 40 steps.
+    t0 = time.perf_counter()
+    gc.collect()
+    heap = {"collect_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            "objects": len(gc.get_objects())}
     _reset_launches(attention, norms)
-    walls = {"plain": [window(plain)]}
-    walls["instrumented"] = [window(step_fn), window(step_fn)]
-    gauges = registry.snapshot()["gauges"]
-    walls["plain"].append(window(plain))
+    gc.callbacks.append(on_gc)
+    try:
+        walls = {"plain": [window(plain, "plain0")]}
+        walls["instrumented"] = [window(step_fn, "instrumented0"),
+                                 window(step_fn, "instrumented1")]
+        gauges = registry.snapshot()["gauges"]
+        walls["plain"].append(window(plain, "plain1"))
+    finally:
+        gc.callbacks.remove(on_gc)
+        stats._maybe_record = maybe_record
+    log("anatomy lm steps: " + json.dumps(
+        {"step_ms": steps, "heap_before": heap, "gc_pauses_ms": pauses,
+         "calibration_ms": [r for r in records if r[1] > 0.05]}))
     launches = _launches(attention, norms)
     check_path_launches({"anatomy": launches})
     lm = _anatomy(gauges)
-    stats = step_fn.stepstats
     name = torch.cuda.get_device_name(0)
     peak = stepstats.PEAK_FLOPS.get(name, 0.0)
     if not peak or stats._peak_flops != peak:
@@ -4005,6 +4073,291 @@ def anatomy_phase(torch, attention, norms, seed: int) -> dict:
     log("anatomy classifier: " + json.dumps(classifier))
     _fresh_registry()
     return {"lm": lm, "classifier": classifier}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the compile, plan and tune plane
+# ---------------------------------------------------------------------------
+
+# tune_flash_blocks' shapes (causal, bf16): the training shape, the hd128
+# shape and the generate prefill's, where a 192-row block leaves a third of
+# its rows idle.
+TUNE_FLASH_SHAPES = {
+    "train": dict(b=8, t=2048, h=16, h_kv=16, d=64),
+    "hd128": dict(b=8, t=2048, h=8, h_kv=8, d=128),
+    "prefill": dict(b=8, t=128, h=16, h_kv=4, d=64),
+}
+TUNE_ITERS, TUNE_WINDOWS = 10, 5
+# Steps of the train step built from the tune record, under StepStats'
+# calibration, and of the train step run under the strict sanitizer.
+TUNE_CALIBRATE_STEPS = 10
+SANITIZER_TRAIN_STEPS = 5
+# The plan of one device, the train phase's (the measurement table's key).
+ONE_DEVICE_PLAN = "dp1.pp1.ep1.sp1.tp1"
+
+# Run as its own process, twice on one compile-cache dir: the first calls
+# of make_train_step's init and step at bench_transformer's width, with
+# the compile-cache counters and tony_compile_ms they leave.
+FIRST_CALL_SCRIPT = """
+import json, sys
+import numpy as np, torch
+from tony_tpu_torch import runtime
+from tony_tpu_torch.models import TransformerConfig, make_train_step
+from tony_tpu_torch.observability import default_registry
+runtime.initialize(device="cuda")
+cfg = TransformerConfig(dtype="bfloat16", **json.loads(sys.argv[1]))
+init_fn, step_fn = make_train_step(cfg, device="cuda")
+state = init_fn(0)
+tokens = torch.as_tensor(np.random.default_rng(0).integers(
+    0, cfg.vocab_size, (8, 2049)), device="cuda")
+state, metrics = step_fn(state, tokens)
+float(metrics["loss"])
+snap = default_registry().snapshot()
+print(json.dumps({
+    "hits": snap["counters"].get("tony_compile_cache_hits_total", 0),
+    "misses": snap["counters"].get("tony_compile_cache_misses_total", 0),
+    "compile_ms": snap["histograms"].get("tony_compile_ms")}))
+"""
+
+
+def tune_phase(torch, attention, norms, seed: int) -> dict:
+    """The autotuner on the card, its records under a temporary compile
+    cache. The launch counters are set to 0 just before and read just
+    after (the tune path):
+
+    * ``tune_flash_blocks`` at every TUNE_FLASH_SHAPES shape: each of
+      ``flash_block_candidates``' points warmed, then timed, forward and
+      backward through ``flash_attention``;
+    * ``tune_train_step`` on bench_transformer's step at 8 x 2048 tokens
+      over the train-step knobs and the tile points at head_dim 64;
+    * ``make_train_step`` built from that record (a lookup hit): the tuned
+      blocks pinned and the ones its calls take, B1-B3 launched by its
+      steps; TUNE_CALIBRATE_STEPS steps under StepStats' calibration write
+      the measurement table's entry and ``tony_plan_residual``.
+    """
+    from tony_tpu_torch import kernels
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.parallel import autotune
+    from tony_tpu_torch.parallel import plan as plan_lib
+
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    build_dir, active = kernels.BUILD_DIR, plan_lib.active_cache_dir()
+    res: dict = {}
+    with tempfile.TemporaryDirectory(prefix="tony-tune-") as tmp:
+        try:
+            plan_lib.configure_compile_cache(tmp)
+            reg = _fresh_registry()
+            _reset_launches(attention, norms)
+            flash = {}
+            for name, s in TUNE_FLASH_SHAPES.items():
+                rec = autotune.tune_flash_blocks(
+                    s["t"], s["b"] * s["h"], s["d"], heads=s["h"],
+                    kv_heads=s["h_kv"], iters=TUNE_ITERS,
+                    windows=TUNE_WINDOWS, force=True)
+                failed = [t for t in rec["trials"] if "error" in t]
+                if failed or len(rec["trials"]) != len(
+                        autotune.flash_block_candidates(s["d"])):
+                    raise AssertionError(f"tune_flash_blocks {name}: "
+                                         f"{rec['trials']}")
+                flash[name] = {k: rec[k] for k in ("best", "best_ms",
+                                                   "default_ms", "trials",
+                                                   "search_ms")}
+                log(f"tune_flash_blocks {name} {json.dumps(s)}: "
+                    f"{json.dumps(flash[name])}")
+            candidates = (autotune.train_knob_candidates(cfg)
+                          + autotune.flash_block_candidates(cfg.head_dim)[1:])
+            rec = autotune.tune_train_step(
+                cfg, None, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                candidates=candidates, trial_budget=len(candidates),
+                force=True)
+            if any("error" in t for t in rec["trials"]):
+                raise AssertionError(f"tune_train_step: {rec['trials']}")
+            winner = autotune.knobs_from_dict(rec["best"])
+            train = {k: rec[k] for k in ("best", "best_ms", "default_ms",
+                                         "trials", "search_ms")}
+            log(f"tune_train_step bench_transformer [8, 2049]: "
+                f"{json.dumps(train)}")
+
+            # make_train_step from the record.
+            hits = reg.counter(autotune.TUNE_RECORD_HITS_COUNTER)
+            hits0 = hits.value
+            init_fn, step_fn = make_train_step(cfg, device="cuda")
+            if hits.value != hits0 + 1:
+                raise AssertionError("make_train_step did not find the "
+                                     "tune record")
+            pinned = attention.tuned_blocks()
+            taken = attention._default_blocks(cfg.head_dim, None, None)
+            if pinned != (winner.block_q, winner.block_k) or taken != pinned:
+                raise AssertionError(f"tuned blocks {pinned}, taken {taken}, "
+                                     f"record's winner {winner}")
+            state = init_fn(seed)
+            tokens = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+                0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+                device="cuda")
+            before = _launches(attention, norms)
+            for _ in range(TUNE_CALIBRATE_STEPS):
+                state, metrics = step_fn(state, tokens)
+                float(metrics["loss"])  # the train loop's readback
+            step_launches = {k: n - before[k]
+                             for k, n in _launches(attention, norms).items()}
+            if not all(step_launches.values()):
+                raise AssertionError(f"the step built from the record "
+                                     f"launched {step_launches}")
+            stats = step_fn.stepstats
+            table = plan_lib.load_measurements()
+            entry = {b: row for b, row in table.items()
+                     if ONE_DEVICE_PLAN in row}
+            gauges = reg.snapshot()["gauges"]
+            residual = gauges.get(
+                f'tony_plan_residual{{plan="{ONE_DEVICE_PLAN}"}}')
+            if len(entry) != 1 or residual is None:
+                raise AssertionError(f"calibration wrote {table} and "
+                                     f"residual {residual}")
+            (bucket, row), = entry.items()
+            # The entry is the best wall when it was written (after three
+            # steps, then once a window for a real improvement).
+            if row[ONE_DEVICE_PLAN] != round(stats._recorded_ms, 3):
+                raise AssertionError(f"measured {row} against the recorded "
+                                     f"wall {stats._recorded_ms}")
+            live = autotune.load_record(rec["key"]).get("live_best_ms")
+            attention.clear_tuned_blocks()
+            launches = _launches(attention, norms)
+            check_path_launches({"tune": launches})
+            res = {"flash": flash, "train": train,
+                   "winner": winner.describe(),
+                   "step_launches": step_launches,
+                   "measurement": {bucket: row}, "residual": residual,
+                   "recorded_ms": stats._recorded_ms,
+                   "best_wall_ms": stats._best_wall_ms, "live_best_ms": live,
+                   "launches": launches}
+            log(f"tune phase: {json.dumps(res)}")
+        finally:
+            attention.clear_tuned_blocks()
+            plan_lib.configure_compile_cache(active,
+                                             enabled=active is not None)
+            kernels.BUILD_DIR = build_dir
+    return res
+
+
+def sanitizer_phase(torch, attention, seed: int) -> dict:
+    """The jit sanitizer armed strict (TONY_JIT_SANITIZER=strict) over the
+    serve phase's 12 requests through a ServingEngine on the flagship model
+    (the engine's own loop thread; no HTTP server) and over
+    SANITIZER_TRAIN_STEPS bench_transformer train steps: both must show no
+    guarded transfer and no retrace. Then the control: an ``.item()``
+    inside a step region must raise and be counted."""
+    import os
+
+    from tony_tpu_torch.analysis import jit_sanitizer
+    from tony_tpu_torch.models import (DecodeSession, TransformerConfig,
+                                       init_params, make_train_step)
+    from tony_tpu_torch.serving import ServingEngine
+
+    prev = os.environ.get(jit_sanitizer.ENV_FLAG)
+    os.environ[jit_sanitizer.ENV_FLAG] = "strict"
+    tracker = jit_sanitizer.tracker()
+    tracker.reset()
+    reg = _fresh_registry()
+    res: dict = {}
+    try:
+        cfg = TransformerConfig(dtype="bfloat16", **FLAGSHIP)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, device="cuda")
+        session = DecodeSession(params, cfg, device="cuda")
+        bodies = make_requests(cfg, session, seed, N_REQUESTS)
+        with ServingEngine(params, cfg, device="cuda") as engine:
+            reqs = [engine.submit(np.asarray(b["prompt"], np.int32),
+                                  b["max_new_tokens"],
+                                  eos_id=b.get("eos_id")) for b in bodies]
+            tokens_out = sum(r.result(timeout=600)["length"] for r in reqs)
+        res["serve"] = {"requests": len(reqs), "tokens": tokens_out,
+                        "keys": tracker.report()["keys"],
+                        "retraces": tracker.retraces(),
+                        "transfers": tracker.transfers()}
+        del session, params
+        torch.cuda.empty_cache()
+        tcfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+        init_fn, step_fn = make_train_step(tcfg, device="cuda")
+        state = init_fn(seed)
+        tokens = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+            0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)), device="cuda")
+        for _ in range(SANITIZER_TRAIN_STEPS):
+            state, metrics = step_fn(state, tokens)
+            float(metrics["loss"])  # the loop's readback, outside a region
+        res["train"] = {"steps": SANITIZER_TRAIN_STEPS,
+                        "keys": tracker.report()["keys"],
+                        "retraces": tracker.retraces(),
+                        "transfers": tracker.transfers()}
+        counters = reg.snapshot()["counters"]
+        for name in (jit_sanitizer.RETRACES_COUNTER,
+                     jit_sanitizer.GUARDED_TRANSFERS_COUNTER):
+            if counters.get(name, 0):
+                raise AssertionError(f"{name} = {counters[name]} on the "
+                                     f"serving and train paths")
+        if tracker.retraces() or tracker.transfers() or len(
+                res["train"]["keys"]) < 4:
+            raise AssertionError(f"jit sanitizer on the serving and train "
+                                 f"paths: {json.dumps(res)} "
+                                 f"{tracker.violations()}")
+        # The control: a readback inside a region raises.
+        try:
+            with jit_sanitizer.step_region("control"):
+                torch.ones(2, device="cuda").sum().item()
+        except RuntimeError as exc:
+            res["control"] = str(exc).splitlines()[0]
+        else:
+            raise AssertionError("an .item() inside a step region did not "
+                                 "raise")
+        guarded = reg.snapshot()["counters"].get(
+            jit_sanitizer.GUARDED_TRANSFERS_COUNTER, 0)
+        if tracker.transfers() != 1 or guarded != 1:
+            raise AssertionError(f"the control was counted {guarded} / "
+                                 f"{tracker.transfers()} times, not once")
+        if torch.cuda.get_sync_debug_mode() != 0:
+            raise AssertionError("the region left the sync debug mode on")
+        log(f"jit sanitizer: {json.dumps(res)}")
+    finally:
+        if prev is None:
+            os.environ.pop(jit_sanitizer.ENV_FLAG, None)
+        else:
+            os.environ[jit_sanitizer.ENV_FLAG] = prev
+        tracker.reset()
+    return res
+
+
+def first_call_phase(root: Path) -> dict:
+    """FIRST_CALL_SCRIPT run twice, one process after the other, on one
+    compile-cache dir (``TONY_COMPILE_CACHE_DIR``) that starts empty: the
+    cold run builds the kernel libraries into it and misses twice (init
+    and step), the warm run loads them and hits twice; tony_compile_ms of
+    both."""
+    import os
+
+    cache = root / "compile-cache"
+    env = dict(os.environ, TONY_COMPILE_CACHE_DIR=str(cache),
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    res = {}
+    for run in ("cold", "warm"):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", FIRST_CALL_SCRIPT,
+             json.dumps(BENCH_TRANSFORMER)],
+            env=env, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"first-call {run} run failed:\n"
+                                 f"{out.stderr[-4000:]}")
+        res[run] = json.loads(out.stdout.strip().splitlines()[-1])
+        res[run]["process_s"] = time.perf_counter() - t0
+    if (res["cold"]["hits"], res["cold"]["misses"]) != (0, 2) or (
+            res["warm"]["hits"], res["warm"]["misses"]) != (2, 0):
+        raise AssertionError(f"compile cache counters: {json.dumps(res)}")
+    libs = sorted(p.name for p in cache.glob("lib*.so"))
+    if len(libs) != 3:
+        raise AssertionError(f"the cold run built {libs} into the cache")
+    res["libraries"] = libs
+    log(f"first calls, cold then warm: {json.dumps(res)}")
+    return res
 
 
 def check_path_launches(launches_by_path: dict) -> None:
@@ -4191,6 +4544,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="tony-mnist-") as tmp:
         mnist_job_phase(Path(tmp))
     anatomy = anatomy_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
+    # This slice's path: the autotuner and the step built from its record
+    # (it resets the counters itself and reads them just after), the jit
+    # sanitizer over the serving and train paths, and the compile cache's
+    # cold and warm first calls.
+    tune = tune_phase(torch, attention, norms, args.seed)
+    torch.cuda.empty_cache()
+    sanitizer_phase(torch, attention, args.seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tony-first-call-") as tmp:
+        first_call_phase(Path(tmp))
     rows = (rms_row, flash_row, dq_row, dkv_row)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
@@ -4209,7 +4573,8 @@ def main(argv=None) -> int:
             "moe_mesh": moe_mesh["mesh_launches"][row["name"]],
             "moe_serve": moe_serve["launches"][row["name"]],
             "classifier": classifier["launches"][row["name"]],
-            "anatomy": anatomy["lm"]["launches"][row["name"]]}
+            "anatomy": anatomy["lm"]["launches"][row["name"]],
+            "tune": tune["launches"][row["name"]]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -28,7 +28,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tony_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "flash_bwd_study.py",
     REPO / "dp_study.py", REPO / "attention_chain_study.py",
-    REPO / "tests" / "torch_ranks.py",
+    REPO / "anatomy_study.py", REPO / "tests" / "torch_ranks.py",
 ]
 
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -276,6 +276,12 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
     assert '"ok": true' not in res.stdout
 
 
+def _torch_attention():
+    from tony_tpu_torch.ops import attention
+
+    return attention
+
+
 def _repo_module(name: str):
     sys.path.insert(0, str(REPO))
     try:
@@ -521,9 +527,10 @@ def test_flash_bwd_study_variants_apply_to_the_source():
 
 def test_chip_smoke_fwd_tiles_match_the_source():
     """chip_smoke.py's FWD_TILES, which its B1 tile-edge cases straddle,
-    are the bf16 B1 tiles flash_fwd.cu compiles, and the edge cases sit one
-    below, at and one above one and two query tiles, one key tile and the
-    ring's keys, at both head_dims and both mask modes."""
+    are the bf16 B1 tiles flash_fwd.cu compiles, ops/attention.py's TILES
+    names the same one instance, and the edge cases sit one below, at and
+    one above one and two query tiles, one key tile and the ring's keys, at
+    both head_dims and both mask modes."""
     chip_smoke = _repo_module("chip_smoke")
     study = _repo_module("flash_bwd_study")
     from tony_tpu_torch import kernels
@@ -540,6 +547,7 @@ def test_chip_smoke_fwd_tiles_match_the_source():
             "rows": 64 * tiles["fwd_warpgroups"],
             "keys": tiles["fwd_keys"],
             "ring_keys": tiles["fwd_stages"] * tiles["fwd_keys"]}, d
+        assert _torch_attention().TILES["flash_fwd"][d] == (want["rows"],)
         edges = [n * want["rows"] for n in (1, 2)] + [want["keys"],
                                                      want["ring_keys"]]
         for edge in edges:
@@ -550,8 +558,9 @@ def test_chip_smoke_fwd_tiles_match_the_source():
 
 def test_chip_smoke_bwd_tiles_match_the_source():
     """chip_smoke.py's BWD_TILES, which its tile-edge cases straddle, are
-    the bf16 B2/B3 tiles flash_bwd.cu compiles, and the edge cases sit one
-    below, at and one above one and two of each tile at both head_dims."""
+    the bf16 B2/B3 tiles flash_bwd.cu compiles, ops/attention.py's TILES
+    names the same one instance of each, and the edge cases sit one below,
+    at and one above one and two of each tile at both head_dims."""
     chip_smoke = _repo_module("chip_smoke")
     study = _repo_module("flash_bwd_study")
     from tony_tpu_torch import kernels
@@ -568,6 +577,9 @@ def test_chip_smoke_bwd_tiles_match_the_source():
             "dq_keys": tiles["dq_keys"],
             "dkv_keys": 64 * tiles["dkv_warpgroups"],
             "dkv_rows": tiles["dkv_rows"]}, d
+        attention = _torch_attention()
+        assert attention.TILES["flash_bwd_dq"][d] == (want["dq_rows"],)
+        assert attention.TILES["flash_bwd_dkv"][d] == (want["dkv_keys"],)
         for tile in want.values():
             for n in (1, 2):
                 for step in (-1, 0, 1):
@@ -576,6 +588,33 @@ def test_chip_smoke_bwd_tiles_match_the_source():
     assert study.tile_value("D == 64 ? 3 : 2", 128) == 2
     with pytest.raises(ValueError, match="not a number"):
         study.tile_value("kWgRows * 2", 64)
+
+
+def test_tile_knob_built_set_is_the_tuners_candidates():
+    """The tile knob's values at each head_dim (block_q: B1's and B2's
+    common rows, None where they differ; block_k: B3's keys) are exactly
+    the non-default points of autotune.flash_block_candidates, which leads
+    with Knobs()."""
+    from tony_tpu_torch.parallel import autotune
+
+    attention = _torch_attention()
+    for d in (64, 128):
+        built_q, built_k = attention.built_blocks(d)
+        cands = autotune.flash_block_candidates(d)
+        assert cands[0] == autotune.Knobs()
+        assert [(k.block_q, k.block_k) for k in cands[1:]] == [
+            (bq, bk) for bq in built_q or (None,) for bk in built_k]
+    assert attention.built_blocks(64) == ((192,), (192,))
+    assert attention.built_blocks(128) == ((), (128,))
+    assert attention.built_blocks(32) == ((), ())
+
+
+def test_the_compile_plan_tune_modules_fall_under_the_import_scan():
+    for rel in ("tony_tpu_torch/analysis/__init__.py",
+                "tony_tpu_torch/analysis/jit_sanitizer.py",
+                "tony_tpu_torch/parallel/autotune.py",
+                "tony_tpu_torch/parallel/plan.py"):
+        assert REPO / rel in PORT_FILES, rel
 
 
 def test_the_slice_s_modules_fall_under_the_import_scan():

@@ -9,6 +9,7 @@ retirement, slot reuse — each equal token for token to a single-request
 from __future__ import annotations
 
 import json
+import socket
 import time
 import urllib.error
 import urllib.request
@@ -238,6 +239,35 @@ class TestServingHTTP:
         finally:
             server.stop()
             eng.close()
+
+    @pytest.mark.parametrize("path", ["/shutdown", "/nowhere", "/generate"])
+    def test_post_reads_the_body_before_it_replies(self, path):
+        """Every POST route reads its whole body before it replies, so the
+        handler never closes a socket with request bytes unread (which
+        resets the connection and can discard the reply): with the
+        headers sent and the body held back, no reply comes; once the body
+        is sent the reply comes whole, then a clean end of stream."""
+        server = ServingServer(object(), port=0, host="127.0.0.1")
+        port = server.start()
+        body = b"{}"
+        try:
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=10) as s:
+                s.sendall(f"POST {path} HTTP/1.1\r\nHost: x\r\n"
+                          f"Content-Length: {len(body)}\r\n\r\n".encode())
+                s.settimeout(0.3)
+                with pytest.raises(socket.timeout):
+                    s.recv(1)
+                s.settimeout(10)
+                s.sendall(body)
+                data = b""
+                while chunk := s.recv(65536):
+                    data += chunk
+            head, _, reply = data.partition(b"\r\n\r\n")
+            assert head.split(b" ")[1] in (b"200", b"404", b"400")
+            assert "ok" in json.loads(reply) or "error" in json.loads(reply)
+        finally:
+            server.stop()
 
     def test_queue_full_is_429(self, setup):
         _, _, cfg, params = setup

@@ -7,7 +7,9 @@
   of meshes and plans.
 * The port's registry snapshot, published to its file, loads in the
   orchestrator's aggregator and renders on ``/metrics``.
-* The peak table, the calibration that is not there yet, the global-batch
+* The peak table, the live calibration (the measurement table's entries
+  and ``tony_plan_residual`` equal to JAX's ``StepStats`` fed the same
+  walls, the tune record's ``live_best_ms``), the global-batch
   sizing of ``make_train_step``'s anatomy on two gloo ranks, and
   ``make_train_step(plan=)`` against the mesh-and-kwargs form.
 * The port's train CLI under ``MiniTonyCluster`` puts the anatomy and a
@@ -313,32 +315,174 @@ def test_peak_table(monkeypatch):
     assert "tony_mfu" not in reg.snapshot()["gauges"]
 
 
-def test_calibration_is_not_there_yet(tmp_path, monkeypatch):
-    """JAX's live calibration records the best wall in the plan's
-    measurement table and publishes tony_plan_residual{plan=}. The port's
-    StepStats takes calibrate=True and does neither: no residual gauge,
-    and nothing written anywhere (HOME, TMPDIR and the working directory
-    point into an empty directory)."""
-    for var in ("HOME", "TMPDIR"):
-        monkeypatch.setenv(var, str(tmp_path))
-    monkeypatch.chdir(tmp_path)
+# Fake step walls (seconds) fed to both packages' calibration: falling,
+# steady, and noisy with late improvements; each with its window.
+_CAL_WALLS = {
+    "falling": ([0.1, 0.09, 0.095, 0.05, 0.06, 0.049, 0.048], 2),
+    "steady": ([0.05] * 8, 32),
+    "late_best": ([0.08, 0.07, 0.09, 0.07, 0.03, 0.031, 0.029, 0.02], 3),
+}
+
+
+def _calibrate(package: str, cache_dir, monkeypatch, walls, window, plan,
+               cfg_name="dense"):
+    """One package's StepStats(calibrate=True) fed ``walls`` through a fake
+    clock, each dispatch's step_begin followed by its step_end as
+    make_train_step's hook drives them, its plan measurement table and tune
+    records under ``cache_dir``; returns (the table, the tony_plan_residual
+    gauges, the stats)."""
+    stats_mod, metrics_mod, plan_mod, cfg_cls = (
+        (jax_stepstats, jax_metrics, jax_plan, JaxConfig) if package == "jax"
+        else (port_stepstats, port_metrics, port_plan, TransformerConfig))
+    if package == "jax":
+        monkeypatch.setattr(jax_plan, "active_cache_dir",
+                            lambda: str(cache_dir))
+    else:
+        monkeypatch.setattr(port_plan, "_ACTIVE_CACHE_DIR", str(cache_dir))
+    reg = metrics_mod.MetricsRegistry()
+    clock = _Clock()
+    stats = stats_mod.StepStats(
+        cfg=cfg_cls(**_CONFIGS[cfg_name]),
+        plan=plan_mod.Plan(plan_mod.MeshSpec(**plan)), registry=reg,
+        clock=clock, peak_flops=1e12, calibrate=True, enabled=True,
+        window=window)
+    stats.step_begin((4, 17))
+    stats.step_end(0.0)
+    clock.advance(1.0)
+    for wall in walls:
+        stats.step_begin((4, 17))
+        stats.step_end(0.0)
+        clock.advance(wall)
+    stats.step_begin((4, 17))
+    stats.step_end(0.0)
+    gauges = {k: v for k, v in reg.snapshot()["gauges"].items()
+              if k.startswith(port_stepstats.PLAN_RESIDUAL_GAUGE)}
+    return plan_mod.load_measurements(cache_dir=str(cache_dir)), gauges, stats
+
+
+@pytest.mark.parametrize("plan", [{}, {"dp": 2, "tp": 2}],
+                         ids=["one_device", "dp2_tp2"])
+@pytest.mark.parametrize("walls", sorted(_CAL_WALLS))
+def test_calibration_writes_the_table_and_residual_as_jax_does(
+        tmp_path, monkeypatch, walls, plan):
+    """StepStats(calibrate=True) fed the same walls in both packages, over
+    a table both were seeded with (another plan's measurement): the same
+    measurement-table entries and the same tony_plan_residual{plan=}."""
+    seeded_cfg = JaxConfig(**_CONFIGS["dense"])
+    out = {}
+    for package in ("jax", "port"):
+        d = tmp_path / package
+        d.mkdir()
+        n = jax_plan.Plan(jax_plan.MeshSpec(**plan)).num_devices
+        other = jax_plan.candidate_plans(seeded_cfg, n, global_batch=4,
+                                         seq=16)[-1]
+        if other.key() != jax_plan.Plan(jax_plan.MeshSpec(**plan)).key():
+            jax_plan.record_step_time(other, seeded_cfg, 40.0,
+                                      global_batch=4, seq=16,
+                                      cache_dir=str(d))
+        out[package] = _calibrate(package, d, monkeypatch,
+                                  *_CAL_WALLS[walls], plan)
+    (table, gauges, stats), (jtable, jgauges, jstats) = (out["port"],
+                                                         out["jax"])
+    assert table == jtable and table
+    assert gauges == jgauges and len(gauges) == 1
+    assert stats._recorded_ms == pytest.approx(jstats._recorded_ms)
+    key = port_plan.Plan(port_plan.MeshSpec(**plan)).key()
+    (bucket, row), = [(b, r) for b, r in table.items() if key in r]
+    assert row[key] == round(stats._recorded_ms, 3)
+    assert bucket == port_plan._model_bucket(
+        TransformerConfig(**_CONFIGS["dense"]), stats._num_devices, 4, 16)
+
+
+def test_calibration_feeds_the_tune_record_live_best(tmp_path, monkeypatch):
+    """With a tune record for (cfg, no mesh), calibration folds the best
+    wall into its live_best_ms, as JAX's does into its own record."""
+    from tony_tpu.parallel import autotune as jax_autotune
+    from tony_tpu_torch.parallel import autotune as port_autotune
+
+    got = {}
+    for package, mod, cfg_cls in (("jax", jax_autotune, JaxConfig),
+                                  ("port", port_autotune, TransformerConfig)):
+        d = tmp_path / package
+        key = mod.tune_key("lm_train_step",
+                           config=cfg_cls(**_CONFIGS["dense"]))
+        mod.save_record({"version": 1, "key": key, "label": "lm_train_step",
+                         "best": {}, "best_ms": 99.0, "trials": []},
+                        cache_dir=str(d))
+        _calibrate(package, d, monkeypatch, *_CAL_WALLS["falling"], {})
+        got[package] = mod.load_record(key, cache_dir=str(d))["live_best_ms"]
+    assert got["port"] == got["jax"] == 48.0
+
+
+def test_calibration_off_or_unwritable_writes_nothing(tmp_path, monkeypatch):
+    """calibrate=False, or no config, leaves no table and no residual; an
+    unwritable cache dir costs the step nothing (telemetry)."""
+    blocked = tmp_path / "file"
+    blocked.write_text("")
+    for kw, d in (({"calibrate": False}, tmp_path),
+                  ({"cfg": None}, tmp_path), ({}, blocked)):
+        monkeypatch.setattr(port_plan, "_ACTIVE_CACHE_DIR", str(d))
+        reg = port_metrics.MetricsRegistry()
+        clock = _Clock()
+        stats = port_stepstats.StepStats(**{
+            "cfg": TransformerConfig(**_CONFIGS["dense"]),
+            "plan": port_plan.Plan(MeshSpec()), "registry": reg,
+            "clock": clock, "peak_flops": 1e12, "calibrate": True,
+            "enabled": True, **kw})
+        for _ in range(7):
+            stats.step_begin((4, 17))
+            stats.step_end(0.0)
+            clock.advance(0.05)
+        assert stats.steps_observed == 5
+        assert not [k for k in reg.snapshot()["gauges"]
+                    if k.startswith(port_stepstats.PLAN_RESIDUAL_GAUGE)]
+        assert port_plan.load_measurements(cache_dir=str(tmp_path)) == {}
+
+
+def test_calibration_writes_at_step_end_not_step_begin(tmp_path, monkeypatch):
+    """The record that an observation makes due is written by the step_end
+    of the dispatch that observed it, after the step's work is queued:
+    step_begin alone leaves the table empty, its step_end fills it."""
+    monkeypatch.setattr(port_plan, "_ACTIVE_CACHE_DIR", str(tmp_path))
     reg = port_metrics.MetricsRegistry()
     clock = _Clock()
     stats = port_stepstats.StepStats(
         cfg=TransformerConfig(**_CONFIGS["dense"]),
         plan=port_plan.Plan(MeshSpec()), registry=reg, clock=clock,
         peak_flops=1e12, calibrate=True, enabled=True)
-    stats.step_begin((4, 17))
-    for _ in range(6):
-        clock.advance(0.05)
+    for _ in range(4):
         stats.step_begin((4, 17))
-    assert stats.calibrate and stats.steps_observed == 5
-    gauges = reg.snapshot()["gauges"]
-    assert not [k for k in gauges
-                if k.startswith(port_stepstats.PLAN_RESIDUAL_GAUGE)]
-    assert gauges['tony_step_phase_ms{phase="compute"}'] == \
-        pytest.approx(50.0)
-    assert list(tmp_path.iterdir()) == []
+        stats.step_end(0.0)
+        clock.advance(0.05)
+    stats.step_begin((4, 17))      # the third observation: a record is due
+    assert stats.steps_observed == 3
+    assert port_plan.load_measurements(cache_dir=str(tmp_path)) == {}
+    assert stats._recorded_ms is None
+    stats.step_end(0.0)
+    assert stats._recorded_ms == pytest.approx(50.0)
+    table = port_plan.load_measurements(cache_dir=str(tmp_path))
+    assert [r for row in table.values() for r in row.values()] == [50.0]
+
+
+def test_make_train_step_without_a_mesh_calibrates_one_device(
+        tmp_path, monkeypatch):
+    """The step without a mesh records under the one-device plan
+    (dp1.pp1.ep1.sp1.tp1) and publishes its residual."""
+    monkeypatch.setattr(port_plan, "_ACTIVE_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(port_metrics, "_default_registry",
+                        port_metrics.MetricsRegistry())
+    cfg = TransformerConfig(**TINY)
+    init_fn, step_fn = make_train_step(cfg, device="cpu")
+    state = init_fn(0)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 17))
+    for _ in range(6):
+        state, metrics = step_fn(state, tokens)
+        float(metrics["loss"])
+    key = "dp1.pp1.ep1.sp1.tp1"
+    table = port_plan.load_measurements(cache_dir=str(tmp_path))
+    assert [key] == [k for row in table.values() for k in row]
+    gauges = port_metrics.default_registry().snapshot()["gauges"]
+    assert gauges[f'tony_plan_residual{{plan="{key}"}}'] == 1.0
 
 
 def test_train_step_anatomy_is_sized_by_the_global_batch(tmp_path):
@@ -431,8 +575,10 @@ def test_train_cli_puts_anatomy_on_live_metrics(tmp_path, monkeypatch):
     test_mini_cluster_stepstats_training_e2e runs examples/lm_train.py:
     tony_step_phase_ms{phase=} and a non-zero tony_mfu on the
     coordinator's live /metrics, the persisted snapshot's phases summing
-    to its step_time_ms within 5 %, and no plan-measurements entry (the
-    port has no calibration yet). The job runs one intra-op thread, as
+    to its step_time_ms within 5 %, and its calibration's entry in the
+    plan-measurements table of the job's compile cache (tony.compile.
+    cache-dir), under the one-device plan. The job runs one intra-op
+    thread, as
     the rank groups do: beside other test workers the default count
     oversubscribes the cores by an order of magnitude."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
@@ -500,4 +646,6 @@ def test_train_cli_puts_anatomy_on_live_metrics(tmp_path, monkeypatch):
     assert sum(entry["phases"].values()) == pytest.approx(
         gauges["step_time_ms"], rel=0.05)
     assert gauges["tony_mfu"] > 0
-    assert not jax_plan.load_measurements(cache_dir=str(cache_dir))
+    table = jax_plan.load_measurements(cache_dir=str(cache_dir))
+    assert [k for row in table.values() for k in row] == [
+        "dp1.pp1.ep1.sp1.tp1"]

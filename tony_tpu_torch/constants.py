@@ -26,6 +26,24 @@ TONY_SERVING_PORT = "TONY_SERVING_PORT"
 # The serving engine's KV storage mode (tony.tune.kv-quant): "none" or
 # "int8"; parallel/autotune.py reads it.
 TONY_TUNE_KV_QUANT = "TONY_TUNE_KV_QUANT"
+# The measured autotuner (tony.tune.*): lookups on or off, the default trial
+# budget of a search, and where its records live.
+TONY_TUNE_ENABLED = "TONY_TUNE_ENABLED"
+TONY_TUNE_TRIAL_BUDGET = "TONY_TUNE_TRIAL_BUDGET"
+TONY_TUNE_RECORD_DIR = "TONY_TUNE_RECORD_DIR"
+
+# The compile cache (tony.compile.*): the directory the kernel libraries,
+# the plan-key index and the plan measurement table live in, and whether it
+# is used.
+TONY_COMPILE_CACHE_DIR = "TONY_COMPILE_CACHE_DIR"
+TONY_COMPILE_CACHE_ENABLED = "TONY_COMPILE_CACHE_ENABLED"
+
+# The jit sanitizer (analysis/jit_sanitizer.py): armed ("1", "report" or
+# "strict"), the retraces a wrapper key may take, and where the violation
+# report is dumped at exit.
+TONY_JIT_SANITIZER = "TONY_JIT_SANITIZER"
+TONY_JIT_RETRACE_BUDGET = "TONY_JIT_RETRACE_BUDGET"
+TONY_JIT_REPORT_DIR = "TONY_JIT_REPORT_DIR"
 
 # Checkpoint-aware retry: the newest complete step the coordinator saw
 # before retrying the session, and the checkpoint dir it probes (exported
@@ -59,3 +77,4 @@ TONY_IO_CHUNK_RECORDS = "TONY_IO_CHUNK_RECORDS"
 TONY_METRICS_FILE = "TONY_METRICS_FILE"
 TONY_STEPSTATS_ENABLED = "TONY_STEPSTATS_ENABLED"
 TONY_STEPSTATS_CALIBRATE = "TONY_STEPSTATS_CALIBRATE"
+TONY_STEPSTATS_WINDOW = "TONY_STEPSTATS_WINDOW"

@@ -86,7 +86,10 @@
 //   the heaviest and go first, and a warpgroup whose 64 rows lie wholly
 //   above the diagonal of a tile skips its products.
 // The tile sizes and ring depths are flash_bwd_study.py's sweep's choice on
-// an H100 (PERF.md has the table).
+// an H100 (PERF.md has the table). The entry points' `tile` (the autotuner's
+// tile knob, ops/attention.py's block_q and block_k) names B2's query rows
+// or B3's keys a bf16 block: 0 or the one built instance's; they refuse any
+// other.
 //
 // fp32: the tensor cores have no exact fp32 product (TF32 keeps 10 mantissa
 // bits), so fp32 keeps the FMA design: 256 threads per block, 64-row tiles
@@ -1102,7 +1105,8 @@ void copy3(int64_t* dst, const int64_t* src) {
 // `strides` holds the (batch, seq, head) element strides of q, k, v, dO, dq
 // and O in that order (18 values); the last dimension is contiguous, and
 // for bf16 the bases and every stride are 16-byte aligned (TMA). dtype
-// codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128. Returns a
+// codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128. `tile` is the
+// bf16 block's query rows, 0 or DqBf16<D>::kM (fp32: 0). Returns a
 // cudaError_t value (0 on success); asynchronous on `stream`.
 extern "C" int tony_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
@@ -1110,7 +1114,8 @@ extern "C" int tony_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* g_lse, const int64_t* strides,
                                  int batch, int n_heads, int n_kv_heads,
                                  int t_q, int t_k, int head_dim, float scale,
-                                 int causal, int dtype, void* stream) {
+                                 int causal, int dtype, int tile,
+                                 void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, batch, n_heads,
                          n_kv_heads, t_q, t_k, scale, causal);
   p.dq = dq;
@@ -1124,27 +1129,30 @@ extern "C" int tony_flash_bwd_dq(const void* q, const void* k, const void* v,
   copy3(p.o_s, strides + 15);
   const dim3 grid(batch * n_heads, (t_q + kBlockM - 1) / kBlockM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
+  if (dtype == 0 && tile == 0 && head_dim == 64)
     return launch(flash_bwd_dq_kernel_fp32<64>, dq_smem_fp32<64>(),
                   kThreads32, grid, s, p);
-  if (dtype == 0 && head_dim == 128)
+  if (dtype == 0 && tile == 0 && head_dim == 128)
     return launch(flash_bwd_dq_kernel_fp32<128>, dq_smem_fp32<128>(),
                   kThreads32, grid, s, p);
-  if (dtype == 1 && head_dim == 64) return launch_dq_bf16<64>(p, batch, s);
-  if (dtype == 1 && head_dim == 128) return launch_dq_bf16<128>(p, batch, s);
+  if (dtype == 1 && head_dim == 64 && (tile == 0 || tile == DqBf16<64>::kM))
+    return launch_dq_bf16<64>(p, batch, s);
+  if (dtype == 1 && head_dim == 128 && (tile == 0 || tile == DqBf16<128>::kM))
+    return launch_dq_bf16<128>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // As tony_flash_bwd_dq, reading delta and writing dk and dv
 // [B, t_k, H_kv, D]; `strides` holds those of q, k, v, dO, dk, dv (18
-// values).
+// values); `tile` is the bf16 block's keys, 0 or DkvBf16<D>::kN.
 extern "C" int tony_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   void* delta, void* dk, void* dv,
                                   const int64_t* strides, int batch,
                                   int n_heads, int n_kv_heads, int t_q,
                                   int t_k, int head_dim, float scale,
-                                  int causal, int dtype, void* stream) {
+                                  int causal, int dtype, int tile,
+                                  void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, batch, n_heads,
                          n_kv_heads, t_q, t_k, scale, causal);
   p.dk = dk;
@@ -1157,13 +1165,16 @@ extern "C" int tony_flash_bwd_dkv(const void* q, const void* k, const void* v,
   copy3(p.dv_s, strides + 15);
   const dim3 grid(batch * n_kv_heads, (t_k + kBlockN - 1) / kBlockN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
+  if (dtype == 0 && tile == 0 && head_dim == 64)
     return launch(flash_bwd_dkv_kernel_fp32<64>, dkv_smem_fp32<64>(),
                   kThreads32, grid, s, p);
-  if (dtype == 0 && head_dim == 128)
+  if (dtype == 0 && tile == 0 && head_dim == 128)
     return launch(flash_bwd_dkv_kernel_fp32<128>, dkv_smem_fp32<128>(),
                   kThreads32, grid, s, p);
-  if (dtype == 1 && head_dim == 64) return launch_dkv_bf16<64>(p, batch, s);
-  if (dtype == 1 && head_dim == 128) return launch_dkv_bf16<128>(p, batch, s);
+  if (dtype == 1 && head_dim == 64 && (tile == 0 || tile == DkvBf16<64>::kN))
+    return launch_dkv_bf16<64>(p, batch, s);
+  if (dtype == 1 && head_dim == 128 &&
+      (tile == 0 || tile == DkvBf16<128>::kN))
+    return launch_dkv_bf16<128>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

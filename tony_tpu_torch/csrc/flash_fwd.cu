@@ -79,7 +79,9 @@
 //   K/V from L2 rather than from memory, and the lightest close each band.
 // The tile sizes, ring depth, overlap, turns, band, Q tiles and the
 // persistent grid come from flash_bwd_study.py's fwd-sweep on an H100
-// (PERF.md has the table).
+// (PERF.md has the table). The entry point's `tile` (the autotuner's tile
+// knob, ops/attention.py's block_q) names the bf16 block's query rows: 0
+// or the one built instance's kM; it refuses any other.
 //
 // Where trouble was expected, and what the design does:
 // - Sliced and strided inputs (the ring's key slices with t_q != t_k, the
@@ -817,6 +819,7 @@ cudaError_t launch_fp32(const Params& p, int bh, cudaStream_t stream) {
 // (f32, contiguous). Strides are in elements; the last dimension is
 // contiguous, and for bf16 the bases and every stride are 16-byte aligned
 // (TMA). dtype codes: 0 = float32, 1 = bfloat16; head_dim 64 or 128.
+// `tile` is the bf16 block's query rows, 0 or FwdBf16<D>::kM (fp32: 0).
 // Returns a cudaError_t value (0 on success); asynchronous on `stream`.
 extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int64_t q_sb, int64_t q_st,
@@ -825,7 +828,7 @@ extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v,
                               int64_t v_sh, int64_t o_sb, int64_t o_st,
                               int64_t o_sh, int batch, int n_heads,
                               int n_kv_heads, int t_q, int t_k, int head_dim,
-                              float scale, int causal, int dtype,
+                              float scale, int causal, int dtype, int tile,
                               void* stream) {
   Params p = {};
   p.q = q;
@@ -853,11 +856,14 @@ extern "C" int tony_flash_fwd(const void* q, const void* k, const void* v,
   p.causal = causal;
   const int bh = batch * n_heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch_fp32<64>(p, bh, s);
-  if (dtype == 0 && head_dim == 128) return launch_fp32<128>(p, bh, s);
-  if (dtype == 1 && head_dim == 64)
+  if (dtype == 0 && tile == 0 && head_dim == 64)
+    return launch_fp32<64>(p, bh, s);
+  if (dtype == 0 && tile == 0 && head_dim == 128)
+    return launch_fp32<128>(p, bh, s);
+  if (dtype == 1 && head_dim == 64 && (tile == 0 || tile == FwdBf16<64>::kM))
     return launch_bf16<64>(p, batch, n_kv_heads, s);
-  if (dtype == 1 && head_dim == 128)
+  if (dtype == 1 && head_dim == 128 &&
+      (tile == 0 || tile == FwdBf16<128>::kM))
     return launch_bf16<128>(p, batch, n_kv_heads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -46,15 +46,15 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     ),
     "flash_fwd": (
         "flash_fwd.cu", "tony_flash_fwd",
-        [_P, _P, _P, _P, _P] + [_L] * 12 + [_I] * 6 + [_F, _I, _I, _P],
+        [_P, _P, _P, _P, _P] + [_L] * 12 + [_I] * 6 + [_F, _I, _I, _I, _P],
     ),
     "flash_bwd_dq": (
         "flash_bwd.cu", "tony_flash_bwd_dq",
-        [_P] * 9 + [_LP] + [_I] * 6 + [_F, _I, _I, _P],
+        [_P] * 9 + [_LP] + [_I] * 6 + [_F, _I, _I, _I, _P],
     ),
     "flash_bwd_dkv": (
         "flash_bwd.cu", "tony_flash_bwd_dkv",
-        [_P] * 8 + [_LP] + [_I] * 6 + [_F, _I, _I, _P],
+        [_P] * 8 + [_LP] + [_I] * 6 + [_F, _I, _I, _I, _P],
     ),
 }
 
@@ -88,6 +88,16 @@ def library_path(source: str) -> Path:
         digest.update(header.name.encode() + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:12]}.so"
+
+
+def sources_digest() -> str:
+    """One digest of every kernel source and shared header and of the
+    flags: what a compiled artefact of the port depends on (the plan cache
+    key's backend fingerprint carries it)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        digest.update(path.name.encode() + path.read_bytes())
+    return digest.hexdigest()[:16]
 
 
 def build(names=None, *, ptxas_report: dict | None = None

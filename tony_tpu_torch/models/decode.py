@@ -68,6 +68,9 @@ from tony_tpu_torch.ops import (
     flash_attention,
     rms_norm,
 )
+from tony_tpu_torch.ops import attention
+from tony_tpu_torch.parallel import autotune
+from tony_tpu_torch.parallel import plan as plan_lib
 from tony_tpu_torch.parallel.collectives import all_gather_tp, axis_group
 from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
 
@@ -641,7 +644,12 @@ class DecodeSession:
     its batch rows over dp and its K/V heads over tp (an MoE trunk's
     experts over ep), and ``generate`` returns the whole batch on every
     rank. The mesh's device type must be
-    the session's."""
+    the session's.
+
+    A tune record for (cfg, mesh) (``autotune.lookup("decode_generate")``)
+    pins the flash tile knob for the prefill. Each distinct ``generate``
+    signature's first call runs under ``plan.timed_compile``: timed into
+    ``tony_compile_ms`` and counted as a compile-cache hit or miss."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, device="cuda",
                  mesh=None) -> None:
@@ -654,6 +662,11 @@ class DecodeSession:
         self.cfg = cfg
         self.mesh = mesh
         self.params: dict = {}
+        # The generate signatures whose first call has been timed.
+        self._compiled: set[tuple] = set()
+        tuned = autotune.lookup("decode_generate", config=cfg, mesh=mesh)
+        if tuned is not None and (tuned.block_q or tuned.block_k):
+            attention.set_tuned_blocks(tuned.block_q, tuned.block_k)
         self.refresh(params)
 
     def refresh(self, params: dict) -> None:
@@ -668,5 +681,26 @@ class DecodeSession:
     def generate(self, prompt, max_new_tokens: int, **kwargs):
         """Same surface as module-level ``generate`` minus params, cfg,
         device and mesh."""
+        # Every kwarg joins the signature: a missed distinction would leave
+        # a first call uncounted (a false hit), never a wrong result.
+        shape = getattr(prompt, "shape", None)
+        sig = (
+            tuple(shape) if shape is not None else repr(prompt),
+            str(getattr(prompt, "dtype", type(prompt).__name__)),
+            max_new_tokens,
+            tuple(sorted((k, repr(v)) for k, v in kwargs.items())),
+        )
+        if sig not in self._compiled:
+            key = plan_lib.plan_cache_key(
+                "decode_generate", config=self.cfg, mesh=self.mesh,
+                extra={"sig": repr(sig)},
+            )
+            with plan_lib.timed_compile(key):
+                out = generate(self.params, prompt, self.cfg, max_new_tokens,
+                               device=self.device, mesh=self.mesh, **kwargs)
+            # Marked only on success: a failed first call must not exempt
+            # the next one from the count.
+            self._compiled.add(sig)
+            return out
         return generate(self.params, prompt, self.cfg, max_new_tokens,
                         device=self.device, mesh=self.mesh, **kwargs)

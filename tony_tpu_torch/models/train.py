@@ -59,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from tony_tpu_torch import observability
+from tony_tpu_torch.analysis import jit_sanitizer
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.mnist import MnistConfig, mnist_apply, mnist_init
 from tony_tpu_torch.models.transformer import (
@@ -82,7 +83,15 @@ from tony_tpu_torch.parallel.collectives import (
     pmean_gradients,
 )
 from tony_tpu_torch.observability.stepstats import StepStats
-from tony_tpu_torch.parallel.mesh import DATA_AXES, axis_coordinate, axis_size
+from tony_tpu_torch.ops import attention as attention_lib
+from tony_tpu_torch.parallel import autotune as autotune_lib
+from tony_tpu_torch.parallel import plan as plan_lib
+from tony_tpu_torch.parallel.mesh import (
+    DATA_AXES,
+    MeshSpec,
+    axis_coordinate,
+    axis_size,
+)
 from tony_tpu_torch.parallel.pipeline import SCHEDULES, check_schedule_args
 from tony_tpu_torch.parallel.plan import Plan
 from tony_tpu_torch.parallel.sharding import shard_pytree
@@ -278,10 +287,21 @@ def make_train_step(
     the JAX package's does; explicit pipeline kwargs win over the plan's.
     A plan of more than one slice is refused (slices are TPU pods).
 
-    The returned ``step_fn`` is instrumented (``_instrumented``): its
+    A tune record for (cfg, mesh) (``autotune.lookup("lm_train_step")``)
+    fills what the caller and the plan left at their defaults: the
+    microbatches and schedule, the remat policy, and the flash tile knob
+    (``attention.set_tuned_blocks``).
+
+    ``init_fn`` and the step are wrapped in ``plan.instrument_jit`` under
+    ``plan_cache_key``: each one's first call is timed into
+    ``tony_compile_ms`` and counted as a compile-cache hit or miss, and
+    with the jit sanitizer armed every call is classified and runs in a
+    ``step_region`` (the batch moves to the device before it). The
+    returned ``step_fn`` is also instrumented (``_instrumented``): its
     ``step_fn.stepstats`` publishes the step's phases and ``tony_mfu``,
     sized with the global batch (this rank's rows times the mesh's data
-    rows, dp x ep).
+    rows, dp x ep), and calibrates the plan (one device's plan without a
+    mesh).
     """
     device = resolve_device(device)
     if plan is not None:
@@ -298,14 +318,26 @@ def make_train_step(
             if pipeline_schedule == "gpipe" and pipeline_virtual == 1:
                 pipeline_schedule = plan.pipeline_schedule
                 pipeline_virtual = plan.pipeline_virtual
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                         f"{device}")
+    # The measured autotuner's record for this (config, topology, backend)
+    # fills what the caller and the plan left at defaults; it never
+    # overrides an explicit argument.
+    tuned = autotune_lib.lookup("lm_train_step", config=cfg, mesh=mesh)
+    if tuned is not None:
+        if pipeline_microbatches is None and tuned.microbatches is not None:
+            pipeline_microbatches = tuned.microbatches
+            if pipeline_schedule == "gpipe" and tuned.pipeline_schedule:
+                pipeline_schedule = tuned.pipeline_schedule
+        cfg = autotune_lib.apply_knobs_to_config(cfg, tuned)
+        if tuned.block_q or tuned.block_k:
+            attention_lib.set_tuned_blocks(tuned.block_q, tuned.block_k)
     _check_supported(cfg, mesh, pipeline_microbatches, pipeline_schedule,
                      pipeline_virtual)
     pipeline = dict(pipeline_microbatches=pipeline_microbatches,
                     pipeline_schedule=pipeline_schedule,
                     pipeline_virtual=pipeline_virtual)
-    if mesh is not None and mesh.device_type != device.type:
-        raise ValueError(f"a {mesh.device_type} mesh cannot train on "
-                         f"{device}")
 
     def init_fn(seed_or_generator=0, *, params=None) -> TrainState:
         if params is None:
@@ -317,7 +349,9 @@ def make_train_step(
         placements = None
         if mesh is not None:
             params, placements = shard_pytree(params, param_roles(cfg), mesh)
-        params = _masters(params, device)
+        # Given weights may lie on the host: their upload is explicit.
+        with jit_sanitizer.explicit_fence():
+            params = _masters(params, device)
         opt = torch.optim.AdamW(
             leaves(params), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=weight_decay,
@@ -327,7 +361,6 @@ def make_train_step(
 
     def step_fn(state: TrainState, tokens):
         opt = state.opt_state
-        tokens = torch.as_tensor(tokens).to(device)
         opt.zero_grad(set_to_none=True)
         params = state.params
         if mesh is not None:
@@ -350,19 +383,41 @@ def make_train_step(
         return (TrainState(state.step + 1, state.params, opt,
                            state.placements), metrics)
 
+    # Everything whose change must invalidate a compiled artefact rides
+    # the plan cache key (argument shapes join at the first call).
+    fingerprint = {
+        "learning_rate": learning_rate,
+        "weight_decay": weight_decay,
+        "grad_clip": grad_clip,
+        "microbatches": pipeline_microbatches,
+        "schedule": pipeline_schedule,
+        "virtual": pipeline_virtual,
+        "optimizer": "default-adamw",
+    }
+    jit_init = plan_lib.instrument_jit(init_fn, plan_lib.plan_cache_key(
+        "lm_train_init", config=cfg, mesh=mesh, plan=plan,
+        extra=fingerprint))
+    jit_step = plan_lib.instrument_jit(step_fn, plan_lib.plan_cache_key(
+        "lm_train_step", config=cfg, mesh=mesh, plan=plan,
+        extra=fingerprint))
+
     # Step anatomy, sized from the global batch: the hook sees only this
     # rank's rows, which would understate MFU by the data-row count.
-    stats = StepStats(cfg=cfg, plan=plan, mesh=mesh,
-                      microbatches=pipeline_microbatches,
+    # Without a mesh the plan is one device's, so calibration records.
+    stats = StepStats(cfg=cfg,
+                      plan=plan if plan is not None or mesh is not None
+                      else Plan(MeshSpec()),
+                      mesh=mesh, microbatches=pipeline_microbatches,
                       size_from_shapes=False, device=device)
     rows = 1 if mesh is None else axis_size(mesh, ("dp", "ep"))
 
     def step(state: TrainState, tokens):
         stats.set_workload(tokens.shape[0] * rows,
                            max(tokens.shape[1] - 1, 1))
-        return step_fn(state, tokens)
+        # The batch's upload, outside the step's sanitized region.
+        return jit_step(state, torch.as_tensor(tokens).to(device))
 
-    return init_fn, _instrumented(step, stats)
+    return jit_init, _instrumented(step, stats)
 
 
 def _gather(params: dict, placements: dict, mesh, resident=(), *,
@@ -552,7 +607,8 @@ def make_image_classifier_step(
                 gen = torch.Generator(device=device)
                 gen.manual_seed(int(seed_or_generator))
             params = init_params_fn(gen)
-        params = _masters(params, device)
+        with jit_sanitizer.explicit_fence():
+            params = _masters(params, device)
         opt = torch.optim.Adam(leaves(params), lr=learning_rate,
                                betas=(0.9, 0.999), eps=1e-8)
         step = torch.zeros((), dtype=torch.int32, device=device)
@@ -577,15 +633,31 @@ def make_image_classifier_step(
                 dict(zip(("loss", "accuracy"), metrics)))
 
     def step_fn(state: TrainState, images, labels):
-        images = torch.as_tensor(images).to(device)
-        labels = torch.as_tensor(labels).to(device)
         if n == 1:
             return one_step(state, images, labels)
         for i in range(n):
             state, metrics = one_step(state, images[i], labels[i])
         return state, metrics
 
+    # ``config`` rides the plan cache key when given; without it the
+    # state's leaf shapes, folded in at the first call, carry the model.
+    fingerprint = {
+        "learning_rate": learning_rate,
+        "steps_per_call": steps_per_call,
+        "preprocess": getattr(preprocess, "__name__", repr(preprocess))
+        if preprocess is not None else None,
+    }
+    jit_init = plan_lib.instrument_jit(init_fn, plan_lib.plan_cache_key(
+        "classifier_init", config=config, mesh=mesh, extra=fingerprint))
+    jit_step = plan_lib.instrument_jit(step_fn, plan_lib.plan_cache_key(
+        "classifier_step", config=config, mesh=mesh, extra=fingerprint))
+
+    def step(state: TrainState, images, labels):
+        # The batch's upload, outside the step's sanitized region.
+        return jit_step(state, torch.as_tensor(images).to(device),
+                        torch.as_tensor(labels).to(device))
+
     # Phases only: image shapes carry no flops model.
     stats = StepStats(cfg=config, mesh=mesh, steps_per_call=n,
                       tokens_workload=False, device=device)
-    return init_fn, _instrumented(step_fn, stats)
+    return jit_init, _instrumented(step, stats)

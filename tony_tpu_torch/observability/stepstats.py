@@ -30,14 +30,22 @@ The gauges ride the executor's heartbeat piggyback (default registry ->
 orchestrator's readers (``/api/stepstats``, ``tony top``) find them as they
 find the JAX package's.
 
-Live calibration is not here yet: it needs the plan's measurement table
-and the autotuner. ``StepStats(calibrate=True)`` is accepted and does
-nothing: no ``tony_plan_residual`` is published and no measurement table
-is written.
+With ``calibrate`` (``tony.stepstats.calibrate``, on by default) the best
+observed wall feeds back, as in the JAX package: into the planner's
+measurement table (``plan.record_step_time``), into the autotune record's
+``live_best_ms`` (``autotune.note_step_time``), and the plan's
+calibration residual (``plan.calibration_residuals``) is published as
+``tony_plan_residual{plan=}``; at most once per ``window`` steps
+(``tony.stepstats.window``, 32), after three observed steps, and only for
+a real (1 %) improvement. The record is written at ``step_end`` of the
+dispatch whose ``step_begin`` observed the wall, not at that observation
+(the JAX package's point): by then the step's work is queued, so the
+table's file I/O runs while the device executes instead of while it idles.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Any, Iterator, Mapping
@@ -119,6 +127,13 @@ def _env_bool(name: str, default: bool) -> bool:
     return raw.strip().lower() in ("1", "true", "yes", "on")
 
 
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
 class StepStats:
     """Per-step anatomy recorder for one instrumented step function.
 
@@ -149,6 +164,7 @@ class StepStats:
         registry=None,
         enabled: bool | None = None,
         calibrate: bool | None = None,
+        window: int | None = None,
         clock=time.perf_counter,
         peak_flops: float | None = None,
         device=None,
@@ -157,12 +173,13 @@ class StepStats:
             _env_bool(constants.TONY_STEPSTATS_ENABLED, True)
             if enabled is None else enabled
         )
-        # Accepted as the reference takes it; calibration is not here yet
-        # (see the module note), so nothing reads it.
         self.calibrate = (
             _env_bool(constants.TONY_STEPSTATS_CALIBRATE, True)
             if calibrate is None else calibrate
         )
+        self.window = max(window if window is not None
+                          else _env_int(constants.TONY_STEPSTATS_WINDOW, 32),
+                          1)
         self.cfg = cfg
         self.plan = plan
         self._mesh = mesh
@@ -193,9 +210,13 @@ class StepStats:
         self._last_begin: float | None = None
         self._pending_data_s = 0.0
         self._dispatch_s = 0.0
+        self._record_due = False
         self._io_wait_ms: float | None = None
         self._io_h2d_ms: float | None = None
         self.steps_observed = 0
+        self._best_wall_ms = math.inf
+        self._recorded_ms: float | None = None
+        self._last_record_step = 0
         # Metric handles, registered at the first observation (no empty
         # series from a step that is built but never driven).
         self._gauges: dict[str, Any] | None = None
@@ -279,8 +300,13 @@ class StepStats:
         self._observe((now - last) * 1000.0)
 
     def step_end(self, dispatch_s: float) -> None:
-        """Called as each dispatch returns, with its measured host cost."""
+        """Called as each dispatch returns, with its measured host cost;
+        writes the calibration record that this dispatch's ``step_begin``
+        found due, while the device runs the step just queued."""
         self._dispatch_s = dispatch_s
+        if self._record_due:
+            self._record_due = False
+            self._maybe_record()
 
     # -- accounting ---------------------------------------------------------
     def _io_sum(self, name: str) -> float:
@@ -320,6 +346,13 @@ class StepStats:
             "data_wait": data_wait, "h2d": h2d, "compute": compute,
             "collective": collective, "host": host,
         })
+        if wall < self._best_wall_ms:
+            self._best_wall_ms = wall
+        # Tried on every observation, not only on a new best: the best wall
+        # often lands inside the first three steps, and a steady loop would
+        # never record. _maybe_record's guards keep it to one write per
+        # real improvement per window; step_end runs it.
+        self._record_due = True
 
     # -- publishing ---------------------------------------------------------
     def _reg(self):
@@ -365,3 +398,50 @@ class StepStats:
         # step_time_ms through report(): the gauge a train loop would set,
         # and report() drives the throttled snapshot publish.
         self._reg().report(step_time_ms=round(wall_ms, 3))
+
+    # -- live calibration ---------------------------------------------------
+    def _maybe_record(self) -> None:
+        """Feed the best observed wall into the planner's measurement table
+        and the autotune record's ``live_best_ms``, and publish the plan's
+        residual: at most once per ``window`` steps, after three
+        observations, for a real improvement."""
+        if not self.calibrate or self.cfg is None:
+            return
+        if self.steps_observed < 3:
+            return
+        if self.steps_observed - self._last_record_step < self.window \
+                and self._recorded_ms is not None:
+            return
+        if self._recorded_ms is not None \
+                and self._best_wall_ms > self._recorded_ms * 0.99:
+            return
+        try:
+            from tony_tpu_torch.parallel import autotune as autotune_lib
+
+            if self.plan is not None:
+                plan_lib.record_step_time(
+                    self.plan, self.cfg, self._best_wall_ms,
+                    global_batch=self.global_batch, seq=self.seq,
+                )
+            autotune_lib.note_step_time(
+                "lm_train_step", config=self.cfg, mesh=self._mesh,
+                step_ms=self._best_wall_ms,
+            )
+            self._recorded_ms = self._best_wall_ms
+            self._last_record_step = self.steps_observed
+            if self.plan is not None:
+                residuals = plan_lib.calibration_residuals(
+                    self.cfg, self._num_devices,
+                    num_slices=getattr(self.plan, "num_slices", 1),
+                    global_batch=self.global_batch, seq=self.seq,
+                )
+                r = residuals.get(self.plan.key())
+                if r is not None:
+                    self._reg().gauge(
+                        PLAN_RESIDUAL_GAUGE,
+                        labels={"plan": self.plan.key()},
+                    ).set(round(r, 4))
+        except Exception:
+            # Calibration is telemetry: an unwritable cache dir or a config
+            # the planner cannot digest must never touch training.
+            pass

@@ -14,6 +14,16 @@ than Q (GQA: query head h uses KV head h // (H / H_kv)), and a different
 length: when t_q != t_k the queries sit at the END of the keys (query row i
 has position t_k - t_q + i), so decode attends to the full prefix. Fully
 masked rows give O = 0 and lse = log(1e-30), and zero gradients.
+
+The tile knob: JAX's ``(block_q, block_k)`` name the query rows a block of
+B1 and of B2 holds and the keys a block of B3 holds, among the bf16
+instances the kernels are built with (``TILES``: one each, the shipped
+one). ``None`` takes that instance; a tuned pin (``set_tuned_blocks``,
+which the autotuner's records drive) fills what the caller left ``None``
+where the call's head_dim has it; an explicit value that no built
+instance has raises ``ValueError``. The fp32 kernels and the plain twins
+have one instance: their results do not depend on the knob beyond the
+plain twins' key-block rounding.
 """
 
 from __future__ import annotations
@@ -31,6 +41,82 @@ NEG_INF = -1e30
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+
+# The bf16 instance each kernel is built with, by head_dim, in rows (B1,
+# B2) or keys (B3) a block: csrc/flash_fwd.cu's FwdBf16<D>::kM,
+# csrc/flash_bwd.cu's DqBf16<D>::kM and DkvBf16<D>::kN. These are the
+# values the tile knob may name; each kernel has one instance.
+TILES = {
+    "flash_fwd": {64: (192,), 128: (128,)},
+    "flash_bwd_dq": {64: (192,), 128: (192,)},
+    "flash_bwd_dkv": {64: (192,), 128: (128,)},
+}
+
+
+def built_blocks(head_dim: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """The (block_q, block_k) values a call at ``head_dim`` may name:
+    block_q the query rows both B1 and B2 have an instance of, block_k
+    B3's keys."""
+    fwd = TILES["flash_fwd"].get(head_dim, ())
+    dq = TILES["flash_bwd_dq"].get(head_dim, ())
+    return (tuple(sorted(set(fwd) & set(dq))),
+            tuple(sorted(TILES["flash_bwd_dkv"].get(head_dim, ()))))
+
+
+# The autotuner's pin (parallel/autotune.py): a record's winning
+# (block_q, block_k), applied process-wide where a call leaves its argument
+# None and the value is built at the call's head_dim. None: no pin.
+_TUNED_BLOCKS: "tuple[int | None, int | None]" = (None, None)
+
+
+def set_tuned_blocks(block_q: int | None = None,
+                     block_k: int | None = None) -> None:
+    global _TUNED_BLOCKS
+    _TUNED_BLOCKS = (block_q, block_k)
+
+
+def clear_tuned_blocks() -> None:
+    set_tuned_blocks(None, None)
+
+
+def tuned_blocks() -> "tuple[int | None, int | None]":
+    return _TUNED_BLOCKS
+
+
+def _default_blocks(head_dim: int, block_q: int | None,
+                    block_k: int | None):
+    """The (block_q, block_k) a call at ``head_dim`` runs: an explicit
+    argument, else the tuned pin where an instance at this head_dim has it
+    (a pin another head_dim's instance has is ignored here, as the JAX
+    package clamps its pin to the sequence), else None (each kernel's
+    shipped instance). An explicit value that no built instance has at
+    this head_dim raises ValueError naming the built ones: there is no
+    rounding to a near tile."""
+    built_q, built_k = built_blocks(head_dim)
+    for name, value, built in (("block_q", block_q, built_q),
+                               ("block_k", block_k, built_k)):
+        if value is not None and value not in built:
+            raise ValueError(f"{name} {value} has no flash instance at "
+                             f"head_dim {head_dim} (built: {list(built)})")
+    tuned_q, tuned_k = _TUNED_BLOCKS
+    if block_q is None and tuned_q in built_q:
+        block_q = tuned_q
+    if block_k is None and tuned_k in built_k:
+        block_k = tuned_k
+    return block_q, block_k
+
+
+def _tile(entry: str, code: int, head_dim: int, block) -> int:
+    """The C entry point's tile argument: 0 (the built instance) for None
+    and for the fp32 kernels, else ``block``, which must be the entry
+    point's bf16 instance at ``head_dim``."""
+    if block is None or code == kernels.DTYPE_CODES["torch.float32"]:
+        return 0
+    if block not in TILES[entry].get(head_dim, ()):
+        raise ValueError(f"{entry} has no {block} instance at head_dim "
+                         f"{head_dim} (built: "
+                         f"{list(TILES[entry].get(head_dim, ()))})")
+    return int(block)
 
 
 def _plain_block_k(t_q: int, t_k: int) -> int:
@@ -114,13 +200,15 @@ def _check_kernel_inputs(q, k, v) -> int:
     return code
 
 
-def _flash_attention_cuda(q, k, v, *, causal, scale):
+def _flash_attention_cuda(q, k, v, *, causal, scale, block_q=None):
     """Launch the kernel. q [B, Tq, H, D], k/v [B, Tk, Hkv, D] (strided
     views allowed; last dim contiguous) -> (out [B, Tq, H, D] in q's
-    dtype, lse [B, H, Tq] f32)."""
+    dtype, lse [B, H, Tq] f32). ``block_q`` picks the bf16 instance of
+    that many query rows (None: the shipped one)."""
     global launches
     code = _check_kernel_inputs(q, k, v)
     b, t_q, h, d = q.shape
+    tile = _tile("flash_fwd", code, d, block_q)
     _, t_k, h_kv, _ = k.shape
     out = torch.empty(b, t_q, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, t_q, dtype=torch.float32, device=q.device)
@@ -134,16 +222,18 @@ def _flash_attention_cuda(q, k, v, *, causal, scale):
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
         b, h, h_kv, t_q, t_k, d, float(scale), int(bool(causal)), code,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        tile, torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check_launch("flash_fwd", err)
     launches += 1
     return out, lse
 
 
-def _flash_plain_bthd(q, k, v, *, causal, scale):
+def _flash_plain_bthd(q, k, v, *, causal, scale, block_q=None, block_k=None):
     """The plain forward in the public layout: (out [B, Tq, H, D],
-    lse [B, H, Tq] f32)."""
+    lse [B, H, Tq] f32). ``block_k`` is its loop's key block (None: the
+    JAX package's default); ``block_q`` changes nothing (every query row
+    is in one block)."""
     b, t_q, h, d = q.shape
     h_kv = k.shape[2]
     if h_kv != h:
@@ -153,8 +243,9 @@ def _flash_plain_bthd(q, k, v, *, causal, scale):
     qf = q.transpose(1, 2).reshape(b * h, t_q, d)
     kf = k.transpose(1, 2).reshape(b * h, t_k, d)
     vf = v.transpose(1, 2).reshape(b * h, t_k, d)
-    out, lse = _flash_attention_plain(qf, kf, vf, causal=causal, scale=scale,
-                                      block_k=_plain_block_k(t_q, t_k))
+    out, lse = _flash_attention_plain(
+        qf, kf, vf, causal=causal, scale=scale,
+        block_k=block_k or _plain_block_k(t_q, t_k))
     return out.reshape(b, h, t_q, d).transpose(1, 2), lse.reshape(b, h, t_q)
 
 
@@ -167,14 +258,17 @@ def _bwd_delta(out, do, g_lse):
     return delta.contiguous()
 
 
-def _flash_bwd_plain(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
+def _flash_bwd_plain(q, k, v, out, lse, do, *, causal, scale, g_lse=None,
+                     block_q=None, block_k=None):
     """Blockwise backward over key blocks, the same Dao formulas as B2 and
     B3 from the saved lse: p = exp(s - lse), dp = dO V^T,
     ds = p (dp - delta); dq = sum ds K scale, dk = ds^T Q scale,
     dv = p^T dO, with ds rounded to K's (dq) and Q's (dk) dtype and p to
     dO's (dv) before the products, fp32 sums. q/out/do [B, Tq, H, D],
     k/v [B, Tk, Hkv, D], lse [B, H, Tq] -> (dq, dk, dv) in q's, k's and
-    v's layout and dtype; GQA dk/dv are summed over each KV head's group."""
+    v's layout and dtype; GQA dk/dv are summed over each KV head's group.
+    ``block_k`` is the loop's key block (None: the JAX package's default);
+    ``block_q`` changes nothing."""
     b, t_q, h, d = q.shape
     t_k, h_kv = k.shape[1], k.shape[2]
     group = h // h_kv
@@ -188,7 +282,7 @@ def _flash_bwd_plain(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
     lse_f = lse.reshape(b * h, t_q).float()
     delta = _bwd_delta(out, do, g_lse).reshape(b * h, t_q)
     q_pos = (t_k - t_q) + torch.arange(t_q, device=q.device)
-    block_k = _plain_block_k(t_q, t_k)
+    block_k = min(block_k or _plain_block_k(t_q, t_k), max(t_k, 1))
     dq = torch.zeros(b * h, t_q, d, dtype=torch.float32, device=q.device)
     dk = torch.empty(b * h, t_k, d, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
@@ -217,14 +311,17 @@ def _flash_bwd_plain(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
             back(dv, t_k, h_kv, v.dtype))
 
 
-def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
+def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None,
+                    block_q=None, block_k=None):
     """Launch B2 and B3: the gradients of ``_flash_attention_cuda``'s
     (out, lse) for cotangents ``do`` (and ``g_lse``, default none).
     Same inputs and checks as the forward; ``do`` and ``out`` are made
     contiguous when the kernels cannot read them as they are. B2 computes
     delta = rowsum(dO * O) - g_lse for its rows and writes it for B3, which
-    runs after it on the same stream. Returns (dq [B, Tq, H, D],
-    dk, dv [B, Tk, Hkv, D]) in the input dtype."""
+    runs after it on the same stream. ``block_q`` picks B2's bf16 instance
+    of that many query rows, ``block_k`` B3's of that many keys (None: the
+    shipped ones). Returns (dq [B, Tq, H, D], dk, dv [B, Tk, Hkv, D]) in
+    the input dtype."""
     global launches_dq, launches_dkv
     code = _check_kernel_inputs(q, k, v)
     for name, x in (("dO", do), ("out", out)):
@@ -237,6 +334,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
         out = out.contiguous()
     b, t_q, h, d = q.shape
     _, t_k, h_kv, _ = k.shape
+    tile_dq = _tile("flash_bwd_dq", code, d, block_q)
+    tile_dkv = _tile("flash_bwd_dkv", code, d, block_k)
     lse = lse.float().contiguous()
     if g_lse is not None:
         g_lse = g_lse.float().contiguous()
@@ -250,8 +349,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
     if b * h * t_q == 0 or t_k == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    sizes = (b, h, h_kv, t_q, t_k, d, float(scale), int(bool(causal)), code,
-             stream)
+    sizes = (b, h, h_kv, t_q, t_k, d, float(scale), int(bool(causal)), code)
     inputs = [x.data_ptr() for x in (q, k, v, do, lse, rows)]
 
     def strides(*xs):
@@ -261,12 +359,12 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
     err = kernels.function("flash_bwd_dq")(
         *inputs, dq.data_ptr(), out.data_ptr(),
         None if g_lse is None else g_lse.data_ptr(),
-        strides(q, k, v, do, dq, out), *sizes)
+        strides(q, k, v, do, dq, out), *sizes, tile_dq, stream)
     kernels.check_launch("flash_bwd_dq", err)
     launches_dq += 1
     err = kernels.function("flash_bwd_dkv")(
         *inputs, dk.data_ptr(), dv.data_ptr(),
-        strides(q, k, v, do, dk, dv), *sizes)
+        strides(q, k, v, do, dk, dv), *sizes, tile_dkv, stream)
     kernels.check_launch("flash_bwd_dkv", err)
     launches_dkv += 1
     return dq, dk, dv
@@ -275,18 +373,20 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, *, causal, scale, g_lse=None):
 class _FlashFunction(torch.autograd.Function):
     """(out, lse) = flash(q, k, v), differentiable in q, k, v through both
     outputs: B1 forward and B2 + B3 backward on the card, the plain twins
-    on the CPU. Saves (q, k, v, out, lse); the backward never re-runs the
-    forward."""
+    on the CPU, with the instances of ``blocks`` (block_q, block_k).
+    Saves (q, k, v, out, lse); the backward never re-runs the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, blocks):
+        block_q, block_k = blocks
         if q.device.type == "cuda":
             out, lse = _flash_attention_cuda(q, k, v, causal=causal,
-                                             scale=scale)
+                                             scale=scale, block_q=block_q)
         else:
-            out, lse = _flash_plain_bthd(q, k, v, causal=causal, scale=scale)
+            out, lse = _flash_plain_bthd(q, k, v, causal=causal, scale=scale,
+                                         block_q=block_q, block_k=block_k)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.blocks = causal, scale, blocks
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -296,12 +396,14 @@ class _FlashFunction(torch.autograd.Function):
         if g_out is None:
             g_out = torch.zeros_like(out)
         bwd = _flash_bwd_cuda if q.device.type == "cuda" else _flash_bwd_plain
+        block_q, block_k = ctx.blocks
         dq, dk, dv = bwd(q, k, v, out, lse, g_out, causal=ctx.causal,
-                         scale=ctx.scale, g_lse=g_lse)
-        return dq, dk, dv, None, None
+                         scale=ctx.scale, g_lse=g_lse, block_q=block_q,
+                         block_k=block_k)
+        return dq, dk, dv, None, None, None
 
 
-def _flash(q, k, v, *, causal, scale):
+def _flash(q, k, v, *, causal, scale, block_q, block_k):
     if scale is None:
         scale = q.shape[-1] ** -0.5
     h, h_kv = q.shape[2], k.shape[2]
@@ -309,20 +411,28 @@ def _flash(q, k, v, *, causal, scale):
         raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
-    return _FlashFunction.apply(q, k, v, causal, float(scale))
+    blocks = _default_blocks(q.shape[-1], block_q, block_k)
+    return _FlashFunction.apply(q, k, v, causal, float(scale), blocks)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, block_q: int | None = None,
+                    block_k: int | None = None) -> torch.Tensor:
     """Exact attention. q [B, Tq, H, D], k/v [B, Tk, Hkv, D] with
-    H % Hkv == 0 -> [B, Tq, H, D] in q's dtype. Differentiable."""
-    return _flash(q, k, v, causal=causal, scale=scale)[0]
+    H % Hkv == 0 -> [B, Tq, H, D] in q's dtype. Differentiable.
+    ``block_q``/``block_k``: the tile knob (see the module note)."""
+    return _flash(q, k, v, causal=causal, scale=scale, block_q=block_q,
+                  block_k=block_k)[0]
 
 
 def flash_attention_lse(q, k, v, *, causal: bool,
-                        scale: float | None = None):
+                        scale: float | None = None,
+                        block_q: int | None = None,
+                        block_k: int | None = None):
     """Flash attention returning ``(out, lse)``: out [B, Tq, H, D] (q's
     dtype), lse [B, H, Tq] f32, the log-sum-exp of the scaled scores per
     query row (fully masked rows: log(1e-30)). Differentiable through
-    both outputs (ring attention differentiates its merge weights)."""
-    return _flash(q, k, v, causal=causal, scale=scale)
+    both outputs (ring attention differentiates its merge weights).
+    ``block_q``/``block_k``: the tile knob (see the module note)."""
+    return _flash(q, k, v, causal=causal, scale=scale, block_q=block_q,
+                  block_k=block_k)

@@ -1,6 +1,7 @@
 """Parallelism over ``torch.distributed``: the five-axis device mesh, the
 logical sharding rules, the collectives over mesh axes, ring attention
-over the sequence axis, and the pipeline schedules over the pp axis."""
+over the sequence axis, the pipeline schedules over the pp axis, and the
+plan layer (the planner, its measurement table and the compile cache)."""
 
 from tony_tpu_torch.parallel.collectives import (
     all_gather_tp,
@@ -32,6 +33,14 @@ from tony_tpu_torch.parallel.pipeline import (
     pipeline_apply_in_process,
     schedule_info,
 )
+from tony_tpu_torch.parallel.plan import (
+    Plan,
+    candidate_plans,
+    configure_compile_cache,
+    plan_cache_key,
+    plan_for,
+    record_step_time,
+)
 from tony_tpu_torch.parallel.ring import ring_attention
 from tony_tpu_torch.parallel.sharding import (
     LOGICAL_RULES,
@@ -46,6 +55,7 @@ __all__ = [
     "LOGICAL_RULES",
     "MeshSpec",
     "Placement",
+    "Plan",
     "ScheduleInfo",
     "all_gather_tp",
     "all_gather_with_slice_grad",
@@ -53,6 +63,8 @@ __all__ = [
     "anchor",
     "axis_group_ranks",
     "build_mesh",
+    "candidate_plans",
+    "configure_compile_cache",
     "copy_to",
     "copy_to_tp",
     "exchange_chunks",
@@ -61,10 +73,13 @@ __all__ = [
     "pmean",
     "pipeline_apply",
     "pipeline_apply_in_process",
+    "plan_cache_key",
+    "plan_for",
     "pmean_gradients",
     "ppermute",
     "reduce_from",
     "reduce_from_tp",
+    "record_step_time",
     "reduce_scatter_tp",
     "ring_attention",
     "ring_halo_exchange",

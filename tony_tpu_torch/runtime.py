@@ -96,7 +96,15 @@ def initialize(device="cuda", *, init_method: str | None = None,
     Every collective of the group, the rendezvous included, fails after
     ``timeout_s`` instead of waiting for a peer that died (300 s is
     ``jax.distributed.initialize``'s default, which the JAX package
-    relies on)."""
+    relies on).
+
+    First of all it wires the compile cache (``plan.configure_compile_cache``
+    from the executor's ``TONY_COMPILE_CACHE_*``): the kernels build into,
+    and load from, the configured dir, so a retried or resumed session of
+    an unchanged program builds nothing."""
+    from tony_tpu_torch.parallel.plan import configure_compile_cache
+
+    configure_compile_cache()
     ctx = task_context()
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:

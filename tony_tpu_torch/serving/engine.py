@@ -148,6 +148,16 @@ def cache_export_rows(cache, slot: int, length: int) -> torch.Tensor:
     return _materialize(rows, torch.float32).float()
 
 
+def _upload(x, device, dtype=None) -> torch.Tensor:
+    """A host array on ``device`` by an asynchronous copy: the host buffer
+    is staged before the call returns, so the caller may change it
+    afterwards, and the host does not wait for the device (the jit
+    sanitizer's step region lets it through, as JAX's transfer guard lets
+    host-to-device transfers through)."""
+    return torch.as_tensor(np.asarray(x), dtype=dtype).to(
+        device, non_blocking=True)
+
+
 def _draw_seed(base_seed: int, draw: int) -> int:
     """Positional sampling schedule: the seed of draw ``draw`` depends
     only on (base_seed, draw), so a run is reproducible from both."""
@@ -162,7 +172,7 @@ def _sample_slots(logits: torch.Tensor, temp: np.ndarray, base_seed: int,
     greedy = torch.argmax(logits, dim=-1)
     if not (temp > 0.0).any():
         return greedy
-    t = torch.as_tensor(temp, dtype=torch.float32, device=logits.device)
+    t = _upload(temp, logits.device, torch.float32)
     gen = torch.Generator(device=logits.device)
     gen.manual_seed(_draw_seed(base_seed, draw))
     drawn = _categorical(logits / t.clamp_min(1e-6)[:, None], gen)
@@ -198,9 +208,9 @@ def decode_window(params, k_all, v_all, pos, wpos, tokens, temp, base_seed,
     cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
                                        theta=cfg.rope_theta, device=device)
     lanes = torch.arange(n_slots, device=device)
-    pos_t = torch.as_tensor(np.asarray(pos), device=device).long()
-    wpos_t = torch.as_tensor(np.asarray(wpos), device=device).long()
-    tok = torch.as_tensor(np.asarray(tokens), device=device).long()
+    pos_t = _upload(pos, device).long()
+    wpos_t = _upload(wpos, device).long()
+    tok = _upload(tokens, device).long()
     max_pos = int(np.max(pos))
     out = []
     for i in range(steps):
@@ -260,14 +270,14 @@ def prefill_chunks(params, k_all, v_all, tokens, slots, starts, n_valids,
                          f"{t_max}-position cache")
     cos, sin = cached_rope_frequencies(cfg.head_dim, cfg.max_seq,
                                        theta=cfg.rope_theta, device=device)
-    positions = (torch.as_tensor(starts, device=device).long()[:, None]
+    positions = (_upload(starts, device).long()[:, None]
                  + torch.arange(c, device=device)[None, :])    # [P, C]
     rope_pos = positions.clamp(max=cfg.max_seq - 1)
     t_vis = int(starts.max()) + c
     mask = (positions[:, :, None]
             >= torch.arange(t_vis, device=device)[None, None, :])  # [P,C,T]
-    slot_idx = torch.as_tensor(np.asarray(slots), device=device).long()
-    x = params["embed"][torch.as_tensor(tokens, device=device).long()].to(dt)
+    slot_idx = _upload(slots, device).long()
+    x = params["embed"][_upload(tokens, device).long()].to(dt)
     for layer in range(cfg.n_layers):
         lp = layer_params(params, layer)
         q, k_new, v_new = _project(x, lp, cfg)
@@ -281,8 +291,8 @@ def prefill_chunks(params, k_all, v_all, tokens, slots, starts, n_valids,
         o = _attend_cache(q, _materialize(_rows(k_all, visible), dt),
                           _materialize(_rows(v_all, visible), dt), mask, cfg)
         x = _mlp(_out_proj(x, o, lp, cfg), lp, cfg)
-    last_idx = torch.as_tensor(np.maximum(np.asarray(n_valids) - 1, 0),
-                               device=device).long()
+    last_idx = _upload(np.maximum(np.asarray(n_valids) - 1, 0),
+                       device).long()
     last = x[torch.arange(p, device=device), last_idx][:, None]  # [P, 1, d]
     last = rms_norm(last, params["final_norm"]).to(dt)
     logits = (last @ params["unembed"])[:, 0].float()

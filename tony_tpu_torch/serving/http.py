@@ -100,11 +100,19 @@ class ServingServer:
                 else:
                     self._reply(404, {"error": f"no route {self.path}"})
 
-            def _read_body(self) -> dict:
+            def _read_body(self) -> bytes:
                 n = int(self.headers.get("Content-Length", "0"))
-                return json.loads(self.rfile.read(n) or b"{}")
+                return self.rfile.read(n)
 
             def do_POST(self):
+                # Every route reads the whole body before it replies: a
+                # socket closed with request bytes unread is reset, and the
+                # reset can discard the reply before the client reads it.
+                try:
+                    raw = self._read_body()
+                except ValueError as exc:
+                    self._reply(400, {"error": f"bad request: {exc}"})
+                    return
                 if self.path == "/shutdown":
                     self._reply(200, {"ok": True})
                     outer._shutdown.set()
@@ -113,7 +121,7 @@ class ServingServer:
                     self._reply(404, {"error": f"no route {self.path}"})
                     return
                 try:
-                    body = self._read_body()
+                    body = json.loads(raw or b"{}")
                     max_new = int(body["max_new_tokens"])
                     temperature = float(body.get("temperature", 0.0))
                     eos = body.get("eos_id")

@@ -19,13 +19,18 @@ token for token the same output as a single-request
 ``models.decode.generate(..., eos_id=)`` call.
 
 Of the JAX package's autotune hooks the engine takes the KV storage mode
-(``kv_quant``, int8 or not); the metrics registry, trace spans and
-compile-plan hooks wait for a later slice of the port, and the engine keeps
-its own tallies (``stats()``) and raw latency samples.
+(``kv_quant``, int8 or not). The two device calls are wrapped in
+``plan.instrument_jit`` (their first calls timed and counted as
+compile-cache hits or misses) and run, with their readbacks, in the jit
+sanitizer's ``step_region``; the readbacks themselves are the annotated
+``explicit_fence``s. The metrics registry and trace spans wait for a later
+slice of the port, and the engine keeps its own tallies (``stats()``) and
+raw latency samples.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import threading
@@ -36,10 +41,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tony_tpu_torch.analysis import jit_sanitizer
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.decode import fused_on
 from tony_tpu_torch.models.transformer import TransformerConfig
 from tony_tpu_torch.parallel import autotune
+from tony_tpu_torch.parallel import plan as plan_lib
 from tony_tpu_torch.serving import engine as _engine
 
 log = logging.getLogger(__name__)
@@ -227,6 +234,22 @@ class ServingEngine:
         # Raw latency samples for percentile reporting.
         self.inter_token_ms_samples: deque[float] = deque(maxlen=8192)
         self.ttft_ms_samples: deque[float] = deque(maxlen=8192)
+        extra = {"slots": self.slots, "max_len": self.max_len,
+                 "chunk": self.prefill_chunk,
+                 "window": self.decode_window,
+                 "prefill_batch": self.prefill_batch,
+                 "kv_quant": self.kv_quant}
+        self._decode = plan_lib.instrument_jit(
+            functools.partial(_engine.decode_window, cfg=cfg,
+                              steps=self.decode_window),
+            plan_lib.plan_cache_key("serving_decode_window", config=cfg,
+                                    extra=extra),
+        )
+        self._prefill = plan_lib.instrument_jit(
+            functools.partial(_engine.prefill_chunks, cfg=cfg),
+            plan_lib.plan_cache_key("serving_prefill_chunks", config=cfg,
+                                    extra=extra),
+        )
 
     # -- client surface ----------------------------------------------------
     def submit(
@@ -508,15 +531,17 @@ class ServingEngine:
             wpos = np.where(self._active, self._pos,
                             np.int32(self.max_len - 1)).astype(np.int32)
             # Decode draws live in [0, 2**30), prefill draws in
-            # [2**30, 2**31).
-            self._k, self._v, window = _engine.decode_window(
-                self.params, self._k, self._v, self._pos, wpos,
-                self._last, self._temp, self._seed,
-                (self._decode_calls * w) % 2**30,
-                cfg=self.cfg, steps=w,
-            )
-            self._decode_calls += 1
-            toks = window.cpu().numpy()  # the per-window sync point
+            # [2**30, 2**31); passed as int32 scalars, so the draw's value
+            # is not part of the call's signature.
+            with jit_sanitizer.step_region("serving_decode_window"):
+                self._k, self._v, window = self._decode(
+                    self.params, self._k, self._v, self._pos, wpos,
+                    self._last, self._temp, self._seed,
+                    np.int32((self._decode_calls * w) % 2**30),
+                )
+                self._decode_calls += 1
+                with jit_sanitizer.explicit_fence():
+                    toks = window.cpu().numpy()  # the per-window sync point
             wall_ms = (time.perf_counter() - t0) * 1000.0
             # Recorded per token (wall / window): the sustained per-stream
             # gap is what capacity planning reads.
@@ -634,12 +659,14 @@ class ServingEngine:
                 n_valids[i] = n_valids[0]
                 temps[i] = temps[0]
             self._pf_draws += 1
-            self._k, self._v, first_toks, _ = _engine.prefill_chunks(
-                self.params, self._k, self._v, toks, slots_a, starts,
-                n_valids, temps, self._seed,
-                2**30 + self._pf_draws % 2**30, cfg=self.cfg,
-            )
-            firsts = first_toks.cpu().numpy()  # the per-round sync point
+            with jit_sanitizer.step_region("serving_prefill_chunks"):
+                self._k, self._v, first_toks, _ = self._prefill(
+                    self.params, self._k, self._v, toks, slots_a, starts,
+                    n_valids, temps, self._seed,
+                    np.int32(2**30 + self._pf_draws % 2**30),
+                )
+                with jit_sanitizer.explicit_fence():
+                    firsts = first_toks.cpu().numpy()  # per-round sync
             now = time.perf_counter()
             requeue: list[tuple[ServingRequest, int]] = []
             for i, (req, slot) in enumerate(entries):
@@ -658,12 +685,15 @@ class ServingEngine:
                     # Export the slot's freshly written KV rows and free
                     # the slot; the decode replica injects them.
                     n_rows = int(req.prompt.size)
-                    req.kv = (
-                        _engine.cache_export_rows(
-                            self._k, slot, n_rows).cpu().numpy(),
-                        _engine.cache_export_rows(
-                            self._v, slot, n_rows).cpu().numpy(),
-                    )
+                    with jit_sanitizer.step_region(
+                            "serving_prefill_extract"), \
+                            jit_sanitizer.explicit_fence():
+                        req.kv = (
+                            _engine.cache_export_rows(
+                                self._k, slot, n_rows).cpu().numpy(),
+                            _engine.cache_export_rows(
+                                self._v, slot, n_rows).cpu().numpy(),
+                        )
                     self._retire(slot)
                 elif ((req.eos_id is not None and first == req.eos_id)
                         or req.max_new_tokens <= 1):
