@@ -151,6 +151,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
              PCIe bound, and the step time with batches from the file
              through the prefetcher. Everything is written under a
              temporary directory, removed at the end (20 GB free needed).
+             Each job reads a fresh default registry: its tony_ckpt_* and
+             tony_io_* values are printed, its snapshot and persist
+             observations must equal its saves and tony_ckpt_committed_step
+             its last step, and job B's tony_ckpt_bytes_total (nothing
+             overwritten or collected) the shard bytes on disk.
 
 11. moe train — make_train_step on bench.py's bench_moe configuration at
              full width and depth (vocab 32000, d 1024, 8 layers, 16 heads
@@ -223,6 +228,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
              bench_transformer: the cold one builds the kernels there and
              misses twice, the warm one hits twice; tony_compile_ms of
              both.
+18. telemetry — TONY_PROFILE_HBM_INTERVAL_MS=500 and runtime.initialize()
+             (the HBM monitor), a float ServingEngine on the flagship model
+             with a private MetricsRegistry under TONY_JIT_SANITIZER=strict,
+             a run_capture window of 1000 ms on a thread and, into it, a
+             4-token DecodeSession.generate (B1's prefill; the engine's
+             prefill attends in plain PyTorch, as JAX's does) and the
+             serve phase's 12 requests: the tony_serving_*
+             counters equal the engine's tallies and the responses, 12
+             TTFT observations, queue and active gauges 0 after the
+             drain, the serving_* spans as the dispatch counts decimate,
+             the HBM gauges (in use > 0, peak >= in use, limit = the
+             card's total_memory), the capture's "cuda" snapshot and B1
+             and B4 kernel events in its trace, no guarded transfer and
+             no retrace; tokens/s and inter-token p50 beside PERF.md's
+             last reading. Then StepProfiler(start=2, num=3) and
+             annotate("telemetry_step") over 6 steps of the train cell:
+             one trace, holding the three annotations, whose B1-B4
+             kernel events launched in steps 3 and 4 equal each step's
+             launch counts (step 2 leads in: in a long process the
+             profiler can lose a session's first kernels; a window whose
+             trace dropped an event is logged and profiled again, up to
+             3 windows); profiled and unprofiled step ms, and the
+             window's top 12 device ops (the dense step's breakdown).
 
 The launch counters are set to 0 just before each path (phases 3-4, the
 serving path; phase 6b's HTTP serving, the int8 serving path; phase 7, the
@@ -235,7 +263,8 @@ pipeline path, and its mesh runs, the MoE mesh path; phase 13's bf16
 generate and
 engine, the MoE serving path; phase 14's timed runs, the classifier path;
 phase 16's windows, the anatomy path; phase 17's tuning and the step
-built from its record, the tune path) and read just after; every kernel of
+built from its record, the tune path; phase 18's serving and profiled
+steps, the telemetry path) and read just after; every kernel of
 a path must have launched there, but on the classifier path, which runs
 none of them by design and must read 0 for each. The last three lines are the kernels
 JSON line, the card's name and power limit (nvidia-smi), and
@@ -2811,6 +2840,40 @@ def generate_checkpoint(torch, attention, norms, ckpt: Path, cfg_kw: dict,
     return {"rows": len(got), "launches": launches}
 
 
+def check_ckpt_metrics(reg, tag: str, saves: int,
+                       shard_bytes: int | None = None) -> dict:
+    """The tony_ckpt_* and tony_io_* values a train CLI job left in the
+    default registry ``reg`` (logged): as many snapshot and persist
+    observations as the job saved, the committed step at JOB_STEPS, and,
+    where ``shard_bytes`` is given, tony_ckpt_bytes_total equal to it."""
+    snap = reg.snapshot()
+    prefixes = ("tony_ckpt_", "tony_io_")
+    out = {k: v for kind in ("counters", "gauges")
+           for k, v in snap[kind].items() if k.startswith(prefixes)}
+    out.update({k: {"count": h["count"], "sum_ms": h["sum"],
+                    "mean_ms": h["sum"] / max(h["count"], 1)}
+                for k, h in snap["histograms"].items()
+                if k.startswith(prefixes)})
+    log(f"{tag} metrics: {json.dumps(out)}")
+    counts = [out.get(k, {}).get("count") for k in (
+        "tony_ckpt_snapshot_ms", "tony_ckpt_persist_ms")]
+    if counts != [saves, saves]:
+        raise AssertionError(f"{tag}: snapshot and persist observations "
+                             f"{counts} for {saves} saves")
+    if out.get("tony_ckpt_committed_step") != JOB_STEPS:
+        raise AssertionError(f"{tag}: tony_ckpt_committed_step "
+                             f"{out.get('tony_ckpt_committed_step')}, "
+                             f"last step saved {JOB_STEPS}")
+    counted = sum(v for k, v in out.items()
+                  if k.startswith("tony_ckpt_bytes_total"))
+    if shard_bytes is not None and counted != shard_bytes:
+        raise AssertionError(f"{tag}: tony_ckpt_bytes_total {counted}, "
+                             f"{shard_bytes} shard bytes on disk")
+    if not out.get("tony_io_bytes_read_total"):
+        raise AssertionError(f"{tag}: the reader counted no bytes read")
+    return out
+
+
 def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
     """Jobs A and B and serving from B's checkpoint at full width, with
     the launch counters set to 0 just before and read just after."""
@@ -2830,10 +2893,15 @@ def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
     norms.launches = 0
     attention.launches = attention.launches_dq = attention.launches_dkv = 0
     t0 = time.perf_counter()
+    reg = _fresh_registry()
     run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
                                     "--checkpoint-every", str(JOB_EVERY),
                                     "--ckpt-dir", str(dir_a)])
     t_a = time.perf_counter() - t0
+    # Job A: interval saves at every JOB_EVERY steps, then the final one.
+    metrics = {"a": check_ckpt_metrics(reg, "job A",
+                                       JOB_STEPS // JOB_EVERY + 1)}
+    reg = _fresh_registry()
     run_cli(train_cli.main, base + ["--steps", str(JOB_HALF),
                                     "--ckpt-dir", str(dir_b)])
     out = run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
@@ -2841,6 +2909,11 @@ def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
     if f"resumed from step {JOB_HALF}" not in out:
         raise AssertionError(f"job B did not resume from step {JOB_HALF}")
     t_b = time.perf_counter() - t0 - t_a
+    # Job B: one final save a run, nothing overwritten or collected, so
+    # the shard bytes it counted are the shard bytes on disk.
+    metrics["b"] = check_ckpt_metrics(
+        reg, "job B", 2, shard_bytes=sum(
+            p.stat().st_size for p in dir_b.glob("step_*/process_*.npz")))
 
     cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
     init_fn, _ = make_train_step(cfg, device="cuda")
@@ -2890,7 +2963,7 @@ def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
                                     BENCH_TRANSFORMER, params, prompt,
                                     served.pop("extra_tokens"))
     return {"launches": launches, "job_a_s": t_a, "job_b_s": t_b,
-            "leaves_equal": n_leaves, "served": served,
+            "leaves_equal": n_leaves, "served": served, "metrics": metrics,
             "generate_launches": generated["launches"],
             "train_args": base}
 
@@ -4360,6 +4433,392 @@ def first_call_phase(root: Path) -> dict:
     return res
 
 
+# Phase 18: the telemetry plane. The capture window the serving requests
+# are submitted into, the HBM monitor's interval, and the StepProfiler
+# window over TELEMETRY_TRAIN_STEPS train steps.
+TELEMETRY_CAPTURE_MS = 1000
+TELEMETRY_GENERATE_NEW = 4  # DecodeSession.generate's tokens in the window
+TELEMETRY_HBM_MS = "500"
+TELEMETRY_TRAIN_STEPS = 6
+# StepProfiler(start=2, num=3): steps 2-4 are traced and steps 3-4 held
+# to the launch counters. In a long-running process the profiler can lose
+# the first kernels of a session, so the traced step 2 leads in.
+TELEMETRY_WINDOW = (2, 3)
+TELEMETRY_HELD = 2  # the window's last steps whose kernel events are held
+# PERF.md's last serving reading (the serve phase's 12 HTTP requests on
+# the flagship model, 16 slots; NVIDIA H100 80GB HBM3 at 700.00 W),
+# printed beside this phase's.
+TELEMETRY_SERVE_REFERENCE_TOKENS_PER_S = 437.6
+
+
+def _trace_events(path: Path) -> list[dict]:
+    return json.loads(Path(path).read_text())["traceEvents"]
+
+
+_COUNTER_NAMES = {"B1": "flash_fwd", "B2": "flash_bwd_dq",
+                  "B3": "flash_bwd_dkv", "B4": "rms_norm"}
+
+
+def _counter_name(event: dict) -> "str | None":
+    """The launch counter of a B1-B4 kernel event, else None."""
+    if event.get("cat") != "kernel":
+        return None
+    part = next((c for pat, c in _KERNEL_CATEGORIES
+                 if pat in event.get("name", "")), None)
+    return _COUNTER_NAMES[part] if part is not None else None
+
+
+def _kernel_counts(events: list[dict]) -> dict:
+    """Kernel events of B1-B4 in a Chrome trace, by launch-counter name."""
+    counts = dict.fromkeys(_COUNTER_NAMES.values(), 0)
+    for e in events:
+        name = _counter_name(e)
+        if name is not None:
+            counts[name] += 1
+    return counts
+
+
+def _step_kernel_counts(events: list[dict], annotation: str) -> list[dict]:
+    """B1-B4 kernel events of each step annotated ``annotation``, in step
+    order: a kernel belongs to the step whose annotation holds, on the
+    host's clock, the launch call the trace ties to it (their shared
+    ``correlation``)."""
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    steps = sorted((e for e in events if e.get("name") == annotation
+                    and e.get("cat") == "user_annotation"),
+                   key=lambda e: e["ts"])
+    counts = [dict.fromkeys(_COUNTER_NAMES.values(), 0) for _ in steps]
+    for e in events:
+        name = _counter_name(e)
+        t = launched_at.get(e.get("args", {}).get("correlation"))
+        if name is None or t is None:
+            continue
+        for step, count in zip(steps, counts):
+            if step["ts"] <= t <= step["ts"] + step["dur"]:
+                count[name] += 1
+                break
+    return counts
+
+
+def _span_counts(tracer) -> dict:
+    names = [e["name"] for e in tracer.to_chrome_events()]
+    return {n: names.count(n) for n in ("serving_decode_window",
+                                        "serving_prefill_chunks")}
+
+
+def _decimated(calls: int, dense: int, every: int) -> int:
+    """The spans an engine takes over ``calls`` dispatches of one kind."""
+    return sum(n < dense or n % every == 0 for n in range(calls))
+
+
+def telemetry_phase(torch, attention, norms, seed: int, root: Path) -> dict:
+    """The telemetry plane on the card, the launch counters set to 0 just
+    before (a) and read just after (b).
+
+    (a) TONY_PROFILE_HBM_INTERVAL_MS set, runtime.initialize() (the HBM
+    monitor into a fresh default registry), a float ServingEngine on the
+    flagship model with a private registry under TONY_JIT_SANITIZER=strict,
+    run_capture on a thread for TELEMETRY_CAPTURE_MS, and into its window
+    one DecodeSession.generate of TELEMETRY_GENERATE_NEW tokens (the
+    serving side's B1: the engine's prefill attends in plain PyTorch, as
+    JAX's does) and the serve phase's 12 requests: the tony_serving_*
+    counters
+    equal the engine's tallies and the responses, 12 TTFT observations,
+    queue and active gauges 0 after the drain, the engine's spans in the
+    default tracer as its dispatch counts decimate, the three HBM gauges
+    read the card, the capture's snapshot says "cuda" and its trace holds
+    kernel events of B1 and B4, and the sanitizer saw no guarded transfer
+    and no retrace. (b) StepProfiler(start=2, num=3) and
+    annotate("telemetry_step") over TELEMETRY_TRAIN_STEPS steps of the
+    train cell: one trace, holding each step's annotation, in which the
+    B1-B4 kernel events launched inside the annotations of steps 3 and 4
+    (tied to their launch calls by the trace's correlation ids) equal each
+    step's launch-counter increase; step 2 leads in, and a window whose
+    trace dropped an event is logged and profiled again, up to
+    PROFILE_TRIES windows. The profiled and unprofiled step times and the
+    window's top 12 device ops."""
+    import os
+
+    from tony_tpu_torch import constants, profiling, runtime
+    from tony_tpu_torch.analysis import jit_sanitizer
+    from tony_tpu_torch.models import (DecodeSession, TransformerConfig,
+                                       init_params, make_train_step)
+    from tony_tpu_torch.observability import (MetricsRegistry,
+                                              default_tracer)
+    from tony_tpu_torch.observability import profiling as obs_profiling
+    from tony_tpu_torch.serving import ServingEngine
+    from tony_tpu_torch.serving import scheduler
+
+    res: dict = {}
+    saved = {k: os.environ.get(k) for k in (
+        constants.TONY_PROFILE_HBM_INTERVAL_MS, jit_sanitizer.ENV_FLAG)}
+    try:
+        os.environ[constants.TONY_PROFILE_HBM_INTERVAL_MS] = TELEMETRY_HBM_MS
+        default_reg = _fresh_registry()
+        ctx = runtime.initialize()
+        if not obs_profiling._hbm_monitor_started:
+            raise AssertionError("runtime.initialize() started no HBM "
+                                 "monitor on the card")
+        cfg = TransformerConfig(dtype="bfloat16", **FLAGSHIP)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, device="cuda")
+        session = DecodeSession(params, cfg, device="cuda")
+        bodies = make_requests(cfg, session, seed, N_REQUESTS)
+        os.environ[jit_sanitizer.ENV_FLAG] = "strict"
+        tracker = jit_sanitizer.tracker()
+        tracker.reset()
+        tracer = default_tracer()
+        spans_before = _span_counts(tracer)
+        reg = MetricsRegistry()
+        _reset_launches(attention, norms)
+        engine = ServingEngine(params, cfg, device="cuda", slots=16,
+                               prefill_chunk=32, seed=seed,
+                               registry=reg).start()
+        capture: dict = {}
+
+        def run_capture():
+            capture.update(obs_profiling.run_capture(
+                "telemetry", TELEMETRY_CAPTURE_MS, root / "capture",
+                "chip_smoke:0"))
+            capture["t_done"] = time.perf_counter()
+
+        capturer = threading.Thread(target=run_capture)
+        capturer.start()
+        deadline = time.monotonic() + 60
+        while obs_profiling._trace_owner is None and capturer.is_alive():
+            if time.monotonic() > deadline:
+                raise AssertionError("the capture's profiler never opened")
+            time.sleep(0.001)
+        t_open = time.perf_counter()
+        # The engine's prefill attends against the cache in plain PyTorch,
+        # as the JAX package's engine does; B1 on the serving side is
+        # DecodeSession.generate's prefill, run first in the window (the
+        # engine idle, so no step region is armed around it).
+        session.generate(np.asarray(bodies[0]["prompt"], np.int32)[None],
+                         TELEMETRY_GENERATE_NEW)
+        t0 = time.perf_counter()
+        reqs = [engine.submit(np.asarray(b["prompt"], np.int32),
+                              b["max_new_tokens"], eos_id=b.get("eos_id"))
+                for b in bodies]
+        results = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+        if not engine.drain(timeout=60):
+            raise AssertionError("telemetry engine did not drain")
+        capturer.join(timeout=TELEMETRY_CAPTURE_MS / 1e3 + 300)
+        if capturer.is_alive():
+            raise AssertionError("the capture did not end")
+        sanitizer = {"retraces": tracker.retraces(),
+                     "transfers": tracker.transfers(),
+                     "keys": tracker.report()["keys"]}
+        os.environ.pop(jit_sanitizer.ENV_FLAG)
+        snap = reg.snapshot()
+        counters, gauges = snap["counters"], snap["gauges"]
+        stats = engine.stats()
+        n_tokens = sum(r["length"] for r in results)
+        tallied_tokens = engine.tokens_generated
+        spans = {k: v - spans_before[k]
+                 for k, v in _span_counts(tracer).items()}
+        want_spans = {
+            "serving_decode_window": _decimated(
+                engine._decode_calls, engine._SPAN_DENSE,
+                engine._SPAN_EVERY),
+            "serving_prefill_chunks": _decimated(
+                engine._pf_draws, engine._SPAN_DENSE, engine._SPAN_EVERY)}
+        card = torch.cuda.current_device()
+        hbm_gauges = default_reg.snapshot()["gauges"]
+        hbm = {k: hbm_gauges.get(f'{obs_profiling.HBM_GAUGE}{{device='
+                                 f'"{card}",kind="{k}"}}')
+               for k in ("bytes_in_use", "peak_bytes_in_use",
+                         "bytes_limit")}
+        total_memory = torch.cuda.get_device_properties(card).total_memory
+        trace_files = (sorted(Path(capture["trace_dir"]).glob(
+            "*.pt.trace.json")) if capture.get("trace_dir") else [])
+        capture_events = (_trace_events(trace_files[0]) if trace_files
+                          else [])
+        capture_kernels = _kernel_counts(capture_events)
+        serve = {
+            "device": ctx.device, "requests": len(reqs),
+            "generated_tokens": n_tokens, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall,
+            "tokens_per_s_perf_md": TELEMETRY_SERVE_REFERENCE_TOKENS_PER_S,
+            "inter_token_p50_ms": float(np.percentile(
+                engine.inter_token_ms_samples, 50)),
+            "ttft_p50_ms": float(np.percentile(engine.ttft_ms_samples, 50)),
+            "counters": {k: v for k, v in counters.items()
+                         if k.startswith("tony_serving_")},
+            "gauges": {k: v for k, v in gauges.items()
+                       if k.startswith("tony_serving_")},
+            "ttft_count": snap["histograms"][
+                scheduler.SERVING_TTFT_MS_HISTOGRAM]["count"],
+            "inter_token_count": snap["histograms"][
+                scheduler.SERVING_INTER_TOKEN_MS_HISTOGRAM]["count"],
+            "dispatches": {"decode": engine._decode_calls,
+                           "prefill": engine._pf_draws},
+            "spans": spans, "hbm_bytes": hbm,
+            "capture": {k: capture.get(k) for k in (
+                "duration_ms", "trace_error", "artifact")},
+            # What the capture took past its window: the profiler's stop
+            # (a synchronize, then the trace's collection, which holds
+            # every Python thread of the process) and the export.
+            "capture_stop_export_s": (capture["t_done"] - t_open
+                                      - TELEMETRY_CAPTURE_MS / 1e3),
+            "inter_token_max_ms": max(engine.inter_token_ms_samples),
+            "capture_source": capture.get("snapshot", {}).get("source"),
+            "capture_kernel_events": capture_kernels,
+            "capture_cpu_ops": sum(e.get("cat") == "cpu_op"
+                                   for e in capture_events),
+            "sanitizer": sanitizer,
+        }
+        log("telemetry serve: " + json.dumps(serve))
+        engine.close()
+        del engine, session, params
+        torch.cuda.empty_cache()
+        want_counters = {
+            scheduler.SERVING_REQUESTS_COUNTER: stats["requests"],
+            scheduler.SERVING_RETIRED_COUNTER: stats["retired"],
+            scheduler.SERVING_GENERATED_TOKENS_COUNTER: n_tokens}
+        if (stats["requests"], stats["retired"], tallied_tokens) != (
+                len(reqs), len(reqs), n_tokens) or \
+                serve["counters"] != want_counters:
+            raise AssertionError(f"telemetry: serving counters "
+                                 f"{serve['counters']} against the "
+                                 f"engine's tallies {stats}, "
+                                 f"{tallied_tokens} tokens, and the "
+                                 f"responses' {n_tokens}")
+        if serve["ttft_count"] != len(reqs):
+            raise AssertionError(f"telemetry: {serve['ttft_count']} TTFT "
+                                 f"observations for {len(reqs)} requests")
+        for name in (scheduler.SERVING_QUEUE_DEPTH_GAUGE,
+                     scheduler.SERVING_ACTIVE_SLOTS_GAUGE):
+            if gauges.get(name) != 0:
+                raise AssertionError(f"telemetry: {name} = "
+                                     f"{gauges.get(name)} after the drain")
+        if spans != want_spans:
+            raise AssertionError(f"telemetry: spans {spans}, the engine's "
+                                 f"dispatches give {want_spans}")
+        if not (hbm["bytes_in_use"] and hbm["bytes_in_use"] > 0
+                and hbm["peak_bytes_in_use"] >= hbm["bytes_in_use"]
+                and hbm["bytes_limit"] == total_memory):
+            raise AssertionError(f"telemetry: HBM gauges {hbm}, the card's "
+                                 f"total_memory {total_memory}")
+        if serve["capture_source"] != "cuda" or "trace_error" in capture:
+            raise AssertionError(f"telemetry: capture {capture}")
+        if len(trace_files) != 1 or not (capture_kernels["flash_fwd"]
+                                         and capture_kernels["rms_norm"]):
+            raise AssertionError(f"telemetry: the capture's trace "
+                                 f"{trace_files} holds kernel events "
+                                 f"{capture_kernels}")
+        if sanitizer["retraces"] or sanitizer["transfers"]:
+            raise AssertionError(f"telemetry: jit sanitizer "
+                                 f"{json.dumps(sanitizer)} "
+                                 f"{tracker.violations()}")
+        res["serve"] = serve
+
+        # (b) the train cell under StepProfiler.
+        tcfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+        init_fn, step_fn = make_train_step(tcfg, device="cuda")
+        state = init_fn(seed)
+        tokens = torch.as_tensor(np.random.default_rng(seed + 3).integers(
+            0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+            device="cuda")
+        start, num = TELEMETRY_WINDOW
+        held = range(start + num - TELEMETRY_HELD, start + num)
+        for attempt in range(PROFILE_TRIES):
+            log_dir = root / f"train-profile-{attempt}"
+            prof = profiling.StepProfiler(start=start, num=num,
+                                          log_dir=str(log_dir))
+            step_ms, losses, per_step = [], [], []
+            for step in range(TELEMETRY_TRAIN_STEPS):
+                before = _launches(attention, norms)
+                prof.before_step(step)
+                t0 = time.perf_counter()
+                with profiling.annotate("telemetry_step"):
+                    state, metrics = step_fn(state, tokens)
+                    losses.append(float(metrics["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                prof.after_step(step)
+                if start <= step < start + num:
+                    per_step.append({k: v - before[k] for k, v in
+                                     _launches(attention, norms).items()})
+            prof.close()
+            files = sorted(log_dir.glob("*.pt.trace.json"))
+            events = _trace_events(files[0]) if len(files) == 1 else []
+            kernels = _kernel_counts(events)
+            traced = _step_kernel_counts(events, "telemetry_step")
+            window = {k: sum(s[k] for s in per_step[-TELEMETRY_HELD:])
+                      for k in per_step[0]}
+            if len(files) == 1 and len(traced) == num and \
+                    traced[-TELEMETRY_HELD:] == per_step[-TELEMETRY_HELD:]:
+                break
+            # The profiler now and then drops device events (a whole
+            # trace's, or a kernel's): such a window is profiled again.
+            log(f"StepProfiler window {attempt}: traces {files}, B1-B4 "
+                f"kernel events by step {traced} against the launch "
+                f"counters {per_step}; profiling the window again")
+        else:
+            raise AssertionError(f"telemetry: in {PROFILE_TRIES} "
+                                 f"StepProfiler windows the B1-B4 kernel "
+                                 f"events of steps {held[0]}-{held[-1]} "
+                                 f"never equalled their launch counters "
+                                 f"(last: {traced} against {per_step}, "
+                                 f"{len(files)} traces)")
+        launches = _launches(attention, norms)
+        annotations = sum(e.get("name") == "telemetry_step"
+                          and e.get("cat") == "user_annotation"
+                          for e in events)
+        device = {}
+        for e in events:
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                name = e["name"][:90]
+                ms, n = device.get(name, (0.0, 0))
+                device[name] = (ms + e.get("dur", 0) / 1e3, n + 1)
+        device_ms = sum(ms for ms, _ in device.values())
+        top = sorted(device.items(), key=lambda kv: -kv[1][0])[:12]
+        profiled = step_ms[start:start + num]
+        unprofiled = [ms for i, ms in enumerate(step_ms)
+                      if i and not start <= i < start + num]
+        train = {
+            "trace": files[0].name, "attempts": attempt + 1,
+            "held_steps": list(held), "held_launches": window,
+            "step_launches": per_step, "step_kernel_events": traced,
+            "trace_kernel_events": kernels,
+            "annotations": annotations,
+            "profiled_step_ms": profiled, "unprofiled_step_ms": unprofiled,
+            "window_device_ms": device_ms,
+            "window_wall_ms": sum(profiled),
+            "device_busy_share": device_ms / sum(profiled),
+            "top": [{"op": k, "device_ms": ms, "count": n}
+                    for k, (ms, n) in top],
+            "losses": losses,
+        }
+        log("telemetry train: " + json.dumps(train))
+        if not all(window.values()):
+            raise AssertionError(f"telemetry: a kernel never launched over "
+                                 f"steps {held[0]}-{held[-1]}: {window}")
+        if annotations != num:
+            raise AssertionError(f"telemetry: {annotations} telemetry_step "
+                                 f"annotations in a window of {num} steps")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"telemetry: losses {losses}")
+        res["train"] = train
+        res["launches"] = launches
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"launches on the telemetry path: {res['launches']}")
+    for name, n in res["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"telemetry path")
+    return res
+
+
 def check_path_launches(launches_by_path: dict) -> None:
     """Every kernel launched on every path of the run, but on
     ZERO_LAUNCH_PATHS, the paths that run none of B1-B4 by design, where
@@ -4555,6 +5014,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="tony-first-call-") as tmp:
         first_call_phase(Path(tmp))
+    # This slice's path: the telemetry plane (serving with the registry,
+    # spans, the HBM monitor and a capture window; train steps under
+    # StepProfiler; it resets the counters itself and reads them just
+    # after).
+    with tempfile.TemporaryDirectory(prefix="tony-telemetry-") as tmp:
+        telemetry = telemetry_phase(torch, attention, norms, args.seed,
+                                    Path(tmp))
+    torch.cuda.empty_cache()
     rows = (rms_row, flash_row, dq_row, dkv_row)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
@@ -4574,7 +5041,8 @@ def main(argv=None) -> int:
             "moe_serve": moe_serve["launches"][row["name"]],
             "classifier": classifier["launches"][row["name"]],
             "anatomy": anatomy["lm"]["launches"][row["name"]],
-            "tune": tune["launches"][row["name"]]}
+            "tune": tune["launches"][row["name"]],
+            "telemetry": telemetry["launches"][row["name"]]}
 
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

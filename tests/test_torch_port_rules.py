@@ -28,7 +28,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "tony_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "flash_bwd_study.py",
     REPO / "dp_study.py", REPO / "attention_chain_study.py",
-    REPO / "anatomy_study.py", REPO / "tests" / "torch_ranks.py",
+    REPO / "anatomy_study.py", REPO / "telemetry_study.py",
+    REPO / "tests" / "torch_ranks.py",
 ]
 
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -624,6 +625,18 @@ def test_the_slice_s_modules_fall_under_the_import_scan():
                 "tony_tpu_torch/models/mnist.py",
                 "tony_tpu_torch/models/resnet.py",
                 "tony_tpu_torch/mnist_distributed.py"):
+        assert REPO / rel in PORT_FILES, rel
+
+
+def test_the_telemetry_modules_fall_under_the_import_scan():
+    for rel in ("tony_tpu_torch/observability/trace.py",
+                "tony_tpu_torch/observability/profiling.py",
+                "tony_tpu_torch/profiling.py",
+                "tony_tpu_torch/observability/__init__.py",
+                "tony_tpu_torch/serving/scheduler.py",
+                "tony_tpu_torch/checkpoint/manager.py",
+                "tony_tpu_torch/io/reader.py",
+                "tony_tpu_torch/runtime.py"):
         assert REPO / rel in PORT_FILES, rel
 
 

@@ -22,9 +22,11 @@ classifies it:
 ``step_region()`` arms ``torch.cuda.set_sync_debug_mode("error")`` where
 JAX arms ``jax.transfer_guard_device_to_host("disallow")``: a synchronizing
 CUDA operation inside the region (``.item()``, ``.cpu()`` of a device
-tensor, ``torch.cuda.synchronize()``, a blocking copy between host and
+tensor, a stream's ``synchronize()``, a blocking copy between host and
 device) raises, and is recorded and counted into
-``tony_guarded_transfers_total``. PyTorch has no explicit-transfer rule to
+``tony_guarded_transfers_total``. The mode does not flag a device-wide
+``torch.cuda.synchronize()`` or an event's ``synchronize()``, as JAX's
+guard does not flag ``block_until_ready``: no data crosses to the host. PyTorch has no explicit-transfer rule to
 match ``jax.device_get``: an annotated readback inside a region runs under
 ``explicit_fence()``, which lowers the mode for its own body. The mode is
 process-global, not per thread: a region restores the mode it found, and

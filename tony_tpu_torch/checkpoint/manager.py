@@ -35,6 +35,16 @@ package restores what the other wrote.
 * **Pipeline, differential saves, fallback, GC, flush signal,
   cross-topology restore**: as in the JAX package (``pipeline.py``,
   ``differential.py``, ``layout.py``).
+* **Metrics**, in the default registry under the JAX package's names and
+  buckets: ``tony_ckpt_snapshot_ms`` (what ``save`` takes on the caller's
+  thread: a set of pinned host buffers, allocated by the first saves of a
+  process and reused after, and issuing the copies on CUDA; the copies
+  themselves on the CPU),
+  ``tony_ckpt_persist_ms`` (serialize, write, commit), the pipeline's
+  ``tony_ckpt_queue_depth``, the shard bytes written as
+  ``tony_ckpt_bytes_total{kind=full|diff}``, and, on process 0, the newest
+  complete step as ``tony_ckpt_committed_step``. As in the JAX package
+  there is no restore metric.
 """
 
 from __future__ import annotations
@@ -67,6 +77,51 @@ from tony_tpu_torch.models.train import TrainState
 log = logging.getLogger(__name__)
 
 _MANIFEST = "__manifest__"
+
+# Declared metric names, the JAX package's: snapshot = what save() costs
+# the train loop; persist = the background serialize+write+commit wall;
+# queue depth = saves in flight behind the bounded pipeline; bytes = shard
+# bytes written, labeled kind=full|diff; committed step = the newest
+# complete step (process 0), which the heartbeat piggyback carries to the
+# coordinator's goodput ledger.
+CKPT_SNAPSHOT_HISTOGRAM = "tony_ckpt_snapshot_ms"
+CKPT_PERSIST_HISTOGRAM = "tony_ckpt_persist_ms"
+CKPT_QUEUE_DEPTH_GAUGE = "tony_ckpt_queue_depth"
+CKPT_BYTES_COUNTER = "tony_ckpt_bytes_total"
+CKPT_COMMITTED_GAUGE = layout.CKPT_COMMITTED_GAUGE
+_SNAPSHOT_BUCKETS = (1.0, 5.0, 10.0, 50.0, 100.0, 500.0, 1000.0, 5000.0,
+                     10000.0)
+
+
+def _registry():
+    from tony_tpu_torch.observability.metrics import default_registry
+
+    return default_registry()
+
+
+def _observe_ms(name: str, value_ms: float) -> None:
+    try:
+        _registry().histogram(name, buckets=_SNAPSHOT_BUCKETS).observe(
+            value_ms
+        )
+    except ValueError:  # a foreign registry squatting the name
+        pass
+
+
+def _set_gauge(name: str, value: float) -> None:
+    try:
+        _registry().gauge(name).set(value)
+    except ValueError:
+        pass
+
+
+def _count_bytes(kind: str, n: int) -> None:
+    try:
+        _registry().counter(
+            CKPT_BYTES_COUNTER, labels={"kind": kind}
+        ).inc(n)
+    except ValueError:
+        pass
 
 # Manifest dtype names (numpy's, and ml_dtypes' "bfloat16") <-> torch.
 _DTYPES = {
@@ -357,6 +412,7 @@ class CheckpointManager:
         self._pipeline = SavePipeline(
             self._encode_job, self._persist_payload,
             depth=depth, workers=workers,
+            on_depth=lambda d: _set_gauge(CKPT_QUEUE_DEPTH_GAUGE, d),
         )
         self._buffers = _HostBuffers()
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
@@ -387,6 +443,7 @@ class CheckpointManager:
         return self._streams[device]
 
     def _snapshot_job(self, step: int, state: Any) -> _SaveJob:
+        t0 = time.monotonic()
         leaves = [(path, _as_tensor(v)) for path, v in _tree_leaves(state)]
         on_cuda = [(p, t) for p, t in leaves if t.is_cuda]
         key, bufs = self._buffers.take(leaves, pin=bool(on_cuda))
@@ -416,6 +473,8 @@ class CheckpointManager:
         placements = _placements(state)
         snapped = [(path, bufs[path], _leaf_info(t, placements.get(path)))
                    for path, t in leaves]
+        _observe_ms(CKPT_SNAPSHOT_HISTOGRAM,
+                    (time.monotonic() - t0) * 1000.0)
         return _SaveJob(step, snapped, ready, (key, bufs))
 
     @staticmethod
@@ -466,8 +525,9 @@ class CheckpointManager:
 
     def _persist_payload(self, payload: _PersistPayload) -> None:
         """Persist stage: serialize, write the shard, the commit sidecar
-        and (process 0) the step marker, then GC."""
+        and (process 0) the step marker, publish telemetry, then GC."""
         step = payload.step
+        t0 = time.monotonic()
         try:
             buf = io.BytesIO()
             np.savez(
@@ -506,8 +566,20 @@ class CheckpointManager:
             if (self.last_committed_step is None
                     or step > self.last_committed_step):
                 self.last_committed_step = step
+        _observe_ms(CKPT_PERSIST_HISTOGRAM,
+                    (time.monotonic() - t0) * 1000.0)
+        _count_bytes(payload.kind, len(data))
         if self.process_id == 0:
-            self._gc()
+            # The committed-step gauge is GLOBAL, not per-process: process
+            # 0, the marker writer, reads the reader-side completeness rule
+            # and publishes the newest COMPLETE step (a lagging peer makes
+            # it conservative, never early); other processes publish
+            # nothing.
+            entries = self._store.step_entries()
+            complete = self._complete_steps(entries)
+            if complete:
+                _set_gauge(CKPT_COMMITTED_GAUGE, float(complete[-1]))
+            self._gc(entries, complete)
         log.info("checkpoint step %d committed (%s, %d bytes) under %s",
                  step, payload.kind, len(data), self.directory)
 
@@ -792,15 +864,18 @@ class CheckpointManager:
         return out
 
     # -- gc -----------------------------------------------------------------
-    def _gc(self) -> None:
+    def _gc(self, entries=None, complete=None) -> None:
         """Process 0 prunes old steps — complete ones beyond ``max_to_keep``
         AND torn/incomplete dirs older than the oldest kept complete step —
         EXCEPT donor steps a kept differential step still reads bytes
-        from."""
+        from. ``entries``/``complete`` let the persist stage share its one
+        listing pass."""
         if self.process_id != 0 or not self.max_to_keep:
             return
-        entries = self._store.step_entries()
-        complete = self._complete_steps(entries)
+        if entries is None:
+            entries = self._store.step_entries()
+        if complete is None:
+            complete = self._complete_steps(entries)
         kept = set(complete[-self.max_to_keep:])
         protected = layout.referenced_steps(
             self._store, kept, self.num_processes

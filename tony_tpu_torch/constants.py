@@ -16,6 +16,9 @@ WORLD_SIZE = "WORLD_SIZE"
 MASTER_ADDR = "MASTER_ADDR"
 MASTER_PORT = "MASTER_PORT"
 TB_PORT = "TB_PORT"
+# The profiler port the executor reserves when tony.profiler.enabled is set
+# (profiling.maybe_start_profiler_server serves on it).
+PROFILER_PORT = "PROFILER_PORT"
 TONY_LOG_DIR = "TONY_LOG_DIR"
 
 TONY_SERVING_SLOTS = "TONY_SERVING_SLOTS"
@@ -78,3 +81,7 @@ TONY_METRICS_FILE = "TONY_METRICS_FILE"
 TONY_STEPSTATS_ENABLED = "TONY_STEPSTATS_ENABLED"
 TONY_STEPSTATS_CALIBRATE = "TONY_STEPSTATS_CALIBRATE"
 TONY_STEPSTATS_WINDOW = "TONY_STEPSTATS_WINDOW"
+# Continuous device-memory telemetry (tony.profile.hbm-interval conf ->
+# user-process env -> runtime.initialize starts the HBM gauge monitor,
+# observability/profiling.py; "0" disables).
+TONY_PROFILE_HBM_INTERVAL_MS = "TONY_PROFILE_HBM_INTERVAL_MS"

@@ -37,8 +37,19 @@ batches on the device.
 
 Tuning comes from ``TONY_IO_PREFETCH_DEPTH`` / ``TONY_IO_READ_WORKERS`` /
 ``TONY_IO_CHUNK_RECORDS`` (the executor exports ``tony.io.*`` conf as
-those) unless given explicitly. Not ported: ``gs://`` corpora, the native
-``pread`` library and the ``tony_io_*`` metrics (ROADMAP Queue A).
+those) unless given explicitly.
+
+Metrics: every reader and prefetcher of the process feeds one
+``tony_io_*`` family in the default registry, with the JAX package's names
+and buckets: span reads (``tony_io_read_ms``, ``tony_io_bytes_read_total``),
+rollover copies (``tony_io_assemble_ms``), the consumer's wait on the
+fetcher (``tony_io_batch_wait_ms``, ``tony_io_prefetch_queue_depth``) and
+on ``device_prefetch`` (``tony_io_queue_wait_ms``), and the device copies
+(``tony_io_h2d_ms``, ``tony_io_h2d_bytes_total``,
+``tony_io_h2d_inflight_depth``).
+
+Not ported: ``gs://`` corpora and the native ``pread`` library (ROADMAP
+Queue A).
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import os
 import queue
 import random
 import threading
+import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator
@@ -63,6 +75,88 @@ from tony_tpu_torch.io.storage import file_size, open_lines
 from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
 
 _SENTINEL = object()
+
+# Millisecond-scale histogram buckets: reads and H2D transfers span ~0.1 ms
+# (warm page cache) to seconds (cold remote storage).
+_MS_BUCKETS = (
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
+    100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+)
+
+# Declared metric names: the tony_io_* family.
+IO_BYTES_READ_COUNTER = "tony_io_bytes_read_total"
+IO_READ_MS_HISTOGRAM = "tony_io_read_ms"
+IO_ASSEMBLE_MS_HISTOGRAM = "tony_io_assemble_ms"
+IO_BATCH_WAIT_MS_HISTOGRAM = "tony_io_batch_wait_ms"
+IO_PREFETCH_QUEUE_DEPTH_GAUGE = "tony_io_prefetch_queue_depth"
+IO_H2D_BYTES_COUNTER = "tony_io_h2d_bytes_total"
+IO_H2D_MS_HISTOGRAM = "tony_io_h2d_ms"
+IO_QUEUE_WAIT_MS_HISTOGRAM = "tony_io_queue_wait_ms"
+IO_H2D_INFLIGHT_DEPTH_GAUGE = "tony_io_h2d_inflight_depth"
+
+
+class _IoMetrics:
+    """Lazy handles into the process's default registry. One shared
+    instance per registry: readers and prefetchers all feed the same
+    ``tony_io_*`` family. A reader or prefetcher made after the default
+    registry was replaced takes handles into the new one."""
+
+    _instance: "_IoMetrics | None" = None
+    _lock = threading.Lock()
+
+    def __init__(self, registry) -> None:
+        self.registry = registry
+        self.bytes_read = registry.counter(
+            IO_BYTES_READ_COUNTER,
+            "bytes fetched from storage by the sharded reader",
+        )
+        self.read_ms = registry.histogram(
+            IO_READ_MS_HISTOGRAM,
+            "wall time of one span read (pread)",
+            buckets=_MS_BUCKETS,
+        )
+        self.assemble_ms = registry.histogram(
+            IO_ASSEMBLE_MS_HISTOGRAM,
+            "host-side batch-assembly copy time (rollover buffer)",
+            buckets=_MS_BUCKETS,
+        )
+        self.batch_wait_ms = registry.histogram(
+            IO_BATCH_WAIT_MS_HISTOGRAM,
+            "consumer stall waiting on the reader's prefetch queue",
+            buckets=_MS_BUCKETS,
+        )
+        self.queue_depth = registry.gauge(
+            IO_PREFETCH_QUEUE_DEPTH_GAUGE,
+            "chunks currently buffered between fetcher and consumer",
+        )
+        self.h2d_bytes = registry.counter(
+            IO_H2D_BYTES_COUNTER,
+            "bytes handed to the host->device copy by device_prefetch",
+        )
+        self.h2d_ms = registry.histogram(
+            IO_H2D_MS_HISTOGRAM,
+            "wall time of one host->device copy enqueue",
+            buckets=_MS_BUCKETS,
+        )
+        self.queue_wait_ms = registry.histogram(
+            IO_QUEUE_WAIT_MS_HISTOGRAM,
+            "consumer stall per batch waiting on device_prefetch",
+            buckets=_MS_BUCKETS,
+        )
+        self.h2d_depth = registry.gauge(
+            IO_H2D_INFLIGHT_DEPTH_GAUGE,
+            "device transfers currently in flight in device_prefetch",
+        )
+
+    @classmethod
+    def get(cls) -> "_IoMetrics":
+        from tony_tpu_torch.observability import default_registry
+
+        registry = default_registry()
+        with cls._lock:
+            if cls._instance is None or cls._instance.registry is not registry:
+                cls._instance = cls(registry)
+            return cls._instance
 
 
 class _Failure:
@@ -129,6 +223,7 @@ class ShardedRecordReader:
             else _env_int(constants.TONY_IO_READ_WORKERS,
                           self._READ_WORKERS)
         )
+        self._metrics = _IoMetrics.get()
 
         files = [(str(p), file_size(str(p))) for p in sorted(paths)]
         self._sizes = dict(files)
@@ -250,6 +345,7 @@ class ShardedRecordReader:
         while not self._stop.is_set():
             try:
                 self._queue.put(item, timeout=0.1)
+                self._metrics.queue_depth.set(self._queue.qsize())
                 return
             except queue.Full:
                 continue
@@ -312,6 +408,7 @@ class ShardedRecordReader:
         rb = self._record_bytes()
         record_len = rb // self.dtype.itemsize
         want = n_records * rb
+        t0 = time.perf_counter()
         fd = self._fd_for(path)
         # preadv straight into the output array: no intermediate bytes
         # object, no seek state shared across workers. Platforms without
@@ -339,6 +436,8 @@ class ShardedRecordReader:
                 f"{n_records} records, got {got} — corpus changed "
                 f"underneath the reader"
             )
+        self._metrics.read_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._metrics.bytes_read.inc(got * rb)
         return rows
 
     def _span_descriptors(self) -> list[tuple[str, int, int]]:
@@ -527,7 +626,10 @@ class ShardedRecordReader:
     def _next_chunk(self) -> bool:
         """Pull the next chunk into the rollover head. False at sentinel
         (stream terminated — failure already re-raised if any)."""
+        t0 = time.perf_counter()
         item = self._queue.get()
+        self._metrics.batch_wait_ms.observe((time.perf_counter() - t0) * 1e3)
+        self._metrics.queue_depth.set(self._queue.qsize())
         if item is _SENTINEL:
             self._queue.put(_SENTINEL)
             self._raise_fetch_failure()
@@ -565,8 +667,12 @@ class ShardedRecordReader:
             if out is None:
                 out = np.empty((bs,) + head.shape[1:], head.dtype)
             take = min(bs - filled, avail)
+            t0 = time.perf_counter()
             out[filled: filled + take] = (
                 head[self._head_off: self._head_off + take]
+            )
+            self._metrics.assemble_ms.observe(
+                (time.perf_counter() - t0) * 1e3
             )
             filled += take
             self._head_off += take
@@ -666,7 +772,7 @@ class _Staged:
 
 
 def _make_transfer(device: torch.device, put_fn, stop: threading.Event,
-                   ) -> Callable[[Any], Any]:
+                   metrics: _IoMetrics) -> Callable[[Any], Any]:
     """One host->device transfer closure for the pool workers —
     deliberately free of any DevicePrefetcher reference so pending futures
     never pin an abandoned prefetcher. On CUDA each leaf is staged in
@@ -678,17 +784,48 @@ def _make_transfer(device: torch.device, put_fn, stop: threading.Event,
             return None  # discarded; close() already owns teardown
         if put_fn is not None:
             return put_fn(b)
+        # tony_io_h2d_ms times the enqueue of the copy (the pinned staging
+        # and the non-blocking copy's launch on the side stream), as the
+        # JAX package times the device_put dispatch: not the copy's
+        # completion on the card.
+        t0 = time.perf_counter()
         if side is None:
-            return _tree_map(torch.as_tensor, b)
-        with torch.cuda.stream(side):
-            out = _tree_map(lambda x: torch.as_tensor(x).pin_memory().to(
-                device, non_blocking=True), b)
-            return _Staged(out, side.record_event())
+            out = _tree_map(torch.as_tensor, b)
+        else:
+            with torch.cuda.stream(side):
+                out = _Staged(_tree_map(
+                    lambda x: torch.as_tensor(x).pin_memory().to(
+                        device, non_blocking=True), b), side.record_event())
+        metrics.h2d_ms.observe((time.perf_counter() - t0) * 1e3)
+        nbytes = getattr(b, "nbytes", None)
+        if nbytes:
+            metrics.h2d_bytes.inc(nbytes)
+        return out
 
     return transfer
 
 
-def _producer_loop(batches, q, slots, stop, pool, transfer, self_ref) -> None:
+class _Inflight:
+    """The transfers in flight, counted by the producer thread and the
+    consumer under one lock, published to ``tony_io_h2d_inflight_depth``."""
+
+    def __init__(self, gauge) -> None:
+        self._gauge = gauge
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self, delta: int) -> None:
+        with self._lock:
+            self._n += delta
+            self._gauge.set(self._n)
+
+    def zero(self) -> None:
+        """Nothing is left in flight (the stream ended or was closed)."""
+        self._gauge.set(0)
+
+
+def _producer_loop(batches, q, slots, stop, pool, transfer,
+                   inflight: _Inflight, self_ref) -> None:
     """DevicePrefetcher's producer thread body. Runs on locals + a weak
     self reference only: when the consumer abandons the iterator and the
     object is collected, the next slot-wait tick notices the dead weakref
@@ -716,6 +853,7 @@ def _producer_loop(batches, q, slots, stop, pool, transfer, self_ref) -> None:
             except StopIteration:
                 slots.release()
                 return
+            inflight.add(1)
             q.put(pool.submit(transfer, b))
             del b
     except BaseException as exc:
@@ -724,6 +862,7 @@ def _producer_loop(batches, q, slots, stop, pool, transfer, self_ref) -> None:
         q.put(_SENTINEL)
         if abandoned:
             pool.shutdown(wait=False, cancel_futures=True)
+            inflight.zero()
 
 
 class DevicePrefetcher:
@@ -767,17 +906,22 @@ class DevicePrefetcher:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self.depth = depth
         self.device = resolve_device(device)
+        self._metrics = _IoMetrics.get()
         self._q: queue.Queue = queue.Queue()
         self._slots = threading.Semaphore(depth)
         self._held = False  # consumer holds the yielded batch's slot
         self._stop = threading.Event()
         self._exc: BaseException | None = None
         self._closed = False
+        # A counter object of its own, not an attribute: the producer loop
+        # must not hold a strong `self` reference.
+        self._inflight = _Inflight(self._metrics.h2d_depth)
         self._pool = ThreadPoolExecutor(
             max_workers=max(1, min(transfer_workers, depth)),
             thread_name_prefix="tony-h2d",
         )
-        transfer = _make_transfer(self.device, put_fn, self._stop)
+        transfer = _make_transfer(self.device, put_fn, self._stop,
+                                  self._metrics)
         # The producer thread gets everything it needs as arguments plus
         # only a WEAK reference to self: a prefetcher abandoned without
         # close() (`for b in device_prefetch(...): break`) then becomes
@@ -785,7 +929,7 @@ class DevicePrefetcher:
         self._thread = threading.Thread(
             target=_producer_loop,
             args=(iter(batches), self._q, self._slots, self._stop,
-                  self._pool, transfer, weakref.ref(self)),
+                  self._pool, transfer, self._inflight, weakref.ref(self)),
             daemon=True,
         )
         self._thread.start()
@@ -801,6 +945,7 @@ class DevicePrefetcher:
         # hand (depth=1 == eager).
         if self._held:
             self._held = False
+            self._inflight.add(-1)
             self._slots.release()
         if self._exc is not None:
             # Sticky failure: every subsequent pull re-raises, so a
@@ -809,9 +954,11 @@ class DevicePrefetcher:
             raise self._exc
         if self._closed:
             raise StopIteration  # closed pipelines terminate, never hang
+        t0 = time.perf_counter()
         item = self._q.get()
         if item is _SENTINEL:
             self._q.put(_SENTINEL)  # keep the stream terminated
+            self._inflight.zero()
             self._pool.shutdown(wait=False)  # workers idle by now
             raise StopIteration
         if isinstance(item, _Failure):
@@ -821,9 +968,13 @@ class DevicePrefetcher:
             out = item.result()
         except BaseException as exc:
             self._exc = exc
+            self._inflight.add(-1)
             self._slots.release()
             raise
         self._held = True
+        self._metrics.queue_wait_ms.observe(
+            (time.perf_counter() - t0) * 1e3
+        )
         if isinstance(out, _Staged):
             out = out.hand_over(self.device)
         return out
@@ -843,6 +994,7 @@ class DevicePrefetcher:
             pass
         self._pool.shutdown(wait=False, cancel_futures=True)
         self._thread.join(timeout=5)
+        self._inflight.zero()
 
     def __enter__(self) -> "DevicePrefetcher":
         return self

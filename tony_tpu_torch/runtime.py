@@ -101,7 +101,9 @@ def initialize(device="cuda", *, init_method: str | None = None,
     First of all it wires the compile cache (``plan.configure_compile_cache``
     from the executor's ``TONY_COMPILE_CACHE_*``): the kernels build into,
     and load from, the configured dir, so a retried or resumed session of
-    an unchanged program builds nothing."""
+    an unchanged program builds nothing. Last, with
+    ``TONY_PROFILE_HBM_INTERVAL_MS`` set and not "0", it starts the HBM gauge
+    monitor (``observability.profiling``) at that interval."""
     from tony_tpu_torch.parallel.plan import configure_compile_cache
 
     configure_compile_cache()
@@ -113,6 +115,7 @@ def initialize(device="cuda", *, init_method: str | None = None,
         dev = torch.device("cuda", index)
     dev = resolve_device(dev)
     if dev.type == "cuda":
+        torch.cuda.init()
         torch.cuda.set_device(dev)
     if ctx.is_distributed:
         torch.distributed.init_process_group(
@@ -121,6 +124,20 @@ def initialize(device="cuda", *, init_method: str | None = None,
             world_size=ctx.num_processes, rank=ctx.process_id,
             timeout=timedelta(seconds=timeout_s),
         )
+    # Continuous device-memory telemetry: per-card HBM gauges sampled on a
+    # daemon thread into the default registry, so the snapshot that rides
+    # heartbeats shows memory pressure BEFORE an out-of-memory error. A
+    # no-op on the CPU (CUDA never came up).
+    hbm_ms = os.environ.get(constants.TONY_PROFILE_HBM_INTERVAL_MS)
+    if hbm_ms and hbm_ms != "0":
+        from tony_tpu_torch.observability.profiling import (
+            start_device_memory_monitor,
+        )
+
+        try:
+            start_device_memory_monitor(interval_s=int(hbm_ms) / 1000.0)
+        except (ValueError, TypeError):
+            pass
     return dataclasses.replace(ctx, device=str(dev))
 
 

@@ -18,18 +18,31 @@ Greedy parity contract: a request decoded through the slot engine yields
 token for token the same output as a single-request
 ``models.decode.generate(..., eos_id=)`` call.
 
+Telemetry goes through the metrics registry (``registry=``, else the
+process's default one), with the JAX package's names, help strings and
+buckets: ``tony_serving_{queue_depth,active_slots,tokens_per_sec}`` gauges,
+``tony_serving_{ttft_ms,inter_token_ms}`` histograms and the
+``tony_serving_{requests,retired,generated_tokens}_total`` counters, so a
+tony-launched serving task's numbers ride heartbeats onto the
+coordinator's ``/metrics``. The two dispatches also record sampled
+``serving_decode_window`` / ``serving_prefill_chunks`` trace spans into the
+default tracer (dense through warmup, then decimated), each covering the
+dispatch and its readback, so the engine shows up in the job's Chrome
+trace. ``stats()`` and ``tokens_generated`` read the engine's own tallies,
+never the registry, which other engines may share; the raw latency samples
+are kept for percentile readouts.
+
 Of the JAX package's autotune hooks the engine takes the KV storage mode
 (``kv_quant``, int8 or not). The two device calls are wrapped in
 ``plan.instrument_jit`` (their first calls timed and counted as
 compile-cache hits or misses) and run, with their readbacks, in the jit
-sanitizer's ``step_region``; the readbacks themselves are the annotated
-``explicit_fence``s. The metrics registry and trace spans wait for a later
-slice of the port, and the engine keeps its own tallies (``stats()``) and
-raw latency samples.
+sanitizer's ``step_region``, inside the span; the readbacks themselves are
+the annotated ``explicit_fence``s.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import logging
@@ -45,11 +58,31 @@ from tony_tpu_torch.analysis import jit_sanitizer
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.decode import fused_on
 from tony_tpu_torch.models.transformer import TransformerConfig
+from tony_tpu_torch.observability import metrics as obs_metrics
+from tony_tpu_torch.observability import trace as obs_trace
 from tony_tpu_torch.parallel import autotune
 from tony_tpu_torch.parallel import plan as plan_lib
 from tony_tpu_torch.serving import engine as _engine
 
 log = logging.getLogger(__name__)
+
+# ms-scale buckets for the serving latency histograms (the registry default
+# buckets are seconds-scale).
+_MS_BUCKETS = (0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+               500.0, 1000.0, 2500.0, 5000.0)
+
+# Rolling window for the tony_serving_tokens_per_sec gauge.
+_RATE_WINDOW_S = 5.0
+
+# Declared metric names: the tony_serving_* family.
+SERVING_QUEUE_DEPTH_GAUGE = "tony_serving_queue_depth"
+SERVING_ACTIVE_SLOTS_GAUGE = "tony_serving_active_slots"
+SERVING_TOKENS_PER_SEC_GAUGE = "tony_serving_tokens_per_sec"
+SERVING_TTFT_MS_HISTOGRAM = "tony_serving_ttft_ms"
+SERVING_INTER_TOKEN_MS_HISTOGRAM = "tony_serving_inter_token_ms"
+SERVING_REQUESTS_COUNTER = "tony_serving_requests_total"
+SERVING_RETIRED_COUNTER = "tony_serving_retired_total"
+SERVING_GENERATED_TOKENS_COUNTER = "tony_serving_generated_tokens_total"
 
 
 class ServingQueueFull(RuntimeError):
@@ -139,7 +172,8 @@ class ServingEngine:
     admission requires ``len(prompt) + max_new_tokens <= max_len``.
     ``kv_quant`` ("none" or "int8") is the KV storage mode; None takes
     ``TONY_TUNE_KV_QUANT`` (``tony.tune.kv-quant``), where an unknown
-    value degrades to "none".
+    value degrades to "none". ``registry`` takes the ``tony_serving_*``
+    metrics (default: the process's default registry).
     """
 
     def __init__(
@@ -156,6 +190,7 @@ class ServingEngine:
         decode_window: int = 1,
         max_queue: int = 1024,
         max_resident_models: int = 4,
+        registry: obs_metrics.MetricsRegistry | None = None,
         seed: int = 0,
         kv_quant: str | None = None,
     ) -> None:
@@ -226,14 +261,54 @@ class ServingEngine:
         self._iter = 0
         self._decode_calls = 0
         self._pf_draws = 0
+        self._spans_taken: dict[str, int] = {}
+        # Engine-local tallies: the registry below may be the process-wide
+        # default registry, shared by every engine in the process, so
+        # stats() and tokens_generated never read it back.
         self._n_requests = 0
         self._n_retired = 0
         self._n_tokens = 0
         self._ids = itertools.count()
         self._seed = int(seed)
-        # Raw latency samples for percentile reporting.
+        self._rate_window: deque[tuple[float, int]] = deque()
+        # Raw latency samples for percentile reporting (the histogram
+        # buckets are too coarse for a p95 readout).
         self.inter_token_ms_samples: deque[float] = deque(maxlen=8192)
         self.ttft_ms_samples: deque[float] = deque(maxlen=8192)
+
+        reg = registry if registry is not None else (
+            obs_metrics.default_registry()
+        )
+        self._reg = reg
+        self._g_queue = reg.gauge(
+            SERVING_QUEUE_DEPTH_GAUGE,
+            "requests admitted-pending (queued, not yet in a slot)",
+        )
+        self._g_active = reg.gauge(
+            SERVING_ACTIVE_SLOTS_GAUGE, "slots currently decoding"
+        )
+        self._g_rate = reg.gauge(
+            SERVING_TOKENS_PER_SEC_GAUGE,
+            f"generated tokens/sec over the last {_RATE_WINDOW_S:.0f}s",
+        )
+        self._h_ttft = reg.histogram(
+            SERVING_TTFT_MS_HISTOGRAM, "submit -> first token",
+            buckets=_MS_BUCKETS,
+        )
+        self._h_inter = reg.histogram(
+            SERVING_INTER_TOKEN_MS_HISTOGRAM,
+            "decode iteration wall (== per-stream inter-token gap)",
+            buckets=_MS_BUCKETS,
+        )
+        self._c_requests = reg.counter(
+            SERVING_REQUESTS_COUNTER, "requests accepted"
+        )
+        self._c_retired = reg.counter(
+            SERVING_RETIRED_COUNTER, "requests completed"
+        )
+        self._c_tokens = reg.counter(
+            SERVING_GENERATED_TOKENS_COUNTER, "tokens sampled"
+        )
         extra = {"slots": self.slots, "max_len": self.max_len,
                  "chunk": self.prefill_chunk,
                  "window": self.decode_window,
@@ -302,6 +377,7 @@ class ServingEngine:
                     f"serving queue at max_queue={self.max_queue}"
                 )
             self._queue.append(req)
+            self._c_requests.inc()
             self._n_requests += 1
             self._cond.notify_all()
 
@@ -464,6 +540,7 @@ class ServingEngine:
             s = self.stats()
             if (s["queue_depth"] == 0 and s["active_slots"] == 0
                     and s["prefilling"] == 0):
+                self._zero_gauges()
                 return True
             time.sleep(0.05)
         return False
@@ -479,6 +556,16 @@ class ServingEngine:
             self._thread.join(timeout=30)
             self._thread = None
         self._fail_pending("engine shut down")
+        self._zero_gauges()
+
+    def _zero_gauges(self) -> None:
+        """A retired or drained replica must not leave stale last-published
+        load in the aggregator: least-loaded routing and the autoscaler
+        both read these gauges."""
+        self._g_queue.set(0)
+        self._g_active.set(0)
+        self._g_rate.set(0.0)
+        self._reg.report()
 
     def _fail_pending(self, error: str) -> None:
         with self._cond:
@@ -512,6 +599,23 @@ class ServingEngine:
             log.exception("serving engine loop died")
             self._stop.set()
             self._fail_pending(f"engine loop failed: {exc}")
+            self._zero_gauges()
+
+    # Trace sampling for the engine's dispatch spans: the tracer buffers
+    # spans in memory for the job-trace merge, so the first iterations
+    # record densely (the first calls and the ramp, what a waterfall reader
+    # wants) and the steady state is decimated; a week-long engine cannot
+    # grow the trace without bound.
+    _SPAN_DENSE = 64
+    _SPAN_EVERY = 256
+
+    def _dispatch_span(self, name: str, **attrs):
+        n = self._spans_taken.get(name, 0)
+        self._spans_taken[name] = n + 1
+        if n < self._SPAN_DENSE or n % self._SPAN_EVERY == 0:
+            return obs_trace.default_tracer().span(name, iteration=n,
+                                                   **attrs)
+        return contextlib.nullcontext()
 
     # -- the iteration -----------------------------------------------------
     @torch.no_grad()
@@ -532,8 +636,13 @@ class ServingEngine:
                             np.int32(self.max_len - 1)).astype(np.int32)
             # Decode draws live in [0, 2**30), prefill draws in
             # [2**30, 2**31); passed as int32 scalars, so the draw's value
-            # is not part of the call's signature.
-            with jit_sanitizer.step_region("serving_decode_window"):
+            # is not part of the call's signature. The span covers the
+            # dispatch AND the readback: the wall the card spent on this
+            # window, in the job's Chrome trace.
+            with self._dispatch_span("serving_decode_window",
+                                     slots=int(self._active.sum()),
+                                     window=w), \
+                    jit_sanitizer.step_region("serving_decode_window"):
                 self._k, self._v, window = self._decode(
                     self.params, self._k, self._v, self._pos, wpos,
                     self._last, self._temp, self._seed,
@@ -545,6 +654,7 @@ class ServingEngine:
             wall_ms = (time.perf_counter() - t0) * 1000.0
             # Recorded per token (wall / window): the sustained per-stream
             # gap is what capacity planning reads.
+            self._h_inter.observe(wall_ms / w)
             self.inter_token_ms_samples.append(wall_ms / w)
             n_new = 0
             for s in np.flatnonzero(self._active):
@@ -562,9 +672,26 @@ class ServingEngine:
                 else:
                     self._pos[s] += w
                     self._last[s] = int(toks[s, -1])
+            self._c_tokens.inc(n_new)
             self._n_tokens += n_new
+            self._note_rate(n_new)
             decoded = True
+        if not decoded:
+            # Idle decay: the rolling-rate gauge must fall to zero when
+            # generation stops, or the autoscaler reads phantom load.
+            now = time.perf_counter()
+            if (self._rate_window
+                    and now - self._rate_window[-1][0] > _RATE_WINDOW_S):
+                self._rate_window.clear()
+                self._g_rate.set(0.0)
         self._iter += 1
+        with self._cond:
+            self._g_queue.set(len(self._queue))
+        self._g_active.set(int(self._active.sum()))
+        # Publish (throttled inside the registry): serving metrics reach
+        # the executor's heartbeat only through the $TONY_METRICS_FILE
+        # snapshot, and nothing else in a serving loop calls report().
+        self._reg.report()
         return did_prefill or decoded
 
     def _next_admissible_locked(self) -> ServingRequest | None:
@@ -659,7 +786,9 @@ class ServingEngine:
                 n_valids[i] = n_valids[0]
                 temps[i] = temps[0]
             self._pf_draws += 1
-            with jit_sanitizer.step_region("serving_prefill_chunks"):
+            with self._dispatch_span("serving_prefill_chunks", batch=n,
+                                     chunk=self.prefill_chunk), \
+                    jit_sanitizer.step_region("serving_prefill_chunks"):
                 self._k, self._v, first_toks, _ = self._prefill(
                     self.params, self._k, self._v, toks, slots_a, starts,
                     n_valids, temps, self._seed,
@@ -675,12 +804,16 @@ class ServingEngine:
                     requeue.append((req, slot))
                     continue
                 first = int(firsts[i])
-                req.t_first_token = now
-                self.ttft_ms_samples.append((now - req.t_submit) * 1000.0)
+                req.t_first_token = now  # post-sync: TTFT really is now
+                ttft = (now - req.t_submit) * 1000.0
+                self._h_ttft.observe(ttft)
+                self.ttft_ms_samples.append(ttft)
                 self._pos[slot] = req.prompt.size
                 self._last[slot] = first
                 req.tokens.append(first)
+                self._c_tokens.inc()
                 self._n_tokens += 1
+                self._note_rate(1)
                 if req.prefill_only:
                     # Export the slot's freshly written KV rows and free
                     # the slot; the decode replica injects them.
@@ -712,6 +845,17 @@ class ServingEngine:
         # Reset the lane temperature: a stale hot value would keep the
         # slot batch paying for random draws while the slot sits empty.
         self._temp[slot] = 0.0
+        self._c_retired.inc()
         self._n_retired += 1
         req.t_done = time.perf_counter()
         req._done.set()
+
+    def _note_rate(self, n_tokens: int) -> None:
+        now = time.perf_counter()
+        self._rate_window.append((now, n_tokens))
+        while (self._rate_window
+               and now - self._rate_window[0][0] > _RATE_WINDOW_S):
+            self._rate_window.popleft()
+        span = now - self._rate_window[0][0] if self._rate_window else 0.0
+        total = sum(n for _, n in self._rate_window)
+        self._g_rate.set(total / span if span > 0 else 0.0)
