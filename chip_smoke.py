@@ -155,7 +155,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
              tony_io_* values are printed, its snapshot and persist
              observations must equal its saves and tony_ckpt_committed_step
              its last step, and job B's tony_ckpt_bytes_total (nothing
-             overwritten or collected) the shard bytes on disk.
+             overwritten or collected) the shard bytes on disk. Jobs A and
+             B must read every span through the native library (one
+             native.pread_records call a span) and send readahead hints.
+10b. job gs — job C: job A's corpus uploaded into a TONY_GCS_EMULATOR_DIR
+             root and trained from gs:// by the train CLI for 6 steps,
+             checkpointing every 2 to a gs:// prefix, under a
+             TONY_FAULT_PLAN (JOB_C_PLAN): every checkpoint write delayed
+             200 ms, both writes of step 6 partial (torn), 100 ms of
+             throttle_io on batches 2 and 3, and 150 ms of degrade_task
+             after step 3. Its losses must equal job A's bit for bit, step
+             6 must not be complete, each committed save's
+             tony_ckpt_persist_ms must reach the delay, the throttle must
+             have slept twice after the first batch, job C's summed
+             data_wait must exceed job A's, the degraded step's wall must
+             lie the degrade above the median (less JOB_C_DEGRADE_TOL), and
+             every span must have come through the store's get_range and
+             none natively. Step 4 restored from gs:// equals job A's step
+             4 bit for bit (both restores timed); job C resumes to 8 with no
+             plan ("resumed from step 4", losses equal to job A's), and the
+             serve CLI serves its gs:// checkpoint (fp32, greedy, equal to
+             DecodeSession.generate). Last, a ~1 GiB token file is read
+             whole from the page cache through the native library and
+             through the preadv path, in turns (tony_io_read_ms, GB/s).
 
 11. moe train — make_train_step on bench.py's bench_moe configuration at
              full width and depth (vocab 32000, d 1024, 8 layers, 16 heads
@@ -258,7 +280,8 @@ training path; phase 9, the data-parallel
 path; phase 9b's mesh runs, the tp path; phase 9c's rings and mesh
 runs, the sp path; phase 9d's schedules and mesh runs, the pp path;
 phase 10's jobs and serving, the job path, and its generate CLI, the
-generate path; phase 11, the MoE train path; phase 12b's pipelines, the MoE
+generate path; phase 10b's job C, its resume and serving, the job_gs
+path; phase 11, the MoE train path; phase 12b's pipelines, the MoE
 pipeline path, and its mesh runs, the MoE mesh path; phase 13's bf16
 generate and
 engine, the MoE serving path; phase 14's timed runs, the classifier path;
@@ -2754,6 +2777,7 @@ def serve_checkpoint(torch, ckpt: Path, root: Path, cfg_kw: dict,
 
     cfg = TransformerConfig(dtype="float32", **{**cfg_kw, "max_seq": 256})
     addr = root / "serve.addr"
+    addr.unlink(missing_ok=True)  # an earlier server's address
     argv = (["--device", "cuda", "--ckpt", str(ckpt), "--max-seq", "256",
              "--slots", "4", "--port", "0", "--addr-file", str(addr),
              "--max-requests", str(JOB_SERVE_REQUESTS + len(extra))]
@@ -2894,18 +2918,25 @@ def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
     attention.launches = attention.launches_dq = attention.launches_dkv = 0
     t0 = time.perf_counter()
     reg = _fresh_registry()
-    run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
-                                    "--checkpoint-every", str(JOB_EVERY),
-                                    "--ckpt-dir", str(dir_a)])
+    with io_counts() as counts, \
+            step_records(TRAIN_BATCH, TRAIN_SEQ) as records_a:
+        run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
+                                        "--checkpoint-every", str(JOB_EVERY),
+                                        "--ckpt-dir", str(dir_a)])
+        reads = {"a": counts()}
     t_a = time.perf_counter() - t0
+    check_native_reads("job A", reads["a"])
     # Job A: interval saves at every JOB_EVERY steps, then the final one.
     metrics = {"a": check_ckpt_metrics(reg, "job A",
                                        JOB_STEPS // JOB_EVERY + 1)}
     reg = _fresh_registry()
-    run_cli(train_cli.main, base + ["--steps", str(JOB_HALF),
-                                    "--ckpt-dir", str(dir_b)])
-    out = run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
-                                          "--ckpt-dir", str(dir_b)])
+    with io_counts() as counts:
+        run_cli(train_cli.main, base + ["--steps", str(JOB_HALF),
+                                        "--ckpt-dir", str(dir_b)])
+        out = run_cli(train_cli.main, base + ["--steps", str(JOB_STEPS),
+                                              "--ckpt-dir", str(dir_b)])
+        reads["b"] = counts()
+    check_native_reads("job B", reads["b"])
     if f"resumed from step {JOB_HALF}" not in out:
         raise AssertionError(f"job B did not resume from step {JOB_HALF}")
     t_b = time.perf_counter() - t0 - t_a
@@ -2962,10 +2993,13 @@ def job_phase(torch, attention, norms, seed: int, root: Path) -> dict:
     generated = generate_checkpoint(torch, attention, norms, dir_b,
                                     BENCH_TRANSFORMER, params, prompt,
                                     served.pop("extra_tokens"))
+    log(f"job reads (spans, native preads and readahead hints): "
+        f"{json.dumps(reads)}")
     return {"launches": launches, "job_a_s": t_a, "job_b_s": t_b,
             "leaves_equal": n_leaves, "served": served, "metrics": metrics,
             "generate_launches": generated["launches"],
-            "train_args": base}
+            "train_args": base, "records_a": records_a, "dir_a": dir_a,
+            "reads": reads}
 
 
 def job_timing(torch, train_cli_args: list[str], train: tuple, root: Path,
@@ -3024,6 +3058,7 @@ def job_timing(torch, train_cli_args: list[str], train: tuple, root: Path,
     if restored is None or int(restored.step) != saves[-1]["step"]:
         raise AssertionError("timing restore did not return the last save")
     del template, restored
+    mgr.close()  # its save threads and pinned sets would outlive the phase
 
     block = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
     views, off = [], 0
@@ -3059,6 +3094,394 @@ def job_timing(torch, train_cli_args: list[str], train: tuple, root: Path,
     }
     log("job timing: " + json.dumps(res))
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 10b: the job path over gs://, the native data plane and a fault plan
+# ---------------------------------------------------------------------------
+
+# Job C: job A's corpus and arguments, read from a gs:// object of a
+# TONY_GCS_EMULATOR_DIR root, checkpointing to a gs:// prefix for
+# JOB_C_STEPS steps under JOB_C_PLAN, then resumed to JOB_STEPS with no plan.
+JOB_C_STEPS = JOB_STEPS - JOB_EVERY
+# The last complete step the torn save leaves (job C resumes from it).
+JOB_C_RESUME = JOB_STEPS - 2 * JOB_EVERY
+JOB_C_BUCKET = "gs://tony-smoke"
+JOB_C_DELAY_MS, JOB_C_THROTTLE_MS, JOB_C_DEGRADE_MS = 200, 100, 150
+JOB_C_THROTTLE_AFTER, JOB_C_THROTTLE_COUNT, JOB_C_DEGRADE_AFTER = 1, 2, 2
+# The degraded step's wall must lie the degrade above the median of the
+# other steps, less this share of the degrade: the step-to-step jitter of
+# the steps' own work.
+JOB_C_DEGRADE_TOL = 0.1
+# The partial write holds for 2 writes of JOB_C_STEPS: the CLI's interval
+# save there and its final blocking save of the same step.
+JOB_C_PLAN = {"seed": 19, "faults": [
+    {"action": "delay_checkpoint_write", "ms": JOB_C_DELAY_MS, "count": 100},
+    {"action": "fail_checkpoint_write", "step": JOB_C_STEPS,
+     "mode": "partial", "count": 2},
+    {"action": "throttle_io", "ms": JOB_C_THROTTLE_MS,
+     "after_batches": JOB_C_THROTTLE_AFTER, "count": JOB_C_THROTTLE_COUNT},
+    {"action": "degrade_task", "target": "worker:0", "ms": JOB_C_DEGRADE_MS,
+     "after_steps": JOB_C_DEGRADE_AFTER},
+]}
+# The native-against-preadv read: a token file of ~1 GiB of bench_transformer
+# records, read whole from the page cache (warmed by one read first).
+NATIVE_READ_BYTES = 1 << 30
+NATIVE_READ_ROUNDS = 2
+
+
+@contextlib.contextmanager
+def io_counts():
+    """Counts, while in the block, of the reader's span reads by storage
+    (``local_spans``, ``gs_spans``), of ``native.pread_records`` and
+    ``native.readahead``, and of the default object store's ``get_range``.
+    Each wrapper holds one re-entrant lock across its call, so a span and
+    the read inside it are counted together and ``snapshot()`` never sees
+    one without the other (the span reads of the run are serialized)."""
+    from tony_tpu_torch.cloud.gcs import (FileObjectStorage, GcsStorage,
+                                          is_gs_uri)
+    from tony_tpu_torch.io import native
+    from tony_tpu_torch.io.reader import ShardedRecordReader
+
+    counts = {k: 0 for k in ("local_spans", "gs_spans", "pread",
+                             "readahead", "get_range")}
+    lock = threading.RLock()
+
+    def counted(owner, attr, key):
+        real = getattr(owner, attr)
+
+        def wrapper(*args, **kwargs):
+            with lock:
+                counts[key(*args)] += 1
+                return real(*args, **kwargs)
+
+        return owner, attr, real, wrapper
+
+    patches = [
+        counted(ShardedRecordReader, "_read_span",
+                lambda self, path, *a: ("gs_spans" if is_gs_uri(path)
+                                        else "local_spans")),
+        counted(native, "pread_records", lambda *a: "pread"),
+        counted(native, "readahead", lambda *a: "readahead"),
+        counted(FileObjectStorage, "get_range", lambda *a: "get_range"),
+        counted(GcsStorage, "get_range", lambda *a: "get_range"),
+    ]
+    for owner, attr, _, wrapper in patches:
+        setattr(owner, attr, wrapper)
+
+    def snapshot() -> dict:
+        with lock:
+            return dict(counts)
+
+    try:
+        yield snapshot
+    finally:
+        for owner, attr, real, _ in patches:
+            setattr(owner, attr, real)
+
+
+def check_native_reads(tag: str, counts: dict) -> None:
+    """A local-corpus job read every span through native.pread_records,
+    sent readahead hints, and touched no object store."""
+    if not counts["local_spans"]:
+        raise AssertionError(f"{tag}: the reader read no local span")
+    if counts["pread"] != counts["local_spans"]:
+        raise AssertionError(
+            f"{tag}: {counts['pread']} native pread_records calls for "
+            f"{counts['local_spans']} local spans: {counts}")
+    if not counts["readahead"]:
+        raise AssertionError(f"{tag}: no native readahead hint: {counts}")
+    if counts["gs_spans"] or counts["get_range"]:
+        raise AssertionError(f"{tag}: gs:// reads on a local job: {counts}")
+
+
+def check_gs_reads(tag: str, counts: dict) -> None:
+    """A gs:// job read every span through the store's get_range and none
+    natively."""
+    if not counts["gs_spans"]:
+        raise AssertionError(f"{tag}: the reader read no gs:// span")
+    if counts["get_range"] != counts["gs_spans"]:
+        raise AssertionError(
+            f"{tag}: {counts['get_range']} get_range calls for "
+            f"{counts['gs_spans']} gs:// spans: {counts}")
+    if counts["local_spans"] or counts["pread"] or counts["readahead"]:
+        raise AssertionError(f"{tag}: native reads on a gs:// job: {counts}")
+
+
+@contextlib.contextmanager
+def step_records(batch: int, seq: int):
+    """Per step of the train CLI runs in the block: the loss and the fenced
+    step wall it reports (``observability.report``; the wall from its
+    tokens/s, so it holds the degrade sleep and not the batch wait), and
+    the step anatomy's phases where StepStats published them (from the
+    third dispatch on). Yields the list of records."""
+    from tony_tpu_torch import observability
+    from tony_tpu_torch.observability.stepstats import StepStats
+
+    records: list[dict] = []
+    real_report, real_publish = observability.report, StepStats._publish
+
+    def report(**kw):
+        records.append({"step": kw["step"], "loss": kw["loss"],
+                        "wall_s": batch * seq / kw["tokens_per_sec"]})
+        return real_report(**kw)
+
+    def publish(self, wall_ms, phases):
+        if records:
+            records[-1].setdefault("phases_ms", []).append(dict(phases))
+        return real_publish(self, wall_ms, phases)
+
+    observability.report, StepStats._publish = report, publish
+    try:
+        yield records
+    finally:
+        observability.report, StepStats._publish = real_report, real_publish
+
+
+def data_wait_ms(records: list[dict]) -> float:
+    return sum(p["data_wait"] for r in records
+               for p in r.get("phases_ms", []))
+
+
+def check_job_c(records_a: list[dict], records_c: list[dict], slept: dict,
+                persist_ms: list[float], torn: dict) -> dict:
+    """Job C against job A and its fault plan: the losses until the first
+    restore bit for bit (same corpus, seed and steps; sleeps change no
+    number), the torn step not complete, every persisted save's
+    tony_ckpt_persist_ms at least the delay, the throttle exactly
+    JOB_C_THROTTLE_COUNT sleeps after JOB_C_THROTTLE_AFTER batches, more
+    data_wait than job A, and the degraded step's wall the degrade above
+    the median step's (less JOB_C_DEGRADE_TOL of it). Returns the numbers
+    it read."""
+    losses_a = [r["loss"] for r in records_a[:JOB_C_STEPS]]
+    losses_c = [r["loss"] for r in records_c]
+    if losses_c != losses_a:
+        raise AssertionError(f"job C losses {losses_c} != job A's "
+                             f"{losses_a}")
+    if torn["complete"] or not torn["shard"] or torn["marker"]:
+        raise AssertionError(f"the torn step {JOB_C_STEPS} is not torn: "
+                             f"{torn}")
+    if torn["latest"] != JOB_C_RESUME:
+        raise AssertionError(f"latest complete step {torn['latest']}, not "
+                             f"{JOB_C_RESUME}")
+    # Saves before the torn step commit and observe their persist time.
+    saves = JOB_C_STEPS // JOB_EVERY - 1
+    if len(persist_ms) != saves or min(persist_ms) < JOB_C_DELAY_MS:
+        raise AssertionError(f"persist ms {persist_ms}: want {saves} saves "
+                             f">= {JOB_C_DELAY_MS} ms")
+    want_io = [(JOB_C_THROTTLE_AFTER + 1 + i, JOB_C_THROTTLE_MS / 1e3)
+               for i in range(JOB_C_THROTTLE_COUNT)]
+    if slept["throttle"] != want_io:
+        raise AssertionError(f"throttle_io slept {slept['throttle']} "
+                             f"(batches served, s), want {want_io}")
+    wait_a, wait_c = data_wait_ms(records_a), data_wait_ms(records_c)
+    if not wait_c > wait_a:
+        raise AssertionError(f"job C data_wait {wait_c} ms is not above "
+                             f"job A's {wait_a} ms")
+    if slept["degrade"] != [JOB_C_DEGRADE_MS / 1e3]:
+        raise AssertionError(f"degrade_task slept {slept['degrade']}")
+    walls = [r["wall_s"] for r in records_c]
+    degraded = walls[JOB_C_DEGRADE_AFTER]
+    # The median of the other steps but the first (its one-off costs).
+    median = float(np.median([w for i, w in enumerate(walls)
+                              if i and i != JOB_C_DEGRADE_AFTER]))
+    want = JOB_C_DEGRADE_MS / 1e3 * (1 - JOB_C_DEGRADE_TOL)
+    if degraded - median < want:
+        raise AssertionError(f"degraded step wall {degraded} s is not "
+                             f"{want * 1e3:.1f} ms above the median "
+                             f"{median} s of the other steps: {walls}")
+    return {"losses_equal": len(losses_c), "persist_ms": persist_ms,
+            "data_wait_ms": {"a": wait_a, "c": wait_c},
+            "data_wait_by_step_ms": [[p["data_wait"] for p in
+                                      r.get("phases_ms", [])]
+                                     for r in records_c],
+            "walls_s": walls, "degraded_s": degraded, "median_s": median}
+
+
+def _bits_equal(torch, a, b, tag: str) -> int:
+    bits_a, bits_b = state_bits(torch, a), state_bits(torch, b)
+    if set(bits_a) != set(bits_b):
+        raise AssertionError(f"{tag}: other leaves")
+    unequal = [p for p in bits_a if not torch.equal(bits_a[p], bits_b[p])]
+    if unequal:
+        raise AssertionError(f"{tag}: {len(unequal)} of {len(bits_a)} "
+                             f"leaves differ: {unequal[:6]}")
+    return len(bits_a)
+
+
+def native_read_timing(root: Path) -> dict:
+    """One whole read of a ~1 GiB token file from the page cache through
+    the reader, with the native library and with the preadv path, in turns
+    (native, preadv, ...); each read's wall, tony_io_read_ms (sum over
+    spans and count) and bytes/s over the wall."""
+    from tony_tpu_torch.io import ShardedRecordReader, native
+
+    block = 1024
+    n = NATIVE_READ_BYTES // (2 * (TRAIN_SEQ + 1)) // block * block
+    path = root / "native.tokens"
+    rows = (np.arange(block * (TRAIN_SEQ + 1)) % 65521).astype(np.uint16)
+    with open(path, "wb") as f:
+        for _ in range(n // block):
+            rows.tofile(f)
+
+    def read(native_on: bool) -> dict:
+        reg = _fresh_registry()
+        with contextlib.ExitStack() as stack:
+            if not native_on:
+                real = native.available
+                native.available = lambda: False
+                stack.callback(setattr, native, "available", real)
+            t0 = time.perf_counter()
+            with ShardedRecordReader([str(path)], fmt="tokens",
+                                     record_len=TRAIN_SEQ + 1,
+                                     dtype=np.uint16,
+                                     batch_size=1024) as reader:
+                got = sum(len(b) for b in reader)
+            wall = time.perf_counter() - t0
+        if got != n:
+            raise AssertionError(f"read {got} of {n} records")
+        snap = reg.snapshot()
+        hist = snap["histograms"]["tony_io_read_ms"]
+        nbytes = snap["counters"]["tony_io_bytes_read_total"]
+        return {"wall_s": wall, "read_ms_sum": hist["sum"],
+                "spans": hist["count"], "bytes": nbytes,
+                "gb_per_s": nbytes / wall / 1e9}
+
+    read(True)  # page cache
+    out: dict = {"native": [], "preadv": []}
+    for _ in range(NATIVE_READ_ROUNDS):
+        for name, on in (("native", True), ("preadv", False)):
+            out[name].append(read(on))
+    path.unlink()
+    log("native read timing: " + json.dumps(out))
+    return out
+
+
+def job_gs_phase(torch, attention, norms, seed: int, root: Path,
+                 job: dict) -> dict:
+    """Job C over gs:// under JOB_C_PLAN at full width, its resume past the
+    torn step, serving from its gs:// checkpoint, and the native read
+    timing, with the launch counters set to 0 just before and read just
+    after job C, its resume and the serving."""
+    import os
+
+    from tony_tpu_torch import cloud
+    from tony_tpu_torch import train as train_cli
+    from tony_tpu_torch.checkpoint import CheckpointManager, layout
+    from tony_tpu_torch.checkpoint import manager as manager_mod
+    from tony_tpu_torch.models import TransformerConfig, make_train_step
+    from tony_tpu_torch.resilience import faults
+
+    # Job B's checkpoints are served and done with: their disk goes to
+    # job C's.
+    shutil.rmtree(root / "job_b")
+    os.environ["TONY_GCS_EMULATOR_DIR"] = str(root / "gcs")
+    cloud.set_default_storage(None)
+    store = cloud.default_storage()
+    corpus = f"{JOB_C_BUCKET}/corpus/corpus.tokens"
+    ck = f"{JOB_C_BUCKET}/job_c"
+    store.upload_file(root / "corpus.tokens", corpus)
+    args = list(job["train_args"])
+    args[args.index("--data") + 1] = corpus
+    args += ["--checkpoint-every", str(JOB_EVERY), "--ckpt-dir", ck]
+    fault_env = {"TONY_FAULT_PLAN": json.dumps(JOB_C_PLAN),
+                 "JOB_NAME": "worker", "TASK_INDEX": "0"}
+    os.environ.update(fault_env)
+    faults._reset_singletons()
+    slept: dict = {"throttle": [], "degrade": []}
+    persist_ms: list[float] = []
+    real_observe = manager_mod._observe_ms
+
+    def observe(name, value_ms):
+        if name == manager_mod.CKPT_PERSIST_HISTOGRAM:
+            persist_ms.append(value_ms)
+        return real_observe(name, value_ms)
+
+    try:
+        io_faults, step_faults = (faults.io_faults_from_env(),
+                                  faults.step_faults_from_env())
+        io_faults._sleep = lambda s: (
+            slept["throttle"].append((io_faults._served, s)), time.sleep(s))
+        step_faults._sleep = lambda s: (slept["degrade"].append(s),
+                                        time.sleep(s))
+        manager_mod._observe_ms = observe
+        _reset_launches(attention, norms)
+        t0 = time.perf_counter()
+        with io_counts() as counts, \
+                step_records(TRAIN_BATCH, TRAIN_SEQ) as records_c:
+            run_cli(train_cli.main, args + ["--steps", str(JOB_C_STEPS)])
+            counts_c = counts()
+        t_c = time.perf_counter() - t0
+    finally:
+        manager_mod._observe_ms = real_observe
+        for key in fault_env:
+            os.environ.pop(key)
+        faults._reset_singletons()
+    check_gs_reads("job C", counts_c)
+    mgr = CheckpointManager(ck)
+    torn = {"latest": mgr.latest_step(),
+            "complete": JOB_C_STEPS in layout.complete_steps(mgr._store, 1),
+            "shard": store.exists(f"{ck}/step_{JOB_C_STEPS}/process_0.npz"),
+            "marker": store.exists(f"{ck}/step_{JOB_C_STEPS}/metadata.json")}
+    checked = check_job_c(job["records_a"], records_c, slept, persist_ms,
+                          torn)
+    log(f"job C: {t_c:.2f} s, {json.dumps(checked)}, reads {counts_c}, "
+        f"torn step {torn}")
+
+    # The last complete step, restored from gs://, against job A's.
+    cfg = TransformerConfig(dtype="bfloat16", **BENCH_TRANSFORMER)
+    init_fn, _ = make_train_step(cfg, device="cuda")
+    restored = {}
+    for name, where in (("gs", ck), ("local", job["dir_a"])):
+        template = init_fn(seed + 7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = CheckpointManager(where).restore(template,
+                                                 step=JOB_C_RESUME)
+        torch.cuda.synchronize()
+        if state is None:
+            raise AssertionError(f"{name}: no step {JOB_C_RESUME}")
+        restored[name] = (state, (time.perf_counter() - t0) * 1e3)
+    n_leaves = _bits_equal(torch, restored["gs"][0], restored["local"][0],
+                           f"job C's step {JOB_C_RESUME} from gs:// "
+                           f"against job A's")
+    restore_ms = {k: v[1] for k, v in restored.items()}
+    del restored
+
+    t0 = time.perf_counter()
+    with step_records(TRAIN_BATCH, TRAIN_SEQ) as records_r:
+        out = run_cli(train_cli.main, args + ["--steps", str(JOB_STEPS)])
+    t_resume = time.perf_counter() - t0
+    if f"resumed from step {JOB_C_RESUME}\n" not in out:
+        raise AssertionError(f"job C did not resume from step "
+                             f"{JOB_C_RESUME}")
+    losses_a = [r["loss"] for r in job["records_a"][JOB_C_RESUME:]]
+    if [r["loss"] for r in records_r] != losses_a:
+        raise AssertionError(f"resumed job C losses "
+                             f"{[r['loss'] for r in records_r]} != job "
+                             f"A's {losses_a}")
+    state = CheckpointManager(ck).restore(init_fn(seed + 7), step=JOB_STEPS)
+    if state is None:
+        raise AssertionError(f"job C has no step {JOB_STEPS} on gs://")
+    params = state.params
+    del state
+    served = serve_checkpoint(torch, ck, root, BENCH_TRANSFORMER, params,
+                              seed, [])
+    launches = _launches(attention, norms)
+    check_path_launches({"job_gs": launches})
+    log(f"launches on the job_gs path: {launches}; job C {t_c:.2f} s, "
+        f"resume {t_resume:.2f} s, restore ms {restore_ms}, served "
+        f"{served}")
+    del params
+    torch.cuda.empty_cache()
+    timing = native_read_timing(root)
+    cloud.set_default_storage(None)
+    os.environ.pop("TONY_GCS_EMULATOR_DIR")
+    shutil.rmtree(root / "gcs")
+    return {"launches": launches, "job_c_s": t_c, "resume_s": t_resume,
+            "checked": checked, "reads": counts_c, "leaves_equal": n_leaves,
+            "restore_ms": restore_ms, "served": served,
+            "native_read": timing}
 
 
 # ---------------------------------------------------------------------------
@@ -4080,7 +4503,8 @@ def anatomy_phase(torch, attention, norms, seed: int) -> dict:
     t0 = time.perf_counter()
     gc.collect()
     heap = {"collect_ms": round((time.perf_counter() - t0) * 1e3, 3),
-            "objects": len(gc.get_objects())}
+            "objects": len(gc.get_objects()),
+            "threads": sorted(t.name for t in threading.enumerate())}
     _reset_launches(attention, norms)
     gc.callbacks.append(on_gc)
     try:
@@ -4974,6 +5398,10 @@ def main(argv=None) -> int:
                 f"the job phase writes ~15 GB of checkpoints under {root}, "
                 f"which has {free / 1e9:.1f} GB free (20 GB needed)")
         job = job_phase(torch, attention, norms, args.seed, root)
+        # This slice's path: job C over gs:// under a fault plan, resumed
+        # past its torn step and served from gs:// (it resets the counters
+        # itself and reads them just after), and the native read timing.
+        job_gs = job_gs_phase(torch, attention, norms, args.seed, root, job)
         job["timing"] = job_timing(torch, job.pop("train_args"), train_run,
                                    root, train["step_ms_median"])
     del train_run
@@ -5031,6 +5459,7 @@ def main(argv=None) -> int:
             "serve_int8": int8["launches"][row["name"]],
             "generate": job["generate_launches"][row["name"]],
             "job": job["launches"][row["name"]],
+            "job_gs": job_gs["launches"][row["name"]],
             "dp": dp["launches"][row["name"]],
             "tp": tp["launches"][row["name"]],
             "sp": sp["launches"][row["name"]],

@@ -18,6 +18,8 @@ from __future__ import annotations
 import ast
 import io
 import json
+import os
+import time
 from pathlib import Path
 
 import jax
@@ -432,21 +434,59 @@ def test_background_snapshot_is_refused(tmp_path, monkeypatch):
     CheckpointManager(tmp_path, background_snapshot=False)
 
 
-def test_gs_directories_wait_for_the_object_store(tmp_path):
-    from tony_tpu_torch.io import ShardedRecordReader
-
-    with pytest.raises(NotImplementedError, match="gs://"):
-        CheckpointManager("gs://bucket/ckpt")
-    with pytest.raises(NotImplementedError, match="gs://"):
-        ShardedRecordReader(["gs://bucket/c.tokens"], fmt="tokens",
-                            record_len=4)
-
-
 def test_structure_change_raises(tmp_path):
     mgr = CheckpointManager(tmp_path)
     mgr.save(1, _state(1.0), blocking=True)
     with pytest.raises(ValueError, match="structure changed"):
         mgr.restore({"totally": torch.zeros(2)})
+
+
+def test_close_stops_the_save_threads_and_drops_buffer_sets(tmp_path):
+    """The port's manager has close() (the JAX one does not): its pipeline
+    threads exit, the host buffer sets go, a later async save raises, and
+    what was saved before stays readable."""
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, _state(1.0))
+    mgr.save(2, _state(2.0))
+    mgr.wait()
+    threads = list(mgr._pipeline._threads)
+    assert threads and all(t.is_alive() for t in threads)
+    assert mgr._buffers._free
+    mgr.close()
+    assert not any(t.is_alive() for t in threads)
+    assert not mgr._buffers._free
+    with pytest.raises(RuntimeError, match="closed"):
+        mgr.save(3, _state(3.0))
+    assert mgr.latest_step() == 2
+    restored = CheckpointManager(tmp_path).restore(_state(0.0))
+    assert torch.equal(restored["params"]["w"], torch.full((8, 4), 2.0))
+
+
+def test_train_cli_leaves_no_save_threads(tmp_path):
+    """main() run inside a process closes its manager: the async saves'
+    threads do not outlive the run."""
+    import threading
+
+    from tony_tpu_torch import train as train_cli
+
+    rng = np.random.default_rng(0)
+    motifs = rng.integers(1, 64, (4, 8))
+    rows = np.tile(motifs[rng.integers(0, 4, 12)], 5)[:, :33]
+    rows.astype(np.uint16).tofile(tmp_path / "c.tokens")
+
+    def save_threads():
+        return {t for t in threading.enumerate()
+                if t.name.startswith("ckpt-") and t.is_alive()}
+
+    before = save_threads()
+    assert train_cli.main([
+        "--device", "cpu", "--batch", "4", "--seq", "32", "--d-model", "32",
+        "--n-layers", "2", "--n-heads", "2", "--n-kv-heads", "1",
+        "--vocab", "64", "--lr", "3e-3", "--data", str(tmp_path / "c.tokens"),
+        "--steps", "4", "--checkpoint-every", "2",
+        "--ckpt-dir", str(tmp_path / "ck")]) == 0
+    assert CheckpointManager(tmp_path / "ck").latest_step() == 4
+    assert save_threads() <= before
 
 
 def test_no_port_module_imports_ml_dtypes():
@@ -518,3 +558,184 @@ def test_two_rank_sharded_checkpoints_cross_restore_with_jax(
     assert split == 2 * 3 * 8  # 8 split params, their mu and nu, 2 ranks
     restored = JaxManager(tmp_path / "port").restore(j_init(jax.random.key(1)))
     _assert_same(_jax_flat(restored), saved)
+
+# -- gs:// prefixes through one object store shared by both packages -------
+
+@pytest.fixture
+def gcs(tmp_path, monkeypatch):
+    """Both packages' default storage on one ``FileObjectStorage`` root
+    (each package keeps its own process-wide singleton)."""
+    from tony_tpu import cloud as jax_cloud
+    from tony_tpu_torch import cloud as port_cloud
+
+    root = tmp_path / "gcs"
+    monkeypatch.setattr(jax_cloud, "_default_storage",
+                        jax_cloud.FileObjectStorage(root))
+    monkeypatch.setattr(port_cloud, "_default_storage",
+                        port_cloud.FileObjectStorage(root))
+    return port_cloud.default_storage()
+
+
+class TestGsCheckpoints:
+    def test_port_state_on_gs_restores_exactly_in_jax(self, trained, mesh,
+                                                      gcs):
+        j_init, _, _, _, _, tstate = trained
+        mgr = CheckpointManager("gs://bkt/runs/a")
+        assert mgr.directory == "gs://bkt/runs/a"  # no Path() collapse
+        mgr.save(2, tstate, blocking=True)
+        assert (gcs.root / "bkt" / "runs" / "a" / "step_2" /
+                "metadata.json").is_file()
+        jmgr = JaxManager("gs://bkt/runs/a")
+        assert jmgr.latest_step() == 2
+        restored = jmgr.restore(j_init(jax.random.key(1)))
+        _assert_same(_jax_flat(restored), train_state_to_numpy(tstate))
+
+    def test_jax_state_on_gs_restores_exactly_in_the_port(self, trained,
+                                                          mesh, gcs):
+        j_init, j_step, t_init, _, _, _ = trained
+        jstate = j_init(jax.random.key(0))
+        for i in range(2):
+            jstate, _ = j_step(jstate, _tokens(i))
+        JaxManager("gs://bkt/runs/j").save(2, jstate, blocking=True)
+        mgr = CheckpointManager("gs://bkt/runs/j")
+        assert mgr.latest_step() == 2
+        state = mgr.restore(t_init(5))
+        _assert_same(train_state_to_numpy(state), _jax_flat(jstate))
+
+    @pytest.mark.parametrize("writer", ["jax", "port"])
+    def test_bf16_leaves_round_trip_on_gs(self, writer, gcs):
+        vals = np.asarray([1.5, -2.25, 3.0, 1e-3, -7e4], np.float32)
+        uri = f"gs://bkt/bf16-{writer}"
+        if writer == "jax":
+            JaxManager(uri).save(1, {"w": jnp.asarray(vals, jnp.bfloat16)},
+                                 blocking=True)
+            out = CheckpointManager(uri).restore(
+                {"w": torch.zeros(5, dtype=torch.bfloat16)})
+            got = out["w"].float().numpy()
+        else:
+            CheckpointManager(uri).save(1, {"w": torch.from_numpy(vals).to(
+                torch.bfloat16)}, blocking=True)
+            out = JaxManager(uri).restore({"w": jnp.zeros(5, jnp.bfloat16)})
+            assert out["w"].dtype == jnp.bfloat16
+            got = np.asarray(out["w"], np.float32)
+        want = torch.from_numpy(vals).to(torch.bfloat16).float().numpy()
+        np.testing.assert_array_equal(got, want)
+
+    def test_gs_writes_the_same_objects_as_jax(self, gcs):
+        tree = {"a": np.arange(12, dtype=np.float32).reshape(4, 3),
+                "s": np.asarray(7, np.int32)}
+        JaxManager("gs://bkt/j").save(1, tree, blocking=True)
+        CheckpointManager("gs://bkt/t").save(1, tree, blocking=True)
+        names = [sorted(n.split("/", 1)[1] for n in gcs.list_prefix(
+            f"gs://bkt/{d}/")) for d in "jt"]
+        assert names[0] == names[1] == [
+            "step_1/metadata.json", "step_1/process_0.json",
+            "step_1/process_0.npz"]
+        assert (gcs.get_bytes("gs://bkt/j/step_1/process_0.npz")
+                == gcs.get_bytes("gs://bkt/t/step_1/process_0.npz"))
+
+    def test_a_partial_write_on_gs_is_torn_for_both(self, gcs, monkeypatch):
+        from tony_tpu.resilience import faults as jax_faults
+        from tony_tpu_torch.resilience import faults
+
+        monkeypatch.setenv(constants.TONY_FAULT_PLAN, json.dumps(
+            {"faults": [{"action": "fail_checkpoint_write", "step": 2,
+                         "mode": "partial"}]}))
+        for mod in (faults, jax_faults):
+            monkeypatch.setattr(mod, "_env_plan", None)
+            monkeypatch.setattr(mod, "_ckpt_faults", False)
+        mgr = CheckpointManager("gs://bkt/torn")
+        mgr.save(1, _state(1.0), blocking=True)
+        mgr.save(2, _state(2.0), blocking=True)
+        assert gcs.exists("gs://bkt/torn/step_2/process_0.npz")
+        assert not gcs.exists("gs://bkt/torn/step_2/metadata.json")
+        assert mgr.latest_step() == 1
+        assert JaxManager("gs://bkt/torn").latest_step() == 1
+        assert int(mgr.restore(_state(0.0))["step"]) == 1
+
+    def _stamp(self, gcs, prefix: str, when: float) -> None:
+        for key in gcs.list_prefix(prefix):
+            os.utime(gcs.root / "bkt" / key, (when, when))
+
+    def test_gc_reads_torn_step_ages_from_the_listing(self, gcs,
+                                                     monkeypatch):
+        """The grace window is measured against the newest stamp of the
+        same listing: the local clock (here a day ahead) plays no part."""
+        from tony_tpu_torch.checkpoint import manager as manager_mod
+
+        mgr = CheckpointManager("gs://bkt/gc", max_to_keep=2,
+                                torn_gc_grace_s=100.0)
+        for step in (3, 4):
+            mgr.save(step, _state(float(step)), blocking=True)
+        gcs.put_bytes("gs://bkt/gc/step_1/process_0.npz", b"torn")
+        real_time = time.time
+        monkeypatch.setattr(manager_mod.time, "time",
+                            lambda: real_time() + 86400.0)
+        base = 1.7e9
+        self._stamp(gcs, "gs://bkt/gc/step_1/", base)
+        for step in (3, 4):
+            self._stamp(gcs, f"gs://bkt/gc/step_{step}/", base + 50.0)
+        mgr._gc()
+        assert gcs.exists("gs://bkt/gc/step_1/process_0.npz")  # 50 s old
+        self._stamp(gcs, "gs://bkt/gc/step_4/", base + 150.0)
+        mgr._gc()
+        assert not gcs.list_prefix("gs://bkt/gc/step_1/")  # 150 s old
+        assert mgr.latest_step() == 4
+
+    def test_gc_keeps_a_torn_step_of_unknown_age(self, gcs, monkeypatch):
+        """A store whose listing carries no stamps: every age is unknown,
+        so no torn step is ever quiescent."""
+        class NoStamps:
+            def __init__(self, inner):
+                self._inner = inner
+
+            def __getattr__(self, name):
+                if name == "list_prefix_mtimes":
+                    raise AttributeError(name)
+                return getattr(self._inner, name)
+
+        from tony_tpu_torch import cloud as port_cloud
+
+        monkeypatch.setattr(port_cloud, "_default_storage", NoStamps(gcs))
+        mgr = CheckpointManager("gs://bkt/u", max_to_keep=1,
+                                torn_gc_grace_s=0.0)
+        mgr.save(3, _state(3.0), blocking=True)
+        gcs.put_bytes("gs://bkt/u/step_1/process_0.npz", b"torn")
+        mgr.save(4, _state(4.0), blocking=True)
+        assert gcs.exists("gs://bkt/u/step_1/process_0.npz")
+        assert not gcs.list_prefix("gs://bkt/u/step_3/")  # stale complete
+        assert mgr.latest_step() == 4
+
+    def test_train_cli_reads_and_resumes_on_gs(self, gcs, tmp_path,
+                                               monkeypatch):
+        from tony_tpu_torch import train as train_cli
+
+        rng = np.random.default_rng(0)
+        motifs = rng.integers(1, 64, (4, 8))
+        rows = np.tile(motifs[rng.integers(0, 4, 12)], 5)[:, :33]
+        gcs.put_bytes("gs://bkt/data/c.tokens",
+                      rows.astype(np.uint16).tobytes())
+        model = ["--device", "cpu", "--batch", "4", "--seq", "32",
+                 "--d-model", "32", "--n-layers", "2", "--n-heads", "2",
+                 "--n-kv-heads", "1", "--vocab", "64", "--lr", "3e-3",
+                 "--checkpoint-every", "2"]
+        remote = model + ["--data", "gs://bkt/data/c.tokens"]
+        assert train_cli.main(remote + ["--steps", "3", "--ckpt-dir",
+                                        "gs://bkt/ck"]) == 0
+        # TONY_CHECKPOINT_DIR may name the prefix too.
+        monkeypatch.setenv(constants.TONY_CHECKPOINT_DIR, "gs://bkt/ck")
+        assert train_cli.main(remote + ["--steps", "6"]) == 0
+        local = tmp_path / "c.tokens"
+        rows.astype(np.uint16).tofile(local)
+        assert train_cli.main(model + ["--data", str(local), "--steps", "6",
+                                       "--ckpt-dir", str(tmp_path / "ck")]
+                              ) == 0
+        t_init, _ = make_train_step(TransformerConfig(
+            vocab_size=64, d_model=32, n_layers=2, n_heads=2, n_kv_heads=1,
+            head_dim=16, d_ff=128, max_seq=33, dtype="float32",
+            remat=False), device="cpu")
+        got = train_state_to_numpy(CheckpointManager("gs://bkt/ck").restore(
+            t_init(1), step=6))
+        want = train_state_to_numpy(CheckpointManager(tmp_path / "ck")
+                                    .restore(t_init(2), step=6))
+        _assert_same(got, want)

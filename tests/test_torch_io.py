@@ -82,6 +82,74 @@ def test_reader_batches_equal_the_jax_readers(tmp_path, fmt, num_tasks):
     port.close()
 
 
+@pytest.fixture
+def gcs(tmp_path, monkeypatch):
+    """Both packages' default storage on one ``FileObjectStorage`` root."""
+    from tony_tpu import cloud as jax_cloud
+    from tony_tpu_torch import cloud as port_cloud
+
+    root = tmp_path / "gcs"
+    monkeypatch.setattr(jax_cloud, "_default_storage",
+                        jax_cloud.FileObjectStorage(root))
+    monkeypatch.setattr(port_cloud, "_default_storage",
+                        port_cloud.FileObjectStorage(root))
+    return port_cloud.default_storage()
+
+
+@pytest.mark.parametrize("num_tasks", [1, 2])
+@pytest.mark.parametrize("fmt", ["tokens", "jsonl", "jblk"])
+def test_reader_over_gs_equals_the_jax_readers(tmp_path, gcs, monkeypatch,
+                                               fmt, num_tasks):
+    """The same corpus as gs:// objects: ranged reads (tokens),
+    ``RangeLineStream`` (jsonl, with a 64-byte fetch so records straddle
+    fetches) and block containers give the local file's batches, in JAX's
+    reader and in the port's."""
+    from tony_tpu.io import storage as jax_storage
+    from tony_tpu_torch.io import storage as port_storage
+
+    monkeypatch.setattr(jax_storage.RangeLineStream, "CHUNK", 64)
+    monkeypatch.setattr(port_storage.RangeLineStream, "CHUNK", 64)
+    paths, kw = _corpus(tmp_path, fmt)
+    uris = []
+    for path in paths:
+        uri = f"gs://bkt/corpus/{path.rsplit('/', 1)[1]}"
+        gcs.upload_file(path, uri)
+        uris.append(uri)
+    for task in range(num_tasks):
+        want = _batches(JaxReader(paths, task, num_tasks, **kw))
+        assert _batches(JaxReader(uris, task, num_tasks, **kw)) == want
+        assert _batches(ShardedRecordReader(uris, task, num_tasks, **kw)
+                        ) == want
+
+
+def test_range_line_stream_tells_the_first_unconsumed_byte(gcs):
+    from tony_tpu.io.storage import RangeLineStream as JaxStream
+    from tony_tpu_torch.io.storage import RangeLineStream
+
+    gcs.put_bytes("gs://b/lines", b"ab\ncdef\n\ng\nlast")
+    for cls in (RangeLineStream, JaxStream):
+        seen = []
+        with cls("gs://b/lines") as f:
+            f.CHUNK = 3
+            f.seek(1)
+            while True:
+                line = f.readline()
+                seen.append((line, f.tell()))
+                if not line:
+                    break
+        assert seen == [(b"b\n", 3), (b"cdef\n", 8), (b"\n", 9),
+                        (b"g\n", 11), (b"last", 15), (b"", 15)]
+
+
+def test_jblk_written_to_gs_reads_in_both_readers(gcs):
+    recs = [{"tokens": [i, i + 1]} for i in range(13)]
+    write_jsonl_blocks("gs://bkt/c.jblk", recs, block_records=4)
+    for reader in (JaxReader, ShardedRecordReader):
+        got = _batches(reader(["gs://bkt/c.jblk"], fmt="jsonl-blocks",
+                              batch_size=5))
+        assert [r for b in got for r in b] == recs
+
+
 def test_jblk_written_by_the_port_reads_in_the_jax_reader(tmp_path):
     recs = [{"tokens": list(range(i, i + 4))} for i in range(23)]
     path = str(tmp_path / "p.jblk")

@@ -11,6 +11,7 @@
 from __future__ import annotations
 
 import ast
+import json
 import os
 import re
 import shutil
@@ -692,3 +693,142 @@ def test_chip_smoke_holds_the_classifier_path_to_zero_launches():
     assert "_reset_launches(attention, norms)" in src
     main = inspect.getsource(chip_smoke.main)
     assert '"classifier": classifier["launches"][row["name"]]' in main
+
+
+def test_the_job_path_modules_fall_under_the_import_scan():
+    for rel in ("tony_tpu_torch/cloud/__init__.py",
+                "tony_tpu_torch/cloud/gcs.py",
+                "tony_tpu_torch/cloud/transport.py",
+                "tony_tpu_torch/resilience/__init__.py",
+                "tony_tpu_torch/resilience/faults.py",
+                "tony_tpu_torch/io/native.py",
+                "tony_tpu_torch/io/storage.py",
+                "tony_tpu_torch/checkpoint/stores.py"):
+        assert REPO / rel in PORT_FILES, rel
+
+
+def _job_c_inputs(chip_smoke) -> dict:
+    """Records of jobs A and C, sleeps, persist times and a torn step that
+    pass chip_smoke.check_job_c: what a good run of the phase reads."""
+    steps_a = [{"step": i + 1, "loss": 10.0 - i * 0.5, "wall_s": 0.106}
+               for i in range(chip_smoke.JOB_STEPS)]
+    steps_a[2]["phases_ms"] = [{"data_wait": 0.4}]
+    steps_c = [{k: v for k, v in r.items() if k != "phases_ms"}
+               for r in steps_a[:chip_smoke.JOB_C_STEPS]]
+    steps_c[0]["wall_s"] = 2.5  # the first step's one-off costs
+    steps_c[1]["phases_ms"] = [{"data_wait": 100.2}]
+    steps_c[chip_smoke.JOB_C_DEGRADE_AFTER]["wall_s"] = 0.106 + 0.1502
+    return {
+        "records_a": steps_a, "records_c": steps_c,
+        "slept": {"throttle": [(2, 0.1), (3, 0.1)], "degrade": [0.15]},
+        "persist_ms": [204.3, 210.9],
+        "torn": {"latest": chip_smoke.JOB_C_RESUME, "complete": False,
+                 "shard": True, "marker": False},
+    }
+
+
+@pytest.mark.parametrize("fault", [
+    None, "losses", "torn_complete", "torn_marker", "latest", "persist",
+    "throttle", "data_wait", "degrade_sleep", "degrade_wall"])
+def test_chip_smoke_job_c_checks_fail_on_a_fault(fault):
+    """chip_smoke's job C checks pass a good run and fail each fault: a
+    loss that differs from job A's, a torn step listed complete, a save
+    faster than the delay, a throttle elsewhere, no extra data_wait, a
+    degrade missing from the step wall."""
+    chip_smoke = _repo_module("chip_smoke")
+    got = _job_c_inputs(chip_smoke)
+    if fault == "losses":
+        got["records_c"][3]["loss"] = np.nextafter(
+            got["records_c"][3]["loss"], 0.0)
+    elif fault == "torn_complete":
+        got["torn"]["complete"] = True
+    elif fault == "torn_marker":
+        got["torn"]["marker"] = True
+    elif fault == "latest":
+        got["torn"]["latest"] = chip_smoke.JOB_C_STEPS
+    elif fault == "persist":
+        got["persist_ms"][1] = 150.0
+    elif fault == "throttle":
+        got["slept"]["throttle"] = [(1, 0.1), (2, 0.1)]
+    elif fault == "data_wait":
+        got["records_c"][1]["phases_ms"] = [{"data_wait": 0.3}]
+    elif fault == "degrade_sleep":
+        got["slept"]["degrade"] = []
+    elif fault == "degrade_wall":
+        got["records_c"][chip_smoke.JOB_C_DEGRADE_AFTER]["wall_s"] = 0.2
+    args = (got["records_a"], got["records_c"], got["slept"],
+            got["persist_ms"], got["torn"])
+    if fault is None:
+        checked = chip_smoke.check_job_c(*args)
+        assert checked["losses_equal"] == chip_smoke.JOB_C_STEPS
+        assert checked["data_wait_ms"] == {"a": 0.4, "c": 100.2}
+        return
+    with pytest.raises(AssertionError):
+        chip_smoke.check_job_c(*args)
+
+
+def test_chip_smoke_job_c_plan_is_valid_and_tears_the_last_save():
+    from tony_tpu_torch.resilience import faults
+
+    chip_smoke = _repo_module("chip_smoke")
+    plan = faults.FaultPlan.parse(json.dumps(chip_smoke.JOB_C_PLAN))
+    ckpt = faults.CheckpointFaults(plan, "worker:0")
+    decisions = []
+    for step in (2, 4, 6, 6):  # the interval saves and the final one
+        decisions.append((ckpt.write_delay_ms(step), ckpt.partial_write(step)))
+    assert decisions == [(200, False), (200, False), (200, True),
+                         (200, True)]
+    assert chip_smoke.JOB_C_RESUME == chip_smoke.JOB_C_STEPS - \
+        chip_smoke.JOB_EVERY
+
+
+@pytest.mark.parametrize("where", ["local", "local_preadv", "gs"])
+def test_chip_smoke_read_counts_see_the_read_path(tmp_path, monkeypatch,
+                                                  where):
+    """chip_smoke.io_counts around a real read: local spans through the
+    native library pass check_native_reads, a run whose spans never
+    reached pread_records (the preadv path) fails it, and gs:// spans pass
+    check_gs_reads and fail the native check."""
+    from tony_tpu_torch import cloud
+    from tony_tpu_torch.io import ShardedRecordReader, native
+
+    chip_smoke = _repo_module("chip_smoke")
+    path = tmp_path / "c.tokens"
+    np.arange(40 * 8, dtype=np.uint16).tofile(path)
+    uri = str(path)
+    if where == "gs":
+        store = cloud.FileObjectStorage(tmp_path / "gcs")
+        monkeypatch.setattr(cloud, "_default_storage", store)
+        uri = "gs://b/c.tokens"
+        store.upload_file(path, uri)
+    if where == "local_preadv":
+        monkeypatch.setattr(native, "available", lambda: False)
+    with chip_smoke.io_counts() as counts:
+        with ShardedRecordReader([uri], fmt="tokens", record_len=8,
+                                 dtype=np.uint16, batch_size=4,
+                                 chunk_records=2) as reader:
+            assert sum(len(b) for b in reader) == 40
+        seen = counts()
+    assert native.pread_records.__name__ == "pread_records"  # unpatched
+    if where == "local":
+        chip_smoke.check_native_reads("run", seen)
+        assert seen["local_spans"] > 1
+    elif where == "local_preadv":
+        assert seen["pread"] == 0 and seen["local_spans"] > 1
+        with pytest.raises(AssertionError, match="pread_records"):
+            chip_smoke.check_native_reads("run", seen)
+    else:
+        chip_smoke.check_gs_reads("run", seen)
+        with pytest.raises(AssertionError):
+            chip_smoke.check_native_reads("run", seen)
+
+
+def test_chip_smoke_drives_the_job_gs_path():
+    import inspect
+
+    chip_smoke = _repo_module("chip_smoke")
+    src = inspect.getsource(chip_smoke.job_gs_phase)
+    assert "_reset_launches(attention, norms)" in src
+    assert 'check_path_launches({"job_gs": launches})' in src
+    main = inspect.getsource(chip_smoke.main)
+    assert '"job_gs": job_gs["launches"][row["name"]]' in main

@@ -1,7 +1,7 @@
 """Checkpointing as a staged pipeline — see ``checkpoint/manager.py``.
 
 The port's copy of the JAX package's checkpoint package, in the same
-layers: ``stores`` (step storage; local directories), ``layout`` (the
+layers: ``stores`` (step storage: local directories and gs:// prefixes), ``layout`` (the
 completeness and differential-chain rules), ``differential`` (hash-per-leaf
 diff planning), ``pipeline`` (the bounded snapshot -> persist worker
 pipeline) and ``manager`` (``CheckpointManager``, ``FlushSignal``). The
@@ -23,6 +23,7 @@ from tony_tpu_torch.checkpoint.manager import (  # noqa: F401
 )
 from tony_tpu_torch.checkpoint.stores import (  # noqa: F401
     _FsCheckpointStore,
+    _ObjectCheckpointStore,
     _fsync_write,
     store_for,
 )

@@ -32,6 +32,13 @@ package restores what the other wrote.
   reads its own file when the piece there lines up with the template's
   placement, and otherwise reassembles the global leaf from every file
   and cuts its piece.
+* **Storage.** A local directory (fsync + atomic rename) or a ``gs://``
+  prefix, written through ``cloud.default_storage()`` (``stores.py``); the
+  torn-step GC reads an object store's ages against the newest ``updated``
+  stamp of its own listing, not the local clock.
+* **Fault injection.** The persist stage obeys the ``TONY_FAULT_PLAN``
+  checkpoint faults (``resilience/faults.py``): delayed, failed and
+  partial (torn) writes.
 * **Pipeline, differential saves, fallback, GC, flush signal,
   cross-topology restore**: as in the JAX package (``pipeline.py``,
   ``differential.py``, ``layout.py``).
@@ -66,13 +73,14 @@ from tony_tpu_torch import constants
 from tony_tpu_torch.checkpoint import layout
 from tony_tpu_torch.checkpoint.differential import DiffTracker, hash_pieces
 from tony_tpu_torch.checkpoint.pipeline import SavePipeline
-from tony_tpu_torch.checkpoint.stores import store_for
+from tony_tpu_torch.checkpoint.stores import _ObjectCheckpointStore, store_for
 from tony_tpu_torch.interop import (
     load_train_state,
     train_state_leaves,
     train_state_placements,
 )
 from tony_tpu_torch.models.train import TrainState
+from tony_tpu_torch.resilience.faults import checkpoint_faults_from_env
 
 log = logging.getLogger(__name__)
 
@@ -295,6 +303,10 @@ class _HostBuffers:
     def give(self, key: tuple, bufs: dict[str, torch.Tensor]) -> None:
         with self._lock:
             self._free.append((key, bufs))
+
+    def clear(self) -> None:
+        with self._lock:
+            self._free.clear()
 
 
 class _SaveJob:
@@ -525,10 +537,24 @@ class CheckpointManager:
 
     def _persist_payload(self, payload: _PersistPayload) -> None:
         """Persist stage: serialize, write the shard, the commit sidecar
-        and (process 0) the step marker, publish telemetry, then GC."""
+        and (process 0) the step marker, publish telemetry, then GC.
+        Fault injection (``tony.fault.plan`` via ``TONY_FAULT_PLAN``) lands
+        where a real disk or GCS failure would, as in the JAX package:
+        ``delay`` sleeps here (the wall stays off the step path), ``error``
+        raises into the pipeline's surfaced-failure path, and ``partial``
+        writes the shard but withholds sidecar and marker, a torn step
+        that readers never see."""
         step = payload.step
         t0 = time.monotonic()
+        partial = False
         try:
+            faults = checkpoint_faults_from_env()
+            if faults is not None:
+                delay_ms = faults.write_delay_ms(step)
+                if delay_ms:
+                    time.sleep(delay_ms / 1000.0)
+                faults.maybe_fail_write(step)
+                partial = faults.partial_write(step)
             buf = io.BytesIO()
             np.savez(
                 buf,
@@ -542,6 +568,12 @@ class CheckpointManager:
             self._buffers.give(*payload.buffers)
         data = buf.getvalue()
         self._store.put_file(step, layout.shard_name(self.process_id), data)
+        if partial:
+            log.error(
+                "fault injection: checkpoint step %d shard written but "
+                "commit withheld (partial write)", step,
+            )
+            return
         self._store.put_file(
             step, layout.sidecar_name(self.process_id),
             json.dumps({
@@ -600,6 +632,14 @@ class CheckpointManager:
         except RuntimeError:
             self._diff.reset()
             raise
+
+    def close(self) -> None:
+        """Stop the save pipeline's threads and drop the host buffer sets;
+        a later async ``save`` raises. Saves still in flight are not
+        waited for: drain first (``wait()``, or a blocking save). Not in
+        the JAX package, whose manager lives as long as its process."""
+        self._pipeline.close()
+        self._buffers.clear()
 
     # -- flush signal (live migration) --------------------------------------
     def flush_requested(self, step: int | None = None) -> bool:
@@ -881,7 +921,7 @@ class CheckpointManager:
             self._store, kept, self.num_processes
         )
         threshold = min(kept) if kept else None
-        now = time.time()
+        now = self._now_reference(entries)
         for n, (_, newest) in entries.items():
             if n in kept or n in protected:
                 continue
@@ -890,8 +930,28 @@ class CheckpointManager:
                 n not in complete
                 and threshold is not None
                 and n < threshold
-                and newest is not None
-                and (now - newest) > self.torn_gc_grace_s
+                and self._quiescent(newest, now)
             )
             if stale_complete or torn_and_old:
                 self._store.delete_step(n)
+
+    def _now_reference(
+        self, entries: dict[int, tuple[set[str], float | None]]
+    ) -> float | None:
+        """The clock the quiescence check reads ages against. An object
+        store's ``updated`` stamps are the server's time, so "now" is the
+        newest stamp of the same listing (server-clock deltas: client clock
+        skew cannot eat into or inflate the grace window); filesystem
+        mtimes come from the local clock, so ``time.time()``. None: no
+        usable stamp, so nothing is quiescent."""
+        if isinstance(self._store, _ObjectCheckpointStore):
+            stamps = [t for _, t in entries.values() if t is not None]
+            return max(stamps) if stamps else None
+        return time.time()
+
+    def _quiescent(self, newest: float | None, now: float | None) -> bool:
+        """True when nothing under the step was modified within the grace
+        window; an unknown age (None) reads as active."""
+        if newest is None or now is None:
+            return False
+        return (now - newest) > self.torn_gc_grace_s

@@ -94,10 +94,15 @@ class SavePipeline:
         with self._lock:
             return self._inflight
 
-    def close(self) -> None:
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the threads once their queues are empty and join them
+        (each for up to ``timeout`` s); a later ``submit`` raises."""
         with self._cond:
             self._closed = True
             self._cond.notify_all()
+            threads, self._threads = self._threads, []
+        for t in threads:
+            t.join(timeout)
 
     # -- worker side ---------------------------------------------------------
     def _start_threads_locked(self) -> None:

@@ -85,3 +85,12 @@ TONY_STEPSTATS_WINDOW = "TONY_STEPSTATS_WINDOW"
 # user-process env -> runtime.initialize starts the HBM gauge monitor,
 # observability/profiling.py; "0" disables).
 TONY_PROFILE_HBM_INTERVAL_MS = "TONY_PROFILE_HBM_INTERVAL_MS"
+
+# Fault injection (tony.fault.plan): the plan the executor exports to every
+# task as JSON, and the task's incarnation (0, or the count of healing
+# replacements before it; degrade_task applies to incarnation 0 only).
+TONY_FAULT_PLAN = "TONY_FAULT_PLAN"
+TONY_TASK_INCARNATION = "TONY_TASK_INCARNATION"
+# The offline object store: gs://bucket/key maps onto <dir>/bucket/key
+# (cloud.default_storage), inherited by executor subprocesses.
+TONY_GCS_EMULATOR_DIR = "TONY_GCS_EMULATOR_DIR"

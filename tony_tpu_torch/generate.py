@@ -11,9 +11,9 @@ Submitted through the orchestrator with ``--framework pytorch``::
         --conf tony.worker.instances=1 \\
         --task_params "--device cpu --ckpt CKPT_DIR --max-new 16"
 
-``--ckpt`` is a checkpoint directory written by ``train.py`` or by the JAX
-package's ``lm_train.py`` (the model flags must match the training
-config; they are ``train.py``'s); the newest complete step is restored
+``--ckpt`` is a checkpoint directory or ``gs://`` prefix written by
+``train.py`` or by the JAX package's ``lm_train.py`` (the model flags must
+match the training config; they are ``train.py``'s); the newest complete step is restored
 into a ``make_train_step`` template and the script prints ``restored step
 N from ...``, or exits 2 when no step is complete. Without ``--ckpt`` the
 weights are fresh from ``--seed``. ``--prompt`` takes token ids, ``,``
@@ -46,8 +46,8 @@ def parse_args(argv):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     p.add_argument("--ckpt", default="",
-                   help="checkpoint dir from train.py or lm_train.py "
-                        "(empty: fresh weights from --seed)")
+                   help="checkpoint dir or gs:// prefix from train.py or "
+                        "lm_train.py (empty: fresh weights from --seed)")
     p.add_argument("--prompt", default="1,5,9,2",
                    help="comma-separated token ids; ':' separates batch "
                         "rows (shell-safe: task params pass through "

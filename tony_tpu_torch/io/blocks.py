@@ -26,12 +26,13 @@ validating its 16-byte marker.
 
 from __future__ import annotations
 
+import io
 import json
 import struct
 import zlib
 from typing import Any, Iterator
 
-from tony_tpu_torch.io.storage import file_size, local_path, read_range
+from tony_tpu_torch.io.storage import file_size, is_gs_uri, read_range
 
 MAGIC = b"TONYJBL1"
 SYNC = b"\xf1\x1aTNYSYN"  # 8 bytes, starts outside ASCII-JSON space
@@ -88,9 +89,12 @@ def write_jsonl_blocks(
     if codec not in CODECS:
         raise ValueError(f"unknown codec {codec!r}; expected {sorted(CODECS)}")
     schema_bytes = json.dumps(schema or {}).encode()
-    # Blocks stream to the file one by one: a corpus-sized container must
-    # not need corpus-sized RAM.
-    with open(local_path(path), "wb") as sink:
+    gs = is_gs_uri(path)
+    # Local files stream block by block: a corpus-sized container must not
+    # need corpus-sized RAM. Only the gs:// branch buffers (object PUTs are
+    # whole-object).
+    sink: Any = io.BytesIO() if gs else open(path, "wb")
+    try:
         sink.write(MAGIC)
         sink.write(bytes([CODECS[codec]]))
         sink.write(_CRC.pack(len(schema_bytes)))
@@ -116,6 +120,13 @@ def write_jsonl_blocks(
             if len(pending) >= block_records:
                 flush()
         flush()
+
+        if gs:
+            from tony_tpu_torch.cloud import default_storage
+
+            default_storage().put_bytes(path, sink.getvalue())
+    finally:
+        sink.close()
     return n
 
 

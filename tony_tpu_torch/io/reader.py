@@ -48,8 +48,13 @@ on ``device_prefetch`` (``tony_io_queue_wait_ms``), and the device copies
 (``tony_io_h2d_ms``, ``tony_io_h2d_bytes_total``,
 ``tony_io_h2d_inflight_depth``).
 
-Not ported: ``gs://`` corpora and the native ``pread`` library (ROADMAP
-Queue A).
+Storage: a local corpus is read span by span through the native library
+(``io/native.py``: one ``pread`` a span, and a readahead hint for each span
+before it is queued); a ``gs://`` corpus through ranged reads of
+``cloud.default_storage()`` (``io/storage.py``).
+
+Fault injection: a ``throttle_io`` entry of the job's ``TONY_FAULT_PLAN``
+sleeps inside the batch iterator's ``next()`` (``resilience/faults.py``).
 """
 
 from __future__ import annotations
@@ -70,9 +75,12 @@ import torch
 
 from tony_tpu_torch import constants
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.io import native
 from tony_tpu_torch.io.splits import FileSegment, create_read_info
-from tony_tpu_torch.io.storage import file_size, open_lines
+from tony_tpu_torch.io.storage import (file_size, is_gs_uri, open_lines,
+                                         read_range)
 from tony_tpu_torch.parallel.mesh import axis_coordinate, axis_size
+from tony_tpu_torch.resilience.faults import io_faults_from_env
 
 _SENTINEL = object()
 
@@ -409,27 +417,50 @@ class ShardedRecordReader:
         record_len = rb // self.dtype.itemsize
         want = n_records * rb
         t0 = time.perf_counter()
-        fd = self._fd_for(path)
-        # preadv straight into the output array: no intermediate bytes
-        # object, no seek state shared across workers. Platforms without
-        # preadv (macOS) take os.pread plus one copy — still positional,
-        # still worker-safe.
-        rows = np.empty((n_records, record_len), self.dtype)
-        flat = rows.reshape(-1).view(np.uint8)
-        has_preadv = hasattr(os, "preadv")
-        done = 0
-        while done < want:
-            if has_preadv:
-                n = os.preadv(fd, [flat[done:]], offset + done)
-            else:
-                data = os.pread(fd, want - done, offset + done)
-                n = len(data)
-                flat[done:done + n] = np.frombuffer(data, np.uint8)
-            if n == 0:
-                break
-            done += n
-        got = done // rb
-        rows = rows[:got]
+        if is_gs_uri(path):
+            data = read_range(path, offset, want)
+            got = len(data) // rb
+            # One copy: frombuffer is a zero-copy (read-only) view of the
+            # response body; .copy() makes the one writable array.
+            rows = np.frombuffer(
+                data, dtype=self.dtype, count=got * record_len
+            ).reshape(got, record_len).copy()
+        elif native.available():
+            arr = native.pread_records(self._fd_for(path), offset, rb,
+                                       n_records)
+            if arr is None:
+                raise OSError(
+                    f"native pread failed on {path} at byte {offset}"
+                )
+            got = len(arr)
+            # got == 0 (file truncated to/below offset) must reach the
+            # short-read diagnostic below, not die in reshape(0, -1).
+            rows = (
+                arr.reshape(-1).view(self.dtype).reshape(got, -1)
+                if got else np.empty((0, record_len), self.dtype)
+            )
+        else:
+            # preadv straight into the output array: no intermediate bytes
+            # object, no seek state shared across workers. Platforms
+            # without preadv (macOS) take os.pread plus one copy — still
+            # positional, still worker-safe.
+            fd = self._fd_for(path)
+            rows = np.empty((n_records, record_len), self.dtype)
+            flat = rows.reshape(-1).view(np.uint8)
+            has_preadv = hasattr(os, "preadv")
+            done = 0
+            while done < want:
+                if has_preadv:
+                    n = os.preadv(fd, [flat[done:]], offset + done)
+                else:
+                    data = os.pread(fd, want - done, offset + done)
+                    n = len(data)
+                    flat[done:done + n] = np.frombuffer(data, np.uint8)
+                if n == 0:
+                    break
+                done += n
+            got = done // rb
+            rows = rows[:got]
         if got < n_records:
             raise OSError(
                 f"short read on {path} at byte {offset}: wanted "
@@ -460,7 +491,7 @@ class ShardedRecordReader:
         with a sliding window of in-flight futures, consumed in
         submission order so the stream stays byte-identical to the serial
         path. While the consumer drains span N, spans N+1..N+window are
-        already being read — disk latency overlaps the H2D+step
+        already being read — disk/GCS latency overlaps the H2D+step
         pipeline downstream."""
         descs = self._span_descriptors()
         if not descs:
@@ -475,6 +506,14 @@ class ShardedRecordReader:
                 for desc in descs:
                     if self._stop.is_set():
                         return
+                    if not is_gs_uri(desc[0]) and native.available():
+                        # Page-cache hint for the span about to be queued:
+                        # by the time its future runs, the kernel's
+                        # readahead has usually landed.
+                        native.readahead(
+                            self._fd_for(desc[0]), desc[1],
+                            desc[2] * self._record_bytes(),
+                        )
                     inflight.append(pool.submit(self._read_span, *desc))
                     if len(inflight) >= window:
                         if not self._emit_span(inflight.popleft().result()):
@@ -694,10 +733,17 @@ class ShardedRecordReader:
             ) from self._fetch_exc
 
     def __iter__(self) -> Iterator[Any]:
+        # Chaos seam: a `throttle_io` entry in the job's fault plan starves
+        # this iterator deterministically (the sleep happens inside next(),
+        # so the step anatomy reads it as data_wait, like a real slow input
+        # pipeline).
+        faults = io_faults_from_env()
         while True:
             batch = self.next_batch()
             if batch is None:
                 return
+            if faults is not None:
+                faults.maybe_throttle()
             yield batch
 
     def close(self) -> None:
@@ -709,7 +755,7 @@ class ShardedRecordReader:
             pass
         self._fetcher.join(timeout=5)
         # Close fds only once the fetcher (and therefore every pool
-        # worker holding them in preadv) is done — closing
+        # worker holding them in preadv or native pread) is done — closing
         # under an in-flight read risks EBADF or, after fd-number reuse,
         # a read from an unrelated file. A fetcher that outlives the
         # timeout closes them itself in _fetch_guarded's finally.

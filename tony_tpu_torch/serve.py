@@ -5,10 +5,10 @@
         --n-layers 8 --n-heads 16 --n-kv-heads 4 --vocab 32000 \\
         --dtype bfloat16 --max-seq 2048 --slots 16
 
-Weights come from ``--ckpt`` (a checkpoint directory written by
-``train.py`` or by the JAX package's ``lm_train.py``: the newest complete
-step's params, restored into a ``make_train_step`` template and cast to
-``--dtype``), or are read with ``--weights-npz`` from a numpy dump of JAX
+Weights come from ``--ckpt`` (a checkpoint directory or ``gs://`` prefix
+written by ``train.py`` or by the JAX package's ``lm_train.py``: the newest
+complete step's params, restored into a ``make_train_step`` template and
+cast to ``--dtype``), or are read with ``--weights-npz`` from a numpy dump of JAX
 params (keys ``embed``, ``layers/wq``, ...; see ``interop.params_from_npz``),
 or are fresh from ``--seed``. They are fused once through ``DecodeSession``
 and served over HTTP through the continuous-batching ``ServingEngine``:
@@ -59,8 +59,9 @@ def parse_args(argv):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises")
     p.add_argument("--ckpt", default="",
-                   help="checkpoint dir from train.py or lm_train.py (empty: "
-                        "--weights-npz, else fresh weights from --seed)")
+                   help="checkpoint dir or gs:// prefix from train.py or "
+                        "lm_train.py (empty: --weights-npz, else fresh "
+                        "weights from --seed)")
     p.add_argument("--weights-npz", default="",
                    help="numpy dump of JAX params (empty: fresh weights "
                         "from --seed)")

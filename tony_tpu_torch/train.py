@@ -35,6 +35,14 @@ the batch iterator's waits) publishes its phases, ``step_time_ms`` and
 ``tony_mfu``: under the orchestrator the snapshot reaches the
 coordinator's ``/metrics`` on the executor's heartbeat.
 
+``--data`` paths and the checkpoint dir may be ``gs://`` URIs, read and
+written through ``cloud.default_storage()`` (``TONY_GCS_EMULATOR_DIR`` maps
+them onto a local directory offline). A ``TONY_FAULT_PLAN`` from the
+orchestrator is obeyed as lm_train.py obeys it: ``throttle_io`` in the
+loop's ``next()`` after each batch (``throttled``), ``degrade_task`` after
+each step's loss readback, and the checkpoint faults in the manager's
+persist stage.
+
 Checkpoints go to ``--ckpt-dir``, else ``$TONY_CHECKPOINT_DIR``, else
 ``$TONY_LOG_DIR/lm-checkpoints``, in the JAX package's format: every
 ``--checkpoint-every`` steps, when the coordinator's flush order asks, and
@@ -63,6 +71,8 @@ from tony_tpu_torch.interop import params_from_npz
 from tony_tpu_torch.io import device_prefetch
 from tony_tpu_torch.models import TransformerConfig, make_train_step
 from tony_tpu_torch.parallel.mesh import data_row, mesh_spec
+from tony_tpu_torch.resilience.faults import (io_faults_from_env,
+                                              step_faults_from_env)
 
 
 def parse_args(argv):
@@ -79,18 +89,19 @@ def parse_args(argv):
                    help="numpy dump of JAX params (empty: fresh weights "
                         "from --seed)")
     p.add_argument("--data", default="",
-                   help="corpus path(s, comma-sep): *.jblk = block-"
-                        "compressed jsonl containers with a 'tokens' "
-                        "field per record; anything else = fixed-width "
-                        "uint16 token records of length seq+1. Empty: "
-                        "the synthetic motif corpus.")
+                   help="corpus path(s) or gs:// URI(s), comma-sep: "
+                        "*.jblk = block-compressed jsonl containers with "
+                        "a 'tokens' field per record; anything else = "
+                        "fixed-width uint16 token records of length "
+                        "seq+1. Empty: the synthetic motif corpus.")
     p.add_argument("--checkpoint-every", type=int, default=10)
     p.add_argument("--dist-timeout", type=float, default=300.0,
                    help="seconds a collective waits for a peer before "
                         "failing (process group timeout)")
     p.add_argument("--ckpt-dir", default="",
-                   help="checkpoint dir (default: $TONY_CHECKPOINT_DIR, "
-                        "else $TONY_LOG_DIR/lm-checkpoints)")
+                   help="checkpoint dir or gs:// prefix (default: "
+                        "$TONY_CHECKPOINT_DIR, else "
+                        "$TONY_LOG_DIR/lm-checkpoints)")
     add_model_args(p)
     return p.parse_args(argv)
 
@@ -139,6 +150,13 @@ def synthetic_tokens(seed: int, n_docs: int, seq: int, vocab: int):
     return np.stack(docs).astype(np.int32)
 
 
+def _unthrottled(reader):
+    """The reader's batches through ``next_batch()``, not its iterator: the
+    train loop applies the plan's ``throttle_io`` itself (``throttled``)."""
+    while (batch := reader.next_batch()) is not None:
+        yield batch
+
+
 def _file_batches(args, row: int, rows: int):
     """Endless [batch, seq+1] int32 host batches of data row ``row``'s
     shard (of ``rows``) of ``--data``, one reader per epoch (the splits
@@ -162,7 +180,7 @@ def _file_batches(args, row: int, rows: int):
                 paths, task_index=row, num_tasks=rows, fmt="jsonl-blocks",
                 batch_size=args.batch,
             ) as r:
-                for recs in r:
+                for recs in _unthrottled(r):
                     if not checked and recs:
                         # Validate the first record once, up front: a
                         # missing 'tokens' field or a wrong-width list would
@@ -197,7 +215,7 @@ def _file_batches(args, row: int, rows: int):
                 dtype=np.uint16, record_len=args.seq + 1,
                 batch_size=args.batch,
             ) as r:
-                for b in r:
+                for b in _unthrottled(r):
                     if b.shape[0] == args.batch:
                         yielded += 1
                         yield b.astype(np.int32)
@@ -223,6 +241,20 @@ def corpus_batches(args, row: int, rows: int):
     rng = np.random.default_rng(row)
     while True:
         yield shard[rng.integers(0, len(shard), size=(args.batch,))]
+
+
+def throttled(batches, faults):
+    """``batches`` with the fault plan's ``throttle_io`` applied after each
+    batch, in the consumer's own ``next()``: the train loop's counterpart of
+    the reader's iterator seam and of lm_train.py's synthetic corpus. The
+    loop reads its batches through a device prefetcher, so a sleep on the
+    prefetcher's thread would hide behind the running step; here it lands
+    where lm_train.py's does, and the step anatomy reads it as
+    data_wait."""
+    for batch in batches:
+        if faults is not None:
+            faults.maybe_throttle()
+        yield batch
 
 
 def checkpoint_dir(args) -> str:
@@ -265,6 +297,16 @@ def _train(args, ctx) -> int:
         state = init_fn(args.seed)
     mgr = CheckpointManager(checkpoint_dir(args), process_id=ctx.process_id,
                             num_processes=ctx.num_processes)
+    try:
+        return _resume_and_train(args, ctx, mgr, state, step_fn, row, rows)
+    finally:
+        # A caller that runs main() inside its own process (a test, a
+        # smoke run) is left no save threads or pinned buffer sets.
+        mgr.close()
+
+
+def _resume_and_train(args, ctx, mgr, state, step_fn, row: int,
+                      rows: int) -> int:
     # Checkpoint-aware restart: a retried session is told the newest step
     # the coordinator saw complete (TONY_RESUME_STEP); outside a retry the
     # newest complete step is restored. The state is restored in place.
@@ -278,19 +320,26 @@ def _train(args, ctx) -> int:
               flush=True)
         return 0
     first = last = None
+    # `degrade_task` makes this process a deterministic straggler
+    # (incarnation 0 only: a replacement after a healing eviction runs
+    # clean).
+    step_faults = step_faults_from_env()
     # The step's anatomy recorder wraps the batch iterator, so host time
     # blocked on input reads as the data_wait phase.
     stats = step_fn.stepstats
     with device_prefetch(corpus_batches(args, row, rows),
                          ctx.device) as prefetched:
-        batches = stats.wrap_batches(prefetched)
+        batches = stats.wrap_batches(throttled(prefetched,
+                                               io_faults_from_env()))
         while step < args.steps:
             tokens = next(batches)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, tokens)
             loss = float(metrics["loss"])  # the step's one intended readback
-            dt = time.perf_counter() - t0
             step += 1
+            if step_faults is not None:
+                step_faults.maybe_degrade(step)
+            dt = time.perf_counter() - t0
             first = loss if first is None else first
             last = loss
             # report() publishes the snapshot to TONY_METRICS_FILE (when
