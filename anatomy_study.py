@@ -71,7 +71,7 @@ def one_round(torch, cfg, tokens, placement: str,
     records: list[dict] = []
     clock = {"step": None}
     maybe_record = stepstats.StepStats._maybe_record
-    observe = stepstats.StepStats._observe
+    observe = stepstats.StepStats._finish
 
     def timed_record(self):
         before, t0 = self._recorded_ms, time.perf_counter()
@@ -80,15 +80,15 @@ def one_round(torch, cfg, tokens, placement: str,
             records.append({"ms": (time.perf_counter() - t0) * 1e3,
                             "step": clock["step"]})
 
-    def observe_then_record(self, wall_ms):
-        observe(self, wall_ms)
+    def observe_then_record(self, draft, gap_ms=None):
+        observe(self, draft, gap_ms)
         if self._record_due:
             self._record_due = False
             self._maybe_record()
 
     stepstats.StepStats._maybe_record = timed_record
     if placement == "begin":
-        stepstats.StepStats._observe = observe_then_record
+        stepstats.StepStats._finish = observe_then_record
     try:
         init_fn, step_fn = make_train_step(cfg, device="cuda")
         state = init_fn(0)
@@ -116,7 +116,7 @@ def one_round(torch, cfg, tokens, placement: str,
                                      name)))
     finally:
         stepstats.StepStats._maybe_record = maybe_record
-        stepstats.StepStats._observe = observe
+        stepstats.StepStats._finish = observe
     means = {k: float(np.mean(v)) for k, v in seq}
     plain_w = [v for k, v in means.items() if k.startswith("plain")]
     inst_w = [v for k, v in means.items() if k.startswith("inst")]

@@ -3527,10 +3527,10 @@ def step_breakdown(torch, fn) -> dict:
                              f"{PROFILE_TRIES} tries")
 
     def enclosing(e):
-        """The innermost moe.* / decoder_layer range, or the backward node,
-        around a CPU event."""
+        """The innermost moe.* / remat.recompute range, or the backward
+        node, around a CPU event."""
         while e is not None:
-            if e.name.startswith(("moe.", "decoder_layer",
+            if e.name.startswith(("moe.", "remat.recompute",
                                   "autograd::engine::evaluate_function")):
                 return e
             e = e.cpu_parent

@@ -3,8 +3,10 @@
 * The step anatomy: each scenario of the JAX package's ``TestStepStats``
   (tests/test_observability.py) driven through both packages' ``StepStats``
   with the same fake clock gives equal gauges.
-* ``model_flops_per_step`` and ``estimate_phases`` equal JAX's over a set
-  of meshes and plans.
+* ``model_flops_per_step`` equals JAX's less the embedding gather, which
+  JAX counts as a second ``vocab x d_model`` matmul (ROADMAP Queue C), and
+  ``estimate_phases`` equals JAX's, over a set of meshes and plans. So do
+  the ``tony_model_flops_per_step`` and ``tony_mfu`` gauges.
 * The port's registry snapshot, published to its file, loads in the
   orchestrator's aggregator and renders on ``/metrics``.
 * The peak table, the live calibration (the measurement table's entries
@@ -66,6 +68,28 @@ class _TinyCfg:
     n_kv_heads = 2
     d_ff = 256
     dtype = "float32"
+
+
+def _embedding_flops(cfg, batch: int, seq: int) -> float:
+    """What JAX's ``model_flops_per_step`` counts and the port's does not:
+    the embedding gather as a matmul, 6 x vocab x d_model a token."""
+    return 6.0 * cfg.vocab_size * cfg.d_model * batch * seq
+
+
+def _as_the_port_counts(snap: dict, jstats, cfg) -> float:
+    """JAX's snapshot with the model flops and MFU the port publishes for
+    the same steps (its flops less the embedding's); returns the MFU's
+    factor."""
+    if not jstats._flops:
+        return 1.0
+    flops = jstats._flops - _embedding_flops(cfg, jstats.global_batch,
+                                             jstats.seq)
+    gauges = snap["gauges"]
+    if "tony_model_flops_per_step" in gauges:
+        gauges["tony_model_flops_per_step"] = flops
+    if "tony_mfu" in gauges:
+        gauges["tony_mfu"] = round(jstats.mfu * flops / jstats._flops, 5)
+    return flops / jstats._flops
 
 
 class _Clock:
@@ -178,12 +202,17 @@ def _run(package: str, name: str) -> tuple[dict, object]:
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_stepstats_scenario_gives_jax_s_gauges(name):
     """Exactly equal gauges, counters and histograms, and the same
-    observed step count."""
+    observed step count; the model flops are JAX's less the embedding's,
+    and the MFU is taken from them."""
     want, jstats = _run("jax", name)
     got, tstats = _run("torch", name)
+    factor = _as_the_port_counts(want, jstats, _TinyCfg())
     assert got == want
     assert tstats.steps_observed == jstats.steps_observed
-    assert tstats.mfu == jstats.mfu
+    if jstats.mfu is None:
+        assert tstats.mfu is None
+    else:
+        assert tstats.mfu == pytest.approx(jstats.mfu * factor, rel=1e-12)
     if name == "phases_sum_to_wall":
         phases = [got["gauges"][f'tony_step_phase_ms{{phase="{p}"}}']
                   for p in port_stepstats.PHASES]
@@ -216,14 +245,16 @@ _CONFIGS = {
     ({"pp": 2}, 4), ({"pp": 4, "dp": 2}, 8), ({"pp": 2}, None)])
 @pytest.mark.parametrize("cfg_name", sorted(_CONFIGS))
 def test_cost_model_matches_jax(axes, microbatches, cfg_name):
-    """``model_flops_per_step`` and ``estimate_phases`` (compute,
-    collective, bytes per axis) equal JAX's, and so do the plan's key and
+    """``model_flops_per_step`` equals JAX's less the embedding gather's
+    6 x vocab x d_model a token; ``estimate_phases`` (compute, collective,
+    bytes per axis) equals JAX's, and so do the plan's key and
     description; ``plan_from_mesh`` reads the mesh's axis sizes."""
     jcfg, tcfg = (JaxConfig(**_CONFIGS[cfg_name]),
                   TransformerConfig(**_CONFIGS[cfg_name]))
     for batch, seq in ((8, 128), (3, 17)):
         assert port_stepstats.model_flops_per_step(tcfg, batch, seq) == \
-            jax_stepstats.model_flops_per_step(jcfg, batch, seq)
+            jax_stepstats.model_flops_per_step(jcfg, batch, seq) \
+            - _embedding_flops(tcfg, batch, seq)
         for sched, virt in (("gpipe", 1), ("interleaved", 2)):
             jp = jax_plan.Plan(jax_plan.MeshSpec(**axes),
                                microbatches=microbatches,
@@ -253,7 +284,8 @@ def test_snapshot_file_loads_in_the_orchestrator(tmp_path, monkeypatch):
     executor's reader loads the file, the aggregator ingests it, serves the
     step anatomy on /api/stepstats and renders it on /metrics. The same
     calls on the JAX package's registry give the same snapshot but for
-    its timestamp."""
+    its timestamp and the model flops and MFU, which are JAX's less the
+    embedding's."""
     path = tmp_path / "metrics.json"
     monkeypatch.setenv(jax_constants.TONY_METRICS_FILE, str(path))
     monkeypatch.setattr(port_metrics, "_default_registry", None)
@@ -265,12 +297,14 @@ def test_snapshot_file_loads_in_the_orchestrator(tmp_path, monkeypatch):
                               cfg=_TinyCfg(), peak_flops=1e12,
                               calibrate=False, enabled=True)
         _phases_sum_to_wall(stats, clock)
+        jstats = stats
         registry.report(step=3, loss=2.5)
         registry.counter("train_step_dispatches_total").inc(3)
         registry.histogram("train_step_dispatch_seconds").observe(0.002)
     reg.flush()
     snap = jax_metrics.load_snapshot_file(path)
     want = json.loads(json.dumps(jreg.snapshot()))
+    _as_the_port_counts(want, jstats, _TinyCfg())
     assert {k: v for k, v in snap.items() if k != "ts_ms"} == \
         {k: v for k, v in want.items() if k != "ts_ms"}
     agg = MetricsAggregator()
@@ -492,7 +526,8 @@ def test_train_step_anatomy_is_sized_by_the_global_batch(tmp_path):
     and an MFU against the CPU's nominal peak (1e11 flops/s, 2 devices),
     and the dispatch counter."""
     results = launch("lm_stepstats", tmp_path)
-    flops = jax_stepstats.model_flops_per_step(JaxConfig(**TINY), 4, 16)
+    flops = jax_stepstats.model_flops_per_step(JaxConfig(**TINY), 4, 16) \
+        - _embedding_flops(TransformerConfig(**TINY), 4, 16)
     for r in results:
         assert (r["global_batch"], r["seq"]) == (4, 16)
         assert r["plan"] == "dp2.pp1.ep1.sp1.tp1"

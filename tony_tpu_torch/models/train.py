@@ -57,8 +57,9 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
-from tony_tpu_torch import observability
+from tony_tpu_torch import observability, profiling
 from tony_tpu_torch.analysis import jit_sanitizer
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.mnist import MnistConfig, mnist_apply, mnist_init
@@ -164,12 +165,16 @@ def leaves(params) -> list[torch.Tensor]:
     return [params]
 
 
-def _instrumented(step_fn, stats: StepStats | None = None):
+def _instrumented(step_fn, stats: StepStats | None = None, *,
+                  marked: bool = False):
     """Count dispatches and host-side dispatch time into the process
     registry (``train_step_dispatches_total``,
     ``train_step_dispatch_seconds``), and drive ``stats`` (the step
     anatomy: the interval between consecutive dispatches is the completed
-    step's wall, the dispatch time is its ``host`` phase). Nothing is
+    step's wall; its ``host`` phase is the device clock's gap between
+    steps, or without one the dispatch time). ``stats``' device-clock
+    marks go around the dispatch unless ``marked``: ``step_fn`` records
+    them itself (``stats.mark_begin``/``mark_end``). Nothing is
     synchronized and nothing read back: the caller's readback fence is
     where the wall closes. The recorder rides the returned step as
     ``step.stepstats`` so train loops can wire their batch iterator in
@@ -184,7 +189,11 @@ def _instrumented(step_fn, stats: StepStats | None = None):
                 getattr(args[1], "shape", None) if len(args) > 1 else None
             )
         t0 = time.perf_counter()
+        if stats is not None and not marked:
+            stats.mark_begin()
         out = step_fn(*args, **kwargs)
+        if stats is not None and not marked:
+            stats.mark_end()
         dt = time.perf_counter() - t0
         dispatches.inc()
         dispatch_s.observe(dt)
@@ -359,29 +368,48 @@ def make_train_step(
         step = torch.zeros((), dtype=torch.int32, device=device)
         return TrainState(step, params, opt, placements)
 
+    # Step anatomy, sized from the global batch: the hook sees only this
+    # rank's rows, which would understate MFU by the data-row count.
+    # Without a mesh the plan is one device's, so calibration records.
+    stats = StepStats(cfg=cfg,
+                      plan=plan if plan is not None or mesh is not None
+                      else Plan(MeshSpec()),
+                      mesh=mesh, microbatches=pipeline_microbatches,
+                      size_from_shapes=False, device=device)
+
     def step_fn(state: TrainState, tokens):
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        params = state.params
-        if mesh is not None:
-            params = _gather(params, state.placements, mesh,
-                             EXPERT_LEAVES if cfg.n_experts else (),
-                             pipelined=pipeline_microbatches is not None)
-        loss, metrics = lm_loss(params, tokens, cfg, mesh,
-                                return_metrics=True, **pipeline)
-        loss.backward()
-        grads = [p.grad for p in leaves(state.params)]
-        metrics = {"loss": loss, **metrics}
-        metrics = {k: v.detach().clone() for k, v in metrics.items()}
-        if mesh is None:
-            clip_by_global_norm_(grads, grad_clip)
-        else:
-            _reduce_and_clip(grads, leaves(state.placements), mesh,
-                             grad_clip)
-            pmean_gradients(list(metrics.values()), mesh, DATA_AXES)
-        opt.step()
-        return (TrainState(state.step + 1, state.params, opt,
-                           state.placements), metrics)
+        stats.mark_begin()
+        with record_function("train.forward"):
+            params = state.params
+            if mesh is not None:
+                params = _gather(params, state.placements, mesh,
+                                 EXPERT_LEAVES if cfg.n_experts else (),
+                                 pipelined=pipeline_microbatches is not None)
+            loss, metrics = lm_loss(params, tokens, cfg, mesh,
+                                    return_metrics=True, **pipeline)
+        # The backward pass runs on the autograd engine's thread (on the
+        # card): the range opens there. The one on this thread holds what
+        # backward() launches before the engine takes over.
+        profiling.annotate_backward(loss, "train.backward")
+        with record_function("train.backward"):
+            loss.backward()
+        with record_function("train.optimizer"):
+            grads = [p.grad for p in leaves(state.params)]
+            metrics = {"loss": loss, **metrics}
+            metrics = {k: v.detach().clone() for k, v in metrics.items()}
+            if mesh is None:
+                clip_by_global_norm_(grads, grad_clip)
+            else:
+                _reduce_and_clip(grads, leaves(state.placements), mesh,
+                                 grad_clip)
+                pmean_gradients(list(metrics.values()), mesh, DATA_AXES)
+            opt.step()
+            step = state.step + 1
+        stats.mark_end()
+        return (TrainState(step, state.params, opt, state.placements),
+                metrics)
 
     # Everything whose change must invalidate a compiled artefact rides
     # the plan cache key (argument shapes join at the first call).
@@ -401,14 +429,6 @@ def make_train_step(
         "lm_train_step", config=cfg, mesh=mesh, plan=plan,
         extra=fingerprint))
 
-    # Step anatomy, sized from the global batch: the hook sees only this
-    # rank's rows, which would understate MFU by the data-row count.
-    # Without a mesh the plan is one device's, so calibration records.
-    stats = StepStats(cfg=cfg,
-                      plan=plan if plan is not None or mesh is not None
-                      else Plan(MeshSpec()),
-                      mesh=mesh, microbatches=pipeline_microbatches,
-                      size_from_shapes=False, device=device)
     rows = 1 if mesh is None else axis_size(mesh, ("dp", "ep"))
 
     def step(state: TrainState, tokens):
@@ -417,7 +437,7 @@ def make_train_step(
         # The batch's upload, outside the step's sanitized region.
         return jit_step(state, torch.as_tensor(tokens).to(device))
 
-    return jit_init, _instrumented(step, stats)
+    return jit_init, _instrumented(step, stats, marked=True)
 
 
 def _gather(params: dict, placements: dict, mesh, resident=(), *,

@@ -39,6 +39,7 @@ conjugate pair is the identity.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 
@@ -47,6 +48,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils import checkpoint
 
+from tony_tpu_torch import profiling
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.ops import (
     apply_rope,
@@ -205,6 +207,17 @@ def param_roles(cfg: TransformerConfig) -> dict:
     }
 
 
+def _cast(w, dt):
+    """A master weight in the compute dtype: ``w.to(dt)``. While a
+    profiler records, the cast runs under ``weight_cast`` (in the forward
+    and the remat recompute) and its gradient's cast back to the master's
+    dtype under ``bwd:weight_cast`` (``profiling.annotate_region``)."""
+    if not profiling.recording():
+        return w.to(dt)
+    with profiling.annotate_region("weight_cast") as r:
+        return r.leave(r.enter(w).to(dt))
+
+
 def _attention(x, lp, cfg, cos, sin, mesh=None):
     """Pre-norm attention block. x: [b, t, d] in the compute dtype. The
     head counts are those of ``lp``: with a mesh, this rank's H/tp query
@@ -218,11 +231,12 @@ def _attention(x, lp, cfg, cos, sin, mesh=None):
     if mesh is not None:
         h = copy_to_tp(h, mesh)
     heads, kv_heads = lp["wq"].shape[-2], lp["wk"].shape[-2]
-    q = (h @ lp["wq"].to(dt).reshape(d, -1)).view(b, t, heads, cfg.head_dim)
-    k = (h @ lp["wk"].to(dt).reshape(d, -1)).view(b, t, kv_heads,
-                                                   cfg.head_dim)
-    v = (h @ lp["wv"].to(dt).reshape(d, -1)).view(b, t, kv_heads,
-                                                   cfg.head_dim)
+    q = (h @ _cast(lp["wq"], dt).reshape(d, -1)).view(b, t, heads,
+                                                      cfg.head_dim)
+    k = (h @ _cast(lp["wk"], dt).reshape(d, -1)).view(b, t, kv_heads,
+                                                      cfg.head_dim)
+    v = (h @ _cast(lp["wv"], dt).reshape(d, -1)).view(b, t, kv_heads,
+                                                      cfg.head_dim)
     sp = 1 if mesh is None else axis_size(mesh, "sp")
     positions = None
     if sp > 1:
@@ -235,7 +249,7 @@ def _attention(x, lp, cfg, cos, sin, mesh=None):
                            scale=cfg.head_dim ** -0.5)
     else:
         o = flash_attention(q, k, v, causal=True)
-    out = o.to(dt).reshape(b, t, -1) @ lp["wo"].to(dt).reshape(-1, d)
+    out = o.to(dt).reshape(b, t, -1) @ _cast(lp["wo"], dt).reshape(-1, d)
     return out if mesh is None else reduce_from_tp(out, mesh)
 
 
@@ -246,10 +260,10 @@ def _dense_mlp(x, lp, cfg, mesh=None):
     h = rms_norm(x, lp["ln2"]).to(dt)
     if mesh is not None:
         h = copy_to_tp(h, mesh)
-    g = h @ lp["w_gate"].to(dt)
-    u = h @ lp["w_up"].to(dt)
+    g = h @ _cast(lp["w_gate"], dt)
+    u = h @ _cast(lp["w_up"], dt)
     act = torch.nn.functional.silu(g.float()).to(dt) * u
-    out = act @ lp["w_down"].to(dt)
+    out = act @ _cast(lp["w_down"], dt)
     return out if mesh is None else reduce_from_tp(out, mesh)
 
 
@@ -323,8 +337,10 @@ def _moe_mlp(x, lp, cfg, mesh=None):
     e, kk = cfg.n_experts, cfg.expert_top_k
     n = b * t
     cap = max(1, int(cfg.capacity_factor * b * t * kk / e))
-    with record_function("moe.route"):
-        hn = rms_norm(x, lp["ln2"])
+    # Each stage is a region: its backward runs under bwd:moe.<stage>
+    # (profiling.annotate_region) while a profiler records.
+    with profiling.annotate_region("moe.route") as r:
+        hn = rms_norm(r.enter(x), lp["ln2"])
         gate_logits, probs, gvals, gidx = _route_tokens(hn, lp["router"], kk)
         choice, pos, keep, onehot = _expert_slots(gidx, e, cap)
         stats = torch.cat([
@@ -342,10 +358,13 @@ def _moe_mlp(x, lp, cfg, mesh=None):
             "moe_drop_rate": stats[2 * e + 1],
             "moe_entropy": -(frac * torch.log(frac + 1e-9)).sum(),
         }
-    with record_function("moe.dispatch"):
+        # The drop rate and the entropy are read, never differentiated.
+        hn, gvals, aux["moe_balance"], aux["moe_zloss"] = r.leave(
+            hn, gvals, aux["moe_balance"], aux["moe_zloss"])
+    with profiling.annotate_region("moe.dispatch") as r:
         # Dropped entries land in a spare last row, cut off after.
         slot = torch.where(keep, choice * cap + pos, e * cap)
-        h_in = hn.to(dt)
+        h_in = r.enter(hn).to(dt)
         if mesh is not None:
             h_in = copy_to_tp(h_in, mesh)
         src = h_in.reshape(1, n, d).expand(kk, n, d).reshape(kk * n, d)
@@ -357,12 +376,15 @@ def _moe_mlp(x, lp, cfg, mesh=None):
             ep, e_local = axis_size(mesh, "ep"), lp["w_gate"].shape[0]
             xin = exchange_ep(xin.reshape(ep, e_local, cap, d), mesh)
             xin = xin.transpose(0, 1).reshape(e_local, ep * cap, d)
-    with record_function("moe.experts"):
-        g = torch.bmm(xin, lp["w_gate"].to(dt))
-        u = torch.bmm(xin, lp["w_up"].to(dt))
+        xin = r.leave(xin)
+    with profiling.annotate_region("moe.experts") as r:
+        xin = r.enter(xin)
+        g = torch.bmm(xin, _cast(lp["w_gate"], dt))
+        u = torch.bmm(xin, _cast(lp["w_up"], dt))
         act = torch.nn.functional.silu(g.float()).to(dt) * u
-        out_e = torch.bmm(act, lp["w_down"].to(dt))
-    with record_function("moe.combine"):
+        out_e = r.leave(torch.bmm(act, _cast(lp["w_down"], dt)))
+    with profiling.annotate_region("moe.combine") as r:
+        out_e, gvals = r.enter(out_e, gvals)
         if mesh is not None:
             out_e = out_e.view(e_local, ep, cap, d).transpose(0, 1)
             out_e = exchange_ep(out_e, mesh)
@@ -372,21 +394,18 @@ def _moe_mlp(x, lp, cfg, mesh=None):
             gvals = copy_to_tp(gvals, mesh)
         gate = gvals.reshape(n, kk).t().to(dt)                 # [k, n]
         out = (picked.float() * gate.float()[..., None]).sum(0)
-        out = out.to(dt).view(b, t, d)
+        out = r.leave(out.to(dt).view(b, t, d))
     return (out if mesh is None else reduce_from_tp(out, mesh)), aux
 
 
 def _decoder_layer(x, lp, cfg, cos, sin, mesh=None):
     """Returns ``(x, aux)``: aux is the layer's MoE router dict, None for a
     dense layer."""
-    # The range marks the layer's work when a remat recomputation runs it
-    # inside a backward node (a profile attributes it by the range).
-    with record_function("decoder_layer"):
-        x = x + _attention(x, lp, cfg, cos, sin, mesh)
-        if cfg.n_experts:
-            out, aux = _moe_mlp(x, lp, cfg, mesh)
-            return x + out, aux
-        return x + _dense_mlp(x, lp, cfg, mesh), None
+    x = x + _attention(x, lp, cfg, cos, sin, mesh)
+    if cfg.n_experts:
+        out, aux = _moe_mlp(x, lp, cfg, mesh)
+        return x + out, aux
+    return x + _dense_mlp(x, lp, cfg, mesh), None
 
 
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -402,17 +421,36 @@ def _save_dots(ctx, op, *args, **kwargs):
     return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+# The range the remat recompute runs under: it re-enters the forward inside
+# some backward node, and so inside whatever bwd: range is open there.
+RECOMPUTE_RANGE = "remat.recompute"
+
+
+@contextlib.contextmanager
+def _recompute_range(context):
+    with record_function(RECOMPUTE_RANGE), context:
+        yield
+
+
 def _remat_context(cfg: TransformerConfig):
     """``context_fn`` for torch.utils.checkpoint: "full" saves nothing and
-    recomputes the whole layer; "dots" saves the matmul outputs."""
+    recomputes the whole layer; "dots" saves the matmul outputs. The
+    recompute runs under ``RECOMPUTE_RANGE``."""
     if cfg.remat_policy == "full":
-        return checkpoint.noop_context_fn
-    if cfg.remat_policy == "dots":
-        return functools.partial(
+        contexts = checkpoint.noop_context_fn
+    elif cfg.remat_policy == "dots":
+        contexts = functools.partial(
             checkpoint.create_selective_checkpoint_contexts, _save_dots)
-    raise ValueError(
-        f"unknown remat_policy {cfg.remat_policy!r}; expected full|dots"
-    )
+    else:
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r}; expected full|dots"
+        )
+
+    def context_fn():
+        forward_context, recompute_context = contexts()
+        return forward_context, _recompute_range(recompute_context)
+
+    return context_fn
 
 
 def _layer_slices(layers: dict) -> list[dict]:
@@ -510,7 +548,7 @@ def _logits(x, params: dict, cfg: TransformerConfig, mesh=None):
     x = rms_norm(x, params["final_norm"]).to(cfg.compute_dtype)
     if mesh is not None:
         x = copy_to_tp(x, mesh)
-    return x @ params["unembed"].to(cfg.compute_dtype)
+    return x @ _cast(params["unembed"], cfg.compute_dtype)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,

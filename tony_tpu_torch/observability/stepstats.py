@@ -11,9 +11,18 @@ with no profiler session and no device synchronization:
   batch iterator's ``next()`` wait (``StepStats.wrap_batches``) and the
   data plane's ``tony_io_batch_wait_ms`` over the same interval.
 * **h2d**: the ``tony_io_h2d_ms`` delta.
-* **host**: the measured dispatch cost. The hook adds no
-  ``torch.cuda.synchronize()`` and reads nothing back, so in eager
-  PyTorch this is the time the host takes to launch the step's kernels.
+* **host**: the time the device waited on the host. Where the step
+  records device-clock marks (``mark_begin`` before its first launch,
+  ``mark_end`` after its last: two timing events on the current stream,
+  from a small ring), it is the device clock's gap from the previous
+  step's end mark to this step's begin mark, less the ``data_wait`` and
+  ``h2d`` already counted. Eager PyTorch fills the launch queue, so a
+  device-bound step's dispatch blocks until the device drains: the
+  dispatch time would read ~the whole step there. A step's observation
+  then waits until its marks have completed, which ``Event.query()``
+  checks at later hooks; nothing synchronizes. Without a device clock
+  (the CPU, or marks never recorded) it is the measured dispatch cost.
+  The raw dispatch time is ``train_step_dispatch_seconds`` either way.
 * **compute / collective**: the device residual (wall - data_wait - h2d -
   host), split by the plan's analytic communication share
   (``parallel.plan.estimate_phases``). The split is an estimate; the
@@ -45,6 +54,8 @@ table's file I/O runs while the device executes instead of while it idles.
 
 from __future__ import annotations
 
+import collections
+import functools
 import math
 import os
 import time
@@ -93,7 +104,9 @@ def peak_flops_per_chip(device) -> float:
 def model_flops_per_step(cfg, batch: int, seq: int) -> float | None:
     """Analytic model flops for one train step of ``cfg`` at
     (batch, seq): PaLM 6N counting plus the causal-attention term (model
-    flops: remat recompute is excluded). None for configs that are not
+    flops: remat recompute is excluded). N holds the unembedding once and
+    not the embedding, a gather (the JAX package counts
+    ``2 * vocab * d_model``). None for configs that are not
     transformer-shaped (no d_model/n_layers): image classifiers get
     phases but not MFU."""
     d_model = getattr(cfg, "d_model", None)
@@ -113,11 +126,29 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float | None:
         + n_heads * head_dim * d_model
         + 3 * d_model * d_ff * top_k
         + d_model * n_experts
-    ) + 2 * vocab * d_model
+    ) + vocab * d_model
     return (
         6.0 * n_params * batch * seq
         + 6.0 * n_layers * batch * seq * seq * n_heads * head_dim
     )
+
+
+# Device-clock event pairs a StepStats keeps, and the observations at most
+# waiting on them (each holds two pairs' events).
+_EVENT_RING = 8
+_MAX_PENDING = _EVENT_RING - 2
+
+
+class _Draft:
+    """An observed step whose ``host`` phase waits on the device clock: the
+    previous step's end mark and this step's begin mark."""
+
+    __slots__ = ("wall", "data_wait", "h2d", "dispatch", "end", "begin")
+
+    def __init__(self, wall, data_wait, h2d, dispatch):
+        self.wall, self.data_wait, self.h2d = wall, data_wait, h2d
+        self.dispatch = dispatch
+        self.end = self.begin = None
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -149,6 +180,11 @@ class StepStats:
     one-off costs (kernel builds, allocator growth), not a step.
     ``device`` names the device whose ``PEAK_FLOPS`` entry MFU is taken
     against, unless ``peak_flops`` is given; with neither there is no MFU.
+    ``events`` makes the device clock's timing events (a zero-argument
+    factory of objects with ``record()``, ``query()`` and
+    ``elapsed_time(later)`` in ms, as ``torch.cuda.Event``); by default a
+    CUDA ``device`` has ``torch.cuda.Event(enable_timing=True)`` and any
+    other device none.
     """
 
     def __init__(
@@ -168,6 +204,7 @@ class StepStats:
         clock=time.perf_counter,
         peak_flops: float | None = None,
         device=None,
+        events=None,
     ) -> None:
         self.enabled = (
             _env_bool(constants.TONY_STEPSTATS_ENABLED, True)
@@ -198,6 +235,15 @@ class StepStats:
         self._clock = clock
         self._peak_flops = peak_flops
         self._device = device
+        if events is None and device is not None \
+                and torch.device(device).type == "cuda":
+            events = functools.partial(torch.cuda.Event, enable_timing=True)
+        self._events = events
+        self._ring: list[list] = []
+        self._ring_next = 0
+        self._marks: list | None = None     # this dispatch's [begin, end]
+        self._last_end = None               # the previous dispatch's end
+        self._pending: collections.deque = collections.deque()
         self.global_batch: int | None = None
         self.seq: int | None = None
         self._flops: float | None = None
@@ -290,6 +336,11 @@ class StepStats:
         self._begins += 1
         last = self._last_begin
         self._last_begin = now
+        # A step whose dispatch recorded no begin mark has no device gap.
+        if self._pending and self._pending[-1].begin is None:
+            self._finish(self._pending.pop())
+        self._poll()
+        end, self._last_end = self._last_end, None
         if self._begins <= 2 or last is None:
             # Nothing precedes the first dispatch, and the first
             # dispatch's own interval (ending at the second begin) holds
@@ -297,16 +348,63 @@ class StepStats:
             self._pending_data_s = 0.0
             self._read_io_baseline()
             return
-        self._observe((now - last) * 1000.0)
+        draft = self._draft((now - last) * 1000.0)
+        if draft is None:
+            return
+        if end is None:
+            self._finish(draft)
+            return
+        draft.end = end
+        if len(self._pending) >= _MAX_PENDING:
+            # The device lags too far: the oldest step keeps its
+            # dispatch time, and its events go back to the ring.
+            self._finish(self._pending.popleft())
+        self._pending.append(draft)
 
     def step_end(self, dispatch_s: float) -> None:
         """Called as each dispatch returns, with its measured host cost;
-        writes the calibration record that this dispatch's ``step_begin``
-        found due, while the device runs the step just queued."""
+        publishes the steps whose device-clock marks have completed, and
+        writes the calibration record that an observation found due,
+        while the device runs the step just queued."""
         self._dispatch_s = dispatch_s
+        self._poll()
         if self._record_due:
             self._record_due = False
             self._maybe_record()
+
+    # -- the device clock ---------------------------------------------------
+    def mark_begin(self) -> None:
+        """Record the step's begin mark on the current stream, before its
+        first launch: the gap since the previous step's end mark is the
+        previous observation's ``host`` phase."""
+        if not self.enabled or self._events is None:
+            return
+        if len(self._ring) < _EVENT_RING:
+            self._ring.append([self._events(), self._events()])
+        pair = self._ring[self._ring_next]
+        self._ring_next = (self._ring_next + 1) % _EVENT_RING
+        pair[0].record()
+        self._marks = pair
+        if self._pending and self._pending[-1].begin is None:
+            self._pending[-1].begin = pair[0]
+
+    def mark_end(self) -> None:
+        """Record the step's end mark on the current stream, after its
+        last launch."""
+        if self._marks is None:
+            return
+        self._marks[1].record()
+        self._last_end, self._marks = self._marks[1], None
+
+    def _poll(self) -> None:
+        """Publish the waiting steps, oldest first, whose begin mark (and
+        so the end mark before it, on the same stream) has completed."""
+        while self._pending:
+            draft = self._pending[0]
+            if draft.begin is None or not draft.begin.query():
+                return
+            self._pending.popleft()
+            self._finish(draft, draft.end.elapsed_time(draft.begin))
 
     # -- accounting ---------------------------------------------------------
     def _io_sum(self, name: str) -> float:
@@ -319,9 +417,11 @@ class StepStats:
         self._io_wait_ms = self._io_sum(_IO_BATCH_WAIT_HISTOGRAM)
         self._io_h2d_ms = self._io_sum(_IO_H2D_HISTOGRAM)
 
-    def _observe(self, call_wall_ms: float) -> None:
+    def _draft(self, call_wall_ms: float) -> _Draft | None:
+        """The completed interval's wall and input side, read now; its
+        ``host`` phase may wait on the device clock."""
         if call_wall_ms <= 0:
-            return
+            return None
         wall = call_wall_ms / self.steps_per_call
         data_s = self._pending_data_s
         self._pending_data_s = 0.0
@@ -336,8 +436,18 @@ class StepStats:
         # take the larger, never the sum.
         data_wait = min(max(data_s * 1000.0 * per, d_wait * per), wall)
         h2d = min(d_h2d * per, wall - data_wait)
-        host = min((self._dispatch_s * 1000.0) * per,
-                   wall - data_wait - h2d)
+        return _Draft(wall, data_wait, h2d, self._dispatch_s * 1000.0 * per)
+
+    def _finish(self, d: _Draft, gap_ms: float | None = None) -> None:
+        """Publish an observed step: ``host`` is the device clock's gap
+        less the input side already counted, or without a gap the
+        dispatch time; capped so the five phases sum to the wall."""
+        wall, data_wait, h2d = d.wall, d.data_wait, d.h2d
+        if gap_ms is None:
+            host = d.dispatch
+        else:
+            host = max(gap_ms / self.steps_per_call - data_wait - h2d, 0.0)
+        host = min(host, wall - data_wait - h2d)
         device = wall - data_wait - h2d - host
         collective = device * self._comm_share
         compute = device - collective

@@ -10,6 +10,14 @@ activities and write a Chrome trace into ``log_dir`` (default
 the trace. All of them go through ``observability.profiling.start_trace``,
 so at most one profiler runs in the process, a capture included.
 
+``annotate_region(name)`` follows a forward range into its backward pass,
+and ``annotate_backward(loss, name)`` names a whole backward pass. PyTorch
+runs a CUDA backward pass on the autograd engine's own thread, where no
+range the forward opened is open: there the region's kernels run under
+``bwd:<name>``, opened on that thread by marker nodes the forward inserts
+(only while a profiler records: ``recording()``), and the pass under
+``name``, opened by a pre-hook on the loss's node (no node).
+
 ``maybe_start_profiler_server`` deviates from the JAX package on purpose:
 PyTorch has no counterpart of ``jax.profiler.start_server`` (a gRPC server
 that an XProf client drives). On the port the executor's reserved
@@ -22,6 +30,7 @@ answers with its summary as JSON.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -178,3 +187,127 @@ def annotate(name: str):
     import torch
 
     return torch.profiler.record_function(name)
+
+
+def recording() -> bool:
+    """Whether a profiler records in this process (the flag
+    ``torch.profiler`` sets while it runs)."""
+    import torch
+
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+def annotate_region(name: str) -> "_Region":
+    """``annotate(name)`` for a region whose backward pass runs under
+    ``bwd:<name>`` on the thread that runs it::
+
+        with profiling.annotate_region("moe.experts") as r:
+            x = r.enter(x)          # the region's input activations
+            out = work(x)
+            out = r.leave(out)      # its outputs
+
+    While a profiler records, ``leave`` passes the outputs through one
+    identity node whose backward opens ``bwd:<name>``, and ``enter`` the
+    inputs through one whose backward closes it. The engine runs the nodes
+    created later in the forward first, so every node of the region runs
+    between the two, provided all of its differentiable outputs go through
+    ``leave``. A weight read inside the region needs no marker: the nodes
+    that make its gradient are the region's. Otherwise (no profiler, grad
+    off, no input that requires grad) both return their arguments as they
+    are and the graph is the one without the markers. ``bwd:`` is a
+    prefix, so a reader of the forward's ``<name>`` ranges by prefix does
+    not also read the backward's."""
+    return _Region(name)
+
+
+class _Region:
+    def __init__(self, name: str) -> None:
+        import torch
+
+        self._range = torch.profiler.record_function(name)
+        self._bwd = "bwd:" + name
+        # [backward range name, its open handle]: shared by the two markers.
+        self._slot: list | None = None
+
+    def __enter__(self) -> "_Region":
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+
+    def enter(self, *tensors):
+        import torch
+
+        self._slot = None
+        if recording() and torch.is_grad_enabled():
+            marked = [i for i, t in enumerate(tensors) if t.requires_grad]
+            if marked:
+                self._slot = [self._bwd, None]
+                tensors = _through(_markers()[1], self._slot, tensors, marked)
+        return tensors[0] if len(tensors) == 1 else tensors
+
+    def leave(self, *tensors):
+        if self._slot is not None:
+            marked = [i for i, t in enumerate(tensors) if t.requires_grad]
+            if marked:
+                tensors = _through(_markers()[0], self._slot, tensors, marked)
+        return tensors[0] if len(tensors) == 1 else tensors
+
+
+def _through(marker, slot: list, tensors: tuple, marked: list) -> tuple:
+    out = list(tensors)
+    for i, t in zip(marked, marker.apply(slot, *(tensors[i] for i in marked))):
+        out[i] = t
+    return tuple(out)
+
+
+@functools.cache
+def _markers():
+    """(RegionOut, RegionIn): the identity nodes ``annotate_region`` puts
+    at a region's outputs and inputs (built at first use: this module
+    imports without torch)."""
+    import torch
+
+    class Marker(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, slot, *xs):
+            ctx.slot = slot
+            ctx.set_materialize_grads(False)
+            return tuple(x.view_as(x) for x in xs)
+
+    class RegionOut(Marker):
+        @staticmethod
+        def backward(ctx, *grads):
+            ctx.slot[1] = torch.ops.profiler._record_function_enter_new(
+                ctx.slot[0], None)
+            return (None, *grads)
+
+    class RegionIn(Marker):
+        @staticmethod
+        def backward(ctx, *grads):
+            handle, ctx.slot[1] = ctx.slot[1], None
+            if handle is not None:
+                torch.ops.profiler._record_function_exit._RecordFunction(
+                    handle)
+            return (None, *grads)
+
+    return RegionOut, RegionIn
+
+
+def annotate_backward(loss, name: str) -> None:
+    """Run ``loss``'s backward pass under ``name`` on the thread that runs
+    it: a pre-hook on ``loss.grad_fn`` opens the range as the pass starts
+    and queues the engine's final callback, which closes it once every
+    node has run. Adds no node to the graph."""
+    import torch
+    from torch.autograd import Variable
+
+    def close(handle) -> None:
+        torch.ops.profiler._record_function_exit._RecordFunction(handle)
+
+    def open_range(grad_outputs) -> None:
+        handle = torch.ops.profiler._record_function_enter_new(name, None)
+        Variable._execution_engine.queue_callback(lambda: close(handle))
+
+    loss.grad_fn.register_prehook(open_range)
