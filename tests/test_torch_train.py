@@ -55,7 +55,7 @@ from tony_tpu_torch.models import (
     make_train_step,
     param_roles,
 )
-from tony_tpu_torch.models.train import clip_by_global_norm_, leaves
+from tony_tpu_torch.models.train import clip_scale, leaves
 from tony_tpu_torch.parallel import MeshSpec as TorchMeshSpec
 from tony_tpu_torch.parallel import axis_group_ranks
 from tony_tpu_torch.parallel.mesh import data_row, mesh_spec
@@ -300,7 +300,9 @@ class TestTrainStep:
     def test_clip_matches_optax(self, scale):
         # Global norm just below, at, and above the limit: optax leaves the
         # gradients alone only strictly below it, and divides by the norm
-        # with no epsilon.
+        # with no epsilon. The clip runs inside the fused AdamW step, which
+        # leaves the clipped gradient in .grad (a zero learning rate and
+        # decay here).
         rng = np.random.default_rng(7)
         raw = [rng.normal(size=s).astype(np.float32)
                for s in ((3, 4), (5,), (2, 2, 2))]
@@ -312,10 +314,15 @@ class TestTrainStep:
         max_norm = max_norm if scale == 1.0 else 1.0
         want, _ = optax.clip_by_global_norm(max_norm).update(
             [jnp.asarray(x) for x in raw], optax.EmptyState())
-        got = [torch.from_numpy(x.copy()) for x in raw]
-        clip_by_global_norm_(got, max_norm)
-        for x, ref in zip(got, want):
-            np.testing.assert_allclose(x.numpy(), np.asarray(ref),
+        params = [torch.zeros(x.shape, requires_grad=True) for x in raw]
+        for p, x in zip(params, raw):
+            p.grad = torch.from_numpy(x.copy())
+        opt = torch.optim.AdamW(params, lr=0.0, weight_decay=0.0,
+                                fused=True)
+        opt.grad_scale = clip_scale([p.grad for p in params], max_norm)
+        opt.step()
+        for p, ref in zip(params, want):
+            np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref),
                                        rtol=2e-6, atol=0)
 
     def test_refuses_mesh_pipeline_plan(self):

@@ -206,23 +206,21 @@ def _instrumented(step_fn, stats: StepStats | None = None, *,
     return step
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float, *,
-                         leaf_norms: list[torch.Tensor] | None = None
-                         ) -> torch.Tensor:
-    """optax.clip_by_global_norm, in place and without a host sync: with
-    g = ||grads||_2 over every leaf, leave the grads as they are when
-    g < max_norm, else replace each t by (t / g) * max_norm (no epsilon,
-    unlike torch.nn.utils.clip_grad_norm_). ``leaf_norms`` gives each
-    leaf's norm when the grads are pieces of larger leaves. Returns g as a
-    0-d tensor."""
+def clip_scale(grads: list[torch.Tensor], max_norm: float, *,
+               leaf_norms: list[torch.Tensor] | None = None) -> torch.Tensor:
+    """optax.clip_by_global_norm as the divisor that a fused AdamW's
+    ``grad_scale`` applies, without a host sync: with g = ||grads||_2 over
+    every leaf, 1 when g < max_norm, else g / max_norm (no epsilon, unlike
+    torch.nn.utils.clip_grad_norm_). The step divides each gradient by it
+    in its one pass over the parameters and leaves the clipped gradient in
+    ``.grad``. ``leaf_norms`` gives each leaf's norm when the grads are
+    pieces of larger leaves. Returns a 0-d fp32 tensor."""
     if leaf_norms is None:
         leaf_norms = torch._foreach_norm(grads)
     norm = torch.linalg.vector_norm(torch.stack(leaf_norms).float())
-    clip = ~(norm < max_norm)  # a NaN norm clips, as optax's select does
-    one = torch.ones((), dtype=norm.dtype, device=norm.device)
-    torch._foreach_div_(grads, torch.where(clip, norm, one))
-    torch._foreach_mul_(grads, torch.where(clip, max_norm * one, one))
-    return norm
+    # A NaN norm clips, as optax's select does.
+    return torch.where(norm < max_norm, torch.ones_like(norm),
+                       norm / max_norm)
 
 
 def _check_supported(cfg, mesh, pipeline_microbatches,
@@ -289,7 +287,9 @@ def make_train_step(
     pp = 1; the microbatches must divide this rank's rows. The optimizer is optax's:
     global-norm clipping at ``grad_clip``, then AdamW with b1 0.9, b2
     0.999, eps 1e-8, decoupled weight decay on every parameter
-    (``torch.optim.AdamW`` computes that update).
+    (``torch.optim.AdamW(fused=True)`` computes that update, the clip
+    folded into its ``grad_scale``, in one pass over the parameters;
+    ``.grad`` holds the clipped gradient after the step).
 
     ``plan`` (``parallel.plan.Plan``) supplies the mesh (built from its
     spec when ``mesh`` is None) and the pipeline kwargs in one object, as
@@ -363,7 +363,7 @@ def make_train_step(
             params = _masters(params, device)
         opt = torch.optim.AdamW(
             leaves(params), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=weight_decay,
+            weight_decay=weight_decay, fused=True,
         )
         step = torch.zeros((), dtype=torch.int32, device=device)
         return TrainState(step, params, opt, placements)
@@ -400,10 +400,10 @@ def make_train_step(
             metrics = {"loss": loss, **metrics}
             metrics = {k: v.detach().clone() for k, v in metrics.items()}
             if mesh is None:
-                clip_by_global_norm_(grads, grad_clip)
+                opt.grad_scale = clip_scale(grads, grad_clip)
             else:
-                _reduce_and_clip(grads, leaves(state.placements), mesh,
-                                 grad_clip)
+                opt.grad_scale = _reduce_and_clip(
+                    grads, leaves(state.placements), mesh, grad_clip)
                 pmean_gradients(list(metrics.values()), mesh, DATA_AXES)
             opt.step()
             step = state.step + 1
@@ -482,12 +482,13 @@ def _split_axes(placement) -> tuple[tuple[str, ...], tuple[str, ...]]:
 
 
 def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
-                     grad_clip: float) -> None:
-    """Turn each rank's gradients into the global batch's and clip them by
-    the global norm. A leaf's gradient arrives summed over the data axes it
-    is split over (a gathered dimension's reduce-scatter sums over dp; an
-    expert leaf holds its ep peers' tokens' sum, which the all_to_all
-    brought back) and is this rank's own over the others: a leaf
+                     grad_clip: float) -> torch.Tensor:
+    """Turn each rank's gradients into the global batch's and return the
+    clip's divisor (``clip_scale``) for their global norm. A leaf's
+    gradient arrives summed over the data axes it is split over (a
+    gathered dimension's reduce-scatter sums over dp; an expert leaf holds
+    its ep peers' tokens' sum, which the all_to_all brought back) and is
+    this rank's own over the others: a leaf
     replicated over the data axes has its gradient averaged over dp x ep x
     sp, a split one's is summed over the data axes above 1 it is not split
     over (sp after a dp reduce-scatter), and each is divided so that it is
@@ -502,7 +503,7 @@ def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
     Then each split leaf's norm is the root of its blocks' squared norms
     summed over the axes it is split over (one all_reduce per set of data
     axes, then one over each of pp and tp), so each block counts once, and every rank
-    clips its pieces by the same global norm."""
+    clips its pieces by the same global norm in the step."""
     by_axes: dict[tuple[tuple[str, ...], bool], list[int]] = {}
     for i, pl in enumerate(placements):
         by_axes.setdefault(_split_axes(pl), []).append(i)
@@ -530,7 +531,7 @@ def _reduce_and_clip(grads: list[torch.Tensor], placements: list, mesh,
                                 group=axis_group(mesh, axes)[0])
         for i, norm in zip(idx, squares.sqrt().unbind()):
             norms[i] = norm
-    clip_by_global_norm_(grads, grad_clip, leaf_norms=norms)
+    return clip_scale(grads, grad_clip, leaf_norms=norms)
 
 
 def _masters(params, device: torch.device):
