@@ -1,11 +1,12 @@
 """The readings that the limits of ``limits/<workload>.json`` are set
 from (not part of a run): for each seed, the program's first train steps
-and the fp32 reference's, and on some seeds the fp8 control (the
-reference one precision below the configuration's bfloat16) and the
-program with each planted fault (``lib/faults.py``), every reading held
-against the fp32 reference of its seed. One JSON line a reading to
-``--out``, and a summary: the lower reading of each number (the largest
-over the program's seeds), the control's and each fault's smallest.
+and the fp32 reference's (the configuration's family's), and on some
+seeds the fp8 control (the reference one precision below the
+configuration's bfloat16) and the program with each planted fault
+(``lib/faults.py``), every reading held against the fp32 reference of
+its seed. One JSON line a reading to ``--out``, and a summary: the lower
+reading of each number (the largest over the program's seeds), the
+control's and each fault's smallest.
 
     python3 perfbench/control.py --workload mistral-train-4k \\
         --seeds 11,12,... --control-seeds 11,12,13 --fault-seeds 11,12,13 \\
@@ -35,15 +36,14 @@ def main(argv=None):
 
     from perfbench.lib import cli, compare, faults, spec
 
-    cell = spec.load_cell(args.workload)
     os.environ.update(cli.ENV)
+    cell = spec.load_cell(args.workload)
     import torch
 
     from perfbench.lib import cell as cell_lib
-    from perfbench.lib.shape import Shape
     from tony_tpu_torch import runtime
 
-    s = Shape.from_config(cell.config)
+    s = cell.family.shape(cell.config)
     tr = cell.traffic
     steps = int(cell.limits["check_steps"])
     dev = torch.device(runtime.initialize(device="cuda").device)

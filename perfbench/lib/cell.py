@@ -20,7 +20,8 @@ import sys
 import time
 from dataclasses import dataclass
 
-from perfbench.lib import compare, counts, feed, trace as trace_lib, weights
+from perfbench.lib import (compare, counts, family, feed, trace as trace_lib,
+                           weights)
 from perfbench.lib.shape import Shape
 from perfbench.lib.spec import Cell, metric_reader
 
@@ -35,6 +36,7 @@ class Readings:
     """What the per-layer metric readers read (``metrics/<name>.py``)."""
 
     shape: Shape
+    family: family.Family      # the configuration's: its counts
     traffic: dict
     chips: int
     chip: dict | None          # counts.PEAKS entry of the card, or None
@@ -45,46 +47,16 @@ class Readings:
     trace: trace_lib.Trace | None
 
 
-def port_config(s: Shape):
-    """The port's ``TransformerConfig`` for a configuration file."""
-    from tony_tpu_torch.models import TransformerConfig
-
-    if s.eps != 1e-6:
-        raise ValueError(f"the port's RMSNorm epsilon is 1e-6; the "
-                         f"configuration states {s.eps}")
-    if s.remat not in ("none", "full", "dots"):
-        raise ValueError(f"remat {s.remat!r}")
-    return TransformerConfig(
-        vocab_size=s.vocab, d_model=s.d, n_layers=s.layers, n_heads=s.heads,
-        head_dim=s.head_dim, d_ff=s.ff, max_seq=s.max_seq,
-        rope_theta=s.theta, n_kv_heads=s.kv_heads, n_experts=s.experts,
-        expert_top_k=s.top_k or 2,
-        capacity_factor=s.capacity_factor or 1.25,
-        moe_balance_coef=s.balance_coef, moe_zloss_coef=s.zloss_coef,
-        dtype=s.compute_dtype, remat=s.remat != "none",
-        remat_policy="full" if s.remat == "none" else s.remat)
-
-
 def first_grad_norms(state, beta1: float, torch) -> dict:
     """Per leaf, the norm of the clipped gradient AdamW took in its first
     step: its first moment is then (1 - beta1) g. A leaf the optimizer
     holds no moment for reads 0."""
     out = {}
-    for path, p in _leaf_items(state.params):
+    for path, p in weights.leaf_items(state.params):
         st = state.opt_state.state.get(p, {})
         m = st.get("exp_avg")
         out[path] = (torch.zeros((), device=p.device) if m is None
                      else m.float().norm() / (1 - beta1))
-    return out
-
-
-def _leaf_items(params: dict):
-    out = []
-    for key, val in params.items():
-        if key == "layers":
-            out += [(f"layers.{k}", v) for k, v in val.items()]
-        else:
-            out.append((key, val))
     return out
 
 
@@ -140,7 +112,7 @@ def set_up(s: Shape, tr: dict, steps: int, seed: int, dev,
             torch.cuda.synchronize(dev)
 
     init_fn, step_fn = make_train_step(
-        port_config(s), None, device=dev, learning_rate=s.lr,
+        family.of(s).port_config(s), None, device=dev, learning_rate=s.lr,
         weight_decay=s.weight_decay, grad_clip=s.grad_clip)
     params = weights.draw(s, seed, dev)
     state = init_fn(params=params)
@@ -173,11 +145,11 @@ def set_up(s: Shape, tr: dict, steps: int, seed: int, dev,
 def reference_readings(s: Shape, tr: dict, steps: int, seed: int, dev,
                        precision: str = "fp32") -> dict:
     """The reference's readings of the first ``steps`` steps (at
-    ``precision``) on the batches the program was fed."""
-    from perfbench.reference import model as reference
-
+    ``precision``) on the batches the program was fed: the family's
+    reference."""
     fed = [feed.batch(tr, s.vocab, seed, i) for i in range(steps)]
-    return reference.train(s, seed, fed, dev, precision=precision)
+    return family.of(s).reference.train(s, seed, fed, dev,
+                                        precision=precision)
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, *,
@@ -188,7 +160,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *,
 
     from tony_tpu_torch import runtime
 
-    s = Shape.from_config(cell.config)
+    s = cell.family.shape(cell.config)
     tr = cell.traffic
     feed.check(tr)
     ctx = runtime.initialize(device=device)
@@ -275,8 +247,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *,
                                    "unit": m["unit"]}
                        for m in cell.end_to_end}
     else:
-        r = Readings(s, tr, cell.chips, counts.peaks(name), window_steps,
-                     window_s, tokens_per_step, phases, traced)
+        r = Readings(s, cell.family, tr, cell.chips, counts.peaks(name),
+                     window_steps, window_s, tokens_per_step, phases, traced)
         metrics_out = {}
         for m in cell.per_layer:
             value = metric_reader(m["name"])(r)

@@ -44,8 +44,9 @@ def main(argv, *, started: float) -> int:
     if args.seconds <= 0:
         say("--seconds must be above 0")
         return 2
-    cell = spec.load_cell(args.workload)
+    # Before the cell's family is loaded: it imports torch.
     os.environ.update(ENV)
+    cell = spec.load_cell(args.workload)
     import torch
 
     if not torch.cuda.is_available():

@@ -8,13 +8,34 @@ import contextlib
 from unittest import mock
 
 
+def _nothing(*args, **kwargs):
+    return None
+
+
 @contextlib.contextmanager
 def unchanged():
-    """Every step returns its state unchanged: AdamW's step does nothing."""
-    import torch
+    """Every step returns its state unchanged: the step of the optimizer
+    the program holds does nothing. The state does not exist yet when the
+    fault is entered, so ``make_train_step``'s ``init_fn`` is wrapped:
+    once it has built the state, ``step`` of ``state.opt_state``'s class
+    is patched, until the fault is left."""
+    from tony_tpu_torch import models
 
-    with mock.patch.object(torch.optim.AdamW, "step",
-                           lambda self, closure=None: None):
+    real = models.make_train_step
+    with contextlib.ExitStack() as patches:
+        def make_train_step(*args, **kwargs):
+            init_fn, step_fn = real(*args, **kwargs)
+
+            def init(*a, **kw):
+                state = init_fn(*a, **kw)
+                patches.enter_context(mock.patch.object(
+                    type(state.opt_state), "step", _nothing))
+                return state
+
+            return init, step_fn
+
+        patches.enter_context(
+            mock.patch.object(models, "make_train_step", make_train_step))
         yield
 
 

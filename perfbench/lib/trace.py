@@ -5,7 +5,9 @@ its launch ran under.
 A device event (kernel, memcpy, memset) is tied to its launch (the
 runtime call of the same ``correlation``), and the launch to every
 ``record_function`` range open on its thread at that moment: the port's
-``decoder_layer`` and ``moe.*`` ranges, the benchmark's ``perfbench.*``
+``train.forward``, ``train.backward`` and ``train.optimizer``, the
+backward's ``bwd:*`` (opened on the autograd engine's thread), ``moe.*``,
+``weight_cast`` and ``remat.recompute``; the benchmark's ``perfbench.*``
 ones. Busy time is the union of the device events inside the benchmark's
 ``perfbench.window`` range; an idle gap is named by the innermost host
 event open at its middle.

@@ -1,9 +1,7 @@
 """Kernel B4 (``csrc/rms_norm.cu``): the least time a step's RMSNorm
-forwards need (``counts.rms_norm_least_s``, bytes from shapes, each norm
-once) over B4's device time in the step (the forward and its remat
-recompute), in %."""
-
-from perfbench.lib import counts
+forwards need (the family's ``rms_norm_least_s``, bytes from shapes,
+each norm once) over B4's device time in the step (the forward and its
+remat recompute), in %."""
 
 
 def read(r):
@@ -13,6 +11,6 @@ def read(r):
     if s <= 0:
         return None
     batch = r.tokens_per_step // int(r.traffic["seq"])
-    least = counts.rms_norm_least_s(r.shape, batch, int(r.traffic["seq"]),
-                                    r.chip)
+    least = r.family.rms_norm_least_s(r.shape, batch, int(r.traffic["seq"]),
+                                      r.chip)
     return 100.0 * least * r.trace.steps / s

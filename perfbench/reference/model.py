@@ -1,9 +1,10 @@
-"""The plain reference of the train step the benchmark drives: the
-decoder (RMSNorm, RoPE over interleaved pairs, causal GQA attention,
-SwiGLU or the capacity-based top-k MoE layer), next-token cross-entropy
-plus the router's balance and z losses, the global-norm clip and AdamW,
-in plain PyTorch at fp32 with TF32 off. It imports nothing of the
-program and takes only the benchmark's weights and batches.
+"""The plain reference of the Mistral family's train step
+(``families/mistral.py``): the decoder (RMSNorm, RoPE over interleaved
+pairs, causal GQA attention, SwiGLU or the capacity-based top-k MoE
+layer), next-token cross-entropy plus the router's balance and z losses,
+the global-norm clip and AdamW, in plain PyTorch at fp32 with TF32 off.
+It imports nothing of the program and takes only the benchmark's weights
+and batches.
 
 Each layer runs under ``torch.utils.checkpoint`` and the loss in blocks
 of rows, so that three steps of a full-width configuration fit on one
@@ -188,18 +189,6 @@ def _sdpa(q, k, v):
     return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
-def leaf_items(params: dict):
-    """(dotted path, tensor) of every leaf, in ``weights.leaf_table``
-    order."""
-    out = []
-    for path in params:
-        if path == "layers":
-            out += [(f"layers.{k}", v) for k, v in params[path].items()]
-        else:
-            out.append((path, params[path]))
-    return out
-
-
 def train(s: Shape, seed: int, batches, device, *,
           precision: str = "fp32") -> dict:
     """``len(batches)`` train steps from the seed's weights on ``batches``
@@ -209,7 +198,7 @@ def train(s: Shape, seed: int, batches, device, *,
     exact_fp32()
     ref = Ref(s, precision)
     params = weights.draw(s, seed, device)
-    items = leaf_items(params)
+    items = weights.leaf_items(params)
     for _, p in items:
         p.requires_grad_(True)
     state = {path: (torch.zeros_like(p), torch.zeros_like(p))
