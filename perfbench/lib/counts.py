@@ -22,11 +22,6 @@ def peaks(device_name: str) -> dict | None:
     return PEAKS.get(device_name)
 
 
-def matmul_params(s: Shape) -> int:
-    """N of 6 N tokens, where the family counts so."""
-    return family.of(s).matmul_params(s)
-
-
 def model_flops(s: Shape, batch: int, seq: int) -> float:
     return family.of(s).model_flops(s, batch, seq)
 

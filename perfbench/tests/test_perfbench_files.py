@@ -1,106 +1,227 @@
 """BENCHMARK.json against the benchmark's files and the contract's
-limits, and the counts against hand counts."""
+limits, by checks that hold every family alike.
 
+Each check is a function of the benchmark (``BENCHMARK.json``'s object),
+the directory of the harness's data files and the root that a
+configuration's ``file`` starts from, and, for a configuration or a
+cell, its name. The tests below run them over the repo's benchmark, so
+every configuration and cell a later change adds meets them; a family's
+own numbers (published widths, hand counts) are pinned by its own test
+file, ``test_<model_type>_family.py``. The last tests add a family the
+harness does not hold to a copy of the repo's benchmark by new files
+only, and see every check pass there and a planted fault fail."""
+
+import copy
 import json
+import math
 import re
+import shutil
 
 import pytest
 
-from perfbench.lib import counts, feed, spec
+from perfbench.lib import counts, family, feed, spec
 from perfbench.lib.shape import Shape
+from perfbench.tests.helpers import DATA
 
 BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 H100 = counts.PEAKS["NVIDIA H100 80GB HBM3"]
+# Published widths: never cut. Head, expert and vocabulary counts may be
+# cut to the chip's share, with a reason.
+WIDTHS = ("hidden_size", "intermediate_size", "moe_intermediate_size",
+          "shared_expert_intermediate_size", "head_dim", "sliding_window",
+          "num_experts_per_tok", "kv_lora_rank", "q_lora_rank")
+LIMITS = {"check_steps", "loss_gap", "grad_gap", "change_gap"}
+GROUPS = ("configs", "workloads", "end_to_end", "per_layer")
 
 
-def test_top_level_keys_and_names():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs",
+# The benchmark as a whole.
+
+def top_level_keys_and_names(bench, bench_dir, root):
+    assert set(bench) == {"command", "paths", "run_seconds", "configs",
                           "workloads", "end_to_end", "per_layer"}
-    assert 1 <= BENCH["run_seconds"] <= 51
-    for group in ("configs", "workloads", "end_to_end", "per_layer"):
-        names = [x["name"] for x in BENCH[group]]
+    assert 1 <= bench["run_seconds"] <= 51
+    for group in GROUPS:
+        names = [x["name"] for x in bench[group]]
         assert len(names) == len(set(names))
         assert all(NAME.match(n) for n in names)
-    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+    for m in bench["end_to_end"] + bench["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-    for m in BENCH["end_to_end"]:
+    for m in bench["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
         assert m["source"] in ("host_clock", "device_trace")
-    assert "setup_s" in {m["name"] for m in BENCH["end_to_end"]}
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
-    for m in BENCH["per_layer"]:
+    assert "setup_s" in {m["name"] for m in bench["end_to_end"]}
+    e2e = {m["name"] for m in bench["end_to_end"]}
+    for m in bench["per_layer"]:
         assert m["moves"] in e2e
+    files = [c["file"] for c in bench["configs"]]
+    assert len(files) == len(set(files))
+    assert all(any(f.startswith(p.rstrip("/") + "/") for p in bench["paths"])
+               for f in files)
 
 
-@pytest.mark.parametrize("workload",
-                         [w["name"] for w in BENCH["workloads"]])
-def test_every_cell_loads_by_name(workload):
-    cell = spec.load_cell(workload)
+def every_metric_file_is_named(bench, bench_dir, root):
+    files = {p.stem for p in (bench_dir / "metrics").glob("*.py")}
+    assert files == {m["name"] for m in bench["per_layer"]}
+
+
+# A configuration.
+
+def _config(bench, root, name):
+    entry = {c["name"]: c for c in bench["configs"]}[name]
+    return entry, json.loads((root / entry["file"]).read_text())
+
+
+def source_is_a_hub_url(bench, bench_dir, root, name):
+    _, c = _config(bench, root, name)
+    assert c["source"].startswith("https://huggingface.co/"), c["source"]
+
+
+def model_type_finds_its_family(bench, bench_dir, root, name):
+    _, c = _config(bench, root, name)
+    assert "model_type" in c
+    spec.family(c["model_type"], bench_dir)
+
+
+def reduced_keys_carry_reasons(bench, bench_dir, root, name):
+    entry, c = _config(bench, root, name)
+    assert sorted(c["reduced"]) == sorted(entry["reduced"])
+    for key, why in c["reduced"].items():
+        assert isinstance(why, str) and why.strip(), key
+
+
+def assumed_and_deployment_are_stated(bench, bench_dir, root, name):
+    _, c = _config(bench, root, name)
+    assert c["assumed"] and c["deployment"]
+
+
+def no_width_is_cut(bench, bench_dir, root, name):
+    entry, c = _config(bench, root, name)
+    cut = sorted(k for k in set(c["reduced"]) | set(entry["reduced"])
+                 if k in WIDTHS or k.endswith(("_dim", "_rank")))
+    assert not cut, f"{name} cuts published widths {cut}"
+
+
+# A cell.
+
+def _cell(bench, bench_dir, root, name):
+    cell = spec.load_cell(name, bench, bench_dir, root)
+    return cell, cell.family.shape(cell.config)
+
+
+def cell_loads_by_name(bench, bench_dir, root, name):
+    cell = spec.load_cell(name, bench, bench_dir, root)
     feed.check(cell.traffic)
-    s = Shape.from_config(cell.config)
-    assert s.d % s.heads == 0 and s.heads % s.kv_heads == 0
-    assert set(cell.limits) == {"check_steps", "loss_gap", "grad_gap",
-                                "change_gap"}
+    assert cell.end_to_end and cell.per_layer
+
+
+def shape_is_a_shape_of_its_family(bench, bench_dir, root, name):
+    cell, s = _cell(bench, bench_dir, root, name)
+    assert isinstance(s, Shape) and s.vocab > 0
+    # The shape's class lives in a module that gives the cell's family,
+    # as the harness's walks over weights and counts find it.
+    assert all(getattr(family.of(s), m) is getattr(cell.family, m)
+               for m in family.MEMBERS)
+
+
+def leaf_table_is_sound(bench, bench_dir, root, name):
+    cell, s = _cell(bench, bench_dir, root, name)
+    table = cell.family.leaf_table(s)
+    assert table
+    for path, (dims, scale, axes) in table.items():
+        assert dims and all(int(n) > 0 for n in dims), path
+        assert axes in (0, 1, 2) and axes <= len(dims), path
+        assert math.isfinite(scale) and scale >= 0, path
+
+
+def experts_have_expert_leaves(bench, bench_dir, root, name):
+    cell, s = _cell(bench, bench_dir, root, name)
+    table = cell.family.leaf_table(s)
+    two_axes = [p for p, (_, _, axes) in table.items() if axes == 2]
+    assert (s.experts > 0) == bool(two_axes), (s.experts, two_axes)
+
+
+def counts_are_finite_and_positive(bench, bench_dir, root, name):
+    cell, s = _cell(bench, bench_dir, root, name)
+    b, t = int(cell.traffic["batch"]), int(cell.traffic["seq"])
+    fam = cell.family
+    for value in (fam.model_flops(s, b, t),
+                  fam.attention_least_s(s, b, t, H100),
+                  fam.rms_norm_least_s(s, b, t, H100)):
+        assert math.isfinite(value) and value > 0
+
+
+def port_config_builds(bench, bench_dir, root, name):
+    cell, s = _cell(bench, bench_dir, root, name)
+    assert cell.family.port_config(s) is not None
+
+
+def limits_are_the_comparisons(bench, bench_dir, root, name):
+    cell = spec.load_cell(name, bench, bench_dir, root)
+    assert set(cell.limits) == LIMITS
     assert cell.limits["check_steps"] in (2, 3)
     assert 0 < min(cell.limits.values())
-    assert cell.end_to_end and cell.per_layer
+
+
+def every_reader_loads(bench, bench_dir, root, name):
+    cell = spec.load_cell(name, bench, bench_dir, root)
     for m in cell.per_layer:
-        assert callable(spec.metric_reader(m["name"]))
-    assert cell.chips == 1
+        assert callable(spec.metric_reader(m["name"], bench_dir))
 
 
-@pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
-def test_config_files_state_their_cut(entry):
-    c = json.loads((spec.ROOT / entry["file"]).read_text())
-    assert c["source"].startswith("https://huggingface.co/")
-    assert sorted(c["reduced"]) == sorted(entry["reduced"])
-    assert c["assumed"] and c["deployment"]
-    # Published widths, never cut.
-    assert (c["hidden_size"], c["intermediate_size"], c["head_dim"],
-            c["num_attention_heads"], c["num_key_value_heads"]) == \
-        (4096, 14336, 128, 32, 8)
+def one_chip(bench, bench_dir, root, name):
+    # ``cell.run`` drives one process on one card.
+    assert spec.load_cell(name, bench, bench_dir, root).chips == 1
 
 
-def test_every_metric_file_is_named_in_the_benchmark():
-    files = {p.stem for p in (spec.BENCH_DIR / "metrics").glob("*.py")}
-    assert files == {m["name"] for m in BENCH["per_layer"]}
+BENCH_CHECKS = (top_level_keys_and_names, every_metric_file_is_named)
+CONFIG_CHECKS = (source_is_a_hub_url, model_type_finds_its_family,
+                 reduced_keys_carry_reasons, assumed_and_deployment_are_stated,
+                 no_width_is_cut)
+CELL_CHECKS = (cell_loads_by_name, shape_is_a_shape_of_its_family,
+               leaf_table_is_sound, experts_have_expert_leaves,
+               counts_are_finite_and_positive, port_config_builds,
+               limits_are_the_comparisons, every_reader_loads, one_chip)
 
 
-def _shape(name):
-    entry = {c["name"]: c for c in BENCH["configs"]}[name]
-    return Shape.from_config(json.loads((spec.ROOT / entry["file"])
-                                        .read_text()))
+def failures(bench, bench_dir, root) -> list:
+    """(check, name) of every check that fails on ``bench``: every
+    configuration and cell under each of its kind's checks."""
+    runs = [(c, ()) for c in BENCH_CHECKS]
+    runs += [(c, (e["name"],)) for c in CONFIG_CHECKS
+             for e in bench["configs"]]
+    runs += [(c, (w["name"],)) for c in CELL_CHECKS
+             for w in bench["workloads"]]
+    found = []
+    for check, name in runs:
+        try:
+            check(bench, bench_dir, root, *name)
+        except Exception:
+            found.append((check.__name__, *name))
+    return found
 
 
-def test_counts_match_hand_counts():
-    mistral, mixtral = _shape("mistral-7b-v0.3-l10"), \
-        _shape("mixtral-8x7b-l2")
-    # Per layer: q/k/v/o 4096 * (32 + 8 + 8) * 128 + 32 * 128 * 4096,
-    # SwiGLU 3 * 4096 * 14336 (twice for top-2), router 4096 * 8; then
-    # the unembedding 4096 * vocab.
-    assert counts.matmul_params(mistral) == \
-        10 * (25_165_824 + 16_777_216 + 176_160_768) + 4096 * 32768
-    assert counts.matmul_params(mistral) == 2_315_255_808
-    assert counts.matmul_params(mixtral) == \
-        2 * (41_943_040 + 352_321_536 + 32_768) + 4096 * 32000
-    for s, b, t, want in ((mistral, 4, 4096, 2.4409e14),
-                          (mixtral, 4, 4096, 9.3705e13),
-                          (mistral, 1, 32768, 7.1908e14)):
-        hand = (6.0 * counts.matmul_params(s) * b * t
-                + 6.0 * s.layers * b * s.heads * s.head_dim * t * (t + 1))
-        assert counts.model_flops(s, b, t) == pytest.approx(hand, rel=1e-12)
-        assert counts.model_flops(s, b, t) == pytest.approx(want, rel=1e-4)
-    # Attention at 4k: six products over 4 * 32 * 4096 * 4097 / 2 pairs,
-    # bound by operations; RMSNorm: 21 norms of 16384 x 4096 bf16 read and
-    # written, bound by bytes.
-    pairs = 4 * 32 * 4096 * 4097 // 2
-    assert counts.attention_least_s(mistral, 4, 4096, H100) == \
-        pytest.approx(10 * 12 * 128 * pairs / 989e12, rel=1e-12)
-    assert counts.rms_norm_least_s(mistral, 4, 4096, H100) == \
-        pytest.approx(21 * (4 * 16384 * 4096 + 4096 * 4) / 3.35e12,
-                      rel=1e-12)
+def _name(check):
+    return check.__name__
+
+
+@pytest.mark.parametrize("check", BENCH_CHECKS, ids=_name)
+def test_top_level_keys_and_names(check):
+    check(BENCH, spec.BENCH_DIR, spec.ROOT)
+
+
+@pytest.mark.parametrize("check", CONFIG_CHECKS, ids=_name)
+@pytest.mark.parametrize("entry", [c["name"] for c in BENCH["configs"]])
+def test_config_files_state_their_cut(entry, check):
+    check(BENCH, spec.BENCH_DIR, spec.ROOT, entry)
+
+
+@pytest.mark.parametrize("check", CELL_CHECKS, ids=_name)
+@pytest.mark.parametrize("workload",
+                         [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_loads_by_name(workload, check):
+    check(BENCH, spec.BENCH_DIR, spec.ROOT, workload)
 
 
 def test_feed_is_a_function_of_seed_and_step():
@@ -111,3 +232,98 @@ def test_feed_is_a_function_of_seed_and_step():
     assert (a == feed.batch(tr, 100, 2 ** 40 + 3, 5)).all()
     assert not (a == feed.batch(tr, 100, 2 ** 40 + 3, 6)).all()
     assert 0 <= a.min() and a.max() < 100
+
+
+# A further family by new files only: the toy decoder of ``data/``, whose
+# entries are ``data/further.json`` and whose files land beside the
+# repo's as a change that adds a model would put them.
+COPIED = ("configs", "traffic", "limits", "families", "reference",
+          "metrics")
+NEW_FILES = {
+    "configs/toy-l3.json": "configs/toy-stated.json",
+    "families/toy_decoder.py": "families/toy_decoder.py",
+    "reference/toy_decoder.py": "reference/toy_decoder.py",
+    "traffic/tiny.json": "traffic/tiny.json",
+    "limits/toy-train.json": "limits/toy-train.json",
+}
+
+
+def _repo_files() -> list:
+    """The benchmark's data files under ``COPIED``, relative to the
+    harness's directory."""
+    return sorted(p.relative_to(spec.BENCH_DIR)
+                  for d in COPIED for p in (spec.BENCH_DIR / d).rglob("*")
+                  if p.is_file() and "__pycache__" not in p.parts)
+
+
+def _further_tree(root):
+    """The repo's benchmark with the toy family's configuration and cell
+    added: ``root``'s ``BENCHMARK.json`` and ``perfbench/``, whose
+    path it returns."""
+    bench_dir = root / spec.BENCH_DIR.name
+    for rel in _repo_files():
+        (bench_dir / rel).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copyfile(spec.BENCH_DIR / rel, bench_dir / rel)
+    for rel, data in NEW_FILES.items():
+        assert not (spec.BENCH_DIR / rel).exists(), rel
+        shutil.copyfile(DATA / data, bench_dir / rel)
+    bench = copy.deepcopy(BENCH)
+    for group, entries in json.loads(
+            (DATA / "further.json").read_text()).items():
+        bench[group] += entries
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+    return bench_dir
+
+
+def test_a_further_family_passes_by_new_files_only(tmp_path):
+    bench_dir = _further_tree(tmp_path)
+    # Nothing of the repo's is edited: its files byte for byte, its
+    # entries in their places, only entries appended.
+    for rel in _repo_files():
+        assert (bench_dir / rel).read_bytes() == \
+            (spec.BENCH_DIR / rel).read_bytes(), rel
+    merged = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    for key, value in BENCH.items():
+        if key in GROUPS:
+            assert merged[key][:len(value)] == value, key
+        else:
+            assert merged[key] == value, key
+    assert [c["name"] for c in merged["configs"][len(BENCH["configs"]):]] \
+        == ["toy-l3"]
+    assert [w["name"] for w in
+            merged["workloads"][len(BENCH["workloads"]):]] == ["toy-train"]
+    cell = spec.load_cell("toy-train", merged, bench_dir, tmp_path)
+    assert cell.config["model_type"] == "toy_decoder"
+    assert cell.config["model_type"] not in \
+        {p.stem for p in spec.FAMILIES.glob("*.py")}
+    assert failures(merged, bench_dir, tmp_path) == []
+
+
+def _edit_json(path, edit):
+    value = json.loads(path.read_text())
+    edit(value)
+    path.write_text(json.dumps(value, indent=1))
+
+
+def test_a_cut_width_fails_the_generic_checks(tmp_path):
+    bench_dir = _further_tree(tmp_path)
+    _edit_json(bench_dir / "configs/toy-l3.json", lambda c: c["reduced"]
+               .update(hidden_size="planted: a width cut"))
+    _edit_json(tmp_path / "BENCHMARK.json", lambda b: b["configs"][-1]
+               ["reduced"].append("hidden_size"))
+    merged = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    assert failures(merged, bench_dir, tmp_path) == \
+        [("no_width_is_cut", "toy-l3")]
+
+
+def test_experts_without_expert_leaves_fail_the_generic_checks(tmp_path):
+    bench_dir = _further_tree(tmp_path)
+    path = bench_dir / "families/toy_decoder.py"
+    path.write_text(path.read_text() + (
+        "\n\n_shape = shape\n\n\n"
+        "def shape(c):\n"
+        "    import dataclasses\n"
+        "    return dataclasses.replace(_shape(c), experts=4)\n"))
+    merged = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    assert failures(merged, bench_dir, tmp_path) == \
+        [("experts_have_expert_leaves", "toy-train")]
